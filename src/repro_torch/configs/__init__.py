@@ -1,0 +1,25 @@
+"""Architecture registry: ``get_config(name)`` / ``list_archs()``.
+
+Only ``gpt2-paper`` is ported; the reference's other archs are listed in
+ROADMAP.md as still to port.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.base import ArchConfig, reduced
+from repro_torch.configs.gpt2_paper import CONFIG as _gpt2
+
+_REGISTRY: dict[str, ArchConfig] = {_gpt2.name: _gpt2}
+
+
+def list_archs() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def get_config(name: str, smoke: bool = False) -> ArchConfig:
+    if name not in _REGISTRY:
+        raise KeyError(
+            f"arch {name!r} is not ported to repro_torch yet (see ROADMAP.md); "
+            f"available: {list_archs()}"
+        )
+    cfg = _REGISTRY[name]
+    return reduced(cfg) if smoke else cfg

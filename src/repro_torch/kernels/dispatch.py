@@ -1,0 +1,134 @@
+"""Kernel routing, launch counts and the CUDA build.
+
+The route is decided by where the operands lie: tensors on the card go to
+the hand-written CUDA kernel, tensors on the CPU to the kernel's plain
+PyTorch version.  There is no mode switch: a CUDA tensor always launches
+the kernel, and a failed build, load or launch raises.
+
+Each kernel source in ``csrc/`` is compiled by its own ``nvcc`` process
+(all started together) into a shared library with a plain C interface,
+loaded with ``ctypes``.  The build lives in ``build/repro_torch/<hash>/`` at
+the checkout's root, keyed by a hash of the sources and flags, so a stale
+library is never loaded; it happens once per checkout, at first use.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+KERNELS = ("nm_spmm", "paged_attn")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# launches of each kernel since the last reset_launches(); the plain
+# versions never count
+launches = {name: 0 for name in KERNELS}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, ctypes._CFuncPtr] = {}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def on_card(*tensors: torch.Tensor) -> bool:
+    """True when every operand lies on the card, False when all lie on the
+    CPU; anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        if len({t.device for t in tensors}) != 1:
+            raise ValueError("operands lie on different cards")
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"operands on mixed or unsupported devices: {kinds}")
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile every kernel not yet built for these sources, one ``nvcc``
+    per source, all in parallel; each compiler's output goes to
+    ``<name>.log`` beside its library.  Raises if any build fails."""
+    out = build_dir()
+    todo = [name for name in KERNELS if not (out / f"lib{name}.so").exists()]
+    if not todo:
+        return out
+    nvcc = _nvcc()
+    out.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in todo:
+        lib = out / f"lib{name}.so"
+        tmp = out / f"lib{name}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        log = open(out / f"{name}.log", "w")
+        procs.append((name, lib, tmp, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, lib, tmp, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{name} (nvcc exit {rc}):\n{(out / f'{name}.log').read_text()}")
+        else:
+            os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return out
+
+
+def load_kernels() -> None:
+    """Build (if needed) and load every kernel library once."""
+    if len(_libs) == len(KERNELS):
+        return
+    out = build()
+    for name in KERNELS:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
+
+
+def kernel_fn(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of kernel ``name``, typed (cached)."""
+    if symbol not in _fns:
+        load_kernels()
+        fn = getattr(_libs[name], symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return _fns[symbol]
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise on a failed launch; count a good one."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with cudaError {rc}")
+    launches[name] += 1
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

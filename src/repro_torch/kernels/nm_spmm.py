@@ -1,0 +1,99 @@
+"""Compressed N:M matmul ``y = x @ decompress(values, indices)``.
+
+Replaces the TPU kernel ``src/repro/kernels/nm_spmm.py:_nm_spmm_kernel``
+(launched by ``nm_spmm_pallas``).  On the card :func:`nm_spmm` launches the
+hand-written CUDA kernel in ``csrc/nm_spmm.cu`` (whose header says what
+bounds it and how the design answers that); on the CPU it runs
+:func:`nm_spmm_plain`, the two regimes of the reference's ``nm_spmm_xla``.
+
+Layout: ``values``/``indices`` are ``(K·n/m, O)`` row-major; compressed row
+``r`` belongs to group ``r // n`` and expands to dense row
+``(r // n)·m + indices[r, o]``.  ``o_true`` strips a padded artifact's
+alignment columns.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import dispatch
+
+# at or below this many rows the plain version gathers activations instead
+# of decompressing (the reference's GATHER_ROWS)
+GATHER_ROWS = 8
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def nm_spmm(
+    x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor, n: int,
+    m: int, o_true: Optional[int] = None,
+) -> torch.Tensor:
+    """``(x @ decompress(values, indices))[:, :o_true]`` in ``x.dtype``,
+    accumulated in f32.  x ``(B, K)``; values/indices ``(K·n/m, O)``."""
+    if dispatch.on_card(x, values, indices):
+        return _launch(x, values, indices, n, m, o_true)
+    return nm_spmm_plain(x, values, indices, n, m, o_true)
+
+
+def _check(x, values, indices, n, m, o_true) -> int:
+    if x.dim() != 2 or values.dim() != 2 or indices.shape != values.shape:
+        raise ValueError(f"need x (B, K), values/indices (Kc, O); got "
+                         f"{tuple(x.shape)}, {tuple(values.shape)}, {tuple(indices.shape)}")
+    k, (kc, o) = x.shape[1], values.shape
+    if not (1 <= n <= m) or k % m or kc * m != k * n:
+        raise ValueError(f"{n}:{m} groups do not tile K={k} into {kc} rows")
+    o_true = o if o_true is None else o_true
+    if not 0 < o_true <= o:
+        raise ValueError(f"o_true={o_true} outside (0, {o}]")
+    return o_true
+
+
+def _launch(x, values, indices, n, m, o_true):
+    o_true = _check(x, values, indices, n, m, o_true)
+    if x.dtype not in _DTYPES or values.dtype != x.dtype:
+        raise TypeError(f"nm_spmm kernel takes f32 or bf16 x and values of one "
+                        f"type, got {x.dtype} and {values.dtype}")
+    if indices.dtype != torch.uint8:
+        raise TypeError(f"indices must be uint8, got {indices.dtype}")
+    if m > 256:
+        raise ValueError(f"group size m={m} exceeds the kernel's 256-column chunk")
+    if not (x.is_contiguous() and values.is_contiguous() and indices.is_contiguous()):
+        raise ValueError("nm_spmm kernel needs contiguous operands")
+    b, k = x.shape
+    y = torch.empty((b, o_true), dtype=x.dtype, device=x.device)
+    if b == 0:
+        return y
+    fn = dispatch.kernel_fn("nm_spmm", "nm_spmm_launch", _ARGTYPES)
+    rc = fn(x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
+            b, k, values.shape[1], o_true, n, m, _DTYPES[x.dtype],
+            dispatch.stream_ptr(x.device))
+    dispatch.check_launch("nm_spmm", rc)
+    return y
+
+
+def nm_spmm_plain(
+    x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor, n: int,
+    m: int, o_true: Optional[int] = None,
+) -> torch.Tensor:
+    """The same function in plain PyTorch, f32 math.
+
+    ``B <= GATHER_ROWS``: gather the activation each kept weight multiplies
+    and reduce against ``values`` (the dense weight never exists).  Larger
+    ``B``: scatter-decompress to a dense ``(K, O)`` f32 weight and matmul.
+    """
+    o_true = _check(x, values, indices, n, m, o_true)
+    b, k = x.shape
+    g, o = k // m, values.shape[1]
+    rows = (torch.arange(g, device=x.device)[:, None, None] * m
+            + indices.long().reshape(g, n, o))  # dense row of each kept value
+    vals = values.float().reshape(g, n, o)
+    if b <= GATHER_ROWS:
+        y = torch.einsum("bgno,gno->bo", x.float()[:, rows], vals)
+    else:
+        dense = torch.zeros((k, o), dtype=torch.float32, device=x.device)
+        dense.scatter_(0, rows.reshape(g * n, o), vals.reshape(g * n, o))
+        y = x.float() @ dense
+    return y[:, :o_true].to(x.dtype)

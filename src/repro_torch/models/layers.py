@@ -1,0 +1,110 @@
+"""Shared layers (counterpart of ``repro/models/layers.py``).
+
+Matmul weights are stored ``(in, out)`` (``y = x @ W``), so N:M groups run
+along axis 0, the reduction axis.  :func:`matmul` is the one dispatch point
+between dense weights (``torch.matmul``) and ``CompressedTensor`` leaves,
+which go through the ``nm_spmm`` kernel and are never decompressed.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.nm_spmm import nm_spmm
+from repro_torch.sparse_infer.compress import CompressedTensor
+
+Weight = Union[torch.Tensor, CompressedTensor]
+_NEG = -1e30  # finite -inf stand-in for masked scores
+
+
+def matmul(x: torch.Tensor, w: Weight) -> torch.Tensor:
+    """``y = x @ w`` for a dense or a 2-D N:M-compressed weight."""
+    if not isinstance(w, CompressedTensor):
+        return x @ w
+    if w.values.dim() != 2 or w.group_axis % 2 != 0:
+        raise ValueError(
+            f"compressed matmul needs a 2-D weight grouped along its reduction "
+            f"axis, got values {tuple(w.values.shape)}, group_axis {w.group_axis}"
+        )
+    lead = x.shape[:-1]
+    y = nm_spmm(x.reshape(-1, x.shape[-1]).contiguous(), w.values, w.indices,
+                w.n, w.m, o_true=w.out_features)
+    return y.reshape(lead + (w.out_features,))
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 with the biased variance, cast back to ``x.dtype``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Half-split (not interleaved) rotary embedding in f32.
+    x: (B, S, H, D); positions: (B, S)."""
+    d = x.shape[-1]
+    freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                          device=x.device) / d))
+    ang = positions[..., None].float() * freqs  # (B, S, D/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., : d // 2].float(), x[..., d // 2:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      chunk: int = 512) -> torch.Tensor:
+    """Causal attention with an online softmax over KV chunks of ``chunk``,
+    so no more than a (Sq, chunk) score block exists per head.
+    q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); GQA groups H // Hkv query heads
+    per KV head."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, sq, hkv, g, d).float()
+    q_pos = torch.arange(sq, device=q.device)
+    m = torch.full((b, hkv, g, sq), _NEG, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, d), device=q.device)
+    for c0 in range(0, sk, chunk):
+        kb = k[:, c0:c0 + chunk].float()
+        vb = v[:, c0:c0 + chunk].float()
+        kv_pos = c0 + torch.arange(kb.shape[1], device=q.device)
+        mask = kv_pos[None, :] <= q_pos[:, None]  # (Sq, chunk)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb) * d ** -0.5
+        s = torch.where(mask, s, _NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None]) * mask
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(dim=-1)
+        acc = corr[..., None] * acc + torch.einsum("bhgqk,bkhd->bhgqd", p, vb)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]  # (B, Hkv, G, Sq, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: torch.Tensor) -> torch.Tensor:
+    """Single-token attention over a slab cache.
+    q: (B, 1, H, D); caches (B, S, Hkv, D); cache_len (B,) valid prefix."""
+    b, s, hkv, d = k_cache.shape
+    h = q.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, d).float()
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * d ** -0.5
+    valid = torch.arange(s, device=q.device)[None, :] < cache_len.reshape(-1, 1)
+    scores = scores.masked_fill(~valid[:, None, None], float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def gelu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """``w_proj(gelu_tanh(w_fc(x)))`` — the reference's ``approximate=True``."""
+    h = matmul(x, p["w_fc"])
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return matmul(h, p["w_proj"])

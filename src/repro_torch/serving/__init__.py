@@ -1,0 +1,3 @@
+from repro_torch.serving.engine import DecodeEngine, GenerationResult
+from repro_torch.serving.kv_pool import PagedKVPool
+from repro_torch.serving.sampling import SamplingParams

@@ -2,6 +2,10 @@ import jax
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _clear_jax_caches():
     """Long single-process test runs exhaust XLA's JIT dylib space; clearing

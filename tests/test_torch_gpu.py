@@ -1,0 +1,97 @@
+"""The CUDA kernels against their plain PyTorch versions on the card, over
+shapes and patterns beyond the main path's.  Needs a CUDA card and
+``nvcc``; skips without one.  Imports no JAX, so it runs where JAX is not
+installed:
+
+    PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_plain
+from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
+
+pytestmark = pytest.mark.gpu
+
+# f32: the kernel and the plain version sum the same products in other orders.
+# bf16: both round their f32 result to bf16 once; one bf16 step is 2^-8 relative.
+TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _compressed(k, o, n, m, pad, dtype, dev, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    g = k // m
+    # n distinct ascending offsets per (group, column), as nm_compress stores them
+    idx = torch.rand((g, m, o), generator=gen).argsort(dim=1)[:, :n].sort(dim=1).values
+    idx = idx.reshape(g * n, o).to(torch.uint8)
+    vals = torch.randn((g * n, o), generator=gen).to(dtype)
+    if pad:
+        vals = torch.cat([vals, torch.zeros((g * n, pad), dtype=dtype)], 1)
+        idx = torch.cat([idx, torch.zeros((g * n, pad), dtype=torch.uint8)], 1)
+    return vals.to(dev).contiguous(), idx.to(dev).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 40])
+@pytest.mark.parametrize("k,o,n,m,pad", [
+    (64, 40, 2, 4, 0), (64, 40, 1, 4, 24), (512, 96, 2, 8, 0), (512, 64, 4, 16, 8),
+    (768, 768, 2, 4, 0), (3072, 768, 2, 4, 0),
+])
+def test_nm_spmm_kernel_matches_plain(dev, dtype, b, k, o, n, m, pad):
+    vals, idx = _compressed(k, o, n, m, pad, dtype, dev)
+    x = torch.randn((b, k), generator=torch.Generator().manual_seed(1)).to(dtype).to(dev)
+    before = dispatch.launches["nm_spmm"]
+    y = nm_spmm(x, vals, idx, n, m, o_true=o)
+    torch.cuda.synchronize()
+    assert dispatch.launches["nm_spmm"] == before + 1
+    ref = nm_spmm_plain(x, vals, idx, n, m, o_true=o)
+    assert y.shape == (b, o) and y.dtype == dtype
+    torch.testing.assert_close(y.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,g,d,ps", [(12, 1, 64, 16), (2, 3, 16, 4), (4, 4, 128, 8)])
+def test_paged_attn_kernel_matches_plain(dev, dtype, hkv, g, d, ps):
+    lengths = [1, 2 * ps + 3, 5 * ps, 0, 3 * ps - 1]  # ragged, page-aligned, idle
+    n_slots, num_pages = 6, 24
+    gen = torch.Generator().manual_seed(0)
+    perm = torch.randperm(num_pages, generator=gen).tolist()
+    tables = np.full((len(lengths), n_slots), num_pages, np.int32)
+    for i, ln in enumerate(lengths):
+        for pg in range(-(-ln // ps)):
+            tables[i, pg] = perm.pop()
+    tables[4, 1] = num_pages  # an unmapped slot inside a live range is skipped
+    q = torch.randn((len(lengths), hkv, g, d), generator=gen).to(dtype).to(dev)
+    kp = torch.randn((num_pages, ps, hkv, d), generator=gen).to(dtype).to(dev)
+    vp = torch.randn((num_pages, ps, hkv, d), generator=gen).to(dtype).to(dev)
+    t = torch.from_numpy(tables).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = dispatch.launches["paged_attn"]
+    y = paged_attn(q, kp, vp, t, lens, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert dispatch.launches["paged_attn"] == before + 1
+    ref = paged_attn_plain(q, kp, vp, t, lens, scale=d ** -0.5)
+    torch.testing.assert_close(y.float(), ref.float(), **TOL[dtype])
+    assert float(y[3].abs().max()) == 0.0  # idle lane: exact zeros
+
+
+def test_kernel_refuses_what_it_does_not_take(dev):
+    vals, idx = _compressed(64, 32, 2, 4, 0, torch.float32, dev)
+    x = torch.randn((2, 64), device=dev)
+    with pytest.raises(TypeError):
+        nm_spmm(x.bfloat16(), vals, idx, 2, 4)  # mixed types
+    with pytest.raises(ValueError):
+        nm_spmm(x, vals.t().contiguous().t(), idx, 2, 4)  # not contiguous
+    with pytest.raises(ValueError):
+        nm_spmm(x, vals.cpu(), idx, 2, 4)  # mixed devices

@@ -1,0 +1,69 @@
+"""The port's ``nm_spmm`` (its plain version, which CPU tensors take) held
+against the JAX Pallas kernel run in interpret mode, in both regimes of the
+plain version (B <= 8 gathers, B > 8 decompresses), with and without
+alignment padding."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.masking import nm_compress as jax_compress
+from repro.kernels.nm_spmm import nm_spmm_pallas
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_plain
+from repro_torch.models.layers import matmul
+from repro_torch.sparse_infer import CompressedTensor
+
+# f32 on both sides; the two sum the same products in different orders
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _case(b, k, o, n, m, pad, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, k)).astype(np.float32)
+    w = rng.standard_normal((k, o)).astype(np.float32)
+    v, i = (np.array(a) for a in jax_compress(jnp.asarray(w), n, m, 0))
+    if pad:  # alignment columns appended at compress time, as compress_params(align=) does
+        v = np.pad(v, ((0, 0), (0, pad)))
+        i = np.pad(i, ((0, 0), (0, pad)))
+    return x, v, i
+
+
+@pytest.mark.parametrize("b", [1, 5, 8, 16, 20])
+@pytest.mark.parametrize("n,m", [(2, 4), (1, 4), (2, 8)])
+@pytest.mark.parametrize("pad", [0, 24])
+def test_plain_matches_pallas_interpret(b, n, m, pad):
+    k, o = 64, 40
+    x, v, i = _case(b, k, o, n, m, pad)
+    y_ref = nm_spmm_pallas(jnp.asarray(x), jnp.asarray(v), jnp.asarray(i), n, m,
+                           bm=8, bo=32, bk=32, o_true=o, interpret=True)
+    y = nm_spmm(torch.from_numpy(x), torch.from_numpy(v), torch.from_numpy(i), n, m,
+                o_true=o)
+    assert y.shape == (b, o) and y.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), **TOL)
+
+
+def test_cpu_tensors_take_the_plain_version_uncounted():
+    x, v, i = _case(4, 32, 16, 2, 4, 0)
+    dispatch.reset_launches()
+    xt, vt, it = torch.from_numpy(x), torch.from_numpy(v), torch.from_numpy(i)
+    assert torch.equal(nm_spmm(xt, vt, it, 2, 4), nm_spmm_plain(xt, vt, it, 2, 4))
+    assert dispatch.launches == {"nm_spmm": 0, "paged_attn": 0}
+
+
+def test_compressed_matmul_equals_dense_matmul_on_masked_weight():
+    """layers.matmul on a CompressedTensor: 3-D activations, bf16 output."""
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(rng.standard_normal((32, 24)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((2, 7, 32)).astype(np.float32))
+    v, i = (torch.from_numpy(np.array(a)) for a in jax_compress(jnp.asarray(w.numpy()), 2, 4, 0))
+    ct = CompressedTensor(v, i, 2, 4, 0, (32, 24))
+    np.testing.assert_allclose(matmul(x, ct).numpy(), (x @ ct.dense()).numpy(), **TOL)
+    y16 = matmul(x.bfloat16(), CompressedTensor(v.bfloat16(), i, 2, 4, 0, (32, 24)))
+    assert y16.dtype == torch.bfloat16 and y16.shape == (2, 7, 24)
+
+
+def test_rejects_groups_that_do_not_tile_k():
+    x, v, i = _case(2, 32, 16, 2, 4, 0)
+    with pytest.raises(ValueError):
+        nm_spmm(torch.from_numpy(x[:, :30]), torch.from_numpy(v), torch.from_numpy(i), 2, 4)

@@ -1,0 +1,78 @@
+"""Shared helpers of the ``test_torch_*`` parity tests: the same reduced
+gpt2-paper model built once in the JAX package and handed to the PyTorch
+port through ``repro_torch.checkpoint.carry_over``."""
+import dataclasses
+
+import jax
+import numpy as np
+import torch
+
+import repro.core as jcore
+from repro.configs import get_config as jax_get_config
+from repro.models.model import TransformerLM
+from repro.sparse_infer import CompressedTensor as JaxCompressed
+from repro.sparse_infer import compress_params as jax_compress_params
+from repro_torch.checkpoint import carry_over
+from repro_torch.configs import get_config
+from repro_torch.models import model as tmodel
+
+# Cross-framework checks run in f32 on both sides: the two frameworks round
+# bf16 at different places, so bf16 parity would test rounding, not the port.
+F32 = dict(param_dtype="float32")
+# f32 logits of the reduced model agree to ~1e-6 between the frameworks
+# (different summation orders in matmul, attention and N:M reductions).
+LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
+# A greedy token may differ only where the top-2 logits lie within this
+# margin: a reordered f32 sum can flip a near-tie, nothing else can.
+MARGIN = 1e-3
+
+
+def configs():
+    """(JAX cfg, port cfg) of reduced gpt2-paper in f32."""
+    return (dataclasses.replace(jax_get_config("gpt2-paper", smoke=True), **F32),
+            dataclasses.replace(get_config("gpt2-paper", smoke=True), **F32))
+
+
+def to_numpy(tree):
+    """A JAX tree as nested dicts of numpy, compressed leaves as
+    ``(values, indices, n, m, group_axis, shape, pad)``."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, JaxCompressed):
+        return (np.asarray(tree.values), np.asarray(tree.indices), tree.n, tree.m,
+                tree.group_axis, tree.shape, tree.pad)
+    return np.asarray(tree)
+
+
+def trees(seed=0, align=None):
+    """``(jcfg, tcfg, {"dense"|"compressed": (jax_tree, port_tree)})`` —
+    the STEP 2:4 export of one random init and its compressed artifact."""
+    jcfg, tcfg = configs()
+    model = TransformerLM(jcfg)
+    recipe = jcore.make_recipe("step", jcore.SparsityConfig(default=jcore.NMSparsity(2, 4)))
+    sparse = recipe.export_sparse(model.init(jax.random.PRNGKey(seed)))
+    comp = jax_compress_params(sparse, recipe.sparsity, align=align)
+    return jcfg, tcfg, {
+        "dense": (sparse, carry_over(to_numpy(sparse), device="cpu")),
+        "compressed": (comp, carry_over(to_numpy(comp), device="cpu")),
+    }
+
+
+def prompts(n, vocab, lo=3, step=3, seed=100):
+    return [np.random.default_rng(seed + r).integers(0, vocab, lo + step * r).tolist()
+            for r in range(n)]
+
+
+def assert_streams_agree(tcfg, tparams, prompt, a, b, margin=MARGIN):
+    """Token streams ``a`` and ``b`` for ``prompt`` are equal, or first
+    differ where the port's full-forward top-2 logit margin is below
+    ``margin`` (a near-tie that reordered f32 sums may flip)."""
+    j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if j is None:
+        assert len(a) == len(b), (a, b)
+        return
+    toks = torch.tensor([prompt + list(a[:j])])
+    logits, _ = tmodel.forward(tparams, tcfg, toks)
+    top2 = torch.topk(logits[0, -1].float(), 2).values
+    gap = float(top2[0] - top2[1])
+    assert gap < margin, f"streams diverge at token {j} with top-2 margin {gap}: {a} vs {b}"
