@@ -9,26 +9,44 @@ Phases, in order; any failure exits non-zero:
 1. Device: print the card's ``nvidia-smi`` name and power limit; build the
    CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
    parallel).
-2. Kernels against their plain PyTorch versions in bf16, at the shapes the
-   full-width gpt2-paper serving path gives them; then CUDA-event timings of
-   the kernel, the plain version and a one-call PyTorch yardstick, beside
-   the least time the card could take (the larger of bytes / 3.35 TB/s and
-   operations / 989 TFLOP/s, counted from the shapes).
+2. Kernels against their plain PyTorch versions, at the shapes the
+   full-width gpt2-paper paths give them: ``nm_spmm`` and ``paged_attn`` in
+   bf16 within one bf16 rounding step, ``nm_mask`` bit-exact in bf16 and
+   f32 (and on ties, all-zero groups, 1:4, 2:8, 4:16); then CUDA-event
+   timings of the kernel, the plain version and, where one exists, a
+   one-call PyTorch yardstick, beside the least time the card could take
+   (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s, counted
+   from the shapes).
 3. Serve full-width gpt2-paper (random weights from a seed, STEP 2:4
    export, compression) through ``DecodeEngine``: on the slab, then on an
    undersized paged pool that preempts.  Launch counts are zeroed before
    and read after; both kernels must have run.  Every request must finish
    with its token budget, and where the two greedy streams differ the
    top-2 logit margin must be a near-tie.
+4. Train full-width gpt2-paper with the STEP recipe through the Trainer
+   that ``repro_torch.launch.train`` builds (2:4, batch 8, seq 128,
+   b2 0.98, 60 steps, AutoSwitch clipped to (6, 30]), checkpointing to a
+   temporary directory.  Loss and gradient norm must stay finite, the loss
+   must fall, the switch must land in (t_min, t_max + 1], and ``nm_mask``
+   must launch 6 times per masked step plus 6 for the final export; the
+   export must be exactly 2:4.  Then a ``torch.profiler`` trace of three
+   more steps of each phase gives the device-busy time per step.
+5. Serve what was trained: the final checkpoint's params, exported,
+   compressed and served greedily (4 requests of 16 + 8 tokens on the
+   slab, prompts from the training corpus); ``nm_spmm`` must launch, every
+   request must finish, and most generated tokens must lie in the corpus's
+   16-symbol alphabet (an untrained model almost never emits them).
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -46,7 +64,14 @@ MARGIN = 0.1
 REPLACES = {
     "nm_spmm": "src/repro/kernels/nm_spmm.py:133",
     "paged_attn": "src/repro/kernels/paged_attn.py:190",
+    "nm_mask": "src/repro/kernels/nm_mask.py:53",
 }
+# the training run of phase 4; the switch is forced at t_max + 1 = 31 since
+# the AutoSwitch window (T_w = 50 at b2 = 0.98) is not yet full by then
+TRAIN_ARGS = ["--no-smoke", "--recipe", "step", "--nm", "2:4", "--batch", "8", "--seq", "128",
+              "--b2", "0.98", "--steps", "60", "--lr", "3e-3", "--ckpt-every", "30"]
+# gpt2-paper's maskable leaves, stacked (L, in, out): wq wk wv wo, w_fc, w_proj
+MASK_LEAVES = {(12, 768, 768): 4, (12, 768, 3072): 1, (12, 3072, 768): 1}
 
 
 def log(msg: str) -> None:
@@ -178,9 +203,55 @@ def check_paged_attn(torch, dev) -> dict:
     return rec
 
 
+def check_nm_mask(torch, dev) -> dict:
+    """K4 bit-exact against its plain version: gpt2-paper's three stacked
+    leaf shapes in bf16 and f32 at 2:4, other patterns at (768, 768), and a
+    tie case; each result has exactly n ones per group.  The record is one
+    mask pass over gpt2-paper's six maskable leaves in bf16."""
+    from repro_torch.kernels.nm_mask import nm_mask, nm_mask_plain
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [(shape, dt, 2, 4) for shape in MASK_LEAVES for dt in (torch.bfloat16, torch.float32)]
+    cases += [((768, 768), torch.bfloat16, n, m) for n, m in ((1, 4), (2, 8), (4, 16))]
+    ties = torch.tensor([-2.0, -1.0, 0.0, 1.0, 2.0], device=dev)[
+        torch.randint(0, 5, (768, 768), generator=gen, device=dev)]
+    ties[:64] = 0.0  # all-zero groups: the lowest rows win
+    worst = 0.0
+    for shape, dt, n, m in cases + [("ties", torch.bfloat16, 2, 4), ("ties", torch.float32, 1, 4)]:
+        w = (ties if shape == "ties" else torch.randn(shape, generator=gen, device=dev)).to(dt)
+        masked, mask = nm_mask(w, n, m)
+        pmasked, pmask = nm_mask_plain(w, n, m)
+        torch.cuda.synchronize()
+        same = (torch.equal(mask.float().view(torch.int32), pmask.float().view(torch.int32))
+                and torch.equal(masked.float().view(torch.int32), pmasked.float().view(torch.int32)))
+        groups = mask.float().reshape(*mask.shape[:-2], mask.shape[-2] // m, m, mask.shape[-1])
+        exact_n = bool((groups.sum(-2) == n).all())
+        err = (masked.float() - pmasked.float()).abs().max().item()
+        worst = max(worst, err)
+        log(f"  nm_mask {tuple(w.shape)} {str(dt)[6:]} {n}:{m}{' ties' if shape == 'ties' else ''}: "
+            f"bit-exact {same}, {n} per group {exact_n}, max_abs_err {err}")
+        if not (same and exact_n):
+            raise AssertionError(f"nm_mask {shape} {dt} {n}:{m} disagrees with its plain version")
+    rec = dict(max_abs_err=worst, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by="bytes",
+               library_ms=None)
+    for shape, count in MASK_LEAVES.items():
+        w = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        t = dict(ms=time_ms(torch, lambda: nm_mask(w, 2, 4)),
+                 plain_ms=time_ms(torch, lambda: nm_mask_plain(w, 2, 4)))
+        t["bound_ms"], by = bound_ms(3 * w.numel() * 2, 0.0)  # read w, write Π⊙w and Π
+        log(f"  time nm_mask {shape} bf16 2:4: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by}); no one-call "
+            f"PyTorch equivalent")
+        for key in ("ms", "plain_ms", "bound_ms"):
+            rec[key] += count * t[key]
+    rec["at"] = ("one mask pass: 4 x (12,768,768) + (12,768,3072) + (12,3072,768) bf16, 2:4")
+    return rec
+
+
 def serve(torch, cfg, comp, dev, *, paged: bool, n_requests=8, lanes=4, prompt_len=64,
-          gen=32, k=4, num_pages=22):
-    """One greedy serving run of the port's engine; returns (engine, streams, seconds)."""
+          gen=32, k=4, num_pages=22, prompts=None):
+    """One greedy serving run of the port's engine; returns (engine,
+    prompts, streams, seconds)."""
     import numpy as np
 
     from repro_torch.serving import DecodeEngine, SamplingParams
@@ -189,8 +260,9 @@ def serve(torch, cfg, comp, dev, *, paged: bool, n_requests=8, lanes=4, prompt_l
     eng = DecodeEngine(cfg, comp, max_batch=lanes, max_len=max_len, seed=0,
                        num_pages=num_pages if paged else None, page_size=16,
                        steps_per_dispatch=k, device=dev)
-    prompts = [np.random.default_rng(1000 + r).integers(0, cfg.vocab, prompt_len).tolist()
-               for r in range(n_requests)]
+    if prompts is None:
+        prompts = [np.random.default_rng(1000 + r).integers(0, cfg.vocab, prompt_len).tolist()
+                   for r in range(n_requests)]
     uids = [eng.submit(p, SamplingParams(max_new_tokens=gen)) for p in prompts]
     t0 = time.perf_counter()
     res = eng.run()
@@ -262,6 +334,142 @@ def serve_phase(torch, cfg, comp, dev, dispatch) -> dict:
     return launches
 
 
+def _median(xs: list) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def train_phase(torch, dev, dispatch, ckpt_dir: str, argv=TRAIN_ARGS) -> dict:
+    """Phase 4: STEP training through the launcher's Trainer; returns the
+    nm_mask launches of the run and its export."""
+    import numpy as np
+
+    from repro_torch.launch import train as launch_train
+
+    args = launch_train.parse_args(argv + ["--ckpt-dir", ckpt_dir])
+    run = launch_train.build(args, dev)
+    tr = run.trainer
+    tr.cfg = dataclasses.replace(tr.cfg, log_every=1)  # every step's loss, synced
+    asw = tr.step_cfg.autoswitch
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        state, hist = tr.run(run.params)
+    finally:
+        tr.data.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summary = launch_train.summarize(run, state, args, dev)  # the export: 6 launches
+    launches = dict(dispatch.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in hist]
+    bad = [m["step"] for m in hist if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]))]
+    if bad or len(hist) != args.steps:
+        raise AssertionError(f"non-finite loss or grad norm at steps {bad} ({len(hist)} logged)")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    log(f"  loss: first 10 steps {first:.4f}, last 10 {last:.4f}; per step "
+        f"{[round(x, 3) for x in losses]}")
+    if not last < first:
+        raise AssertionError(f"loss did not fall: {first} -> {last}")
+    t_sw = state.opt.t0
+    if not (state.opt.phase2 and asw.t_min < t_sw <= asw.t_max + 1):
+        raise AssertionError(f"switch at t0={t_sw}, outside ({asw.t_min}, {asw.t_max + 1}]")
+    masked_steps = sum(int(m["mask_active"]) for m in hist)
+    want = 6 * masked_steps + 6
+    log(f"  t0 {t_sw}, masked steps {masked_steps}, launches {launches} "
+        f"(nm_mask wants 6 x {masked_steps} + 6 = {want})")
+    if launches["nm_mask"] != want:
+        raise AssertionError(f"nm_mask launched {launches['nm_mask']} times, want {want}")
+    sparse = run.recipe.export_sparse(state.params)
+    for name, p in _maskable(run.recipe, sparse):
+        nz = (p != 0).reshape(p.shape[0], p.shape[1] // 4, 4, p.shape[2]).sum(2)
+        if not bool((nz <= 2).all()):
+            raise AssertionError(f"exported {name} is not 2:4")
+    p1 = [m["step_time_s"] * 1e3 for m in hist[1:] if not m["phase2"]]  # step 0 warms up
+    p2 = [m["step_time_s"] * 1e3 for m in hist if m["mask_active"]]
+    tokens = args.batch * args.seq
+    log("  train " + json.dumps({
+        "steps": args.steps, "t0": t_sw, "masked_steps": masked_steps,
+        "ms_per_step_phase1_median": _median(p1), "ms_per_step_phase2_median": _median(p2),
+        "tokens_per_s_phase1": tokens / _median(p1) * 1e3,
+        "tokens_per_s_phase2": tokens / _median(p2) * 1e3,
+        "tokens_per_s_run": tokens * args.steps / wall, "run_wall_s": wall,
+        "peak_memory_bytes": peak, "final_sparse_eval_loss": summary["final_sparse_eval_loss"],
+        "device": torch.cuda.get_device_name(0),
+    }))
+    # where a step's time goes: 3 traced steps of each phase, phase 1 on a
+    # fresh state, phase 2 on the trained one (the checkpoint is written)
+    batches = [{k: torch.as_tensor(v).to(dev)
+                for k, v in run.batch_fn(10**5 + i, args.batch).items()} for i in range(4)]
+    for phase, st in (("phase1", tr.init_state(run.params)), ("phase2", state)):
+        rec, st = profile_steps(torch, tr._step, st, batches)
+        del st
+        log(f"  profile {phase} " + json.dumps(rec))
+    return launches
+
+
+def profile_steps(torch, step_fn, state, batches) -> tuple[dict, object]:
+    """A ``torch.profiler`` trace of ``step_fn`` over ``batches`` (after one
+    untraced warm-up step): wall and device-busy ms per step, the idle
+    share, kernels launched per step, and the six kernels with the most
+    device time.  Returns the record and the advanced state."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state, _ = step_fn(state, batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            state, _ = step_fn(state, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    n = len(batches) - 1
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {
+        "ms_per_step": wall_ms / n,
+        "device_busy_ms_per_step": busy_ms / n if busy_ms > 0 else "not measured",
+        "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured",
+        "kernels_per_step": sum(e.count for e in kernels) / n,
+        "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / 1e3 / n for e in top},
+    }, state
+
+
+def _maskable(recipe, tree):
+    from repro_torch.utils.tree import tree_items
+
+    return [(n, p) for n, p in tree_items(tree)
+            if recipe.sparsity.pattern_for(n, tuple(p.shape)) is not None]
+
+
+def serve_trained_phase(torch, cfg, dev, dispatch, ckpt_dir: str) -> dict:
+    """Phase 5: restore the trained params, export, compress, serve."""
+    from repro_torch import core
+    from repro_torch.checkpoint import restore_latest
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.sparse_infer import compress_params
+
+    params, _, step = restore_latest(ckpt_dir, prefix="params", device=dev)
+    recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(2, 4)))
+    comp = compress_params(recipe.export_sparse(params), recipe.sparsity)
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=16, seed=42, n_states=16)
+    prompts = ds.batch(10**6, 4)["tokens"].tolist()  # held-out corpus prompts
+    dispatch.reset_launches()
+    _, _, streams, wall = serve(torch, cfg, comp, dev, paged=False, n_requests=4, lanes=4,
+                                prompt_len=16, gen=8, prompts=prompts)
+    launches = dict(dispatch.launches)
+    in_alphabet = sum(t < 16 for s in streams for t in s) / sum(len(s) for s in streams)
+    log(f"  restored step {step}; served 4 x 8 tokens in {wall:.3f} s, launches {launches}; "
+        f"{in_alphabet:.3f} of generated tokens in the corpus's 16 symbols; streams {streams}")
+    if launches["nm_spmm"] == 0:
+        raise AssertionError("nm_spmm did not run serving the trained model")
+    if in_alphabet < 0.5:
+        raise AssertionError("the served model does not follow its training corpus")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -299,17 +507,25 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    log("phase 2: kernels against their plain versions (bf16, gpt2-paper shapes)")
+    log("phase 2: kernels against their plain versions (gpt2-paper shapes)")
     cfg = get_config("gpt2-paper")
     params = init_params(cfg, seed=0, device=dev)
     recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(2, 4)))
     comp = compress_params(recipe.export_sparse(params), recipe.sparsity)
     del params
     records = {"nm_spmm": check_nm_spmm(torch, comp, dev),
-               "paged_attn": check_paged_attn(torch, dev)}
+               "paged_attn": check_paged_attn(torch, dev),
+               "nm_mask": check_nm_mask(torch, dev)}
 
     log("phase 3: serve full-width gpt2-paper, slab then undersized paged pool")
     launches = serve_phase(torch, cfg, comp, dev, dispatch)
+    del comp
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        log("phase 4: train full-width gpt2-paper with STEP (2:4, batch 8, seq 128, 60 steps)")
+        launches["nm_mask"] = train_phase(torch, dev, dispatch, ckpt_dir)["nm_mask"]
+        log("phase 5: serve the trained checkpoint, compressed")
+        serve_trained_phase(torch, cfg, dev, dispatch, ckpt_dir)
 
     kernels = []
     for name, rec in records.items():

@@ -12,6 +12,7 @@ import re
 from typing import Optional, Sequence
 
 from repro_torch.core.masking import NMSparsity
+from repro_torch.utils.tree import tree_items, tree_map_with_name
 
 # name fragments that are never masked, whatever their shape
 _EXCLUDE_FRAGMENTS = (
@@ -56,3 +57,30 @@ class SparsityConfig:
         if min(shape[-2:]) < floor:
             return None
         return pat
+
+
+def maskable_map(params: dict, cfg: SparsityConfig) -> dict:
+    """Tree of ``Optional[NMSparsity]``, aligned with ``params``."""
+    return tree_map_with_name(lambda name, p: cfg.pattern_for(name, tuple(p.shape)), params)
+
+
+def sparsity_report(params: dict, cfg: SparsityConfig) -> dict:
+    """Coverage summary: parameter counts, the maskable share and the share
+    of all parameters the masks remove, and each leaf's pattern."""
+    total, masked, removed, per_leaf = 0, 0, 0.0, {}
+    for name, p in tree_items(params):
+        pat = cfg.pattern_for(name, tuple(p.shape))
+        total += p.numel()
+        if pat is not None:
+            masked += p.numel()
+            removed += p.numel() * (1 - pat.density)
+            per_leaf[name] = str(pat)
+        else:
+            per_leaf[name] = "dense"
+    return {
+        "total_params": total,
+        "maskable_params": masked,
+        "maskable_fraction": masked / max(total, 1),
+        "removed_fraction_of_total": removed / max(total, 1),
+        "per_leaf": per_leaf,
+    }

@@ -1,0 +1,2 @@
+from repro_torch.data.pipeline import DataIterator, IteratorState
+from repro_torch.data.synthetic import SyntheticLMDataset

@@ -14,7 +14,10 @@ kernel, where the reference's kernel route does (``model.py:794-815``).
 
 Only what gpt2-paper uses is ported: MHA/GQA attention with RoPE and
 optional q/k/v/o biases, a GeLU MLP, LayerNorm and tied embeddings.  Other families
-and options raise (ROADMAP.md lists them).
+and options raise (ROADMAP.md lists them).  :func:`loss_fn` is the training
+loss; it differentiates through :func:`forward` with autograd, which keeps
+every layer's activations (the reference rematerializes them per layer; at
+gpt2-paper's size and the training batches used here they fit).
 """
 from __future__ import annotations
 
@@ -95,6 +98,18 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     return params
 
 
+def _layers(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked sub-tree, as views.  ``unbind`` makes
+    them in one op, whose backward stacks the per-layer gradients once."""
+    per_leaf = {
+        k: _layers(v, n) if isinstance(v, dict)
+        else [v.layer(i) for i in range(n)] if isinstance(v, CompressedTensor)
+        else v.unbind(0)
+        for k, v in tree.items()
+    }
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
+
+
 def _layer(tree: dict, i: int) -> dict:
     """Layer ``i`` of a stacked sub-tree, as views."""
     return {
@@ -147,8 +162,7 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     x = params["embed"]["tok_embed"][tokens]
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     ks, vs = [], []
-    for i in range(plan.n_body):
-        p = _layer(params["body"]["sb_0"], i)
+    for p in _layers(params["body"]["sb_0"], plan.n_body):
         h = L.layernorm(x, p["pre"]["norm_scale"], p["pre"]["norm_bias"])
         q, k, v = _qkv(h, p["attn"], cfg, positions)
         x = _mlp(x + _out(L.chunked_attention(q, k, v, chunk=chunk), p["attn"], cfg), p)
@@ -158,6 +172,31 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     logits = _unembed(x, params)
     caches = {"body": {"sb_0": (torch.stack(ks), torch.stack(vs))}} if want_cache else None
     return logits, caches
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, chunk: int = 512,
+            aux_weight: float = 0.01, z_weight: float = 1e-4):
+    """Training loss: ``(total, {"ce", "aux", "zloss"})``.
+
+    Cross-entropy from an f32 logsumexp, plus ``z_weight·lse²`` and
+    ``aux_weight·aux`` (the dense family has no auxiliary loss: 0), each a
+    mean over the tokens, or over ``batch["loss_mask"]`` where given.
+    ``batch`` holds ``tokens`` and ``labels`` (B, S)."""
+    logits, _ = forward(params, cfg, batch["tokens"], chunk=chunk)
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
+    nll, zloss = lse - ll, lse.square()
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask.float()
+        denom = mask.sum().clamp_min(1.0)
+        ce, zl = (nll * mask).sum() / denom, (zloss * mask).sum() / denom
+    else:
+        ce, zl = nll.mean(), zloss.mean()
+    aux = torch.zeros((), device=lf.device)
+    total = ce + aux_weight * aux + z_weight * zl
+    return total, {"ce": ce, "aux": aux, "zloss": zl}
 
 
 # ---------------------------------------------------------------------------

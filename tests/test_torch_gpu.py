@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.nm_mask import nm_mask, nm_mask_plain
 from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_plain
 from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
 
@@ -95,3 +96,63 @@ def test_kernel_refuses_what_it_does_not_take(dev):
         nm_spmm(x, vals.t().contiguous().t(), idx, 2, 4)  # not contiguous
     with pytest.raises(ValueError):
         nm_spmm(x, vals.cpu(), idx, 2, 4)  # mixed devices
+
+
+def _bits(x):
+    return x.float().cpu().view(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m", [(1, 4), (2, 4), (3, 4), (2, 8), (4, 8), (4, 16), (8, 32),
+                                 (2, 6), (5, 12)])
+@pytest.mark.parametrize("shape", [(64, 48), (3, 96, 40), (2, 2, 192, 33)])
+def test_nm_mask_kernel_matches_plain_bit_exact(dev, dtype, n, m, shape):
+    """K4 against its plain version: the mask and the kept values exactly
+    (the mask is integer-valued and kept values are copies); m of 6 and 12
+    take the kernel's runtime-m path."""
+    if shape[-2] % m:
+        pytest.skip("rows are not whole groups")
+    w = torch.randn(shape, generator=torch.Generator().manual_seed(n * 100 + m)).to(dtype)
+    wd = w.to(dev)
+    before = dispatch.launches["nm_mask"]
+    masked, mask = nm_mask(wd, n, m)
+    torch.cuda.synchronize()
+    assert dispatch.launches["nm_mask"] == before + 1
+    pmasked, pmask = nm_mask_plain(w, n, m)
+    assert masked.dtype == mask.dtype == dtype and masked.shape == w.shape
+    assert torch.equal(_bits(mask), _bits(pmask))
+    assert torch.equal(_bits(masked), _bits(pmasked))
+    per_group = mask.float().reshape(*shape[:-2], shape[-2] // m, m, shape[-1]).sum(-2)
+    assert bool((per_group == n).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_mask_kernel_ties_zeros_and_n_equal_m(dev, dtype):
+    """Equal magnitudes of both signs and all-zero groups keep the lowest
+    rows, as the plain version's stable sort does; n == m launches
+    nothing."""
+    gen = torch.Generator().manual_seed(5)
+    w = torch.tensor([-2.0, -1.0, 0.0, 1.0, 2.0])[torch.randint(0, 5, (128, 64), generator=gen)]
+    w[:8] = 0.0
+    w = w.to(dtype)
+    for n, m in [(1, 4), (2, 4), (3, 8)]:
+        masked, mask = nm_mask(w.to(dev), n, m)
+        pmasked, pmask = nm_mask_plain(w, n, m)
+        assert torch.equal(_bits(mask), _bits(pmask)) and torch.equal(_bits(masked), _bits(pmasked))
+        assert mask[:m, 0].tolist() == [1.0] * n + [0.0] * (m - n)
+    before = dispatch.launches["nm_mask"]
+    masked, mask = nm_mask(w.to(dev), 4, 4)
+    assert dispatch.launches["nm_mask"] == before
+    assert bool((mask == 1).all()) and torch.equal(masked.cpu(), w)
+
+
+def test_nm_mask_kernel_refuses_non_contiguous_and_wide_groups(dev):
+    """A non-contiguous tensor raises (the recipes make a moved group axis
+    contiguous before the call); so do m > 32 and other types."""
+    w = torch.randn((64, 32), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        nm_mask(w.t(), 2, 4)
+    with pytest.raises(ValueError):
+        nm_mask(w, 2, 64)
+    with pytest.raises(TypeError):
+        nm_mask(w.half(), 2, 4)

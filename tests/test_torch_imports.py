@@ -17,7 +17,7 @@ _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?![\w])", re.M)
 
 def test_port_modules_import_without_jax_or_reference():
     code = (
-        "import pkgutil, sys, repro_torch, repro_torch.launch.serve\n"
+        "import pkgutil, sys, repro_torch, repro_torch.launch.serve, repro_torch.launch.train\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    __import__(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
@@ -41,7 +41,7 @@ def test_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models.model import init_cache, init_params
     from repro_torch.serving import DecodeEngine
 
@@ -54,3 +54,5 @@ def test_entry_points_raise_without_a_card(tmp_path):
         DecodeEngine(cfg, init_params(cfg, device="cpu"))
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--batch", "1", "--gen", "2"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--steps", "1"])

