@@ -36,6 +36,20 @@ Phases, in order; any failure exits non-zero:
    slab, prompts from the training corpus); ``nm_spmm`` must launch, every
    request must finish, and most generated tokens must lie in the corpus's
    16-symbol alphabet (an untrained model almost never emits them).
+6. Serve full-width DeepSeek-V2-Lite (all 27 layers: MLA, 64-expert MoE):
+   random weights from seed 0, the STEP 2:4 export and compression leaf by
+   leaf, then 8 greedy requests of 64 + 32 tokens over 4 lanes, K = 4, on
+   the slab, on a paged pool that never preempts (its streams must equal
+   the slab's except at near-ties) and on an undersized pool that
+   preempts.  Launch counts are zeroed before and read after each run: the
+   batched ``nm_spmm`` must launch 3 x 26 times per decode step and per
+   prefill batch, and ``paged_attn``'s MLA form 27 times per paged decode
+   step.  Then a ``torch.profiler`` trace of a few decode steps.
+
+Phase 2 also holds the two kernels of phase 6 against their plain versions
+at DeepSeek's shapes: the batched ``nm_spmm`` at (64 experts, 8 rows,
+2048->1408 and 1408->2048) and K2's MLA form (B = 4, 16 heads, latent 512,
+RoPE 64, ps = 16, ragged lengths up to 96), with their times.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -53,6 +67,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
+F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 # Both the kernel and its plain version round an f32 result to bf16 once;
 # f32 results that differ by summation order can round one bf16 step apart,
 # and a bf16 step is at most 2^-7 of the value.  ATOL covers outputs near 0.
@@ -61,11 +76,29 @@ BF16_RTOL, ATOL = 2.0 ** -7, 1e-5
 # bf16 logits (|logit| ~ 1) carry about 2^-8 of rounding per operation, and
 # 12 layers of it stay well inside 0.1.
 MARGIN = 0.1
-REPLACES = {
-    "nm_spmm": "src/repro/kernels/nm_spmm.py:133",
-    "paged_attn": "src/repro/kernels/paged_attn.py:190",
-    "nm_mask": "src/repro/kernels/nm_mask.py:53",
+# kernel entry -> (its CUDA source, the TPU kernel it replaces)
+KERNEL_ROWS = {
+    "nm_spmm": ("nm_spmm", "src/repro/kernels/nm_spmm.py:133"),
+    "nm_spmm_batched": ("nm_spmm", "src/repro/kernels/nm_spmm.py:133 "
+                        "(vmapped over experts at src/repro/models/layers.py:66-74)"),
+    "paged_attn": ("paged_attn", "src/repro/kernels/paged_attn.py:190"),
+    "paged_attn_mla": ("paged_attn", "src/repro/kernels/paged_attn.py:190 "
+                       "(q2/k2_pages/v_is_k, called at src/repro/models/mla.py:222)"),
+    "nm_mask": ("nm_mask", "src/repro/kernels/nm_mask.py:53"),
 }
+# DeepSeek-V2-Lite's MoE layers (26: layer 0 has a dense MLP), each with 3
+# batched nm_spmm launches (gate, up, down), and its layers
+DS_MOE_LAYERS, DS_LAYERS = 26, 27
+# A DeepSeek slab token may differ from its paged twin only at a near-tie:
+# the slab expands K/V through bf16 matmuls, the paged route attends in f32
+# latent space, so the logits differ by bf16 rounding carried through the
+# layers (and MoE routing flips where it meets a router's near-tie).  The
+# gate is the larger of this and the difference measured in the run.
+DS_MARGIN = MARGIN
+# In f32 the two decode routes differ only in summation order (absorbed
+# W_uk/W_uv against expanded K/V): about 1e-6 of a logit over 4 layers on
+# an H100.
+DS_ROUTE_F32_TOL = 1e-3
 # the training run of phase 4; the switch is forced at t_max + 1 = 31 since
 # the AutoSwitch window (T_w = 50 at b2 = 0.98) is not yet full by then
 TRAIN_ARGS = ["--no-smoke", "--recipe", "step", "--nm", "2:4", "--batch", "8", "--seq", "128",
@@ -203,6 +236,109 @@ def check_paged_attn(torch, dev) -> dict:
     return rec
 
 
+def random_stack(torch, e, k, o, gen, dev):
+    """Random 2:4-compressed ``(E, K/2, O)`` bf16 values and uint8 offsets
+    (two distinct ascending offsets per group and column)."""
+    idx = torch.rand((e, k // 4, 4, o), generator=gen, device=dev).argsort(dim=2)[:, :, :2]
+    idx = idx.sort(dim=2).values.reshape(e, k // 2, o).to(torch.uint8).contiguous()
+    vals = torch.randn((e, k // 2, o), generator=gen, device=dev).to(torch.bfloat16)
+    return vals, idx
+
+
+def check_nm_spmm_batched(torch, dev) -> dict:
+    """The batched K1 at DeepSeek-V2-Lite's expert stacks: 64 experts of
+    2048->1408 (gate, up) and 1408->2048 (down), 2:4, bf16, with C = 8 rows
+    per expert (decode) and C = 32 (a 256-token prefill).  The record is one
+    MoE layer's three decode launches."""
+    from repro_torch.kernels.nm_spmm import nm_spmm_batched, nm_spmm_batched_plain
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for k, o, count in ((2048, 1408, 2), (1408, 2048, 1)):
+        vals, idx = random_stack(torch, 64, k, o, gen, dev)
+        dense = torch.zeros((64, k // 4, 4, o), dtype=torch.bfloat16, device=dev)
+        dense.scatter_(2, idx.long().reshape(64, k // 4, 2, o), vals.reshape(64, k // 4, 2, o))
+        dense = dense.reshape(64, k, o)
+        for c in (8, 32):
+            x = torch.randn((64, c, k), generator=gen, device=dev).to(torch.bfloat16)
+            args = (x, vals, idx, 2, 4)
+            err = check_close(f"nm_spmm_batched E=64 C={c} ({k}->{o})",
+                              nm_spmm_batched(*args), nm_spmm_batched_plain(*args))
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            t = dict(ms=time_ms(torch, lambda: nm_spmm_batched(*args)),
+                     plain_ms=time_ms(torch, lambda: nm_spmm_batched_plain(*args), reps=10),
+                     library_ms=time_ms(torch, lambda: torch.bmm(x, dense)))
+            nbytes = x.numel() * 2 + vals.numel() * 2 + idx.numel() + 64 * c * o * 2
+            t["bound_ms"], by = bound_ms(nbytes, 2.0 * 64 * c * (k // 2) * o)
+            log(f"  time nm_spmm_batched E=64 C={c} {k}->{o}: kernel {t['ms']:.4f} ms "
+                f"({nbytes / t['ms'] / 1e6:.0f} GB/s), plain {t['plain_ms']:.4f} ms, "
+                f"torch.bmm(dense) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by})")
+            if c == 8:
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                    rec[key] += count * t[key]
+                rec["bound_by"] = by
+        del dense
+    rec["at"] = ("one MoE layer's three decode launches: x (64, 8, K) bf16, "
+                 "2 x (64, 1024, 1408) + (64, 704, 2048), 2:4")
+    return rec
+
+
+def check_paged_attn_mla(torch, dev) -> dict:
+    """K2's MLA form at DeepSeek-V2-Lite's decode: B = 4, 16 heads, latent
+    512, RoPE 64, ps = 16, ragged lanes up to 96 tokens with a sentinel slot
+    and a dead lane; f32 queries and output over bf16 pages."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
+
+    b, h, lat, rd, ps, n_slots, num_pages = 4, 16, 512, 64, 16, 7, 40
+    lengths = [96, 33, 0, 70]
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    perm = torch.randperm(num_pages, generator=gen).tolist()
+    tables = torch.full((b, n_slots), num_pages, dtype=torch.int32)
+    for i, ln in enumerate(lengths):
+        for pg in range(-(-ln // ps)):
+            tables[i, pg] = perm.pop()
+    q, q2 = (torch.randn((b, 1, h, w), generator=gen).to(dev) for w in (lat, rd))
+    cp, rp = (torch.randn((num_pages, ps, 1, w), generator=gen).to(torch.bfloat16).to(dev)
+              for w in (lat, rd))
+    tables, lens = tables.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev)
+    scale = (128 + rd) ** -0.5
+    kw = dict(scale=scale, q2=q2, k2_pages=rp, v_is_k=True)
+    y = paged_attn(q, cp, None, tables, lens, **kw)
+    err = check_close("paged_attn MLA B=4 H=16 latent 512 rope 64 ps=16", y,
+                      paged_attn_plain(q, cp, None, tables, lens, **kw))
+    if float(y[2].abs().max()) != 0.0:
+        raise AssertionError("paged_attn MLA: the dead lane is not exactly zero")
+    # yardstick: SDPA on the pre-gathered view, q = [q_lat|q2], k = [ckv|krope], v = ckv
+    phys = tables.long().clamp(max=num_pages - 1)
+    s_all = n_slots * ps
+    kcat = torch.cat([cp, rp], -1)[phys].reshape(b, 1, s_all, lat + rd).float()
+    kg = kcat.expand(b, h, s_all, lat + rd).contiguous()
+    vg = kcat[..., :lat].expand(b, h, s_all, lat).contiguous()
+    qs = torch.cat([q, q2], -1).reshape(b, h, 1, lat + rd)
+    mask = (torch.arange(s_all, device=dev)[None, :] < lens[:, None])[:, None, None]
+    live = sum(lengths)
+    nbytes = (q.numel() * 4 + q2.numel() * 4 + live * (lat + rd) * 2 + tables.numel() * 4
+              + b * 4 + b * h * lat * 4)
+    flops = 2.0 * live * h * (lat + rd) + 2.0 * live * h * lat
+    rec = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: paged_attn(q, cp, None, tables, lens, **kw)),
+        plain_ms=time_ms(torch, lambda: paged_attn_plain(q, cp, None, tables, lens, **kw)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask, scale=scale)),
+        at=f"q (4, 1, 16, 512) + q2 (4, 1, 16, 64) f32, bf16 pages, ps=16, lengths {lengths}",
+    )
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS  # the kernel's math is f32
+    rec["bound_ms"] = max(t_bytes, t_ops) * 1e3
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"  time paged_attn MLA: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"SDPA (f32) on gathered view {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']})")
+    return rec
+
+
 def check_nm_mask(torch, dev) -> dict:
     """K4 bit-exact against its plain version: gpt2-paper's three stacked
     leaf shapes in bf16 and f32 at 2:4, other patterns at (768, 768), and a
@@ -276,7 +412,8 @@ def serve(torch, cfg, comp, dev, *, paged: bool, n_requests=8, lanes=4, prompt_l
     return eng, prompts, [res[u].tokens for u in uids], wall
 
 
-def compare_streams(torch, cfg, comp, prompts, a, b, dev) -> tuple[int, int, list]:
+def compare_streams(torch, cfg, comp, prompts, a, b, dev,
+                    margin=MARGIN) -> tuple[int, int, list]:
     """(equal tokens before the first difference, tokens, margins at the
     differences); raises if a difference is not a near-tie."""
     from repro_torch.models.model import forward
@@ -291,9 +428,9 @@ def compare_streams(torch, cfg, comp, prompts, a, b, dev) -> tuple[int, int, lis
         logits, _ = forward(comp, cfg, torch.tensor([p + x[:j]], device=dev))
         top2 = torch.topk(logits[0, -1].float(), 2).values
         margins.append(float(top2[0] - top2[1]))
-        if margins[-1] >= MARGIN:
+        if margins[-1] >= margin:
             raise AssertionError(f"slab and paged streams differ at token {j} with "
-                                 f"top-2 margin {margins[-1]:.4f} >= {MARGIN}")
+                                 f"top-2 margin {margins[-1]:.4f} >= {margin}")
     return agree, total, margins
 
 
@@ -332,6 +469,185 @@ def serve_phase(torch, cfg, comp, dev, dispatch) -> dict:
             "peak_memory_bytes": peak, "device": name,
         }))
     return launches
+
+
+def deepseek_phase(torch, dev, dispatch) -> dict:
+    """Phase 6: full-width DeepSeek-V2-Lite, exported and compressed leaf by
+    leaf, served on the slab, a pool that never preempts and one that does;
+    returns the launches of the batched nm_spmm and of paged_attn's MLA
+    form over the three runs."""
+    from repro_torch import core
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.sparse_infer import export_compressed
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n_params = sum(p.numel() for p in _leaves(params))
+    recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(2, 4)))
+    comp, rep = export_compressed(params, recipe)
+    del params
+    torch.cuda.synchronize()
+    log(f"  {cfg.n_layers} layers, {n_params:,} parameters: init {t1 - t0:.1f} s, "
+        f"export + compress leaf by leaf {time.perf_counter() - t1:.1f} s, {json.dumps(rep)}; "
+        f"peak memory {torch.cuda.max_memory_allocated():,} B, compressed tree "
+        f"{torch.cuda.memory_allocated():,} B")
+    serve(torch, cfg, comp, dev, paged=True, n_requests=1, gen=4, num_pages=28)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    totals = {"nm_spmm_batched": 0, "paged_attn_mla": 0}
+    runs = {}
+    for name, pages in (("slab", None), ("paged", 28), ("paged_preempting", 22)):
+        dispatch.reset_launches()
+        eng, prompts, streams, wall = serve(torch, cfg, comp, dev, paged=pages is not None,
+                                            num_pages=pages or 0)
+        launches = dict(dispatch.launches)
+        steps, groups = eng.decode_steps, eng.prefill_batches
+        want = {"nm_spmm_batched": 3 * DS_MOE_LAYERS * (steps + groups),
+                "paged_attn_mla": DS_LAYERS * steps if pages else 0}
+        log(f"  {name}: launches {launches}; {steps} decode steps, {groups} prefill batches: "
+            f"batched nm_spmm wants 3 x {DS_MOE_LAYERS} x ({steps} + {groups}) = "
+            f"{want['nm_spmm_batched']}, MLA paged_attn {DS_LAYERS} x {steps if pages else 0}")
+        if any(launches[k] != v for k, v in want.items()) or launches["nm_spmm"] == 0:
+            raise AssertionError(f"{name}: launches {launches}, want {want} and nm_spmm > 0")
+        if (eng.preemptions > 0) != (name == "paged_preempting"):
+            raise AssertionError(f"{name}: {eng.preemptions} preemptions")
+        for k in totals:
+            totals[k] += launches[k]
+        runs[name] = (eng, streams, wall)
+    # the two decode routes from one state: f32 on the first 4 layers must
+    # agree to summation order; bf16 shows the rounding the streams see
+    routes = {}
+    for dtype, n_body in (("float32", 3), ("bfloat16", 3), ("bfloat16", DS_MOE_LAYERS)):
+        sub_cfg, sub = first_layers(torch, cfg, comp, n_body, dtype)
+        routes[f"{dtype} {1 + n_body} layers"] = route_difference(torch, sub_cfg, sub,
+                                                                  prompts[:4], dev)
+        del sub
+    log("  one decode step after one prefill, slab (expanded) vs paged (absorbed, K2m): "
+        + json.dumps(routes))
+    if routes["float32 4 layers"]["max_abs_diff"] > DS_ROUTE_F32_TOL:
+        raise AssertionError(f"the slab and paged decode routes differ by more than "
+                             f"{DS_ROUTE_F32_TOL} in f32: {routes['float32 4 layers']}")
+    # a near-tie: a top-2 margin within what the routes' bf16 rounding moves a
+    # logit from one identical state (measured just above)
+    gate = max(DS_MARGIN, routes[f"bfloat16 {DS_LAYERS} layers"]["max_abs_diff"])
+    agree, total, margins = compare_streams(torch, cfg, comp, prompts, runs["slab"][1],
+                                            runs["paged"][1], dev, margin=gate)
+    log(f"  slab vs non-preempting paged greedy streams: {agree}/{total} tokens equal before "
+        f"each request's first difference; top-2 margins at the differences {margins} "
+        f"(all < {gate})")
+    peak = torch.cuda.max_memory_allocated()
+    for name, (eng, _, wall) in runs.items():
+        st = eng.stats()
+        log("  serve deepseek " + json.dumps({
+            "run": name, "tokens_per_s": st["tokens_per_s"],
+            "ms_per_decode_step": st["ms_per_decode_step"],
+            "ms_per_decode_step_host": st["ms_per_decode_step_host"],
+            "decode_steps": st["decode_steps"], "prefill_batches": st["prefill_batches"],
+            "preemptions": st["preemptions"], "run_wall_s": wall,
+            "kv_cache_bytes": st["kv_cache_bytes"],
+            "weight_bytes_per_step": st["weight_bytes_per_step"],
+            "weight_stream_bound_ms": st["weight_bytes_per_step"] / HBM_BYTES_PER_S * 1e3,
+            "peak_memory_bytes": peak, "device": torch.cuda.get_device_name(0),
+        }))
+    log("  profile deepseek paged decode " + json.dumps(profile_decode(torch, cfg, comp, dev)))
+    return totals
+
+
+def first_layers(torch, cfg, comp, n_body: int, dtype: str):
+    """``(cfg, tree)``: ``head_0`` and the first ``n_body`` stacked layers
+    of the compressed tree at full width, every float leaf in ``dtype``
+    (views where nothing changes)."""
+    from repro_torch.sparse_infer import CompressedTensor
+    from repro_torch.utils.tree import tree_map_with_name
+
+    dt = getattr(torch, dtype)
+
+    def leaf(name, x):
+        n = n_body if name.startswith("body/") else None
+        if isinstance(x, CompressedTensor):
+            return dataclasses.replace(
+                x, values=x.values[:n].to(dt), indices=x.indices[:n],
+                shape=x.shape if n is None else (n,) + tuple(x.shape[1:]))
+        return x[:n].to(dt) if x.is_floating_point() else x[:n]
+
+    return (dataclasses.replace(cfg, n_layers=1 + n_body, param_dtype=dtype),
+            tree_map_with_name(leaf, comp))
+
+
+def route_difference(torch, cfg, comp, prompts, dev) -> dict:
+    """The two decode routes from one state: the prompts prefilled once,
+    written into a slab and a paged cache, then one decode step of the same
+    tokens through each; the largest logit difference, beside the logits'
+    spread and the lanes' top-2 margins."""
+    from repro_torch.models.cache import PagedLayout
+    from repro_torch.models.model import decode_step, forward, init_cache, write_prefill
+
+    b, s = len(prompts), len(prompts[0])
+    toks = torch.tensor(prompts, device=dev)
+    logits, produced = forward(comp, cfg, toks, want_cache=True)
+    lanes = torch.arange(b, device=dev)
+    lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+    layout = PagedLayout(page_size=16, num_pages=b * -(-(s + 1) // 16), max_len=s + 1)
+    slab = init_cache(cfg, b, s + 1, device=dev)
+    paged = init_cache(cfg, b, s + 1, layout=layout, device=dev)
+    paged["tables"]["full"].copy_(torch.arange(layout.num_pages, dtype=torch.int32).reshape(b, -1))
+    write_prefill(slab, cfg, produced, lanes, lens)
+    write_prefill(paged, cfg, produced, lanes, lens, layout)
+    nxt = logits[:, -1].argmax(-1)
+    ls = decode_step(comp, cfg, nxt, slab)[0].float()
+    lp = decode_step(comp, cfg, nxt, paged, layout)[0].float()
+    top2 = torch.topk(ls, 2).values
+    return {"max_abs_diff": (ls - lp).abs().max().item(), "logit_std": ls.std().item(),
+            "top2_margins": (top2[:, 0] - top2[:, 1]).tolist(),
+            "same_argmax": (ls.argmax(-1) == lp.argmax(-1)).tolist()}
+
+
+def profile_decode(torch, cfg, comp, dev, n_dispatch: int = 2) -> dict:
+    """A ``torch.profiler`` trace of ``n_dispatch`` decode dispatches (K = 4
+    steps each) with 4 busy lanes on the non-preempting pool: wall and
+    device-busy ms per decode step, the idle share, kernels per step and
+    the eight kernels with the most device time."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import DecodeEngine, SamplingParams
+
+    eng = DecodeEngine(cfg, comp, max_batch=4, max_len=97, seed=0, num_pages=28,
+                       page_size=16, steps_per_dispatch=4, device=dev)
+    for r in range(4):
+        eng.submit(np.random.default_rng(2000 + r).integers(0, cfg.vocab, 64).tolist(),
+                   SamplingParams(max_new_tokens=32))
+    eng.step()  # admission and the first dispatch, untraced
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_dispatch):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    n = n_dispatch * eng.steps_per_dispatch
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "ms_per_decode_step": wall_ms / n,
+        "device_busy_ms_per_step": busy_ms / n if busy_ms > 0 else "not measured",
+        "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured",
+        "kernels_per_step": sum(e.count for e in kernels) / n,
+        "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / 1e3 / n for e in top},
+    }
+
+
+def _leaves(tree):
+    from repro_torch.utils.tree import tree_items
+
+    return [leaf for _, leaf in tree_items(tree)]
 
 
 def _median(xs: list) -> float:
@@ -501,7 +817,7 @@ def main() -> int:
     out = dispatch.build()
     dispatch.load_kernels()
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s into {out}")
-    for name in dispatch.KERNELS:
+    for name in dispatch.SOURCES:
         log_file = out / f"{name}.log"
         for line in (log_file.read_text().splitlines() if log_file.exists() else []):
             if "registers" in line or "spill" in line:
@@ -516,6 +832,9 @@ def main() -> int:
     records = {"nm_spmm": check_nm_spmm(torch, comp, dev),
                "paged_attn": check_paged_attn(torch, dev),
                "nm_mask": check_nm_mask(torch, dev)}
+    log("phase 2: the batched nm_spmm and paged_attn's MLA form (DeepSeek-V2-Lite shapes)")
+    records["nm_spmm_batched"] = check_nm_spmm_batched(torch, dev)
+    records["paged_attn_mla"] = check_paged_attn_mla(torch, dev)
 
     log("phase 3: serve full-width gpt2-paper, slab then undersized paged pool")
     launches = serve_phase(torch, cfg, comp, dev, dispatch)
@@ -527,11 +846,15 @@ def main() -> int:
         log("phase 5: serve the trained checkpoint, compressed")
         serve_trained_phase(torch, cfg, dev, dispatch, ckpt_dir)
 
+    log("phase 6: serve full-width DeepSeek-V2-Lite (27 layers), slab, paged, preempting pool")
+    launches.update(deepseek_phase(torch, dev, dispatch))
+
     kernels = []
-    for name, rec in records.items():
+    for name, (source, replaces) in KERNEL_ROWS.items():
+        rec = records[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu", "replaces": REPLACES[name],
+            "source": f"src/repro_torch/csrc/{source}.cu", "replaces": replaces,
             "launches": launches[name], **{k: rec[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at")},
         })

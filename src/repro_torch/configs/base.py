@@ -1,20 +1,42 @@
 """Architecture configuration (counterpart of ``repro/configs/base.py``).
 
-A plain dataclass of the reference's fields that the port's dense family
-reads.  The reference module imports ``repro.models.*`` (and so JAX) for its
-MoE/MLA/SSM sub-configs; those families are not ported yet (ROADMAP.md), so
-their fields are absent here.
+Plain dataclasses of the reference's fields that the port reads.  The
+reference module imports ``repro.models.*`` (and so JAX) for its MoE, MLA,
+SSM and RG-LRU sub-configs; the port keeps its own copies of the two it
+serves, :class:`MoEConfig` (``repro/models/moe.py:33``) and
+:class:`MLAConfig` (``repro/models/mla.py:26``).  The SSM and RG-LRU
+families, hybrid layer patterns and frontends are not ported yet
+(ROADMAP.md): ``models.model.layer_plan`` raises for them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0  # DeepSeek-style always-on shared experts
+    capacity_factor: float = 1.25
+    first_layer_dense: bool = False  # DeepSeek: layer 0 uses a dense MLP
+    router_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora: int = 512
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # only "dense" is ported
+    family: str  # dense | moe are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -30,6 +52,11 @@ class ArchConfig:
     rope_theta: float = 10000.0
     local_window: Optional[int] = None  # sliding-window attention
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    # hybrid layer pattern, e.g. ("rec", "rec", "attn"); None = all-attn
+    layer_pattern: Optional[Sequence[str]] = None
+    frontend: str = "none"  # none | audio_stub | vision_stub
     param_dtype: str = "bfloat16"
     source: str = ""  # provenance note
 
@@ -50,5 +77,14 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         vocab=256,
         head_dim=16,
     )
+    if cfg.moe is not None:
+        base["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=2, d_ff_expert=32,
+            n_shared=min(cfg.moe.n_shared, 1),
+            capacity_factor=8.0,  # no token dropping in the tiny models
+        )
+    if cfg.mla is not None:
+        base["mla"] = MLAConfig(kv_lora=32, rope_head_dim=8, nope_head_dim=16, v_head_dim=16)
+        base["head_dim"] = None
     base.update(overrides)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **base)

@@ -23,6 +23,13 @@
 // weight is re-read once per row tile; that, no tensor cores (mma.sp /
 // wgmma) and no split of K across blocks are the known costs of this
 // first version.
+//
+// nm_spmm_batched_launch is the same kernel over a stack of E independent
+// products (the compressed MoE expert stacks, which the TPU reference
+// vmaps over at src/repro/models/layers.py:66-74): blockIdx.z picks the
+// expert and every operand advances by its own 64-bit per-expert stride,
+// so one launch streams all E weights and 64 x (1024 x 1408) experts give
+// 44 x 64 blocks.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,14 +49,23 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-// blockDim = (BO, KW); grid = (column tiles, row tiles)
+// Per-expert element strides of a batched launch (all 0 for one product).
+struct Strides {
+  long long x, w, y;
+};
+
+// blockDim = (BO, KW); grid = (column tiles, row tiles, experts)
 template <typename T, int BM>
 __global__ void __launch_bounds__(BO * KW) nm_spmm_kernel(
     const T* __restrict__ x, const T* __restrict__ vals,
     const uint8_t* __restrict__ idx, T* __restrict__ y,
-    int B, int K, int O, int o_true, int n, int m, int bk) {
+    int B, int K, int O, int o_true, int n, int m, int bk, Strides st) {
   // x tile; after the K loop it holds the warps' partial sums (KW*BM*BO <= BM*BK)
   __shared__ float xs[BM * BK];
+  x += blockIdx.z * st.x;
+  vals += blockIdx.z * st.w;
+  idx += blockIdx.z * st.w;
+  y += blockIdx.z * st.y;
   const int lane = threadIdx.x, w = threadIdx.y;
   const int tid = w * BO + lane;
   const int o = blockIdx.x * BO + lane;
@@ -99,16 +115,31 @@ __global__ void __launch_bounds__(BO * KW) nm_spmm_kernel(
 }
 
 template <typename T, int BM>
-void launch(const void* x, const void* vals, const void* idx, void* y, int B,
-            int K, int O, int o_true, int n, int m, cudaStream_t stream) {
+void launch(const void* x, const void* vals, const void* idx, void* y, int E,
+            int B, int K, int O, int o_true, int n, int m, cudaStream_t stream) {
   static_assert(KW * BO <= BK, "partial sums must fit in the x tile");
-  const dim3 grid((o_true + BO - 1) / BO, (B + BM - 1) / BM);
+  const dim3 grid((o_true + BO - 1) / BO, (B + BM - 1) / BM, E);
   const dim3 block(BO, KW);
   const int bk = (BK / m) * m;
+  const Strides st{(long long)B * K, (long long)K * n / m * O, (long long)B * o_true};
   nm_spmm_kernel<T, BM><<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(vals),
       static_cast<const uint8_t*>(idx), static_cast<T*>(y), B, K, O, o_true,
-      n, m, bk);
+      n, m, bk, st);
+}
+
+int launch_any(const void* x, const void* vals, const void* idx, void* y,
+               int E, int B, int K, int O, int o_true, int n, int m, int dtype,
+               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 8) {
+    if (dtype == 0) launch<float, 8>(x, vals, idx, y, E, B, K, O, o_true, n, m, s);
+    else launch<__nv_bfloat16, 8>(x, vals, idx, y, E, B, K, O, o_true, n, m, s);
+  } else {
+    if (dtype == 0) launch<float, 32>(x, vals, idx, y, E, B, K, O, o_true, n, m, s);
+    else launch<__nv_bfloat16, 32>(x, vals, idx, y, E, B, K, O, o_true, n, m, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -119,13 +150,14 @@ void launch(const void* x, const void* vals, const void* idx, void* y, int B,
 extern "C" int nm_spmm_launch(const void* x, const void* vals, const void* idx,
                               void* y, int B, int K, int O, int o_true, int n,
                               int m, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 8) {
-    if (dtype == 0) launch<float, 8>(x, vals, idx, y, B, K, O, o_true, n, m, s);
-    else launch<__nv_bfloat16, 8>(x, vals, idx, y, B, K, O, o_true, n, m, s);
-  } else {
-    if (dtype == 0) launch<float, 32>(x, vals, idx, y, B, K, O, o_true, n, m, s);
-    else launch<__nv_bfloat16, 32>(x, vals, idx, y, B, K, O, o_true, n, m, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_any(x, vals, idx, y, 1, B, K, O, o_true, n, m, dtype, stream);
+}
+
+// E stacked products: x (E, B, K), values/indices (E, K*n/m, O), y (E, B,
+// o_true), each contiguous.  E <= 65535 (the grid's z extent).
+extern "C" int nm_spmm_batched_launch(const void* x, const void* vals,
+                                      const void* idx, void* y, int E, int B,
+                                      int K, int O, int o_true, int n, int m,
+                                      int dtype, void* stream) {
+  return launch_any(x, vals, idx, y, E, B, K, O, o_true, n, m, dtype, stream);
 }

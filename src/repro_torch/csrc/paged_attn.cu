@@ -1,29 +1,49 @@
 // Single-query paged decode attention, for Hopper.
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attn.py:_paged_attn_kernel
-// (launched by paged_attn_pallas, emit_stats=False), in its append-only
-// MHA/GQA form with fp pages.  Layout:
+// (launched by paged_attn_pallas, emit_stats=False) in two of its forms,
+// append-only tables and fp pages in both:
+//
+// paged_attn_launch, MHA/GQA:
 //   q        (B, Hkv, G, D)   queries grouped per KV head
 //   k_pages  (P, ps, Hkv, D)  physical pool;  v_pages (P, ps, Hkv, Dv)
-//   tables   (B, n_slots) int32 page ids, P = sentinel (unmapped)
-//   lengths  (B,) int32 live tokens per lane
-//   out      (B, Hkv, G, Dv) in q's type (bf16 or f32)
+//   out      (B, Hkv, G, Dv)  in q's type
+// paged_attn_mla_launch, MLA's absorbed latent form (K2m; the reference's
+// q2 / k2_pages / v_is_k options, src/repro/models/mla.py:202-237):
+//   q        (B, Hkv, G, D)   the latent queries (DeepSeek: Hkv=1, G=16, D=512)
+//   q2       (B, Hkv, G, D2)  the RoPE queries, a second score stream
+//   k_pages  (P, ps, Hkv, D)  the latent pool, which is V as well
+//   k2_pages (P, ps, Hkv, D2) the shared RoPE keys
+//   out      (B, Hkv, G, D)   in q's type
+//   scores are (q.k + q2.k2) * scale; V is the K page already staged.
+// Both: tables (B, n_slots) int32 page ids, P = sentinel (unmapped);
+// lengths (B,) int32 live tokens per lane.  Queries and output share one
+// type and the pages another (f32 or bf16 each), so the MLA form keeps the
+// reference's f32 queries and output over bf16 pages.
 // Slot p of lane b covers logical positions [p*ps, (p+1)*ps); positions at
 // or past lengths[b] are dead.  A lane with length 0 writes exact zeros.
 //
-// What bounds it: the bytes of the live K/V pages (decode does ~1 FMA per
-// byte read, far below the tensor cores' break-even).  The design gives
-// one block to each (lane, KV head) and walks the lane's table slots in
-// order, so every live page is read once and all G query heads of the KV
-// head share that read.  Slots that are sentinel, or lie at or past the
-// lane's length, are skipped before any load is issued; only the live
-// rows of the last page are loaded.  Each page's K and V go through
-// shared memory (K rows padded by one float against bank conflicts), and
-// a flash-style online softmax in f32 carries (max, denominator,
-// accumulator) from page to page, with the finite -1e30 in place of -inf
-// so dead positions never make NaNs.  One page per step and a block per
-// (lane, head) leave much of the card idle at small batch; splitting the
-// page walk across blocks (the stats form, K3) is later work.
+// What bounds it: the bytes of the live pages (decode does ~1 FMA per
+// byte read per query head, far below the tensor cores' break-even).  The
+// design gives one block to each (lane, KV head) and walks the lane's table
+// slots in order, so every live page is read once and all G query heads of
+// the KV head share that read; in the MLA form the latent page is read once
+// for both the scores and the output.  Where that leaves few blocks (MLA:
+// one KV head, 16 query heads), the query heads are split across blocks
+// that each read the pages (L2 serves the repeats).  Slots that are
+// sentinel, or lie at or past the lane's length, are skipped before any
+// load is issued; only the live rows of the last page are loaded.  Each page's K (and K2, V)
+// go through shared memory (rows padded by one float against bank
+// conflicts), and a flash-style online softmax in f32 carries (max,
+// denominator, accumulator) from page to page, with the finite -1e30 in
+// place of -inf so dead positions never make NaNs.  The MLA form at
+// DeepSeek's widths needs 105 KB of shared memory for 16 heads in a block
+// (f32 queries and accumulator of 16 x 512, one page of 16 x 513), past the
+// 48 KB a launch gets by default: the launch opts in with
+// cudaFuncSetAttribute above 48 KB and returns its error if that fails.
+// Scores take a warp per (head, row), its lanes splitting the dot product.
+// One page per step leaves much of the card idle at small batch; splitting
+// the page walk across blocks (the stats form, K3) is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -31,6 +51,7 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr float NEG = -1e30f;
+constexpr int SMEM_MAX = 232448;  // 227 KB: a block's limit on Hopper
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -50,29 +71,46 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
+// Floats of shared memory: q, q2, K page, K2 page, V page (none when V is
+// K), scores, accumulator, and three per-head rows.
+__host__ __device__ inline int smem_floats(int G, int D, int D2, int Dv, int ps,
+                                           bool v_is_k) {
+  return G * D + G * D2 + ps * (D + 1) + ps * (D2 + 1) + (v_is_k ? 0 : ps * Dv)
+         + G * ps + G * Dv + 3 * G;
+}
+
+// TQ: queries and output; TP: pages.  D2 = 0 without a second stream.
+// The block owns query heads [blockIdx.z * G, +G) of the Gt that share KV
+// head blockIdx.y.
+template <typename TQ, typename TP, bool V_IS_K>
 __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
-    const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
-    const int* __restrict__ tables, const int* __restrict__ lengths,
-    T* __restrict__ out, int Hkv, int G, int D, int Dv, int P, int ps,
-    int n_slots, float scale) {
+    const TQ* __restrict__ q, const TQ* __restrict__ q2,
+    const TP* __restrict__ kp, const TP* __restrict__ k2p,
+    const TP* __restrict__ vp, const int* __restrict__ tables,
+    const int* __restrict__ lengths, TQ* __restrict__ out, int Hkv, int Gt,
+    int G, int D, int D2, int Dv, int P, int ps, int n_slots, float scale) {
   extern __shared__ float smem[];
-  const int KS = D + 1;             // padded K row stride
-  float* qs = smem;                 // G*D
-  float* ks = qs + G * D;           // ps*KS
-  float* vs = ks + ps * KS;         // ps*Dv
-  float* ss = vs + ps * Dv;         // G*ps  scores, then probabilities
-  float* acc = ss + G * ps;         // G*Dv
-  float* mrow = acc + G * Dv;       // G   running max
-  float* lrow = mrow + G;           // G   running denominator
-  float* corr = lrow + G;           // G   this page's rescale factor
+  const int KS = D + 1, K2S = D2 + 1;  // padded row strides
+  float* qs = smem;                     // G*D
+  float* q2s = qs + G * D;              // G*D2
+  float* ks = q2s + G * D2;             // ps*KS
+  float* k2s = ks + ps * KS;            // ps*K2S
+  float* vs = k2s + ps * K2S;           // ps*Dv, absent when V is K
+  const int VS = V_IS_K ? KS : Dv;      // row stride of the V tile
+  if (V_IS_K) vs = ks;
+  float* ss = k2s + ps * K2S + (V_IS_K ? 0 : ps * Dv);  // G*ps scores, then probabilities
+  float* acc = ss + G * ps;             // G*Dv
+  float* mrow = acc + G * Dv;           // G   running max
+  float* lrow = mrow + G;               // G   running denominator
+  float* corr = lrow + G;               // G   this page's rescale factor
 
   const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int length = lengths[b];
-  const size_t head = (size_t)b * Hkv + h;
+  const size_t head = ((size_t)b * Hkv + h) * Gt + (size_t)blockIdx.z * G;  // first query head
 
-  for (int e = tid; e < G * D; e += THREADS) qs[e] = to_f(q[head * G * D + e]);
+  for (int e = tid; e < G * D; e += THREADS) qs[e] = to_f(q[head * D + e]);
+  for (int e = tid; e < G * D2; e += THREADS) q2s[e] = to_f(q2[head * D2 + e]);
   for (int e = tid; e < G * Dv; e += THREADS) acc[e] = 0.f;
   for (int g = tid; g < G; g += THREADS) { mrow[g] = NEG; lrow[g] = 0.f; }
   __syncthreads();
@@ -82,22 +120,33 @@ __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
     const int phys = tables[(size_t)b * n_slots + p];  // uniform across the block
     if (phys < 0 || phys >= P) continue;               // sentinel: nothing loaded
     const int nv = min(ps, length - p * ps);           // live rows of this page
+    const size_t row0 = (size_t)phys * ps;
     for (int e = tid; e < nv * D; e += THREADS) {
       const int r = e / D, d = e - r * D;
-      ks[r * KS + d] = to_f(kp[(((size_t)phys * ps + r) * Hkv + h) * D + d]);
+      ks[r * KS + d] = to_f(kp[((row0 + r) * Hkv + h) * D + d]);
     }
-    for (int e = tid; e < nv * Dv; e += THREADS) {
-      const int r = e / Dv, d = e - r * Dv;
-      vs[e] = to_f(vp[(((size_t)phys * ps + r) * Hkv + h) * Dv + d]);
+    for (int e = tid; e < nv * D2; e += THREADS) {
+      const int r = e / D2, d = e - r * D2;
+      k2s[r * K2S + d] = to_f(k2p[((row0 + r) * Hkv + h) * D2 + d]);
+    }
+    if (!V_IS_K) {
+      for (int e = tid; e < nv * Dv; e += THREADS) {
+        const int r = e / Dv, d = e - r * Dv;
+        vs[e] = to_f(vp[((row0 + r) * Hkv + h) * Dv + d]);
+      }
     }
     __syncthreads();
-    for (int e = tid; e < G * nv; e += THREADS) {
+    for (int e = warp; e < G * nv; e += THREADS / 32) {  // a warp per (head, row)
       const int g = e / nv, r = e - g * nv;
       const float* qg = qs + g * D;
       const float* kr = ks + r * KS;
       float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(qg[d], kr[d], s);
-      ss[g * ps + r] = s * scale;
+      for (int d = lane; d < D; d += 32) s = fmaf(qg[d], kr[d], s);
+      const float* q2g = q2s + g * D2;
+      const float* k2r = k2s + r * K2S;
+      for (int d = lane; d < D2; d += 32) s = fmaf(q2g[d], k2r[d], s);
+      s = warp_sum(s);
+      if (lane == 0) ss[g * ps + r] = s * scale;
     }
     __syncthreads();
     for (int g = warp; g < G; g += THREADS / 32) {
@@ -125,47 +174,89 @@ __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
       const int g = e / Dv, d = e - g * Dv;
       const float* pg = ss + g * ps;
       float a = corr[g] * acc[e];
-      for (int r = 0; r < nv; ++r) a = fmaf(pg[r], vs[r * Dv + d], a);
+      for (int r = 0; r < nv; ++r) a = fmaf(pg[r], vs[r * VS + d], a);
       acc[e] = a;
     }
     __syncthreads();
   }
   for (int e = tid; e < G * Dv; e += THREADS) {
-    out[head * G * Dv + e] = from_f<T>(acc[e] / fmaxf(lrow[e / Dv], 1e-30f));
+    out[head * Dv + e] = from_f<TQ>(acc[e] / fmaxf(lrow[e / Dv], 1e-30f));
   }
+}
+
+template <typename TQ, typename TP, bool V_IS_K>
+int launch(const void* q, const void* q2, const void* k, const void* k2,
+           const void* v, const void* tables, const void* lengths, void* out,
+           int B, int Hkv, int G, int D, int D2, int Dv, int P, int ps,
+           int n_slots, float scale, cudaStream_t s) {
+  // split a KV head's query heads across blocks (halving while G stays
+  // even) until the grid has 64 blocks or a block has 2 heads: every block
+  // re-reads the pages (from L2), but 4 lanes of 16 MLA heads fill 32 SMs
+  int gb = G;
+  while (gb > 2 && gb % 2 == 0 && B * Hkv * (G / gb) < 64) gb /= 2;
+  const int smem = (int)sizeof(float) * smem_floats(gb, D, D2, Dv, ps, V_IS_K);
+  auto kernel = paged_attn_kernel<TQ, TP, V_IS_K>;
+  if (smem > 48 * 1024) {  // past the default: opt in, or fail the launch
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<dim3(B, Hkv, G / gb), THREADS, smem, s>>>(
+      static_cast<const TQ*>(q), static_cast<const TQ*>(q2),
+      static_cast<const TP*>(k), static_cast<const TP*>(k2),
+      static_cast<const TP*>(v), static_cast<const int*>(tables),
+      static_cast<const int*>(lengths), static_cast<TQ*>(out), Hkv, G, gb, D,
+      D2, Dv, P, ps, n_slots, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool V_IS_K>
+int launch_types(int q_dtype, int page_dtype, const void* q, const void* q2,
+                 const void* k, const void* k2, const void* v,
+                 const void* tables, const void* lengths, void* out, int B,
+                 int Hkv, int G, int D, int D2, int Dv, int P, int ps,
+                 int n_slots, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PA_ARGS q, q2, k, k2, v, tables, lengths, out, B, Hkv, G, D, D2, Dv, P, ps, n_slots, scale, s
+  if (q_dtype == 0 && page_dtype == 0) return launch<float, float, V_IS_K>(PA_ARGS);
+  if (q_dtype == 0) return launch<float, __nv_bfloat16, V_IS_K>(PA_ARGS);
+  if (page_dtype == 0) return launch<__nv_bfloat16, float, V_IS_K>(PA_ARGS);
+  return launch<__nv_bfloat16, __nv_bfloat16, V_IS_K>(PA_ARGS);
+#undef PA_ARGS
 }
 
 }  // namespace
 
-// Shared memory the kernel needs, in bytes (the wrapper keeps it <= 48 KB).
-extern "C" int paged_attn_smem_bytes(int G, int D, int Dv, int ps) {
-  return (int)sizeof(float) *
-         (G * D + ps * (D + 1) + ps * Dv + G * ps + G * Dv + 3 * G);
+// Shared memory the kernel needs, in bytes (the wrapper refuses more than
+// paged_attn_smem_max()).  D2 = 0 and v_is_k = 0 for the MHA/GQA form.
+extern "C" int paged_attn_smem_bytes(int G, int D, int D2, int Dv, int ps, int v_is_k) {
+  return (int)sizeof(float) * smem_floats(G, D, D2, Dv, ps, v_is_k != 0);
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch.  The wrapper (kernels/paged_attn.py) checks shapes, types and
-// contiguity.
+extern "C" int paged_attn_smem_max() { return SMEM_MAX; }
+
+// q_dtype / page_dtype: 0 = float32, 1 = bfloat16.  Each returns the error
+// of the shared-memory opt-in, else cudaGetLastError() after the launch.
+// The wrapper (kernels/paged_attn.py) checks shapes, types and contiguity.
 extern "C" int paged_attn_launch(const void* q, const void* k, const void* v,
                                  const void* tables, const void* lengths,
                                  void* out, int B, int Hkv, int G, int D,
                                  int Dv, int P, int ps, int n_slots,
-                                 float scale, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(B, Hkv);
-  const int smem = paged_attn_smem_bytes(G, D, Dv, ps);
-  const int* t = static_cast<const int*>(tables);
-  const int* l = static_cast<const int*>(lengths);
-  if (dtype == 0) {
-    paged_attn_kernel<float><<<grid, THREADS, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), t, l, static_cast<float*>(out), Hkv, G,
-        D, Dv, P, ps, n_slots, scale);
-  } else {
-    paged_attn_kernel<__nv_bfloat16><<<grid, THREADS, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), t, l,
-        static_cast<__nv_bfloat16*>(out), Hkv, G, D, Dv, P, ps, n_slots, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                 float scale, int q_dtype, int page_dtype,
+                                 void* stream) {
+  return launch_types<false>(q_dtype, page_dtype, q, nullptr, k, nullptr, v,
+                             tables, lengths, out, B, Hkv, G, D, 0, Dv, P, ps,
+                             n_slots, scale, stream);
+}
+
+extern "C" int paged_attn_mla_launch(const void* q, const void* q2,
+                                     const void* k, const void* k2,
+                                     const void* tables, const void* lengths,
+                                     void* out, int B, int Hkv, int G, int D,
+                                     int D2, int P, int ps, int n_slots,
+                                     float scale, int q_dtype, int page_dtype,
+                                     void* stream) {
+  return launch_types<true>(q_dtype, page_dtype, q, q2, k, k2, nullptr, tables,
+                            lengths, out, B, Hkv, G, D, D2, D, P, ps, n_slots,
+                            scale, stream);
 }

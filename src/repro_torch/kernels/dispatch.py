@@ -24,7 +24,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("nm_spmm", "paged_attn", "nm_mask")
+SOURCES = ("nm_spmm", "paged_attn", "nm_mask")  # csrc/<name>.cu, one library each
+# the kernels' entry points, each with its own launch count: the batched K1
+# lives in nm_spmm.cu, K2's MLA form in paged_attn.cu
+KERNELS = ("nm_spmm", "nm_spmm_batched", "paged_attn", "paged_attn_mla", "nm_mask")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -76,7 +79,7 @@ def build() -> Path:
     per source, all in parallel; each compiler's output goes to
     ``<name>.log`` beside its library.  Raises if any build fails."""
     out = build_dir()
-    todo = [name for name in KERNELS if not (out / f"lib{name}.so").exists()]
+    todo = [name for name in SOURCES if not (out / f"lib{name}.so").exists()]
     if not todo:
         return out
     nvcc = _nvcc()
@@ -104,16 +107,17 @@ def build() -> Path:
 
 def load_kernels() -> None:
     """Build (if needed) and load every kernel library once."""
-    if len(_libs) == len(KERNELS):
+    if len(_libs) == len(SOURCES):
         return
     out = build()
-    for name in KERNELS:
+    for name in SOURCES:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
 
 
 def kernel_fn(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C entry point ``symbol`` of kernel ``name``, typed (cached)."""
+    """The C entry point ``symbol`` of the library built from
+    ``csrc/<name>.cu``, typed (cached)."""
     if symbol not in _fns:
         load_kernels()
         fn = getattr(_libs[name], symbol)
@@ -124,7 +128,7 @@ def kernel_fn(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
 
 
 def check_launch(name: str, rc: int) -> None:
-    """Raise on a failed launch; count a good one."""
+    """Raise on a failed launch; count a good one under entry ``name``."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {rc}")
     launches[name] += 1

@@ -10,6 +10,11 @@ Layout: ``values``/``indices`` are ``(K·n/m, O)`` row-major; compressed row
 ``r`` belongs to group ``r // n`` and expands to dense row
 ``(r // n)·m + indices[r, o]``.  ``o_true`` strips a padded artifact's
 alignment columns.
+
+:func:`nm_spmm_batched` is the same product over a stack of ``E``
+independent operands (compressed MoE expert stacks ``(E, K·n/m, O)``), in
+one launch where the reference vmaps the TPU kernel over the expert axis
+(``src/repro/models/layers.py:66-74``).
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from repro_torch.kernels import dispatch
 GATHER_ROWS = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES_BATCHED = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def nm_spmm(
@@ -51,8 +57,8 @@ def _check(x, values, indices, n, m, o_true) -> int:
     return o_true
 
 
-def _launch(x, values, indices, n, m, o_true):
-    o_true = _check(x, values, indices, n, m, o_true)
+def _check_kernel(x, values, indices, m) -> None:
+    """What the CUDA kernel takes, beyond the shapes."""
     if x.dtype not in _DTYPES or values.dtype != x.dtype:
         raise TypeError(f"nm_spmm kernel takes f32 or bf16 x and values of one "
                         f"type, got {x.dtype} and {values.dtype}")
@@ -62,6 +68,11 @@ def _launch(x, values, indices, n, m, o_true):
         raise ValueError(f"group size m={m} exceeds the kernel's 256-column chunk")
     if not (x.is_contiguous() and values.is_contiguous() and indices.is_contiguous()):
         raise ValueError("nm_spmm kernel needs contiguous operands")
+
+
+def _launch(x, values, indices, n, m, o_true):
+    o_true = _check(x, values, indices, n, m, o_true)
+    _check_kernel(x, values, indices, m)
     b, k = x.shape
     y = torch.empty((b, o_true), dtype=x.dtype, device=x.device)
     if b == 0:
@@ -97,3 +108,48 @@ def nm_spmm_plain(
         dense.scatter_(0, rows.reshape(g * n, o), vals.reshape(g * n, o))
         y = x.float() @ dense
     return y[:, :o_true].to(x.dtype)
+
+
+def nm_spmm_batched(
+    x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor, n: int,
+    m: int, o_true: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`nm_spmm` of every expert: x ``(E, B, K)``, values/indices
+    ``(E, K·n/m, O)`` -> ``(E, B, o_true)``, one launch on the card."""
+    if dispatch.on_card(x, values, indices):
+        return _launch_batched(x, values, indices, n, m, o_true)
+    return nm_spmm_batched_plain(x, values, indices, n, m, o_true)
+
+
+def _check_batched(x, values, indices) -> None:
+    if x.dim() != 3 or values.dim() != 3 or x.shape[0] != values.shape[0]:
+        raise ValueError(f"need x (E, B, K), values/indices (E, Kc, O); got "
+                         f"{tuple(x.shape)}, {tuple(values.shape)}, {tuple(indices.shape)}")
+
+
+def _launch_batched(x, values, indices, n, m, o_true):
+    _check_batched(x, values, indices)
+    o_true = _check(x[0], values[0], indices[0], n, m, o_true)
+    _check_kernel(x, values, indices, m)
+    e, b, k = x.shape
+    if e > 65535:
+        raise ValueError(f"{e} experts exceed the grid's z extent 65535")
+    y = torch.empty((e, b, o_true), dtype=x.dtype, device=x.device)
+    if b == 0:
+        return y
+    fn = dispatch.kernel_fn("nm_spmm", "nm_spmm_batched_launch", _ARGTYPES_BATCHED)
+    rc = fn(x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
+            e, b, k, values.shape[2], o_true, n, m, _DTYPES[x.dtype],
+            dispatch.stream_ptr(x.device))
+    dispatch.check_launch("nm_spmm_batched", rc)
+    return y
+
+
+def nm_spmm_batched_plain(
+    x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor, n: int,
+    m: int, o_true: Optional[int] = None,
+) -> torch.Tensor:
+    """The same function in plain PyTorch: :func:`nm_spmm_plain` per expert."""
+    _check_batched(x, values, indices)
+    return torch.stack([nm_spmm_plain(x[e], values[e], indices[e], n, m, o_true)
+                        for e in range(x.shape[0])])

@@ -1,6 +1,7 @@
 """Serving launcher: compressed-native continuous-batching decode on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \\
+        [--arch gpt2-paper|deepseek-v2-lite-16b] \\
         [--paged --page-size 16 --num-pages 64] [--steps-per-dispatch 4] \\
         [--ckpt-dir RUN] [--dense] [--temperature 0.8 --top-k 40] [--device cpu]
 
@@ -8,9 +9,12 @@ Counterpart of ``repro/launch/serve.py`` (sync scheduler only).  Loads or
 initializes the parameters, applies the final STEP N:M mask (Π_T ⊙ w_T),
 compresses the maskable leaves and serves the compressed tree through
 ``DecodeEngine``: every matmul of prefill and decode runs the ``nm_spmm``
-kernel, and ``--paged`` decode attention the ``paged_attn`` kernel.
-``--dense`` serves the masked-dense tree instead.  Prints two JSON lines:
-the compression report and the run summary, with the reference's keys.
+kernel (MoE expert stacks its batched form), and ``--paged`` decode
+attention the ``paged_attn`` kernel (MLA its latent form).  Export and
+compression go leaf by leaf (``export_compressed``), so a full-width
+DeepSeek-V2-Lite fits one 80 GB card.  ``--dense`` serves the masked-dense
+tree instead.  Prints two JSON lines: the compression report and the run
+summary, with the reference's keys.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from repro_torch.checkpoint import restore_latest
 from repro_torch.configs import get_config, list_archs
 from repro_torch.models.model import init_params
 from repro_torch.serving import DecodeEngine, SamplingParams
-from repro_torch.sparse_infer import compress_params, compression_report
+from repro_torch.sparse_infer import export_compressed
 from repro_torch.utils.device import resolve_device
 
 
@@ -40,10 +44,9 @@ def build_serving_state(args, device) -> tuple:
             print(f"# restored params from step {step}")
     n, m = (int(x) for x in args.nm.split(":"))
     recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(n, m)))
-    sparse = recipe.export_sparse(params)  # Π_T ⊙ w_T
-    comp = compress_params(sparse, recipe.sparsity)
-    rep = compression_report(sparse, comp)
-    return cfg, (sparse if args.dense else comp), rep
+    # Π_T ⊙ w_T, compressed unless --dense; consumes params leaf by leaf
+    served, rep = export_compressed(params, recipe, compress=not args.dense)
+    return cfg, served, rep
 
 
 def parse_args(argv=None):

@@ -1,10 +1,20 @@
 """KV-cache layouts (counterpart of ``repro/models/cache.py``).
 
-- :class:`SlabLayout`: a contiguous ``(L, B, max_len, Hkv, D)`` slab.
-- :class:`PagedLayout`: a ``(L, P + 1, ps, Hkv, D)`` pool behind per-lane
+- :class:`SlabLayout`: a contiguous ``(..., B, max_len, ...)`` slab.
+- :class:`PagedLayout`: a ``(..., P + 1, ps, ...)`` pool behind per-lane
   page tables ``(B, ceil(max_len / ps))`` int32, append-only (slot ``p``
   holds positions ``[p·ps, (p+1)·ps)``); unmapped slots hold the sentinel
   ``P``.
+
+A layer's cache entry is a dict of leaves, each with its own per-token
+shape: ``{"k", "v"}`` of ``(Hkv, D)`` for attention, ``{"ckv", "krope"}`` of
+``(kv_lora,)`` / ``(rope_dim,)`` for MLA's latents.  Leading axes stack
+layers (``(L, ...)`` under ``body``; none for a ``head_*`` layer).  The
+layouts treat every leaf alike: ``alloc`` is the reference's
+``attn_alloc``/``mla_alloc``, ``write`` (one token per lane into one
+layer's entry) its ``attn_write``/``mla_write``, ``write_rows`` (prefilled
+rows into a stacked entry) its ``attn_write_rows``/``mla_write_rows``;
+``mla_rw`` writes and returns the latent view MLA's expanded decode reads.
 
 The JAX package leans on out-of-range scatters being dropped: writes of idle
 lanes, pad rows and frozen lanes aim at the sentinel page ``P`` and vanish.
@@ -31,38 +41,43 @@ def cdiv(a: int, b: int) -> int:
 class SlabLayout:
     """Contiguous ``(B, max_len, ...)`` per-lane cache."""
 
-    max_len: int
+    max_len: int = 0  # only needed for allocation
     kind = "slab"
 
-    def attn_alloc(self, n_layers: int, batch: int, n_kv: int, hd: int, dtype,
-                   device) -> dict:
-        shp = (n_layers, batch, self.max_len, n_kv, hd)
-        return {"k": torch.zeros(shp, dtype=dtype, device=device),
-                "v": torch.zeros(shp, dtype=dtype, device=device)}
+    def alloc(self, lead: tuple, batch: int, entries: dict, dtype, device) -> dict:
+        """Zeroed ``lead + (B, max_len) + shape`` leaves, one per
+        ``entries`` name -> per-token shape."""
+        return {name: torch.zeros(lead + (batch, self.max_len) + shp, dtype=dtype,
+                                  device=device) for name, shp in entries.items()}
 
     def tables(self, batch: int, device):
         return None
 
-    def attn_write(self, c: dict, k_new, v_new, pos, tables) -> None:
+    def write(self, c: dict, entries: dict, pos, tables) -> None:
         """Write one token per lane at ``pos`` into one layer's ``c``
-        (``(B, S, ...)``); lanes at ``pos >= S`` (frozen at capacity) keep
-        their contents, as the reference's dropped scatter does."""
-        s = c["k"].shape[1]
+        (leaves ``(B, S, ...)``); lanes at ``pos >= S`` (frozen at capacity)
+        keep their contents, as the reference's dropped scatter does."""
         bidx = torch.arange(pos.shape[0], device=pos.device)
-        ok = (pos < s)[:, None, None]
-        slot = pos.clamp(max=s - 1)
-        for name, x in (("k", k_new), ("v", v_new)):
+        for name, x in entries.items():
+            s = c[name].shape[1]
+            slot = pos.clamp(max=s - 1)
             old = c[name][bidx, slot]
+            ok = (pos < s).reshape((-1,) + (1,) * (old.dim() - 1))
             c[name][bidx, slot] = torch.where(ok, x.to(old.dtype), old)
 
-    def attn_write_rows(self, c: dict, k_rows, v_rows, lanes, lens, tables) -> None:
+    def mla_rw(self, c: dict, ckv_new, krope_new, pos, tables):
+        """Write one latent token per lane; return the ``(B, S, ...)``
+        latent views (the slab itself)."""
+        self.write(c, {"ckv": ckv_new, "krope": krope_new}, pos, tables)
+        return c["ckv"], c["krope"]
+
+    def write_rows(self, c: dict, rows: dict, lanes, lens, tables) -> None:
         """Write prefilled rows ``(L, N, Lp, ...)`` into lanes ``lanes``
         (distinct, all real) of the stacked cache.  Positions ``>= lens``
         get the prompt's pad entries: dead under the length mask, and
         overwritten by later decode writes."""
-        lp = k_rows.shape[2]
-        c["k"][:, lanes, :lp] = k_rows.to(c["k"].dtype)
-        c["v"][:, lanes, :lp] = v_rows.to(c["v"].dtype)
+        for name, x in rows.items():
+            c[name][:, lanes, : x.shape[2]] = x.to(c[name].dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,11 +97,12 @@ class PagedLayout:
     def sentinel(self) -> int:
         return self.num_pages
 
-    def attn_alloc(self, n_layers: int, batch: int, n_kv: int, hd: int, dtype,
-                   device) -> dict:
-        shp = (n_layers, self.num_pages + 1, self.page_size, n_kv, hd)  # +1: sink page
-        return {"k": torch.zeros(shp, dtype=dtype, device=device),
-                "v": torch.zeros(shp, dtype=dtype, device=device)}
+    def alloc(self, lead: tuple, batch: int, entries: dict, dtype, device) -> dict:
+        """Zeroed ``lead + (P + 1, ps) + shape`` pools (the last page is the
+        sink), one per ``entries`` name -> per-token shape."""
+        pool = (self.num_pages + 1, self.page_size)
+        return {name: torch.zeros(lead + pool + shp, dtype=dtype, device=device)
+                for name, shp in entries.items()}
 
     def tables(self, batch: int, device) -> dict:
         return {"full": torch.full((batch, self.pages_full), self.sentinel,
@@ -96,13 +112,16 @@ class PagedLayout:
         """The ``(P, ps, ...)`` pages attention reads (the sink page cut)."""
         return pages[: self.num_pages]
 
-    def _scatter(self, c: dict, entries: dict, widx: torch.Tensor) -> None:
+    @staticmethod
+    def _scatter(c: dict, entries: dict, widx: torch.Tensor, lead: int) -> None:
+        """Store ``entries`` (``lead`` layer axes, then one token per
+        ``widx``) at the pool's flat ``(page, slot)`` indices ``widx``."""
         for name, x in entries.items():
             pool = c[name]
-            flat = pool.view(pool.shape[:-4] + (-1,) + pool.shape[-2:])
-            flat[..., widx, :, :] = x.to(pool.dtype)
+            flat = pool.view(pool.shape[:lead] + (-1,) + pool.shape[lead + 2:])
+            flat[(slice(None),) * lead + (widx,)] = x.to(flat.dtype)
 
-    def attn_write(self, c: dict, k_new, v_new, pos, tables) -> None:
+    def write(self, c: dict, entries: dict, pos, tables) -> None:
         """Scatter one token per lane into its page of one layer's pool
         ``(P + 1, ps, ...)``; unmapped slots and positions past the table
         land on the sink page."""
@@ -111,21 +130,28 @@ class PagedLayout:
         phys = pt.gather(1, page.clamp(max=pt.shape[1] - 1)[:, None])[:, 0]
         phys = torch.where(page < pt.shape[1], phys, self.sentinel)
         widx = phys.long() * self.page_size + pos.long() % self.page_size
-        self._scatter(c, {"k": k_new, "v": v_new}, widx)
+        self._scatter(c, entries, widx, 0)
 
-    def attn_write_rows(self, c: dict, k_rows, v_rows, lanes, lens, tables) -> None:
+    def mla_rw(self, c: dict, ckv_new, krope_new, pos, tables):
+        """Write one latent token per lane; return the ``(B, n_slots·ps,
+        ...)`` latent views gathered through the tables (the reference's
+        gathered route; unmapped slots read page 0 and are dead under the
+        length mask)."""
+        self.write(c, {"ckv": ckv_new, "krope": krope_new}, pos, tables)
+        phys = tables["full"].long().clamp(max=self.num_pages - 1)
+        return tuple(c[name][phys].flatten(1, 2) for name in ("ckv", "krope"))
+
+    def write_rows(self, c: dict, rows: dict, lanes, lens, tables) -> None:
         """Scatter prefilled rows ``(L, N, Lp, ...)`` of lanes ``lanes``
         into the stacked pool; positions ``>= lens`` go to the sink page."""
         ps = self.page_size
-        n, lp = k_rows.shape[1:3]
+        n, lp = next(iter(rows.values())).shape[1:3]
         a = torch.arange(lp, device=lens.device)[None, :]
         phys = tables["full"][lanes.long()][:, : cdiv(lp, ps)]
         phys = phys.repeat_interleave(ps, dim=1)[:, :lp].long()  # (N, Lp)
         widx = torch.where(a < lens[:, None], phys * ps + a % ps,
                            self.sentinel * ps).reshape(-1)
-        self._scatter(c, {"k": k_rows.reshape((k_rows.shape[0], n * lp) + k_rows.shape[3:]),
-                          "v": v_rows.reshape((v_rows.shape[0], n * lp) + v_rows.shape[3:])},
-                      widx)
+        self._scatter(c, {name: x.flatten(1, 2) for name, x in rows.items()}, widx, 1)
 
 
 def paged_layout_for(cfg, max_len: int, *, page_size: int, num_pages: int) -> PagedLayout:

@@ -12,7 +12,7 @@ from typing import Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.nm_spmm import nm_spmm
+from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_batched
 from repro_torch.sparse_infer.compress import CompressedTensor
 
 Weight = Union[torch.Tensor, CompressedTensor]
@@ -20,18 +20,33 @@ _NEG = -1e30  # finite -inf stand-in for masked scores
 
 
 def matmul(x: torch.Tensor, w: Weight) -> torch.Tensor:
-    """``y = x @ w`` for a dense or a 2-D N:M-compressed weight."""
+    """``y = x @ w`` for a dense or an N:M-compressed weight.
+
+    A 2-D compressed weight takes any ``(..., K)`` activation; a stacked
+    ``(E, K·n/m, O)`` one (MoE experts) takes ``(E, B, K)`` and runs every
+    expert in one batched launch, where the reference vmaps the kernel."""
     if not isinstance(w, CompressedTensor):
         return x @ w
-    if w.values.dim() != 2 or w.group_axis % 2 != 0:
+    nd = w.values.dim()
+    if nd not in (2, 3) or w.group_axis % nd != nd - 2 or (nd == 3 and x.dim() != 3):
         raise ValueError(
-            f"compressed matmul needs a 2-D weight grouped along its reduction "
-            f"axis, got values {tuple(w.values.shape)}, group_axis {w.group_axis}"
+            f"unsupported compressed matmul: x {tuple(x.shape)} @ values "
+            f"{tuple(w.values.shape)} grouped along axis {w.group_axis}"
         )
+    if nd == 3:
+        return nm_spmm_batched(x.contiguous(), w.values, w.indices, w.n, w.m,
+                               o_true=w.out_features)
     lead = x.shape[:-1]
     y = nm_spmm(x.reshape(-1, x.shape[-1]).contiguous(), w.values, w.indices,
                 w.n, w.m, o_true=w.out_features)
     return y.reshape(lead + (w.out_features,))
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in f32 with a ``(1 + scale)`` gain, cast back to ``x.dtype``."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -101,6 +116,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """``w_down(silu(w_gate(x)) * w_up(x))``, the product in f32."""
+    gate = F.silu(matmul(x, p["w_gate"]).float())
+    up = matmul(x, p["w_up"]).float()
+    return matmul((gate * up).to(x.dtype), p["w_down"])
 
 
 def gelu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:

@@ -1,23 +1,30 @@
-"""The decoder LM, dense family (counterpart of ``repro/models/model.py``).
+"""The decoder LM (counterpart of ``repro/models/model.py``).
 
 Parameters are a nested dict keyed like the reference (``embed/tok_embed``,
-``final/norm_scale``, ``body/sb_0/attn/wq``, ...), with the ``L`` layers
-stacked along a leading axis of every ``body`` leaf, so a JAX tree carries
-over as it is.  Leaves may be ``CompressedTensor``: every weight matmul goes
-through ``layers.matmul``, so prefill and decode run on the compressed
-artifact directly.
+``final/norm_scale``, ``head_0/attn/w_q``, ``body/sb_0/moe/w_gate_e``, ...).
+``layer_plan`` splits the layers as the reference does: unstacked leading
+``head_*`` layers (DeepSeek's dense first layer), then ``n_body`` copies of
+one block stacked along a leading axis of every ``body/sb_0`` leaf, so a JAX
+tree carries over as it is.  Leaves may be ``CompressedTensor``: every
+weight matmul goes through ``layers.matmul``, so prefill and decode run on
+the compressed artifact directly (MoE expert stacks in one batched launch
+per weight).
 
-The cache is a dict ``{"len": (B,) int32, "body": {"sb_0": {"k", "v"}},
-"tables": {...}}`` (tables only on the paged layout), updated in place.
-On the paged layout decode attention goes through the ``paged_attn``
-kernel, where the reference's kernel route does (``model.py:794-815``).
+The cache is a dict ``{"len": (B,) int32, "head_0": {...}, "body": {"sb_0":
+{...}}, "tables": {...}}`` (tables only on the paged layout) whose entries
+are ``{"k", "v"}`` for attention and ``{"ckv", "krope"}`` for MLA, updated
+in place.  On the paged layout decode attention goes through the
+``paged_attn`` kernel where the reference's kernel route does: the MHA/GQA
+form for attention (``model.py:794-815``), the MLA latent form (K2m) for
+MLA (``mla.py:202-237``).
 
-Only what gpt2-paper uses is ported: MHA/GQA attention with RoPE and
-optional q/k/v/o biases, a GeLU MLP, LayerNorm and tied embeddings.  Other families
-and options raise (ROADMAP.md lists them).  :func:`loss_fn` is the training
-loss; it differentiates through :func:`forward` with autograd, which keeps
-every layer's activations (the reference rematerializes them per layer; at
-gpt2-paper's size and the training batches used here they fit).
+Ported: the dense family (MHA/GQA attention with RoPE and optional q/k/v/o
+biases) and the MoE family with MLA (DeepSeek-V2); SwiGLU and GeLU MLPs,
+RMSNorm and LayerNorm, tied and untied embeddings.  Sliding windows, hybrid
+layer patterns, SSM and RG-LRU mixers, M-RoPE and frontends raise
+(ROADMAP.md).  :func:`loss_fn` is the training loss; it differentiates
+through the forward with autograd, which keeps every layer's activations
+(the reference rematerializes them per layer).
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attn import paged_attn
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 from repro_torch.models.cache import SlabLayout
 from repro_torch.sparse_infer.compress import CompressedTensor
 from repro_torch.utils.device import resolve_device
@@ -35,20 +44,20 @@ from repro_torch.utils.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class LayerPlan:
-    head: tuple[str, ...]  # unscanned leading layers (none in the dense family)
+    head: tuple[str, ...]  # kinds of unstacked leading layers
     period: tuple[str, ...]  # the stacked super-block's kinds
     n_body: int  # number of stacked super-blocks
     tail: tuple[str, ...]
 
 
 def layer_plan(cfg: ArchConfig) -> LayerPlan:
-    """The dense family's plan: one ``attn`` block stacked ``n_layers``
-    times under ``body/sb_0``.  Raises for what is not ported."""
+    """One block kind stacked under ``body/sb_0``, after a ``head_0`` with a
+    dense MLP where the MoE config asks for one.  Raises for what is not
+    ported."""
     unported = {
-        "family": cfg.family != "dense", "norm": cfg.norm != "ln",
-        "mlp": cfg.mlp != "gelu", "rope": cfg.rope != "rope",
+        "family": cfg.family not in ("dense", "moe"), "rope": cfg.rope != "rope",
         "local_window": cfg.local_window is not None,
-        "untied embeddings": not cfg.tie_embeddings,
+        "layer_pattern": cfg.layer_pattern is not None, "frontend": cfg.frontend != "none",
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -56,7 +65,15 @@ def layer_plan(cfg: ArchConfig) -> LayerPlan:
             f"{cfg.name}: {', '.join(bad)} not ported to repro_torch yet "
             "(see ROADMAP.md)"
         )
-    return LayerPlan((), ("attn",), cfg.n_layers, ())
+    head = ("attn:dense",) if cfg.moe is not None and cfg.moe.first_layer_dense else ()
+    return LayerPlan(head, ("attn",), cfg.n_layers - len(head), ())
+
+
+def _block_mixer_mlp(kind: str, cfg: ArchConfig) -> tuple[str, str]:
+    """A layer kind -> ``(mixer, mlp)``: ``attn | mla`` and ``dense | moe``."""
+    mixer = "mla" if cfg.mla is not None else "attn"
+    moe = cfg.moe is not None and not kind.endswith(":dense")
+    return mixer, ("moe" if moe else "dense")
 
 
 # ---------------------------------------------------------------------------
@@ -66,35 +83,79 @@ def layer_plan(cfg: ArchConfig) -> LayerPlan:
 
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     """Random parameters with the reference's shapes, dtypes and
-    distributions (not its PRNG bits: parity tests carry weights over)."""
+    distributions (not its PRNG bits: parity tests carry weights over).
+    A stacked expert leaf is drawn one layer slice at a time, so the f32
+    draws never hold more than one slice."""
     plan = layer_plan(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    n, d, f = plan.n_body, cfg.d_model, cfg.d_ff
-    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
 
-    def normal(shape, std):
-        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+    def normal(shape, std, dt=dtype):
+        out = torch.empty(shape, dtype=dt, device=dev)
+        for part in (out.unbind(0) if len(shape) > 3 else (out,)):
+            part.copy_(torch.randn(part.shape, generator=gen, device=dev) * std)
+        return out
 
-    def dense(i, o):
-        return normal((n, i, o), (2.0 / (i + o)) ** 0.5)
+    def dense(lead, i, o):
+        return normal(lead + (i, o), (2.0 / (i + o)) ** 0.5)
 
     def norm(*lead):
+        if cfg.norm == "rms":
+            return {"norm_scale": torch.zeros(lead + (d,), device=dev)}
         return {"norm_scale": torch.ones(lead + (d,), device=dev),
                 "norm_bias": torch.zeros(lead + (d,), device=dev)}
 
-    attn = {"wq": dense(d, h * hd), "wk": dense(d, kv * hd),
-            "wv": dense(d, kv * hd), "wo": dense(h * hd, d)}
-    if cfg.qkv_bias:
-        for name, width in (("bias_q", h * hd), ("bias_k", kv * hd), ("bias_v", kv * hd)):
-            attn[name] = torch.zeros((n, width), dtype=dtype, device=dev)
-    if cfg.o_bias:
-        attn["bias_o"] = torch.zeros((n, d), dtype=dtype, device=dev)
-    block = {"pre": norm(n), "attn": attn, "post": norm(n),
-             "mlp": {"w_fc": dense(d, f), "w_proj": dense(f, d)}}
-    params = {"embed": {"tok_embed": normal((cfg.vocab, d), 0.02)},
-              "final": norm(), "body": {"sb_0": block}}
+    def attn(lead):
+        if cfg.mla is not None:
+            m = cfg.mla
+            return {"w_q": dense(lead, d, h * (m.nope_head_dim + m.rope_head_dim)),
+                    "w_dkv": dense(lead, d, m.kv_lora + m.rope_head_dim),
+                    "w_ukv": dense(lead, m.kv_lora, h * (m.nope_head_dim + m.v_head_dim)),
+                    "w_o": dense(lead, h * m.v_head_dim, d)}
+        p = {"wq": dense(lead, d, h * hd), "wk": dense(lead, d, kv * hd),
+             "wv": dense(lead, d, kv * hd), "wo": dense(lead, h * hd, d)}
+        if cfg.qkv_bias:
+            for name, width in (("bias_q", h * hd), ("bias_k", kv * hd), ("bias_v", kv * hd)):
+                p[name] = torch.zeros(lead + (width,), dtype=dtype, device=dev)
+        if cfg.o_bias:
+            p["bias_o"] = torch.zeros(lead + (d,), dtype=dtype, device=dev)
+        return p
+
+    def swiglu(lead, f):
+        return {"w_gate": dense(lead, d, f), "w_up": dense(lead, d, f),
+                "w_down": dense(lead, f, d)}
+
+    def moe(lead):
+        m = cfg.moe
+        e, f = m.n_experts, m.d_ff_expert
+        scale_in = (2.0 / (d + f)) ** 0.5  # the reference's, for all three stacks
+        p = {"router": normal(lead + (d, e), 0.02, torch.float32),
+             "w_gate_e": normal(lead + (e, d, f), scale_in),
+             "w_up_e": normal(lead + (e, d, f), scale_in),
+             "w_down_e": normal(lead + (e, f, d), scale_in)}
+        if m.n_shared:
+            p["shared"] = swiglu(lead, m.n_shared * f)
+        return p
+
+    def block(kind, lead):
+        _, mlp = _block_mixer_mlp(kind, cfg)
+        p = {"pre": norm(*lead), "attn": attn(lead), "post": norm(*lead)}
+        if mlp == "moe":
+            p["moe"] = moe(lead)
+        elif cfg.mlp == "swiglu":
+            p["mlp"] = swiglu(lead, cfg.d_ff)
+        else:
+            p["mlp"] = {"w_fc": dense(lead, d, cfg.d_ff), "w_proj": dense(lead, cfg.d_ff, d)}
+        return p
+
+    params = {f"head_{i}": block(kind, ()) for i, kind in enumerate(plan.head)}
+    params["body"] = {"sb_0": block(plan.period[0], (plan.n_body,))}
+    params["embed"] = {"tok_embed": normal((cfg.vocab, d), 0.02)}
+    params["final"] = norm()
+    if not cfg.tie_embeddings:
+        params["unembed"] = {"out_embed": dense((), d, cfg.vocab)}
     return params
 
 
@@ -124,6 +185,12 @@ def _layer(tree: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _apply_norm(cfg: ArchConfig, p: dict, x):
+    if cfg.norm == "rms":
+        return L.rmsnorm(x, p["norm_scale"])
+    return L.layernorm(x, p["norm_scale"], p["norm_bias"])
+
+
 def _qkv(x, p, cfg: ArchConfig, positions):
     b, s, _ = x.shape
     q, k, v = L.matmul(x, p["wq"]), L.matmul(x, p["wk"]), L.matmul(x, p["wv"])
@@ -140,37 +207,102 @@ def _out(attn, p, cfg: ArchConfig):
     return out + p["bias_o"] if cfg.o_bias else out
 
 
-def _mlp(x, p):
-    return x + L.gelu_mlp(L.layernorm(x, p["post"]["norm_scale"], p["post"]["norm_bias"]),
-                          p["mlp"])
+def _mlp(x, p, kind: str, cfg: ArchConfig):
+    """The residual MLP half of a block: ``(x + mlp(norm(x)), aux loss)``."""
+    h = _apply_norm(cfg, p["post"], x)
+    if _block_mixer_mlp(kind, cfg)[1] == "moe":
+        out, aux = MOE.moe_mlp(h, p["moe"], cfg.moe)
+        return x + out, aux
+    mlp = L.swiglu_mlp if cfg.mlp == "swiglu" else L.gelu_mlp
+    return x + mlp(h, p["mlp"]), 0.0
 
 
-def _unembed(x, params):
-    """Tied logits ``norm(x) @ tok_embed.T``; the embedding stays dense."""
-    x = L.layernorm(x, params["final"]["norm_scale"], params["final"]["norm_bias"])
-    return x @ params["embed"]["tok_embed"].T
+def _block_forward(x, p, kind: str, cfg: ArchConfig, positions, chunk: int):
+    """Full-sequence block: ``(x, aux loss, cache entry)``, the entry
+    ``(k, v)`` for attention (after RoPE) and ``(c_kv, k_rope)`` for MLA."""
+    h = _apply_norm(cfg, p["pre"], x)
+    if _block_mixer_mlp(kind, cfg)[0] == "mla":
+        mix, entry = MLA.mla_attention(h, p["attn"], cfg.n_heads, cfg.mla, positions,
+                                       cfg.rope_theta, chunk)
+    else:
+        q, k, v = _qkv(h, p["attn"], cfg, positions)
+        mix, entry = _out(L.chunked_attention(q, k, v, chunk=chunk), p["attn"], cfg), (k, v)
+    x, aux = _mlp(x + mix, p, kind, cfg)
+    return x, aux, entry
+
+
+def _attn_decode(x, p, cfg: ArchConfig, c: dict, pos, layout, tables):
+    b = x.shape[0]
+    q, k, v = _qkv(x, p, cfg, pos[:, None])
+    layout.write(c, {"k": k[:, 0], "v": v[:, 0]}, pos, tables)
+    if layout.kind == "paged":
+        g = cfg.n_heads // cfg.n_kv
+        attn = paged_attn(
+            q[:, 0].reshape(b, cfg.n_kv, g, cfg.hd).contiguous(),
+            layout.pool_view(c["k"]), layout.pool_view(c["v"]),
+            tables["full"], pos + 1, scale=cfg.hd ** -0.5,
+        ).reshape(b, 1, cfg.n_heads, cfg.hd)
+    else:
+        s_view = c["k"].shape[1]
+        attn = L.decode_attention(q, c["k"], c["v"], pos.clamp(max=s_view - 1) + 1)
+    return _out(attn, p, cfg)
+
+
+def _block_decode(x, p, kind: str, cfg: ArchConfig, c: dict, pos, layout, tables):
+    h = _apply_norm(cfg, p["pre"], x)
+    if _block_mixer_mlp(kind, cfg)[0] == "mla":
+        mix = MLA.mla_decode(h, p["attn"], cfg.n_heads, cfg.mla, c, pos, cfg.rope_theta,
+                             layout, tables)
+    else:
+        mix = _attn_decode(h, p["attn"], cfg, c, pos, layout, tables)
+    return _mlp(x + mix, p, kind, cfg)[0]
+
+
+def _unembed(x, params, cfg: ArchConfig):
+    """Logits from the final norm: tied (``tok_embed.T``, dense) or through
+    ``unembed/out_embed`` (left dense by the sparsity config)."""
+    x = _apply_norm(cfg, params["final"], x)
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["tok_embed"].T
+    return L.matmul(x, params["unembed"]["out_embed"])
+
+
+# ---------------------------------------------------------------------------
+# full sequence
+# ---------------------------------------------------------------------------
+
+
+def _forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, want_cache: bool,
+             chunk: int):
+    plan = layer_plan(cfg)
+    b, s = tokens.shape
+    x = params["embed"]["tok_embed"][tokens]
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    aux = torch.zeros((), device=x.device)
+    caches: dict = {}
+    for i, kind in enumerate(plan.head):
+        x, a, caches[f"head_{i}"] = _block_forward(x, params[f"head_{i}"], kind, cfg,
+                                                   positions, chunk)
+        aux = aux + a
+    body = []
+    for p in _layers(params["body"]["sb_0"], plan.n_body):
+        x, a, entry = _block_forward(x, p, plan.period[0], cfg, positions, chunk)
+        aux = aux + a
+        if want_cache:
+            body.append(entry)
+    caches["body"] = {"sb_0": tuple(torch.stack(t) for t in zip(*body))}
+    return _unembed(x, params, cfg), aux, (caches if want_cache else None)
 
 
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             want_cache: bool = False, chunk: int = 512):
     """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), caches).
 
-    With ``want_cache`` the caches are ``{"body": {"sb_0": (k, v)}}``, each
-    ``(L, B, S, Hkv, D)`` after RoPE — what ``write_prefill`` stores."""
-    plan = layer_plan(cfg)
-    b, s = tokens.shape
-    x = params["embed"]["tok_embed"][tokens]
-    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    ks, vs = [], []
-    for p in _layers(params["body"]["sb_0"], plan.n_body):
-        h = L.layernorm(x, p["pre"]["norm_scale"], p["pre"]["norm_bias"])
-        q, k, v = _qkv(h, p["attn"], cfg, positions)
-        x = _mlp(x + _out(L.chunked_attention(q, k, v, chunk=chunk), p["attn"], cfg), p)
-        if want_cache:
-            ks.append(k)
-            vs.append(v)
-    logits = _unembed(x, params)
-    caches = {"body": {"sb_0": (torch.stack(ks), torch.stack(vs))}} if want_cache else None
+    With ``want_cache`` the caches hold each layer's cache entry over the
+    whole prompt: ``{"head_0": (c_kv, k_rope), "body": {"sb_0": (...)}}``,
+    body entries stacked ``(L, B, S, ...)`` — what ``write_prefill``
+    stores."""
+    logits, _, caches = _forward(params, cfg, tokens, want_cache, chunk)
     return logits, caches
 
 
@@ -179,10 +311,11 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, chunk: int = 512,
     """Training loss: ``(total, {"ce", "aux", "zloss"})``.
 
     Cross-entropy from an f32 logsumexp, plus ``z_weight·lse²`` and
-    ``aux_weight·aux`` (the dense family has no auxiliary loss: 0), each a
-    mean over the tokens, or over ``batch["loss_mask"]`` where given.
-    ``batch`` holds ``tokens`` and ``labels`` (B, S)."""
-    logits, _ = forward(params, cfg, batch["tokens"], chunk=chunk)
+    ``aux_weight·aux`` (the MoE load-balancing loss summed over layers; 0
+    in the dense family), each a mean over the tokens, or over
+    ``batch["loss_mask"]`` where given.  ``batch`` holds ``tokens`` and
+    ``labels`` (B, S)."""
+    logits, aux, _ = _forward(params, cfg, batch["tokens"], False, chunk)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
@@ -194,7 +327,6 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, chunk: int = 512,
         ce, zl = (nll * mask).sum() / denom, (zloss * mask).sum() / denom
     else:
         ce, zl = nll.mean(), zloss.mean()
-    aux = torch.zeros((), device=lf.device)
     total = ce + aux_weight * aux + z_weight * zl
     return total, {"ce": ce, "aux": aux, "zloss": zl}
 
@@ -211,26 +343,46 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
     dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.param_dtype)
     layout = layout or SlabLayout(max_len)
-    cache = {
-        "len": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
-        "body": {"sb_0": layout.attn_alloc(plan.n_body, batch_size, cfg.n_kv,
-                                           cfg.hd, dtype, dev)},
-    }
+
+    def alloc(kind, lead):
+        return layout.alloc(lead, batch_size, _cache_entries(kind, cfg), dtype, dev)
+
+    cache = {"len": torch.zeros((batch_size,), dtype=torch.int32, device=dev)}
+    for i, kind in enumerate(plan.head):
+        cache[f"head_{i}"] = alloc(kind, ())
+    cache["body"] = {"sb_0": alloc(plan.period[0], (plan.n_body,))}
     tables = layout.tables(batch_size, dev)
     if tables is not None:
         cache["tables"] = tables
     return cache
 
 
+def _cache_entries(kind: str, cfg: ArchConfig) -> dict:
+    """A layer's cache leaves -> per-token shape, in the order of the
+    entry ``forward(want_cache=True)`` produces."""
+    if _block_mixer_mlp(kind, cfg)[0] == "mla":
+        return {"ckv": (cfg.mla.kv_lora,), "krope": (cfg.mla.rope_head_dim,)}
+    return {"k": (cfg.n_kv, cfg.hd), "v": (cfg.n_kv, cfg.hd)}
+
+
 def write_prefill(cache: dict, cfg: ArchConfig, produced: dict, lanes, lens,
                   layout=None) -> dict:
-    """Store freshly prefilled rows: row ``r`` of ``produced`` (from
-    ``forward(want_cache=True)``), valid below ``lens[r]``, lands in lane
-    ``lanes[r]``.  Every row is a real request (the engine drops its pad
-    rows before this call); lanes are distinct."""
-    layout = layout or SlabLayout(cache["body"]["sb_0"]["k"].shape[2])
-    k, v = produced["body"]["sb_0"]
-    layout.attn_write_rows(cache["body"]["sb_0"], k, v, lanes, lens, cache.get("tables"))
+    """Store freshly prefilled rows: row ``r < len(lanes)`` of ``produced``
+    (from ``forward(want_cache=True)``), valid below ``lens[r]``, lands in
+    lane ``lanes[r]`` (lanes distinct); rows past ``len(lanes)`` are the
+    batch's pad rows and are dropped, leaf by leaf."""
+    plan = layer_plan(cfg)
+    layout = layout or SlabLayout()
+    tables, n = cache.get("tables"), lanes.shape[0]
+    for i, kind in enumerate(plan.head):
+        c = cache[f"head_{i}"]
+        rows = dict(zip(_cache_entries(kind, cfg), produced[f"head_{i}"]))
+        # an unstacked layer written as a stack of one (views: in place)
+        layout.write_rows({k: v[None] for k, v in c.items()},
+                          {k: v[None, :n] for k, v in rows.items()}, lanes, lens, tables)
+    rows = dict(zip(_cache_entries(plan.period[0], cfg), produced["body"]["sb_0"]))
+    layout.write_rows(cache["body"]["sb_0"], {k: v[:, :n] for k, v in rows.items()},
+                      lanes, lens, tables)
     cache["len"][lanes] = lens.to(torch.int32)
     return cache
 
@@ -243,30 +395,18 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     ``len + 1`` positions; ``cache["len"]`` then advances by one.  The cache
     is updated in place and returned."""
     plan = layer_plan(cfg)
-    layout = layout or SlabLayout(cache["body"]["sb_0"]["k"].shape[2])
-    b = tokens.shape[0]
+    layout = layout or SlabLayout()
     pos = cache["len"]
     tables = cache.get("tables")
     x = params["embed"]["tok_embed"][tokens][:, None, :]
-    g = cfg.n_heads // cfg.n_kv
+    for i, kind in enumerate(plan.head):
+        x = _block_decode(x, params[f"head_{i}"], kind, cfg, cache[f"head_{i}"], pos,
+                          layout, tables)
     for i in range(plan.n_body):
-        p = _layer(params["body"]["sb_0"], i)
-        c = _layer(cache["body"]["sb_0"], i)
-        h = L.layernorm(x, p["pre"]["norm_scale"], p["pre"]["norm_bias"])
-        q, k, v = _qkv(h, p["attn"], cfg, pos[:, None])
-        layout.attn_write(c, k[:, 0], v[:, 0], pos, tables)
-        if layout.kind == "paged":
-            attn = paged_attn(
-                q[:, 0].reshape(b, cfg.n_kv, g, cfg.hd).contiguous(),
-                layout.pool_view(c["k"]), layout.pool_view(c["v"]),
-                tables["full"], pos + 1, scale=cfg.hd ** -0.5,
-            ).reshape(b, 1, cfg.n_heads, cfg.hd)
-        else:
-            s_view = c["k"].shape[1]
-            attn = L.decode_attention(q, c["k"], c["v"], pos.clamp(max=s_view - 1) + 1)
-        x = _mlp(x + _out(attn, p["attn"], cfg), p)
+        x = _block_decode(x, _layer(params["body"]["sb_0"], i), plan.period[0], cfg,
+                          _layer(cache["body"]["sb_0"], i), pos, layout, tables)
     cache["len"] = pos + 1
-    return _unembed(x, params)[:, 0], cache
+    return _unembed(x, params, cfg)[:, 0], cache
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, max_len: int):

@@ -261,9 +261,7 @@ class DecodeEngine:
             self.pool.device_tables()
         logits_all, produced = forward(self.params, self.cfg,
                                        torch.from_numpy(tokens).to(dev), want_cache=True)
-        k, v = produced["body"]["sb_0"]
-        write_prefill(self.cache, self.cfg, {"body": {"sb_0": (k[:, :n_real], v[:, :n_real])}},
-                      lanes_t, lens_t, self.layout)
+        write_prefill(self.cache, self.cfg, produced, lanes_t, lens_t, self.layout)
         logits = logits_all[torch.arange(n_real, device=dev), lens_t.long() - 1]
         temps = torch.tensor([req.sampling.temperature for req, _, _ in items],
                              dtype=torch.float32, device=dev)
@@ -382,9 +380,10 @@ class DecodeEngine:
     # -- reporting -----------------------------------------------------------
 
     def kv_cache_bytes(self) -> int:
-        """Device bytes of the KV storage (slab, or pool with its sink page)."""
-        c = self.cache["body"]["sb_0"]
-        return sum(t.numel() * t.element_size() for t in c.values())
+        """Device bytes of the KV storage (slab, or pool with its sink
+        page), summed over every layer's cache leaves."""
+        return sum(t.numel() * t.element_size() for name, t in tree_items(self.cache)
+                   if name not in ("len", "tables/full"))
 
     def kernel_route(self) -> str:
         """Which paged-attention implementation decode runs: ``"slab"`` when

@@ -1,8 +1,10 @@
 """Host-side paged KV pool (counterpart of ``repro/serving/kv_pool.py``).
 
-``PagedKVPool`` owns the device cache (one ``(L, P + 1, ps, ...)`` pool per
-attention sub-block, see ``models.cache.PagedLayout``), the free-page list
-with per-page refcounts, and the per-lane append-only page tables.  The
+``PagedKVPool`` owns the device cache (one ``(..., P + 1, ps, ...)`` pool per
+cache leaf of each attention or MLA layer stack, see
+``models.cache.PagedLayout``; every layer reads the same page tables), the
+free-page list with per-page refcounts, and the per-lane append-only page
+tables.  The
 tables are mirrored host-side in numpy and synced to the device
 incrementally: mutations mark their lane dirty, and ``device_tables``
 copies only dirty rows into the resident device table.

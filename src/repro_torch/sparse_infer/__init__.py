@@ -3,4 +3,5 @@ from repro_torch.sparse_infer.compress import (
     compress_params,
     compression_report,
     decompress_params,
+    export_compressed,
 )

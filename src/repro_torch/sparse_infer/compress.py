@@ -1,7 +1,9 @@
 """The deployable N:M-compressed model (counterpart of ``repro/sparse_infer/compress.py``).
 
 ``compress_params`` replaces every maskable leaf with a
-:class:`CompressedTensor` (kept values + uint8 in-group offsets).  That tree
+:class:`CompressedTensor` (kept values + uint8 in-group offsets);
+``export_compressed`` exports and compresses a tree leaf by leaf, within
+the memory a full-size MoE model leaves on one card.  That tree
 is served directly: ``models.layers.matmul`` routes compressed leaves
 through ``kernels.nm_spmm``, so the dense weight never exists on the card.
 """
@@ -12,6 +14,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.masking import nm_compress, nm_decompress
+from repro_torch.core.recipes import mask_leaf
 from repro_torch.core.sparsity_config import SparsityConfig
 from repro_torch.utils.tree import tree_items, tree_map_with_name
 
@@ -70,6 +73,65 @@ def compress_params(params: dict, cfg: SparsityConfig) -> dict:
         return CompressedTensor(v, i, pat.n, pat.m, pat.group_axis, tuple(p.shape))
 
     return tree_map_with_name(leaf, params)
+
+
+def export_compressed(params: dict, recipe, *, compress: bool = True) -> tuple[dict, dict]:
+    """``compress_params(recipe.export_sparse(params), recipe.sparsity)``
+    (with ``compress=False``, the export alone) and its
+    :func:`compression_report`, built one leaf at a time and a stacked leaf
+    one slice of its leading axis at a time.
+
+    ``params`` is consumed: each leaf leaves it once its replacement
+    exists, so peak memory stays near the dense tree plus one leaf's result
+    and one slice's temporaries (the whole-tree functions hold the dense
+    tree, its masked copy, the masks and the int64 indices of whole leaves
+    at once).  Masks and compression act on each slice independently, so
+    the result is bit-identical to the whole-tree functions'."""
+    report = {"dense_bytes": 0, "compressed_bytes": 0}
+
+    def leaf(name: str, p: torch.Tensor):
+        nbytes = p.numel() * p.element_size()
+        report["dense_bytes"] += nbytes
+        pat = recipe.sparsity.pattern_for(name, tuple(p.shape))
+        if pat is None:
+            report["compressed_bytes"] += nbytes
+            return p
+        axis = pat.group_axis % p.ndim
+
+        def one(w, ax):
+            masked = w if recipe.kind == "dense" else mask_leaf(w, pat.n, pat.m, ax)[0]
+            return nm_compress(masked, pat.n, pat.m, ax) if compress else (masked,)
+
+        if p.ndim < 3 or axis == 0:
+            parts = one(p, axis)
+        else:  # slice by slice into preallocated stacks
+            parts = None
+            for i in range(p.shape[0]):
+                res = one(p[i], axis - 1)
+                if parts is None:
+                    parts = tuple(torch.empty((p.shape[0],) + r.shape, dtype=r.dtype,
+                                              device=r.device) for r in res)
+                for whole, r in zip(parts, res):
+                    whole[i] = r
+        if not compress:
+            report["compressed_bytes"] += nbytes * pat.n // pat.m + p.numel() * pat.n // pat.m
+            return parts[0]
+        out = CompressedTensor(*parts, pat.n, pat.m, pat.group_axis, tuple(p.shape))
+        report["compressed_bytes"] += out.nbytes
+        return out
+
+    def walk(tree: dict, prefix: str) -> dict:
+        out = {}
+        for k in list(tree):
+            name = f"{prefix}/{k}" if prefix else str(k)
+            v = tree.pop(k)
+            out[k] = walk(v, name) if isinstance(v, dict) else leaf(name, v)
+            del v  # the dense leaf goes now, not at the end of the walk
+        return out
+
+    tree = walk(params, "")
+    report["ratio"] = report["compressed_bytes"] / max(report["dense_bytes"], 1)
+    return tree, report
 
 
 def decompress_params(params: dict) -> dict:

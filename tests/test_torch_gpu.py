@@ -11,7 +11,12 @@ import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.nm_mask import nm_mask, nm_mask_plain
-from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_plain
+from repro_torch.kernels.nm_spmm import (
+    nm_spmm,
+    nm_spmm_batched,
+    nm_spmm_batched_plain,
+    nm_spmm_plain,
+)
 from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
 
 pytestmark = pytest.mark.gpu
@@ -84,6 +89,62 @@ def test_paged_attn_kernel_matches_plain(dev, dtype, hkv, g, d, ps):
     assert dispatch.launches["paged_attn"] == before + 1
     ref = paged_attn_plain(q, kp, vp, t, lens, scale=d ** -0.5)
     torch.testing.assert_close(y.float(), ref.float(), **TOL[dtype])
+    assert float(y[3].abs().max()) == 0.0  # idle lane: exact zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,b,k,o,pad", [(3, 1, 64, 40, 24), (4, 8, 512, 96, 0),
+                                         (64, 8, 2048, 1408, 0), (8, 32, 1408, 2048, 0)])
+def test_nm_spmm_batched_kernel_matches_plain(dev, dtype, e, b, k, o, pad):
+    """The expert-batched K1: one launch over E stacked products."""
+    stacks = [_compressed(k, o, 2, 4, pad, dtype, dev, seed=s) for s in range(e)]
+    vals = torch.stack([v for v, _ in stacks])
+    idx = torch.stack([i for _, i in stacks])
+    x = torch.randn((e, b, k), generator=torch.Generator().manual_seed(2)).to(dtype).to(dev)
+    before = dict(dispatch.launches)
+    y = nm_spmm_batched(x, vals, idx, 2, 4, o_true=o)
+    torch.cuda.synchronize()
+    assert dispatch.launches["nm_spmm_batched"] == before["nm_spmm_batched"] + 1
+    assert dispatch.launches["nm_spmm"] == before["nm_spmm"]
+    ref = nm_spmm_batched_plain(x, vals, idx, 2, 4, o_true=o)
+    assert y.shape == (e, b, o) and y.dtype == dtype
+    torch.testing.assert_close(y.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("page_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,d,d2,ps,extra_lanes", [
+    (4, 16, 8, 4, 0), (16, 512, 64, 16, 0),
+    (16, 512, 64, 16, 11),  # 16 lanes: 4 heads a block, 55 KB of shared memory
+    (16, 512, 64, 16, 59),  # 64 lanes: 16 heads a block, 105 KB
+])
+def test_paged_attn_mla_kernel_matches_plain(dev, page_dtype, g, d, d2, ps, extra_lanes):
+    """K2m: f32 queries and output over pages of either type, V is the
+    latent page; with more lanes a block keeps more heads, and past 48 KB
+    of shared memory the launch opts in."""
+    gen = torch.Generator().manual_seed(1)
+    lengths = [1, 2 * ps + 3, 5 * ps, 0, 3 * ps - 1] + torch.randint(
+        0, 5 * ps + 1, (extra_lanes,), generator=gen).tolist()
+    n_slots, num_pages = 6, 24 + 5 * extra_lanes
+    perm = torch.randperm(num_pages, generator=gen).tolist()
+    tables = np.full((len(lengths), n_slots), num_pages, np.int32)
+    for i, ln in enumerate(lengths):
+        for pg in range(-(-ln // ps)):
+            tables[i, pg] = perm.pop()
+    tables[4, 1] = num_pages  # an unmapped slot inside a live range is skipped
+    q, q2 = (torch.randn((len(lengths), 1, g, w), generator=gen).to(dev) for w in (d, d2))
+    kp, k2p = (torch.randn((num_pages, ps, 1, w), generator=gen).to(page_dtype).to(dev)
+               for w in (d, d2))
+    t = torch.from_numpy(tables).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    scale = (d + d2) ** -0.5
+    before = dict(dispatch.launches)
+    y = paged_attn(q, kp, None, t, lens, scale=scale, q2=q2, k2_pages=k2p, v_is_k=True)
+    torch.cuda.synchronize()
+    assert dispatch.launches["paged_attn_mla"] == before["paged_attn_mla"] + 1
+    assert dispatch.launches["paged_attn"] == before["paged_attn"]
+    ref = paged_attn_plain(q, kp, None, t, lens, scale=scale, q2=q2, k2_pages=k2p, v_is_k=True)
+    assert y.dtype == torch.float32 and y.shape == (len(lengths), 1, g, d)
+    torch.testing.assert_close(y, ref, **TOL[torch.float32])
     assert float(y[3].abs().max()) == 0.0  # idle lane: exact zeros
 
 

@@ -1,7 +1,9 @@
 """The port's ``nm_spmm`` (its plain version, which CPU tensors take) held
 against the JAX Pallas kernel run in interpret mode, in both regimes of the
 plain version (B <= 8 gathers, B > 8 decompresses), with and without
-alignment padding."""
+alignment padding; and its expert-batched form against the JAX ``vmap`` of
+the kernel that the reference's stacked matmul runs."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,7 +12,7 @@ import torch
 from repro.core.masking import nm_compress as jax_compress
 from repro.kernels.nm_spmm import nm_spmm_pallas
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_plain
+from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_batched, nm_spmm_plain
 from repro_torch.models.layers import matmul
 from repro_torch.sparse_infer import CompressedTensor
 
@@ -67,3 +69,22 @@ def test_rejects_groups_that_do_not_tile_k():
     x, v, i = _case(2, 32, 16, 2, 4, 0)
     with pytest.raises(ValueError):
         nm_spmm(torch.from_numpy(x[:, :30]), torch.from_numpy(v), torch.from_numpy(i), 2, 4)
+
+
+@pytest.mark.parametrize("b", [1, 8, 20])
+def test_batched_plain_matches_vmapped_pallas_interpret(b):
+    """Three experts of (64 -> 40) at 2:4 with 24 alignment columns, as
+    ``layers.matmul`` vmaps the reference kernel over a compressed stack."""
+    e, k, o, pad = 3, 64, 40, 24
+    cases = [_case(b, k, o, 2, 4, pad, seed=s) for s in range(e)]
+    x, v, i = (np.stack(parts) for parts in zip(*cases))
+    y_ref = jax.vmap(lambda xe, ve, ie: nm_spmm_pallas(
+        xe, ve, ie, 2, 4, bm=8, bo=32, bk=32, o_true=o, interpret=True))(
+        jnp.asarray(x), jnp.asarray(v), jnp.asarray(i))
+    y = nm_spmm_batched(torch.from_numpy(x), torch.from_numpy(v), torch.from_numpy(i), 2, 4,
+                        o_true=o)
+    assert y.shape == (e, b, o)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), **TOL)
+    ct = CompressedTensor(torch.from_numpy(v), torch.from_numpy(i), 2, 4, -2, (e, k, o + pad),
+                          pad=pad)
+    assert torch.equal(matmul(torch.from_numpy(x), ct), y)  # the stacked matmul takes it

@@ -1,6 +1,7 @@
 """The port's ``paged_attn`` (its plain version, which CPU tensors take)
 held against the JAX Pallas kernel in interpret mode, on the ragged lanes,
-sentinel slots and idle lane of ``tests/test_paged_attn.py``."""
+sentinel slots and idle lane of ``tests/test_paged_attn.py``: the MHA/GQA
+form and the MLA latent form (K2m: ``q2``/``k2_pages``/``v_is_k``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -53,9 +54,40 @@ def test_plain_matches_pallas_interpret(hkv, g):
         np.testing.assert_allclose(y[i].reshape(1, 1, hkv * g, d).numpy(), ref.numpy(), **TOL)
 
 
+def test_mla_form_matches_pallas_interpret():
+    """K2m at the reference's own case's layout (Hkv = 1, G = H, V is the
+    latent pool): ragged lanes, a sentinel slot inside a live range and a
+    dead lane, f32 queries and output."""
+    b, h, latent, rd, ps, num_pages, n_slots = 4, 4, 16, 8, 4, 12, 5
+    lengths = [5, 19, 0, 12]
+    rng = np.random.default_rng(3)
+    ql, q2 = (rng.standard_normal((b, 1, h, w)).astype(np.float32) for w in (latent, rd))
+    c_pages = rng.standard_normal((num_pages, ps, 1, latent)).astype(np.float32)
+    r_pages = rng.standard_normal((num_pages, ps, 1, rd)).astype(np.float32)
+    tables = _full_tables(lengths, ps, n_slots, num_pages)
+    tables[1, 2] = num_pages  # an unmapped slot inside lane 1's live range
+    lens = np.asarray(lengths, np.int32)
+    scale = 0.17
+    y_ref = paged_attn_pallas(jnp.asarray(ql), jnp.asarray(c_pages), None,
+                              jnp.asarray(tables), jnp.asarray(lens), scale=scale,
+                              q2=jnp.asarray(q2), k2_pages=jnp.asarray(r_pages),
+                              v_is_k=True, interpret=True)
+    y = paged_attn(*(torch.from_numpy(a) for a in (ql, c_pages)), None,
+                   torch.from_numpy(tables), torch.from_numpy(lens), scale=scale,
+                   q2=torch.from_numpy(q2), k2_pages=torch.from_numpy(r_pages), v_is_k=True)
+    assert y.shape == (b, 1, h, latent) and y.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), **TOL)
+    assert float(y[2].abs().max()) == 0.0  # dead lane: exact zeros
+
+
 def test_unported_options_are_refused():
+    """K2m is ported; the window, int8-scale and stats options are not, and
+    the wrapper takes no such argument."""
     q = torch.zeros((1, 1, 1, 4))
     pages = torch.zeros((2, 4, 1, 4))
-    with pytest.raises(TypeError):
-        paged_attn(q, pages, pages, torch.zeros((1, 1), dtype=torch.int32),
-                   torch.ones(1, dtype=torch.int32), scale=0.5, window=4)
+    args = (q, pages, pages, torch.zeros((1, 1), dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32))
+    for option in (dict(window=4, win_slots=2), dict(k_scale=torch.ones((2, 4))),
+                   dict(emit_stats=True)):
+        with pytest.raises(TypeError):
+            paged_attn(*args, scale=0.5, **option)

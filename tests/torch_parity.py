@@ -1,6 +1,7 @@
 """Shared helpers of the ``test_torch_*`` parity tests: the same reduced
-gpt2-paper model built once in the JAX package and handed to the PyTorch
-port through ``repro_torch.checkpoint.carry_over``."""
+model (gpt2-paper by default, or DeepSeek-V2-Lite) built once in the JAX
+package and handed to the PyTorch port through
+``repro_torch.checkpoint.carry_over``."""
 import dataclasses
 
 import jax
@@ -27,10 +28,10 @@ LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 MARGIN = 1e-3
 
 
-def configs():
-    """(JAX cfg, port cfg) of reduced gpt2-paper in f32."""
-    return (dataclasses.replace(jax_get_config("gpt2-paper", smoke=True), **F32),
-            dataclasses.replace(get_config("gpt2-paper", smoke=True), **F32))
+def configs(arch="gpt2-paper"):
+    """(JAX cfg, port cfg) of the reduced ``arch`` in f32."""
+    return (dataclasses.replace(jax_get_config(arch, smoke=True), **F32),
+            dataclasses.replace(get_config(arch, smoke=True), **F32))
 
 
 def to_numpy(tree):
@@ -44,10 +45,10 @@ def to_numpy(tree):
     return np.asarray(tree)
 
 
-def trees(seed=0, align=None):
+def trees(seed=0, align=None, arch="gpt2-paper"):
     """``(jcfg, tcfg, {"dense"|"compressed": (jax_tree, port_tree)})`` —
     the STEP 2:4 export of one random init and its compressed artifact."""
-    jcfg, tcfg = configs()
+    jcfg, tcfg = configs(arch)
     model = TransformerLM(jcfg)
     recipe = jcore.make_recipe("step", jcore.SparsityConfig(default=jcore.NMSparsity(2, 4)))
     sparse = recipe.export_sparse(model.init(jax.random.PRNGKey(seed)))
