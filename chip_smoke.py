@@ -40,8 +40,8 @@ Phases, in order; any failure exits non-zero:
    random weights from seed 0, the STEP 2:4 export and compression leaf by
    leaf, then 8 greedy requests of 64 + 32 tokens over 4 lanes, K = 4, on
    the slab, on a paged pool that never preempts (its streams must equal
-   the slab's except at near-ties) and on an undersized pool that
-   preempts.  Launch counts are zeroed before and read after each run: the
+   the slab's except at near-ties: top-2 margin under 0.1) and on an
+   undersized pool that preempts.  Launch counts are zeroed before and read after each run: the
    batched ``nm_spmm`` must launch 3 x 26 times per decode step and per
    prefill batch, and ``paged_attn``'s MLA form 27 times per paged decode
    step.  Then a ``torch.profiler`` trace of a few decode steps.
@@ -58,6 +58,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import platform
 import subprocess
 import sys
 import tempfile
@@ -92,8 +94,10 @@ DS_MOE_LAYERS, DS_LAYERS = 26, 27
 # A DeepSeek slab token may differ from its paged twin only at a near-tie:
 # the slab expands K/V through bf16 matmuls, the paged route attends in f32
 # latent space, so the logits differ by bf16 rounding carried through the
-# layers (and MoE routing flips where it meets a router's near-tie).  The
-# gate is the larger of this and the difference measured in the run.
+# layers (and MoE routing flips where it meets a router's near-tie).  A
+# fixed gate: every top-2 margin at a difference measured on an H100 lay
+# below 0.1 (largest 0.0977).  The routes' bf16 difference from one state
+# is printed beside it as a reading, not used as the gate.
 DS_MARGIN = MARGIN
 # In f32 the two decode routes differ only in summation order (absorbed
 # W_uk/W_uv against expanded K/V): about 1e-6 of a logit over 4 layers on
@@ -109,6 +113,21 @@ MASK_LEAVES = {(12, 768, 768): 4, (12, 768, 3072): 1, (12, 3072, 768): 1}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def host_cpu() -> str:
+    """The host's architecture and CPU model, as far as ``/proc/cpuinfo``
+    names it (x86 gives a ``model name``, Arm only a ``CPU part`` code)."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                key, _, value = ln.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = fields.get("model name") or f"CPU part {fields.get('CPU part', 'unknown')}"
+    return f"{platform.machine()} {model}"
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -532,14 +551,11 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
     if routes["float32 4 layers"]["max_abs_diff"] > DS_ROUTE_F32_TOL:
         raise AssertionError(f"the slab and paged decode routes differ by more than "
                              f"{DS_ROUTE_F32_TOL} in f32: {routes['float32 4 layers']}")
-    # a near-tie: a top-2 margin within what the routes' bf16 rounding moves a
-    # logit from one identical state (measured just above)
-    gate = max(DS_MARGIN, routes[f"bfloat16 {DS_LAYERS} layers"]["max_abs_diff"])
     agree, total, margins = compare_streams(torch, cfg, comp, prompts, runs["slab"][1],
-                                            runs["paged"][1], dev, margin=gate)
+                                            runs["paged"][1], dev, margin=DS_MARGIN)
     log(f"  slab vs non-preempting paged greedy streams: {agree}/{total} tokens equal before "
         f"each request's first difference; top-2 margins at the differences {margins} "
-        f"(all < {gate})")
+        f"(all < {DS_MARGIN})")
     peak = torch.cuda.max_memory_allocated()
     for name, (eng, _, wall) in runs.items():
         st = eng.stats()
@@ -765,11 +781,11 @@ def serve_trained_phase(torch, cfg, dev, dispatch, ckpt_dir: str) -> dict:
     from repro_torch import core
     from repro_torch.checkpoint import restore_latest
     from repro_torch.data import SyntheticLMDataset
-    from repro_torch.sparse_infer import compress_params
+    from repro_torch.sparse_infer import export_compressed
 
     params, _, step = restore_latest(ckpt_dir, prefix="params", device=dev)
     recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(2, 4)))
-    comp = compress_params(recipe.export_sparse(params), recipe.sparsity)
+    comp, _ = export_compressed(params, recipe)
     ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=16, seed=42, n_states=16)
     prompts = ds.batch(10**6, 4)["tokens"].tolist()  # held-out corpus prompts
     dispatch.reset_launches()
@@ -800,7 +816,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import dispatch
     from repro_torch.models.model import init_params
-    from repro_torch.sparse_infer import compress_params
+    from repro_torch.sparse_infer import export_compressed
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -813,6 +829,7 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
+    log(f"  host: {host_cpu()}, {os.cpu_count()} cores (serving steps are host-bound)")
     t0 = time.perf_counter()
     out = dispatch.build()
     dispatch.load_kernels()
@@ -827,8 +844,7 @@ def main() -> int:
     cfg = get_config("gpt2-paper")
     params = init_params(cfg, seed=0, device=dev)
     recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(2, 4)))
-    comp = compress_params(recipe.export_sparse(params), recipe.sparsity)
-    del params
+    comp, _ = export_compressed(params, recipe)
     records = {"nm_spmm": check_nm_spmm(torch, comp, dev),
                "paged_attn": check_paged_attn(torch, dev),
                "nm_mask": check_nm_mask(torch, dev)}

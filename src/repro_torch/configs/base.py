@@ -4,14 +4,16 @@ Plain dataclasses of the reference's fields that the port reads.  The
 reference module imports ``repro.models.*`` (and so JAX) for its MoE, MLA,
 SSM and RG-LRU sub-configs; the port keeps its own copies of the two it
 serves, :class:`MoEConfig` (``repro/models/moe.py:33``) and
-:class:`MLAConfig` (``repro/models/mla.py:26``).  The SSM and RG-LRU
-families, hybrid layer patterns and frontends are not ported yet
-(ROADMAP.md): ``models.model.layer_plan`` raises for them.
+:class:`MLAConfig` (``repro/models/mla.py:26``).  Fields of what is not
+ported (hybrid layer patterns, frontends) are left out, so no config can
+ask for them; ``models.model.layer_plan`` raises for the SSM and RG-LRU
+families, M-RoPE and sliding windows, and ``configs.get_config`` for every
+arch not in the registry (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,7 +24,6 @@ class MoEConfig:
     n_shared: int = 0  # DeepSeek-style always-on shared experts
     capacity_factor: float = 1.25
     first_layer_dense: bool = False  # DeepSeek: layer 0 uses a dense MLP
-    router_dtype: str = "float32"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +55,6 @@ class ArchConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
-    # hybrid layer pattern, e.g. ("rec", "rec", "attn"); None = all-attn
-    layer_pattern: Optional[Sequence[str]] = None
-    frontend: str = "none"  # none | audio_stub | vision_stub
     param_dtype: str = "bfloat16"
     source: str = ""  # provenance note
 

@@ -41,7 +41,11 @@
 // (f32 queries and accumulator of 16 x 512, one page of 16 x 513), past the
 // 48 KB a launch gets by default: the launch opts in with
 // cudaFuncSetAttribute above 48 KB and returns its error if that fails.
-// Scores take a warp per (head, row), its lanes splitting the dot product.
+// The scoring loop is a template parameter picked at launch from the row
+// width: rows of at least WARP_ROW_MIN floats over both streams (MLA's
+// 512 + 64) take a warp per (head, row), its lanes splitting the dot
+// product; narrower rows (GQA's 64-128) a thread per (head, row), which
+// needs no shuffle reduction.
 // One page per step leaves much of the card idle at small batch; splitting
 // the page walk across blocks (the stats form, K3) is later work.
 #include <cuda_bf16.h>
@@ -52,6 +56,7 @@ namespace {
 constexpr int THREADS = 128;
 constexpr float NEG = -1e30f;
 constexpr int SMEM_MAX = 232448;  // 227 KB: a block's limit on Hopper
+constexpr int WARP_ROW_MIN = 256;  // D + D2 from which a warp scores a row
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -81,8 +86,8 @@ __host__ __device__ inline int smem_floats(int G, int D, int D2, int Dv, int ps,
 
 // TQ: queries and output; TP: pages.  D2 = 0 without a second stream.
 // The block owns query heads [blockIdx.z * G, +G) of the Gt that share KV
-// head blockIdx.y.
-template <typename TQ, typename TP, bool V_IS_K>
+// head blockIdx.y.  ROW_WARP: a warp (else a thread) per (head, row) score.
+template <typename TQ, typename TP, bool V_IS_K, bool ROW_WARP>
 __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
     const TQ* __restrict__ q, const TQ* __restrict__ q2,
     const TP* __restrict__ kp, const TP* __restrict__ k2p,
@@ -136,17 +141,27 @@ __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
       }
     }
     __syncthreads();
-    for (int e = warp; e < G * nv; e += THREADS / 32) {  // a warp per (head, row)
-      const int g = e / nv, r = e - g * nv;
-      const float* qg = qs + g * D;
-      const float* kr = ks + r * KS;
-      float s = 0.f;
-      for (int d = lane; d < D; d += 32) s = fmaf(qg[d], kr[d], s);
-      const float* q2g = q2s + g * D2;
-      const float* k2r = k2s + r * K2S;
-      for (int d = lane; d < D2; d += 32) s = fmaf(q2g[d], k2r[d], s);
-      s = warp_sum(s);
-      if (lane == 0) ss[g * ps + r] = s * scale;
+    if (ROW_WARP) {
+      for (int e = warp; e < G * nv; e += THREADS / 32) {
+        const int g = e / nv, r = e - g * nv;
+        const float *qg = qs + g * D, *kr = ks + r * KS;
+        const float *q2g = q2s + g * D2, *k2r = k2s + r * K2S;
+        float s = 0.f;
+        for (int d = lane; d < D; d += 32) s = fmaf(qg[d], kr[d], s);
+        for (int d = lane; d < D2; d += 32) s = fmaf(q2g[d], k2r[d], s);
+        s = warp_sum(s);
+        if (lane == 0) ss[g * ps + r] = s * scale;
+      }
+    } else {
+      for (int e = tid; e < G * nv; e += THREADS) {
+        const int g = e / nv, r = e - g * nv;
+        const float *qg = qs + g * D, *kr = ks + r * KS;
+        const float *q2g = q2s + g * D2, *k2r = k2s + r * K2S;
+        float s = 0.f;
+        for (int d = 0; d < D; ++d) s = fmaf(qg[d], kr[d], s);
+        for (int d = 0; d < D2; ++d) s = fmaf(q2g[d], k2r[d], s);
+        ss[g * ps + r] = s * scale;
+      }
     }
     __syncthreads();
     for (int g = warp; g < G; g += THREADS / 32) {
@@ -195,7 +210,8 @@ int launch(const void* q, const void* q2, const void* k, const void* k2,
   int gb = G;
   while (gb > 2 && gb % 2 == 0 && B * Hkv * (G / gb) < 64) gb /= 2;
   const int smem = (int)sizeof(float) * smem_floats(gb, D, D2, Dv, ps, V_IS_K);
-  auto kernel = paged_attn_kernel<TQ, TP, V_IS_K>;
+  auto kernel = D + D2 >= WARP_ROW_MIN ? paged_attn_kernel<TQ, TP, V_IS_K, true>
+                                      : paged_attn_kernel<TQ, TP, V_IS_K, false>;
   if (smem > 48 * 1024) {  // past the default: opt in, or fail the launch
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

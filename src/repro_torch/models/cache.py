@@ -13,8 +13,9 @@ layers (``(L, ...)`` under ``body``; none for a ``head_*`` layer).  The
 layouts treat every leaf alike: ``alloc`` is the reference's
 ``attn_alloc``/``mla_alloc``, ``write`` (one token per lane into one
 layer's entry) its ``attn_write``/``mla_write``, ``write_rows`` (prefilled
-rows into a stacked entry) its ``attn_write_rows``/``mla_write_rows``;
-``mla_rw`` writes and returns the latent view MLA's expanded decode reads.
+rows into a stacked entry) its ``attn_write_rows``/``mla_write_rows``.
+MLA's expanded decode runs on the slab only and reads the slab itself; on
+the pool MLA decodes through the kernel.
 
 The JAX package leans on out-of-range scatters being dropped: writes of idle
 lanes, pad rows and frozen lanes aim at the sentinel page ``P`` and vanish.
@@ -64,12 +65,6 @@ class SlabLayout:
             old = c[name][bidx, slot]
             ok = (pos < s).reshape((-1,) + (1,) * (old.dim() - 1))
             c[name][bidx, slot] = torch.where(ok, x.to(old.dtype), old)
-
-    def mla_rw(self, c: dict, ckv_new, krope_new, pos, tables):
-        """Write one latent token per lane; return the ``(B, S, ...)``
-        latent views (the slab itself)."""
-        self.write(c, {"ckv": ckv_new, "krope": krope_new}, pos, tables)
-        return c["ckv"], c["krope"]
 
     def write_rows(self, c: dict, rows: dict, lanes, lens, tables) -> None:
         """Write prefilled rows ``(L, N, Lp, ...)`` into lanes ``lanes``
@@ -131,15 +126,6 @@ class PagedLayout:
         phys = torch.where(page < pt.shape[1], phys, self.sentinel)
         widx = phys.long() * self.page_size + pos.long() % self.page_size
         self._scatter(c, entries, widx, 0)
-
-    def mla_rw(self, c: dict, ckv_new, krope_new, pos, tables):
-        """Write one latent token per lane; return the ``(B, n_slots·ps,
-        ...)`` latent views gathered through the tables (the reference's
-        gathered route; unmapped slots read page 0 and are dead under the
-        length mask)."""
-        self.write(c, {"ckv": ckv_new, "krope": krope_new}, pos, tables)
-        phys = tables["full"].long().clamp(max=self.num_pages - 1)
-        return tuple(c[name][phys].flatten(1, 2) for name in ("ckv", "krope"))
 
     def write_rows(self, c: dict, rows: dict, lanes, lens, tables) -> None:
         """Scatter prefilled rows ``(L, N, Lp, ...)`` of lanes ``lanes``

@@ -91,8 +91,8 @@ def mla_decode(x, p, n_heads: int, cfg: MLAConfig, cache: dict, pos,
     b = x.shape[0]
     nd, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     q_nope, q_rope, c_new, kr_new = _qkv_rope(x, p, n_heads, cfg, pos[:, None], rope_theta)
+    layout.write(cache, {"ckv": c_new[:, 0], "krope": kr_new[:, 0]}, pos, tables)
     if layout.kind == "paged":
-        layout.write(cache, {"ckv": c_new[:, 0], "krope": kr_new[:, 0]}, pos, tables)
         wk, wv = _absorbed_ukv(p, n_heads, cfg)
         q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].float(), wk.float())
         o_lat = paged_attn(
@@ -103,7 +103,7 @@ def mla_decode(x, p, n_heads: int, cfg: MLAConfig, cache: dict, pos,
         )  # (B, 1, H, kv_lora) f32
         out = torch.einsum("bhl,lhv->bhv", o_lat[:, 0], wv.float()).to(x.dtype)
         return L.matmul(out.reshape(b, 1, n_heads * vd), p["w_o"])
-    ckv, krope = layout.mla_rw(cache, c_new[:, 0], kr_new[:, 0], pos, tables)
-    qf, kf, v = _expanded_attention(q_nope, q_rope, ckv, krope, p, n_heads, cfg)
+    qf, kf, v = _expanded_attention(q_nope, q_rope, cache["ckv"], cache["krope"], p,
+                                    n_heads, cfg)
     out = L.decode_attention(qf, kf, v, pos + 1)[..., :vd]
     return L.matmul(out.reshape(b, 1, n_heads * vd), p["w_o"])

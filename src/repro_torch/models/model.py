@@ -20,11 +20,11 @@ MLA (``mla.py:202-237``).
 
 Ported: the dense family (MHA/GQA attention with RoPE and optional q/k/v/o
 biases) and the MoE family with MLA (DeepSeek-V2); SwiGLU and GeLU MLPs,
-RMSNorm and LayerNorm, tied and untied embeddings.  Sliding windows, hybrid
-layer patterns, SSM and RG-LRU mixers, M-RoPE and frontends raise
-(ROADMAP.md).  :func:`loss_fn` is the training loss; it differentiates
-through the forward with autograd, which keeps every layer's activations
-(the reference rematerializes them per layer).
+RMSNorm and LayerNorm, tied and untied embeddings.  Sliding windows, SSM
+and RG-LRU mixers and M-RoPE raise; hybrid layer patterns and frontends
+have no config field yet (ROADMAP.md).  :func:`loss_fn` is the training
+loss; it differentiates through the forward with autograd, which keeps
+every layer's activations (the reference rematerializes them per layer).
 """
 from __future__ import annotations
 
@@ -57,7 +57,6 @@ def layer_plan(cfg: ArchConfig) -> LayerPlan:
     unported = {
         "family": cfg.family not in ("dense", "moe"), "rope": cfg.rope != "rope",
         "local_window": cfg.local_window is not None,
-        "layer_pattern": cfg.layer_pattern is not None, "frontend": cfg.frontend != "none",
     }
     bad = [k for k, v in unported.items() if v]
     if bad:

@@ -59,8 +59,8 @@ def test_plan_and_tree_match_the_reference(setup):
     for name, leaf in ttree.items():
         assert tuple(leaf.shape) == jtree[name].shape, name
         assert str(leaf.dtype)[6:] == str(jtree[name].dtype), name
-    for bad in (dict(local_window=16), dict(layer_pattern=("rec", "attn")),
-                dict(family="ssm"), dict(rope="mrope"), dict(frontend="audio_stub")):
+    for bad in (dict(local_window=16), dict(family="ssm"), dict(family="hybrid"),
+                dict(rope="mrope")):
         with pytest.raises(NotImplementedError):
             tmodel.layer_plan(dataclasses.replace(tcfg, **bad))
 
@@ -136,20 +136,23 @@ def test_paged_absorbed_decode_matches_the_reference_kernel_route(setup):
 
 
 def test_paged_latent_view_equals_the_slab(setup):
-    """``mla_rw`` on the pool gathers, through scattered tables, the view
-    the slab stores for the same writes."""
+    """The latents that prefill and one decode ``write`` put on the pool,
+    gathered through its scattered tables, equal what the slab stores for
+    the same writes."""
     _, tcfg, _ = setup
     _, _, _, _, _, pc, play, _ = _prefilled(setup, "paged")
     _, _, _, _, _, sc, slay, _ = _prefilled(setup, "slab")
     rng = np.random.default_rng(5)
-    ckv, krope = (torch.from_numpy(rng.standard_normal((2, w)).astype(np.float32))
-                  for w in (tcfg.mla.kv_lora, tcfg.mla.rope_head_dim))
+    new = {name: torch.from_numpy(rng.standard_normal((2, w)).astype(np.float32))
+           for name, w in (("ckv", tcfg.mla.kv_lora), ("krope", tcfg.mla.rope_head_dim))}
     pos = sc["len"]
-    pv = play.mla_rw(pc["head_0"], ckv, krope, pos, pc["tables"])
-    sv = slay.mla_rw(sc["head_0"], ckv, krope, pos, None)
-    for p_view, s_view in zip(pv, sv):
+    play.write(pc["head_0"], new, pos, pc["tables"])
+    slay.write(sc["head_0"], new, pos, None)
+    phys = pc["tables"]["full"].long().clamp(max=play.num_pages - 1)
+    for name in new:
+        p_view = pc["head_0"][name][phys].flatten(1, 2)
         for lane, ln in enumerate((pos + 1).tolist()):
-            assert torch.equal(p_view[lane, :ln], s_view[lane, :ln])
+            assert torch.equal(p_view[lane, :ln], sc["head_0"][name][lane, :ln])
 
 
 @pytest.mark.parametrize("layout", ["slab", "paged"])
