@@ -45,11 +45,28 @@ Phases, in order; any failure exits non-zero:
    batched ``nm_spmm`` must launch 3 x 26 times per decode step and per
    prefill batch, and ``paged_attn``'s MLA form 27 times per paged decode
    step.  Then a ``torch.profiler`` trace of a few decode steps.
+7. Serve full-width RecurrentGemma-9B (all 38 layers: 12 x (RG-LRU,
+   RG-LRU, local MQA) + 2 RG-LRU): random weights from seed 0, the STEP
+   2:4 export and compression leaf by leaf, then 4 greedy requests of
+   2100, 2032, 1200 and 64 prompt tokens (prefilled at exact lengths) + 48
+   generated over 4 lanes, K = 4, max_len 2176 (so the attention layers
+   take the 2048-token window: a rolling slab, a modular page table), on
+   the slab, on a 520-page pool that never preempts (its streams must
+   equal the slab's except at near-ties: top-2 margin under 0.1; it must
+   hold only the window table and evict pages) and on a 340-page pool that
+   preempts.  ``nm_spmm`` must launch 254 times per decode step and per
+   prefill batch, ``paged_attn``'s window form 12 times per paged decode
+   step, and no other attention kernel.  The two decode routes from one
+   state past the window must agree within 1e-3 in f32 over the first
+   period and the tail (the bf16 difference at full depth is printed as a
+   reading).  Then a ``torch.profiler`` trace of a few decode steps.
 
-Phase 2 also holds the two kernels of phase 6 against their plain versions
-at DeepSeek's shapes: the batched ``nm_spmm`` at (64 experts, 8 rows,
-2048->1408 and 1408->2048) and K2's MLA form (B = 4, 16 heads, latent 512,
-RoPE 64, ps = 16, ragged lengths up to 96), with their times.
+Phase 2 also holds the kernels of phases 6 and 7 against their plain
+versions at their shapes: the batched ``nm_spmm`` at (64 experts, 8 rows,
+2048->1408 and 1408->2048), K2's MLA form (B = 4, 16 heads, latent 512,
+RoPE 64, ps = 16, ragged lengths up to 96) and its window form (B = 4, 16
+query heads over one KV head of 256, ps = 16, window 2048 over 130 modular
+slots, lengths 2100/2048/1000/0), with their times.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -86,6 +103,8 @@ KERNEL_ROWS = {
     "paged_attn": ("paged_attn", "src/repro/kernels/paged_attn.py:190"),
     "paged_attn_mla": ("paged_attn", "src/repro/kernels/paged_attn.py:190 "
                        "(q2/k2_pages/v_is_k, called at src/repro/models/mla.py:222)"),
+    "paged_attn_win": ("paged_attn", "src/repro/kernels/paged_attn.py:190 "
+                       "(window/win_slots, paged_attn.py:109-125)"),
     "nm_mask": ("nm_mask", "src/repro/kernels/nm_mask.py:53"),
 }
 # DeepSeek-V2-Lite's MoE layers (26: layer 0 has a dense MLP), each with 3
@@ -103,6 +122,21 @@ DS_MARGIN = MARGIN
 # W_uk/W_uv against expanded K/V): about 1e-6 of a logit over 4 layers on
 # an H100.
 DS_ROUTE_F32_TOL = 1e-3
+# RecurrentGemma-9B serving (phase 7): per forward (a prefill batch or a
+# decode step) K1 runs 5 RG-LRU projections + 2 MLP matmuls in each of the
+# 26 recurrent layers and q/k/v/o + 2 MLP matmuls in each of the 12
+# local-attention layers; K2w once per attention layer and paged step.
+RG_K1_PER_PASS, RG_ATTN_LAYERS = 26 * 7 + 12 * 6, 12
+# prompts past the window (2100), crossing position 2048 while decoding
+# (2032), short of it (1200) and short (64); max_len 2176 >= the window, so
+# the attention layers take the modular window table
+RG_PROMPTS, RG_GEN, RG_MAX_LEN = (2100, 2032, 1200, 64), 48, 2176
+# 4 lanes x the 130-slot window table never preempts; 340 pages admit all
+# four prompts (338) and run short as the two shorter lanes grow
+RG_PAGES, RG_PAGES_PREEMPTING = 520, 340
+# A slab token may differ from its paged twin only at a near-tie, as in
+# phases 3 and 6; the f32 routes differ only in summation order.
+RG_MARGIN, RG_ROUTE_F32_TOL = MARGIN, 1e-3
 # the training run of phase 4; the switch is forced at t_max + 1 = 31 since
 # the AutoSwitch window (T_w = 50 at b2 = 0.98) is not yet full by then
 TRAIN_ARGS = ["--no-smoke", "--recipe", "step", "--nm", "2:4", "--batch", "8", "--seq", "128",
@@ -255,6 +289,71 @@ def check_paged_attn(torch, dev) -> dict:
     return rec
 
 
+def win_tables(torch, lengths, ps, win, win_slots, num_pages, gen):
+    """Modular window tables as the pool keeps them: each lane's live
+    window pages and the page after its current one (mapped ahead of the
+    write) at slot ``pg % win_slots``, scattered page ids; the rest
+    sentinel."""
+    perm = torch.randperm(num_pages, generator=gen).tolist()
+    tables = torch.full((len(lengths), win_slots), num_pages, dtype=torch.int32)
+    for i, ln in enumerate(lengths):
+        if ln:
+            for pg in range(max(0, ln - win) // ps, (ln - 1) // ps + 2):
+                tables[i, pg % win_slots] = perm.pop()
+    return tables
+
+
+def check_paged_attn_win(torch, dev) -> dict:
+    """K2's window form (K2w) at RecurrentGemma-9B's decode: B = 4 lanes,
+    one KV head of 256 under 16 query heads, ps = 16, window 2048 over the
+    130-slot modular table the pool keeps at K = 4; lengths 2100 (slid past
+    the window, a partial first page), 2048 (exactly the window), 1000
+    (short of it) and 0 (dead); bf16 queries and pages."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
+
+    b, h, d, ps, win = 4, 16, 256, 16, 2048
+    win_slots = -(-(win + 4 - 1) // ps) + 1
+    lengths = [2100, 2048, 1000, 0]
+    num_pages = b * win_slots
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    tables = win_tables(torch, lengths, ps, win, win_slots, num_pages, gen).to(dev)
+    q = torch.randn((b, 1, h, d), generator=gen).to(torch.bfloat16).to(dev)
+    kp, vp = (torch.randn((num_pages, ps, 1, d), generator=gen).to(torch.bfloat16).to(dev)
+              for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = dict(scale=d ** -0.5, window=win, win_slots=win_slots)
+    y = paged_attn(q, kp, vp, tables, lens, **kw)
+    err = check_close("paged_attn window B=4 Hkv=1 G=16 D=256 ps=16 window 2048", y,
+                      paged_attn_plain(q, kp, vp, tables, lens, **kw))
+    if float(y[3].abs().max()) != 0.0:
+        raise AssertionError("paged_attn window: the dead lane is not exactly zero")
+    # yardstick: SDPA on the pre-gathered window, (B, H, win, D), MQA expanded
+    pos = torch.stack([torch.arange(win) + max(0, ln - win) for ln in lengths]).to(dev)
+    phys = tables.long().gather(1, (pos // ps) % win_slots).clamp(max=num_pages - 1)
+    kg = kp[phys, pos % ps].reshape(b, 1, win, d).expand(b, h, win, d).contiguous()
+    vg = vp[phys, pos % ps].reshape(b, 1, win, d).expand(b, h, win, d).contiguous()
+    mask = (torch.arange(win, device=dev)[None, :]
+            < torch.tensor([min(ln, win) for ln in lengths], device=dev)[:, None])[:, None, None]
+    qs = q.reshape(b, h, 1, d)
+    live = sum(min(ln, win) for ln in lengths)
+    nbytes = (q.numel() * 2 + 2 * live * d * 2 + tables.numel() * 4 + b * 4 + b * h * d * 2)
+    rec = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: paged_attn(q, kp, vp, tables, lens, **kw)),
+        plain_ms=time_ms(torch, lambda: paged_attn_plain(q, kp, vp, tables, lens, **kw)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask, scale=kw["scale"])),
+        at=f"q (4, 1, 16, 256) bf16, ps=16, window 2048, 130 slots, lengths {lengths}",
+    )
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 4.0 * live * h * d)
+    log(f"  time paged_attn window: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"SDPA on the gathered window {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.5f} "
+        f"ms ({rec['bound_by']})")
+    return rec
+
+
 def random_stack(torch, e, k, o, gen, dev):
     """Random 2:4-compressed ``(E, K/2, O)`` bf16 values and uint8 offsets
     (two distinct ascending offsets per group and column)."""
@@ -404,14 +503,14 @@ def check_nm_mask(torch, dev) -> dict:
 
 
 def serve(torch, cfg, comp, dev, *, paged: bool, n_requests=8, lanes=4, prompt_len=64,
-          gen=32, k=4, num_pages=22, prompts=None):
+          gen=32, k=4, num_pages=22, prompts=None, max_len=None):
     """One greedy serving run of the port's engine; returns (engine,
     prompts, streams, seconds)."""
     import numpy as np
 
     from repro_torch.serving import DecodeEngine, SamplingParams
 
-    max_len = prompt_len + gen + 1
+    max_len = max_len or prompt_len + gen + 1
     eng = DecodeEngine(cfg, comp, max_batch=lanes, max_len=max_len, seed=0,
                        num_pages=num_pages if paged else None, page_size=16,
                        steps_per_dispatch=k, device=dev)
@@ -575,9 +674,11 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
 
 
 def first_layers(torch, cfg, comp, n_body: int, dtype: str):
-    """``(cfg, tree)``: ``head_0`` and the first ``n_body`` stacked layers
-    of the compressed tree at full width, every float leaf in ``dtype``
-    (views where nothing changes)."""
+    """``(cfg, tree)``: the unstacked ``head_*`` and ``tail_*`` layers and
+    the first ``n_body`` periods of the stacked layers of the compressed
+    tree at full width, every float leaf in ``dtype`` (views where nothing
+    changes)."""
+    from repro_torch.models.model import layer_plan
     from repro_torch.sparse_infer import CompressedTensor
     from repro_torch.utils.tree import tree_map_with_name
 
@@ -591,7 +692,9 @@ def first_layers(torch, cfg, comp, n_body: int, dtype: str):
                 shape=x.shape if n is None else (n,) + tuple(x.shape[1:]))
         return x[:n].to(dt) if x.is_floating_point() else x[:n]
 
-    return (dataclasses.replace(cfg, n_layers=1 + n_body, param_dtype=dtype),
+    plan = layer_plan(cfg)
+    n_layers = len(plan.head) + n_body * len(plan.period) + len(plan.tail)
+    return (dataclasses.replace(cfg, n_layers=n_layers, param_dtype=dtype),
             tree_map_with_name(leaf, comp))
 
 
@@ -623,9 +726,10 @@ def route_difference(torch, cfg, comp, prompts, dev) -> dict:
             "same_argmax": (ls.argmax(-1) == lp.argmax(-1)).tolist()}
 
 
-def profile_decode(torch, cfg, comp, dev, n_dispatch: int = 2) -> dict:
+def profile_decode(torch, cfg, comp, dev, n_dispatch: int = 2, max_len=97, num_pages=28,
+                   prompt_lens=(64, 64, 64, 64)) -> dict:
     """A ``torch.profiler`` trace of ``n_dispatch`` decode dispatches (K = 4
-    steps each) with 4 busy lanes on the non-preempting pool: wall and
+    steps each) with 4 busy lanes on a pool that does not preempt: wall and
     device-busy ms per decode step, the idle share, kernels per step and
     the eight kernels with the most device time."""
     import numpy as np
@@ -634,10 +738,10 @@ def profile_decode(torch, cfg, comp, dev, n_dispatch: int = 2) -> dict:
 
     from repro_torch.serving import DecodeEngine, SamplingParams
 
-    eng = DecodeEngine(cfg, comp, max_batch=4, max_len=97, seed=0, num_pages=28,
+    eng = DecodeEngine(cfg, comp, max_batch=4, max_len=max_len, seed=0, num_pages=num_pages,
                        page_size=16, steps_per_dispatch=4, device=dev)
-    for r in range(4):
-        eng.submit(np.random.default_rng(2000 + r).integers(0, cfg.vocab, 64).tolist(),
+    for r, n in enumerate(prompt_lens):
+        eng.submit(np.random.default_rng(2000 + r).integers(0, cfg.vocab, n).tolist(),
                    SamplingParams(max_new_tokens=32))
     eng.step()  # admission and the first dispatch, untraced
     torch.cuda.synchronize()
@@ -658,6 +762,147 @@ def profile_decode(torch, cfg, comp, dev, n_dispatch: int = 2) -> dict:
         "kernels_per_step": sum(e.count for e in kernels) / n,
         "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / 1e3 / n for e in top},
     }
+
+
+def window_route_difference(torch, cfg, comp, prompt_len: int, dev) -> dict:
+    """The slab and paged decode routes of a windowed model from one state:
+    4 prompts of ``prompt_len`` tokens (past the window) prefilled once,
+    written into the rolling window slab and into a pool's modular window
+    table, then one decode step of the same tokens through each (the
+    slab's gathered attention, K2w on the pool); the largest logit
+    difference beside the logits' spread."""
+    import numpy as np
+
+    from repro_torch.models.model import decode_step, forward, init_cache, write_prefill
+    from repro_torch.serving.kv_pool import PagedKVPool
+
+    b, max_len = 4, prompt_len + 2
+    toks = torch.tensor(np.random.default_rng(3000).integers(0, cfg.vocab, (b, prompt_len)),
+                        device=dev)
+    with torch.no_grad():
+        logits, produced = forward(comp, cfg, toks, want_cache=True)
+    lanes = torch.arange(b, device=dev)
+    lens = torch.full((b,), prompt_len, dtype=torch.int32, device=dev)
+    pool = PagedKVPool(cfg, max_batch=b, max_len=max_len, num_pages=b * 130, device=dev)
+    for i in range(b):
+        pool.alloc_prefill(i, prompt_len)
+        pool.ensure_steps(i, prompt_len, 1)
+    pool.device_tables()
+    slab = init_cache(cfg, b, max_len, device=dev)
+    write_prefill(slab, cfg, produced, lanes, lens)
+    write_prefill(pool.cache, cfg, produced, lanes, lens, pool.layout)
+    del produced
+    nxt = logits[:, -1].argmax(-1)
+    del logits
+    ls = decode_step(comp, cfg, nxt, slab)[0].float()
+    lp = decode_step(comp, cfg, nxt, pool.cache, pool.layout)[0].float()
+    return {"max_abs_diff": (ls - lp).abs().max().item(), "logit_std": ls.std().item(),
+            "window_table": "win" in pool.cache["tables"],
+            "same_argmax": (ls.argmax(-1) == lp.argmax(-1)).tolist()}
+
+
+def recurrentgemma_phase(torch, dev, dispatch) -> dict:
+    """Phase 7: full-width RecurrentGemma-9B, exported and compressed leaf
+    by leaf, served on the slab, a pool that never preempts and one that
+    does; returns the launches of K1 and K2w over the three runs."""
+    import numpy as np
+
+    from repro_torch import core
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.sparse_infer import export_compressed
+
+    cfg = get_config("recurrentgemma-9b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n_params = sum(p.numel() for p in _leaves(params))
+    recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(2, 4)))
+    comp, rep = export_compressed(params, recipe)
+    del params
+    torch.cuda.synchronize()
+    log(f"  {cfg.n_layers} layers, {n_params:,} parameters: init {t1 - t0:.1f} s, "
+        f"export + compress leaf by leaf {time.perf_counter() - t1:.1f} s, {json.dumps(rep)}; "
+        f"peak memory {torch.cuda.max_memory_allocated():,} B, compressed tree "
+        f"{torch.cuda.memory_allocated():,} B")
+    prompts = [np.random.default_rng(4000 + r).integers(0, cfg.vocab, n).tolist()
+               for r, n in enumerate(RG_PROMPTS)]
+    run = dict(lanes=4, gen=RG_GEN, k=4, max_len=RG_MAX_LEN)
+    serve(torch, cfg, comp, dev, paged=True, prompts=[prompts[3][:32]], gen=4,
+          num_pages=RG_PAGES, max_len=RG_MAX_LEN)  # warm-up, uncounted
+    torch.cuda.reset_peak_memory_stats()
+    totals = {"nm_spmm": 0, "paged_attn_win": 0}
+    runs = {}
+    for name, pages in (("slab", None), ("paged", RG_PAGES),
+                        ("paged_preempting", RG_PAGES_PREEMPTING)):
+        dispatch.reset_launches()
+        eng, _, streams, wall = serve(torch, cfg, comp, dev, paged=pages is not None,
+                                      num_pages=pages or 0, prompts=prompts, **run)
+        launches = dict(dispatch.launches)
+        steps, groups = eng.decode_steps, eng.prefill_batches
+        want = {"nm_spmm": RG_K1_PER_PASS * (steps + groups),
+                "paged_attn_win": RG_ATTN_LAYERS * steps if pages else 0,
+                "paged_attn": 0, "paged_attn_mla": 0, "nm_spmm_batched": 0}
+        log(f"  {name}: launches {launches}; {steps} decode steps, {groups} prefill batches: "
+            f"nm_spmm wants {RG_K1_PER_PASS} x ({steps} + {groups}) = {want['nm_spmm']}, "
+            f"window paged_attn {RG_ATTN_LAYERS} x {steps if pages else 0}")
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"{name}: launches {launches}, want {want}")
+        if (eng.preemptions > 0) != (name == "paged_preempting"):
+            raise AssertionError(f"{name}: {eng.preemptions} preemptions")
+        if pages is not None:
+            tables = sorted(eng.cache["tables"])
+            log(f"  {name}: tables {tables}, {eng.pool.evicted_pages} window pages evicted, "
+                f"{eng.preemptions} preemptions")
+            if tables != ["win"] or eng.pool.evicted_pages == 0:
+                raise AssertionError(f"{name}: tables {tables}, "
+                                     f"{eng.pool.evicted_pages} evicted pages")
+        for k in totals:
+            totals[k] += launches[k]
+        runs[name] = (eng, streams, wall)
+    agree, total, margins = compare_streams(torch, cfg, comp, prompts, runs["slab"][1],
+                                            runs["paged"][1], dev, margin=RG_MARGIN)
+    log(f"  slab vs non-preempting paged greedy streams: {agree}/{total} tokens equal before "
+        f"each request's first difference; top-2 margins at the differences {margins} "
+        f"(all < {RG_MARGIN})")
+    # the two decode routes from one state past the window: f32 on the
+    # first period and the tail must agree to summation order; bf16 at
+    # full depth shows the rounding the streams see
+    routes = {}
+    for dtype, n_body in (("float32", 1), ("bfloat16", 12)):
+        sub_cfg, sub = (first_layers(torch, cfg, comp, n_body, dtype) if dtype != "bfloat16"
+                        else (cfg, comp))
+        routes[f"{dtype} {sub_cfg.n_layers} layers"] = window_route_difference(
+            torch, sub_cfg, sub, RG_PROMPTS[0], dev)
+        del sub
+    log("  one decode step after one prefill, slab (rolled window) vs paged (K2w): "
+        + json.dumps(routes))
+    f32 = routes["float32 5 layers"]
+    if f32["max_abs_diff"] > RG_ROUTE_F32_TOL or not f32["window_table"]:
+        raise AssertionError(f"the slab and paged window routes differ by more than "
+                             f"{RG_ROUTE_F32_TOL} in f32: {f32}")
+    peak = torch.cuda.max_memory_allocated()
+    for name, (eng, _, wall) in runs.items():
+        st = eng.stats()
+        log("  serve recurrentgemma " + json.dumps({
+            "run": name, "tokens_per_s": st["tokens_per_s"],
+            "ms_per_decode_step": st["ms_per_decode_step"],
+            "ms_per_decode_step_host": st["ms_per_decode_step_host"],
+            "decode_steps": st["decode_steps"], "prefill_batches": st["prefill_batches"],
+            "preemptions": st["preemptions"], "evicted_pages": st.get("evicted_pages", 0),
+            "run_wall_s": wall, "kv_cache_bytes": st["kv_cache_bytes"],
+            "kv_bytes_per_step": st["kv_bytes_per_step"],
+            "weight_bytes_per_step": st["weight_bytes_per_step"],
+            "weight_stream_bound_ms": st["weight_bytes_per_step"] / HBM_BYTES_PER_S * 1e3,
+            "peak_memory_bytes": peak, "device": torch.cuda.get_device_name(0),
+        }))
+    log("  profile recurrentgemma paged decode " + json.dumps(profile_decode(
+        torch, cfg, comp, dev, max_len=RG_MAX_LEN, num_pages=RG_PAGES,
+        prompt_lens=RG_PROMPTS)))
+    return totals
 
 
 def _leaves(tree):
@@ -851,6 +1096,8 @@ def main() -> int:
     log("phase 2: the batched nm_spmm and paged_attn's MLA form (DeepSeek-V2-Lite shapes)")
     records["nm_spmm_batched"] = check_nm_spmm_batched(torch, dev)
     records["paged_attn_mla"] = check_paged_attn_mla(torch, dev)
+    log("phase 2: paged_attn's window form (RecurrentGemma-9B shapes)")
+    records["paged_attn_win"] = check_paged_attn_win(torch, dev)
 
     log("phase 3: serve full-width gpt2-paper, slab then undersized paged pool")
     launches = serve_phase(torch, cfg, comp, dev, dispatch)
@@ -864,6 +1111,10 @@ def main() -> int:
 
     log("phase 6: serve full-width DeepSeek-V2-Lite (27 layers), slab, paged, preempting pool")
     launches.update(deepseek_phase(torch, dev, dispatch))
+
+    log("phase 7: serve full-width RecurrentGemma-9B (38 layers), slab, paged, preempting pool")
+    rg = recurrentgemma_phase(torch, dev, dispatch)
+    launches["paged_attn_win"] = rg["paged_attn_win"]
 
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():

@@ -1,15 +1,17 @@
 """Architecture registry: ``get_config(name)`` / ``list_archs()``.
 
-``gpt2-paper`` and ``deepseek-v2-lite-16b`` are ported; the reference's
-other archs are listed in ROADMAP.md as still to port.
+``gpt2-paper``, ``deepseek-v2-lite-16b`` and ``recurrentgemma-9b`` are
+ported; the reference's other archs are listed in ROADMAP.md as still to
+port.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig, reduced
 from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as _deepseek
 from repro_torch.configs.gpt2_paper import CONFIG as _gpt2
+from repro_torch.configs.recurrentgemma_9b import CONFIG as _rgemma
 
-_REGISTRY: dict[str, ArchConfig] = {c.name: c for c in (_gpt2, _deepseek)}
+_REGISTRY: dict[str, ArchConfig] = {c.name: c for c in (_gpt2, _deepseek, _rgemma)}
 
 
 def list_archs() -> list[str]:

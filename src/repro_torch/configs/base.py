@@ -2,18 +2,19 @@
 
 Plain dataclasses of the reference's fields that the port reads.  The
 reference module imports ``repro.models.*`` (and so JAX) for its MoE, MLA,
-SSM and RG-LRU sub-configs; the port keeps its own copies of the two it
-serves, :class:`MoEConfig` (``repro/models/moe.py:33``) and
-:class:`MLAConfig` (``repro/models/mla.py:26``).  Fields of what is not
-ported (hybrid layer patterns, frontends) are left out, so no config can
-ask for them; ``models.model.layer_plan`` raises for the SSM and RG-LRU
-families, M-RoPE and sliding windows, and ``configs.get_config`` for every
-arch not in the registry (ROADMAP.md).
+SSM and RG-LRU sub-configs; the port keeps its own copies of the three it
+serves, :class:`MoEConfig` (``repro/models/moe.py:33``),
+:class:`MLAConfig` (``repro/models/mla.py:26``) and :class:`RGLRUConfig`
+(``repro/models/recurrent.py:23``).  Fields of what is not ported (SSM,
+frontends) are left out, so no config can ask for them;
+``models.model.layer_plan`` raises for the SSM family, hybrid patterns
+with other kinds than ``rec``/``attn``, M-RoPE and windows on MLA, and
+``configs.get_config`` for every arch not in the registry (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,9 +36,16 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    lru_width: int  # recurrence width (RecurrentGemma: == d_model)
+    conv_width: int = 4
+    c: float = 8.0  # Griffin's fixed scaling constant
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # dense | moe are ported
+    family: str  # dense | moe | hybrid are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -55,6 +63,9 @@ class ArchConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    # hybrid layer pattern, e.g. ("rec", "rec", "attn"); None = all-attn
+    layer_pattern: Optional[Sequence[str]] = None
     param_dtype: str = "bfloat16"
     source: str = ""  # provenance note
 
@@ -62,12 +73,21 @@ class ArchConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    def block_kinds(self) -> list[str]:
+        """Per-layer block kinds, length ``n_layers``: the pattern repeated
+        (and cut short), or all ``attn``."""
+        if self.layer_pattern is None:
+            return ["attn"] * self.n_layers
+        pat = list(self.layer_pattern)
+        return [pat[i % len(pat)] for i in range(self.n_layers)]
+
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     """A tiny same-family variant for CPU tests (the reference's dims)."""
     n_kv = min(cfg.n_kv, 2)
     base = dict(
-        n_layers=min(cfg.n_layers, 4),
+        n_layers=min(cfg.n_layers, 4 if cfg.layer_pattern is None
+                     else 2 * len(cfg.layer_pattern)),
         d_model=64,
         n_heads=max(4, n_kv * 2),
         n_kv=n_kv,
@@ -84,5 +104,9 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     if cfg.mla is not None:
         base["mla"] = MLAConfig(kv_lora=32, rope_head_dim=8, nope_head_dim=16, v_head_dim=16)
         base["head_dim"] = None
+    if cfg.rglru is not None:
+        base["rglru"] = RGLRUConfig(lru_width=64, conv_width=4)
+    if cfg.local_window is not None:
+        base["local_window"] = 16
     base.update(overrides)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **base)

@@ -1,13 +1,22 @@
 // Single-query paged decode attention, for Hopper.
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attn.py:_paged_attn_kernel
-// (launched by paged_attn_pallas, emit_stats=False) in two of its forms,
-// append-only tables and fp pages in both:
+// (launched by paged_attn_pallas, emit_stats=False) in three of its forms,
+// fp pages in all:
 //
-// paged_attn_launch, MHA/GQA:
+// paged_attn_launch, MHA/GQA (K2), with the window option (K2w, the
+// reference's window / win_slots, paged_attn.py:109-125):
 //   q        (B, Hkv, G, D)   queries grouped per KV head
 //   k_pages  (P, ps, Hkv, D)  physical pool;  v_pages (P, ps, Hkv, Dv)
 //   out      (B, Hkv, G, Dv)  in q's type
+//   window = 0: an append-only table, slot p holds logical page p.
+//   window > 0: a modular table of win_slots (= n_slots) slots: slot p
+//   holds the newest logical page pg = cur - floormod(cur - p, win_slots)
+//   at or before the lane's current page cur = (length - 1) / ps, and only
+//   positions in [length - window, length) count.  A slot whose page lies
+//   before 0 (not reached yet), wholly before the window or at or past the
+//   length is skipped; the window's first page is live only from row
+//   length - window - pg * ps.
 // paged_attn_mla_launch, MLA's absorbed latent form (K2m; the reference's
 // q2 / k2_pages / v_is_k options, src/repro/models/mla.py:202-237):
 //   q        (B, Hkv, G, D)   the latent queries (DeepSeek: Hkv=1, G=16, D=512)
@@ -16,31 +25,35 @@
 //   k2_pages (P, ps, Hkv, D2) the shared RoPE keys
 //   out      (B, Hkv, G, D)   in q's type
 //   scores are (q.k + q2.k2) * scale; V is the K page already staged.
-// Both: tables (B, n_slots) int32 page ids, P = sentinel (unmapped);
+// All: tables (B, n_slots) int32 page ids, P = sentinel (unmapped);
 // lengths (B,) int32 live tokens per lane.  Queries and output share one
 // type and the pages another (f32 or bf16 each), so the MLA form keeps the
 // reference's f32 queries and output over bf16 pages.
-// Slot p of lane b covers logical positions [p*ps, (p+1)*ps); positions at
-// or past lengths[b] are dead.  A lane with length 0 writes exact zeros.
+// Positions at or past lengths[b] are dead.  A lane with length 0 writes
+// exact zeros.
 //
 // What bounds it: the bytes of the live pages (decode does ~1 FMA per
 // byte read per query head, far below the tensor cores' break-even).  The
 // design gives one block to each (lane, KV head) and walks the lane's table
 // slots in order, so every live page is read once and all G query heads of
 // the KV head share that read; in the MLA form the latent page is read once
-// for both the scores and the output.  Where that leaves few blocks (MLA:
-// one KV head, 16 query heads), the query heads are split across blocks
-// that each read the pages (L2 serves the repeats).  Slots that are
-// sentinel, or lie at or past the lane's length, are skipped before any
-// load is issued; only the live rows of the last page are loaded.  Each page's K (and K2, V)
+// for both the scores and the output.  Where that leaves few blocks (MLA
+// and RecurrentGemma's MQA: one KV head, 16 query heads), the query heads
+// are split across blocks that each read the pages (L2 serves the
+// repeats).  Slots that are sentinel or hold no live row are skipped
+// before any load is issued, and only a page's live rows are loaded (the
+// last page's head, the window's first page's tail).  The softmax does not
+// depend on the order the pages come in, so a window's slots are walked in
+// slot order, not logical order.  Each page's K (and K2, V)
 // go through shared memory (rows padded by one float against bank
 // conflicts), and a flash-style online softmax in f32 carries (max,
 // denominator, accumulator) from page to page, with the finite -1e30 in
 // place of -inf so dead positions never make NaNs.  The MLA form at
 // DeepSeek's widths needs 105 KB of shared memory for 16 heads in a block
-// (f32 queries and accumulator of 16 x 512, one page of 16 x 513), past the
-// 48 KB a launch gets by default: the launch opts in with
-// cudaFuncSetAttribute above 48 KB and returns its error if that fails.
+// (f32 queries and accumulator of 16 x 512, one page of 16 x 513), and the
+// GQA form 66 KB for 16 heads of 256, past the 48 KB a launch gets by
+// default: the launch opts in with cudaFuncSetAttribute above 48 KB and
+// returns its error if that fails.
 // The scoring loop is a template parameter picked at launch from the row
 // width: rows of at least WARP_ROW_MIN floats over both streams (MLA's
 // 512 + 64) take a warp per (head, row), its lanes splitting the dot
@@ -66,6 +79,8 @@ template <> __device__ __forceinline__ float from_f<float>(float v) { return v; 
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+
+__device__ __forceinline__ int floor_mod(int x, int n) { return ((x % n) + n) % n; }
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int s = 16; s > 0; s >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, s));
@@ -93,7 +108,8 @@ __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
     const TP* __restrict__ kp, const TP* __restrict__ k2p,
     const TP* __restrict__ vp, const int* __restrict__ tables,
     const int* __restrict__ lengths, TQ* __restrict__ out, int Hkv, int Gt,
-    int G, int D, int D2, int Dv, int P, int ps, int n_slots, float scale) {
+    int G, int D, int D2, int Dv, int P, int ps, int n_slots, int window,
+    int win_slots, float scale) {
   extern __shared__ float smem[];
   const int KS = D + 1, K2S = D2 + 1;  // padded row strides
   float* qs = smem;                     // G*D
@@ -120,12 +136,20 @@ __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
   for (int g = tid; g < G; g += THREADS) { mrow[g] = NEG; lrow[g] = 0.f; }
   __syncthreads();
 
-  const int live_slots = length > 0 ? min(n_slots, (length + ps - 1) / ps) : 0;
-  for (int p = 0; p < live_slots; ++p) {
-    const int phys = tables[(size_t)b * n_slots + p];  // uniform across the block
-    if (phys < 0 || phys >= P) continue;               // sentinel: nothing loaded
-    const int nv = min(ps, length - p * ps);           // live rows of this page
-    const size_t row0 = (size_t)phys * ps;
+  // every value here is uniform across the block, so whole pages skip together
+  const int cur_pg = max(length - 1, 0) / ps;
+  const int lo = window > 0 ? max(length - window, 0) : 0;  // first live position
+  const int n_walk = length <= 0 ? 0 : window > 0 ? n_slots
+                                                  : min(n_slots, (length + ps - 1) / ps);
+  for (int p = 0; p < n_walk; ++p) {
+    const int pg = window > 0 ? cur_pg - floor_mod(cur_pg - p, win_slots) : p;
+    const int phys = tables[(size_t)b * n_slots + p];
+    if (phys < 0 || phys >= P || pg < 0) continue;     // sentinel or not reached
+    const int r0 = max(lo - pg * ps, 0);               // live rows [r0, r1) of the page
+    const int r1 = min(ps, length - pg * ps);
+    if (r0 >= r1) continue;                            // nothing live: nothing loaded
+    const int nv = r1 - r0;
+    const size_t row0 = (size_t)phys * ps + r0;
     for (int e = tid; e < nv * D; e += THREADS) {
       const int r = e / D, d = e - r * D;
       ks[r * KS + d] = to_f(kp[((row0 + r) * Hkv + h) * D + d]);
@@ -203,10 +227,11 @@ template <typename TQ, typename TP, bool V_IS_K>
 int launch(const void* q, const void* q2, const void* k, const void* k2,
            const void* v, const void* tables, const void* lengths, void* out,
            int B, int Hkv, int G, int D, int D2, int Dv, int P, int ps,
-           int n_slots, float scale, cudaStream_t s) {
+           int n_slots, int window, int win_slots, float scale, cudaStream_t s) {
   // split a KV head's query heads across blocks (halving while G stays
   // even) until the grid has 64 blocks or a block has 2 heads: every block
-  // re-reads the pages (from L2), but 4 lanes of 16 MLA heads fill 32 SMs
+  // re-reads the pages (from L2), but 4 lanes of 16 MLA or MQA heads fill
+  // 32 SMs
   int gb = G;
   while (gb > 2 && gb % 2 == 0 && B * Hkv * (G / gb) < 64) gb /= 2;
   const int smem = (int)sizeof(float) * smem_floats(gb, D, D2, Dv, ps, V_IS_K);
@@ -222,7 +247,7 @@ int launch(const void* q, const void* q2, const void* k, const void* k2,
       static_cast<const TP*>(k), static_cast<const TP*>(k2),
       static_cast<const TP*>(v), static_cast<const int*>(tables),
       static_cast<const int*>(lengths), static_cast<TQ*>(out), Hkv, G, gb, D,
-      D2, Dv, P, ps, n_slots, scale);
+      D2, Dv, P, ps, n_slots, window, win_slots, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,9 +256,10 @@ int launch_types(int q_dtype, int page_dtype, const void* q, const void* q2,
                  const void* k, const void* k2, const void* v,
                  const void* tables, const void* lengths, void* out, int B,
                  int Hkv, int G, int D, int D2, int Dv, int P, int ps,
-                 int n_slots, float scale, void* stream) {
+                 int n_slots, int window, int win_slots, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PA_ARGS q, q2, k, k2, v, tables, lengths, out, B, Hkv, G, D, D2, Dv, P, ps, n_slots, scale, s
+#define PA_ARGS q, q2, k, k2, v, tables, lengths, out, B, Hkv, G, D, D2, Dv, P, ps, \
+                n_slots, window, win_slots, scale, s
   if (q_dtype == 0 && page_dtype == 0) return launch<float, float, V_IS_K>(PA_ARGS);
   if (q_dtype == 0) return launch<float, __nv_bfloat16, V_IS_K>(PA_ARGS);
   if (page_dtype == 0) return launch<__nv_bfloat16, float, V_IS_K>(PA_ARGS);
@@ -254,15 +280,17 @@ extern "C" int paged_attn_smem_max() { return SMEM_MAX; }
 // q_dtype / page_dtype: 0 = float32, 1 = bfloat16.  Each returns the error
 // of the shared-memory opt-in, else cudaGetLastError() after the launch.
 // The wrapper (kernels/paged_attn.py) checks shapes, types and contiguity.
+// window = 0 (and win_slots = 0) for an append-only table, else the live
+// window's width and the modular table's slot count (= n_slots).
 extern "C" int paged_attn_launch(const void* q, const void* k, const void* v,
                                  const void* tables, const void* lengths,
                                  void* out, int B, int Hkv, int G, int D,
                                  int Dv, int P, int ps, int n_slots,
-                                 float scale, int q_dtype, int page_dtype,
-                                 void* stream) {
+                                 int window, int win_slots, float scale,
+                                 int q_dtype, int page_dtype, void* stream) {
   return launch_types<false>(q_dtype, page_dtype, q, nullptr, k, nullptr, v,
                              tables, lengths, out, B, Hkv, G, D, 0, Dv, P, ps,
-                             n_slots, scale, stream);
+                             n_slots, window, win_slots, scale, stream);
 }
 
 extern "C" int paged_attn_mla_launch(const void* q, const void* q2,
@@ -274,5 +302,5 @@ extern "C" int paged_attn_mla_launch(const void* q, const void* q2,
                                      void* stream) {
   return launch_types<true>(q_dtype, page_dtype, q, q2, k, k2, nullptr, tables,
                             lengths, out, B, Hkv, G, D, D2, D, P, ps, n_slots,
-                            scale, stream);
+                            0, 0, scale, stream);
 }

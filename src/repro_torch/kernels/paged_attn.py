@@ -1,18 +1,24 @@
 """Single-query paged decode attention over a ``(P, ps, Hkv, D)`` pool.
 
 Replaces the TPU kernel ``src/repro/kernels/paged_attn.py:_paged_attn_kernel``
-(launched by ``paged_attn_pallas`` with ``emit_stats=False``) in the two
-forms the ported models run, both with append-only tables and fp pages:
+(launched by ``paged_attn_pallas`` with ``emit_stats=False``) in the three
+forms the ported models run, all with fp pages:
 
-- MHA/GQA (K2): q ``(B, Hkv, G, D)``; k/v pages ``(P, ps, Hkv, D|Dv)``.
+- MHA/GQA (K2): q ``(B, Hkv, G, D)``; k/v pages ``(P, ps, Hkv, D|Dv)``;
+  append-only tables.
+- Its window option (K2w, the reference's ``window``/``win_slots``): the
+  same over a modular window table of ``win_slots`` slots, where slot
+  ``p`` holds the newest logical page ``pg ≡ p (mod win_slots)`` at or
+  before the lane's current page, and only positions ``>= length -
+  window`` count (sliding-window layers, RecurrentGemma's local MQA).
 - MLA's absorbed latent form (K2m, the reference's ``q2``/``k2_pages``/
   ``v_is_k``): a second score stream ``q2 (B, Hkv, G, D2)`` against
   ``k2_pages (P, ps, Hkv, D2)`` is added before the softmax, and V is the
   K pool itself (``v_pages`` is None).  DeepSeek's decode passes f32
   queries over bf16 pages and gets f32 back.
 
-Its window and int8-scale options and the stats-emitting variant (K3) are
-not ported (ROADMAP.md §2); this wrapper has no such arguments.
+Its int8-scale option (K2q) and the stats-emitting variant (K3) are not
+ported (ROADMAP.md §2); this wrapper has no such arguments.
 
 On the card :func:`paged_attn` launches ``csrc/paged_attn.cu`` (whose
 header says what bounds it and how the design answers that); on the CPU it
@@ -35,29 +41,38 @@ from repro_torch.kernels import dispatch
 _NEG = -1e30  # finite -inf stand-in: keeps dead lanes exp()-safe
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # scale, types, stream
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + _TAIL
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + _TAIL
 _ARGTYPES_MLA = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + _TAIL
 
 
 def paged_attn(
     q: torch.Tensor, k_pages: torch.Tensor, v_pages: Optional[torch.Tensor],
     tables: torch.Tensor, lengths: torch.Tensor, *, scale: float,
+    window: int = 0, win_slots: int = 0,
     q2: Optional[torch.Tensor] = None, k2_pages: Optional[torch.Tensor] = None,
     v_is_k: bool = False,
 ) -> torch.Tensor:
     ops = [t for t in (q, k_pages, v_pages, tables, lengths, q2, k2_pages) if t is not None]
     if dispatch.on_card(*ops):
-        return _launch(q, k_pages, v_pages, tables, lengths, scale, q2, k2_pages, v_is_k)
+        return _launch(q, k_pages, v_pages, tables, lengths, scale, window, win_slots,
+                       q2, k2_pages, v_is_k)
     return paged_attn_plain(q, k_pages, v_pages, tables, lengths, scale=scale,
+                            window=window, win_slots=win_slots,
                             q2=q2, k2_pages=k2_pages, v_is_k=v_is_k)
 
 
-def _check(q, k_pages, v_pages, tables, lengths, q2, k2_pages, v_is_k) -> bool:
+def _check(q, k_pages, v_pages, tables, lengths, window, win_slots, q2, k2_pages,
+           v_is_k) -> bool:
     """Validate the operands; True for the MLA form."""
     mla = q2 is not None
     if mla != (k2_pages is not None) or mla != bool(v_is_k) or mla != (v_pages is None):
         raise ValueError("the MLA form takes q2, k2_pages and v_is_k=True (no v_pages) "
                          "together; the MHA/GQA form none of them")
+    if window < 0 or bool(window) != bool(win_slots) or (window and win_slots != tables.shape[1]):
+        raise ValueError(f"a window ({window}) takes win_slots equal to the table's "
+                         f"{tables.shape[1]} slots, got {win_slots}")
+    if window and mla:
+        raise ValueError("the window option is not ported for the MLA form")
     b, hkv, g, d = q.shape
     if k_pages.dim() != 4 or k_pages.shape[2:] != (hkv, d):
         raise ValueError(f"pages {tuple(k_pages.shape)} do not match q {tuple(q.shape)}")
@@ -75,8 +90,10 @@ def _check(q, k_pages, v_pages, tables, lengths, q2, k2_pages, v_is_k) -> bool:
     return mla
 
 
-def _launch(q, k_pages, v_pages, tables, lengths, scale, q2, k2_pages, v_is_k):
-    mla = _check(q, k_pages, v_pages, tables, lengths, q2, k2_pages, v_is_k)
+def _launch(q, k_pages, v_pages, tables, lengths, scale, window, win_slots, q2, k2_pages,
+            v_is_k):
+    mla = _check(q, k_pages, v_pages, tables, lengths, window, win_slots, q2, k2_pages,
+                 v_is_k)
     queries = (q, q2) if mla else (q,)
     pages = (k_pages, k2_pages) if mla else (k_pages, v_pages)
     if (q.dtype not in _DTYPES or k_pages.dtype not in _DTYPES
@@ -113,26 +130,40 @@ def _launch(q, k_pages, v_pages, tables, lengths, scale, q2, k2_pages, v_is_k):
         fn = dispatch.kernel_fn("paged_attn", "paged_attn_launch", _ARGTYPES)
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                b, hkv, g, d, dv, n_pages, ps, tables.shape[1], float(scale), *types)
-        dispatch.check_launch("paged_attn", rc)
+                b, hkv, g, d, dv, n_pages, ps, tables.shape[1], int(window),
+                int(win_slots), float(scale), *types)
+        dispatch.check_launch("paged_attn_win" if window else "paged_attn", rc)
     return out
 
 
 def paged_attn_plain(
     q: torch.Tensor, k_pages: torch.Tensor, v_pages: Optional[torch.Tensor],
     tables: torch.Tensor, lengths: torch.Tensor, *, scale: float,
+    window: int = 0, win_slots: int = 0,
     q2: Optional[torch.Tensor] = None, k2_pages: Optional[torch.Tensor] = None,
     v_is_k: bool = False,
 ) -> torch.Tensor:
-    """The same function in plain PyTorch: gather every lane's table slots
-    into a ``(B, n_slots·ps)`` view and apply the per-position masks in one
-    f32 softmax."""
-    mla = _check(q, k_pages, v_pages, tables, lengths, q2, k2_pages, v_is_k)
+    """The same function in plain PyTorch, the gathered math of the
+    reference's ``_gathered_stats``: gather every lane's table slots into a
+    ``(B, n_slots·ps)`` view and apply the per-position masks in one f32
+    softmax."""
+    mla = _check(q, k_pages, v_pages, tables, lengths, window, win_slots, q2, k2_pages,
+                 v_is_k)
     n_pages, ps = k_pages.shape[:2]
-    apos = (torch.arange(tables.shape[1], device=q.device)[:, None] * ps
-            + torch.arange(ps, device=q.device))  # (S, ps)
-    valid = (apos[None] < lengths.long()[:, None, None]) & (
-        tables[..., None] != n_pages)  # (B, S, ps)
+    lens = lengths.long()[:, None]  # (B, 1)
+    slot = torch.arange(tables.shape[1], device=q.device)[None, :]  # (1, S)
+    if window:
+        # slot p holds the newest logical page pg ≡ p (mod win_slots) at or
+        # before the current page (torch's % on a positive divisor is a
+        # floor modulo, as jnp.mod)
+        cur = (lens - 1).clamp(min=0) // ps
+        pg = cur - (cur - slot) % win_slots
+        lo = (lens - window).clamp(min=0)
+    else:
+        pg, lo = slot.expand(tables.shape[0], -1), torch.zeros_like(lens)
+    apos = pg[..., None] * ps + torch.arange(ps, device=q.device)  # (B, S, ps)
+    valid = ((apos < lens[..., None]) & (apos >= lo[..., None])
+             & (tables[..., None] != n_pages) & (pg[..., None] >= 0))  # (B, S, ps)
     phys = tables.long().clamp(0, n_pages - 1)  # sentinel rows are masked
     kg = k_pages[phys].float()
     s = torch.einsum("bhgd,bsphd->bhgsp", q.float(), kg)

@@ -1,7 +1,7 @@
 """Serving launcher: compressed-native continuous-batching decode on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \\
-        [--arch gpt2-paper|deepseek-v2-lite-16b] \\
+        [--arch gpt2-paper|deepseek-v2-lite-16b|recurrentgemma-9b] \\
         [--paged --page-size 16 --num-pages 64] [--steps-per-dispatch 4] \\
         [--ckpt-dir RUN] [--dense] [--temperature 0.8 --top-k 40] [--device cpu]
 
@@ -9,10 +9,12 @@ Counterpart of ``repro/launch/serve.py`` (sync scheduler only).  Loads or
 initializes the parameters, applies the final STEP N:M mask (Π_T ⊙ w_T),
 compresses the maskable leaves and serves the compressed tree through
 ``DecodeEngine``: every matmul of prefill and decode runs the ``nm_spmm``
-kernel (MoE expert stacks its batched form), and ``--paged`` decode
-attention the ``paged_attn`` kernel (MLA its latent form).  Export and
-compression go leaf by leaf (``export_compressed``), so a full-width
-DeepSeek-V2-Lite fits one 80 GB card.  ``--dense`` serves the masked-dense
+kernel (MoE expert stacks its batched form, RG-LRU blocks all five
+projections), and ``--paged`` decode attention the ``paged_attn`` kernel
+(MLA its latent form; sliding-window layers its window form over the
+modular window table, once ``prompt_len + gen + 1`` reaches the window).
+Export and compression go leaf by leaf (``export_compressed``), so a
+full-width DeepSeek-V2-Lite fits one 80 GB card.  ``--dense`` serves the masked-dense
 tree instead.  Prints two JSON lines: the compression report and the run
 summary, with the reference's keys.
 """
@@ -144,7 +146,7 @@ def make_summary(cfg, engine: DecodeEngine, results: dict, rep: dict, args) -> d
     }
     if args.paged:
         summary.update(
-            evicted_pages=0, table_full_uploads=st["table_full_uploads"],
+            evicted_pages=st["evicted_pages"], table_full_uploads=st["table_full_uploads"],
             table_row_syncs=st["table_row_syncs"], table_syncs=st["table_syncs"],
             kv_quant=False, shared_pages=0, cow_copies=0,
         )

@@ -1,10 +1,21 @@
 """KV-cache layouts (counterpart of ``repro/models/cache.py``).
 
-- :class:`SlabLayout`: a contiguous ``(..., B, max_len, ...)`` slab.
+- :class:`SlabLayout`: a contiguous ``(..., B, max_len, ...)`` slab; a
+  sliding-window layer whose window fits in ``max_len`` keeps a rolling
+  ``(..., B, window, ...)`` slab instead, oldest position first, rolled by
+  one row per lane once the lane's position reaches the window.
 - :class:`PagedLayout`: a ``(..., P + 1, ps, ...)`` pool behind per-lane
-  page tables ``(B, ceil(max_len / ps))`` int32, append-only (slot ``p``
-  holds positions ``[p·ps, (p+1)·ps)``); unmapped slots hold the sentinel
-  ``P``.
+  page tables, int32; unmapped slots hold the sentinel ``P``.  The
+  ``"full"`` table is append-only, ``ceil(max_len / ps)`` slots (slot ``p``
+  holds positions ``[p·ps, (p+1)·ps)``); sliding-window layers read the
+  modular ``"win"`` table of ``pages_win = ceil((window + lookahead - 1) /
+  ps) + 1`` slots, where position ``pos`` lives in slot ``(pos // ps) %
+  pages_win`` and the host pool evicts the pages the window has slid past
+  (``serving.kv_pool``).  ``lookahead`` (the engine's steps per dispatch)
+  leaves room to map every page a dispatch writes without reusing the slot
+  of a page still in some step's window.  A layer is windowed iff its
+  window is at most ``max_len``, the same condition under which the slab
+  rolls; otherwise it pages like full attention.
 
 A layer's cache entry is a dict of leaves, each with its own per-token
 shape: ``{"k", "v"}`` of ``(Hkv, D)`` for attention, ``{"ckv", "krope"}`` of
@@ -24,8 +35,9 @@ index ``P`` that absorbs those writes; it is never read (the kernel and the
 plain attention see only pages ``[0, P)``).  Slab writes past the slab's end
 are masked per lane instead.
 
-Writes update the cache tensors in place.  Sliding-window (modular) tables
-and int8 pages are not ported yet (ROADMAP.md).
+Writes update the cache tensors in place.  RG-LRU states are per lane
+under both layouts and do not pass through here (``models.model``).  Int8
+pages are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -45,54 +57,93 @@ class SlabLayout:
     max_len: int = 0  # only needed for allocation
     kind = "slab"
 
-    def alloc(self, lead: tuple, batch: int, entries: dict, dtype, device) -> dict:
-        """Zeroed ``lead + (B, max_len) + shape`` leaves, one per
-        ``entries`` name -> per-token shape."""
-        return {name: torch.zeros(lead + (batch, self.max_len) + shp, dtype=dtype,
-                                  device=device) for name, shp in entries.items()}
+    def alloc(self, lead: tuple, batch: int, entries: dict, dtype, device,
+              window=None) -> dict:
+        """Zeroed ``lead + (B, S) + shape`` leaves, one per ``entries`` name
+        -> per-token shape; ``S`` is ``max_len``, or ``min(max_len,
+        window)`` for a sliding-window layer."""
+        s = self.max_len if window is None else min(self.max_len, window)
+        return {name: torch.zeros(lead + (batch, s) + shp, dtype=dtype, device=device)
+                for name, shp in entries.items()}
 
     def tables(self, batch: int, device):
         return None
 
-    def write(self, c: dict, entries: dict, pos, tables) -> None:
+    def write(self, c: dict, entries: dict, pos, tables, window=None) -> None:
         """Write one token per lane at ``pos`` into one layer's ``c``
-        (leaves ``(B, S, ...)``); lanes at ``pos >= S`` (frozen at capacity)
-        keep their contents, as the reference's dropped scatter does."""
+        (leaves ``(B, S, ...)``).  A rolling window slab (``window <= S``)
+        first rolls the lanes at ``pos >= S`` back by one row and writes
+        them at row ``S - 1``; otherwise lanes at ``pos >= S`` (frozen at
+        capacity) keep their contents, as the reference's dropped scatter
+        does."""
         bidx = torch.arange(pos.shape[0], device=pos.device)
         for name, x in entries.items():
             s = c[name].shape[1]
             slot = pos.clamp(max=s - 1)
+            if window is not None and window <= s:
+                full = (pos >= s).reshape((-1,) + (1,) * (c[name].dim() - 1))
+                c[name].copy_(torch.where(full, torch.roll(c[name], -1, dims=1), c[name]))
+                c[name][bidx, slot] = x.to(c[name].dtype)
+                continue
             old = c[name][bidx, slot]
             ok = (pos < s).reshape((-1,) + (1,) * (old.dim() - 1))
             c[name][bidx, slot] = torch.where(ok, x.to(old.dtype), old)
 
-    def write_rows(self, c: dict, rows: dict, lanes, lens, tables) -> None:
+    def write_rows(self, c: dict, rows: dict, lanes, lens, tables, window=None) -> None:
         """Write prefilled rows ``(L, N, Lp, ...)`` into lanes ``lanes``
         (distinct, all real) of the stacked cache.  Positions ``>= lens``
         get the prompt's pad entries: dead under the length mask, and
-        overwritten by later decode writes."""
+        overwritten by later decode writes.  A window slab shorter than the
+        rows keeps each row's last ``min(lens, S)`` positions, oldest
+        first (the rolled order)."""
         for name, x in rows.items():
-            c[name][:, lanes, : x.shape[2]] = x.to(c[name].dtype)
+            s, lp = c[name].shape[2], x.shape[2]
+            if s < lp:
+                idx = ((lens.long() - s).clamp(min=0)[:, None]
+                       + torch.arange(s, device=lens.device)).clamp(max=lp - 1)
+                x = x[:, torch.arange(x.shape[1], device=lens.device)[:, None], idx]
+            c[name][:, lanes, : min(s, lp)] = x.to(c[name].dtype)
 
 
 @dataclasses.dataclass(frozen=True)
 class PagedLayout:
-    """Block-granular pool behind append-only page tables."""
+    """Block-granular pool behind append-only and modular page tables."""
 
     page_size: int
     num_pages: int
     max_len: int
+    win: int = 0  # min(max_len, local_window) when the arch has windowed layers
+    has_full: bool = True  # any non-windowed attention or MLA layer
+    lookahead: int = 1  # decode steps one dispatch may take (pages mapped ahead)
     kind = "paged"
 
     @property
     def pages_full(self) -> int:
-        return cdiv(self.max_len, self.page_size)
+        return cdiv(self.max_len, self.page_size) if self.has_full else 0
+
+    @property
+    def pages_win(self) -> int:
+        if not self.win:
+            return 0
+        return cdiv(self.win + max(self.lookahead, 1) - 1, self.page_size) + 1
 
     @property
     def sentinel(self) -> int:
         return self.num_pages
 
-    def alloc(self, lead: tuple, batch: int, entries: dict, dtype, device) -> dict:
+    def _windowed(self, window) -> bool:
+        return window is not None and window <= self.max_len
+
+    def table_key(self, window) -> str:
+        """The table a layer with this window reads."""
+        return "win" if self._windowed(window) else "full"
+
+    def view_window(self, window) -> int:
+        """The live window width a kernel masks to (0 = append-only)."""
+        return min(self.max_len, window) if self._windowed(window) else 0
+
+    def alloc(self, lead: tuple, batch: int, entries: dict, dtype, device,
+              window=None) -> dict:
         """Zeroed ``lead + (P + 1, ps) + shape`` pools (the last page is the
         sink), one per ``entries`` name -> per-token shape."""
         pool = (self.num_pages + 1, self.page_size)
@@ -100,8 +151,8 @@ class PagedLayout:
                 for name, shp in entries.items()}
 
     def tables(self, batch: int, device) -> dict:
-        return {"full": torch.full((batch, self.pages_full), self.sentinel,
-                                   dtype=torch.int32, device=device)}
+        return {key: torch.full((batch, n), self.sentinel, dtype=torch.int32, device=device)
+                for key, n in (("full", self.pages_full), ("win", self.pages_win)) if n}
 
     def pool_view(self, pages: torch.Tensor) -> torch.Tensor:
         """The ``(P, ps, ...)`` pages attention reads (the sink page cut)."""
@@ -116,33 +167,50 @@ class PagedLayout:
             flat = pool.view(pool.shape[:lead] + (-1,) + pool.shape[lead + 2:])
             flat[(slice(None),) * lead + (widx,)] = x.to(flat.dtype)
 
-    def write(self, c: dict, entries: dict, pos, tables) -> None:
+    def write(self, c: dict, entries: dict, pos, tables, window=None) -> None:
         """Scatter one token per lane into its page of one layer's pool
-        ``(P + 1, ps, ...)``; unmapped slots and positions past the table
-        land on the sink page."""
-        pt = tables["full"]
-        page = pos.long() // self.page_size
-        phys = pt.gather(1, page.clamp(max=pt.shape[1] - 1)[:, None])[:, 0]
-        phys = torch.where(page < pt.shape[1], phys, self.sentinel)
-        widx = phys.long() * self.page_size + pos.long() % self.page_size
-        self._scatter(c, entries, widx, 0)
+        ``(P + 1, ps, ...)``, through the window table's slot ``(pos // ps)
+        % pages_win`` for a windowed layer; unmapped slots and positions
+        past the full table land on the sink page."""
+        ps, page = self.page_size, pos.long() // self.page_size
+        if self._windowed(window):
+            phys = tables["win"].gather(1, (page % self.pages_win)[:, None])[:, 0]
+        else:
+            pt = tables["full"]
+            phys = pt.gather(1, page.clamp(max=pt.shape[1] - 1)[:, None])[:, 0]
+            phys = torch.where(page < pt.shape[1], phys, self.sentinel)
+        self._scatter(c, entries, phys.long() * ps + pos.long() % ps, 0)
 
-    def write_rows(self, c: dict, rows: dict, lanes, lens, tables) -> None:
+    def write_rows(self, c: dict, rows: dict, lanes, lens, tables, window=None) -> None:
         """Scatter prefilled rows ``(L, N, Lp, ...)`` of lanes ``lanes``
-        into the stacked pool; positions ``>= lens`` go to the sink page."""
+        into the stacked pool; positions ``>= lens`` go to the sink page,
+        and so do a windowed layer's positions below ``lens - win``."""
         ps = self.page_size
-        n, lp = next(iter(rows.values())).shape[1:3]
+        lp = next(iter(rows.values())).shape[2]
         a = torch.arange(lp, device=lens.device)[None, :]
-        phys = tables["full"][lanes.long()][:, : cdiv(lp, ps)]
-        phys = phys.repeat_interleave(ps, dim=1)[:, :lp].long()  # (N, Lp)
-        widx = torch.where(a < lens[:, None], phys * ps + a % ps,
-                           self.sentinel * ps).reshape(-1)
+        valid = a < lens[:, None]
+        if self._windowed(window):
+            valid = valid & (a >= (lens[:, None] - self.view_window(window)))
+            phys = tables["win"][lanes.long()][:, (a[0] // ps) % self.pages_win]
+        else:
+            phys = tables["full"][lanes.long()][:, a[0] // ps]
+        widx = torch.where(valid, phys.long() * ps + a % ps, self.sentinel * ps).reshape(-1)
         self._scatter(c, {name: x.flatten(1, 2) for name, x in rows.items()}, widx, 1)
 
 
-def paged_layout_for(cfg, max_len: int, *, page_size: int, num_pages: int) -> PagedLayout:
-    if cfg.local_window is not None:
-        raise NotImplementedError(
-            "sliding-window (modular) page tables are not ported yet; see ROADMAP.md"
-        )
-    return PagedLayout(page_size=page_size, num_pages=num_pages, max_len=max_len)
+def paged_layout_for(cfg, max_len: int, *, page_size: int, num_pages: int,
+                     lookahead: int = 1) -> PagedLayout:
+    """The layout an arch needs at a given logical capacity: attention
+    layers are windowed iff ``local_window <= max_len``; the full table
+    serves the others and MLA.  ``lookahead`` is the engine's steps per
+    dispatch (it sizes the window table)."""
+    from repro_torch.models.model import _block_mixer_mlp, _groups, layer_plan
+
+    mixers = {_block_mixer_mlp(kind, cfg)[0] for _, kind, _ in _groups(layer_plan(cfg))}
+    windowed = ("attn" in mixers and cfg.local_window is not None
+                and cfg.local_window <= max_len)
+    return PagedLayout(
+        page_size=page_size, num_pages=num_pages, max_len=max_len,
+        win=min(max_len, cfg.local_window) if windowed else 0,
+        has_full="mla" in mixers or ("attn" in mixers and not windowed),
+        lookahead=max(1, lookahead))

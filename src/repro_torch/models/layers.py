@@ -7,7 +7,7 @@ which go through the ``nm_spmm`` kernel and are never decompressed.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -73,11 +73,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      chunk: int = 512) -> torch.Tensor:
+                      window: Optional[int] = None, chunk: int = 512) -> torch.Tensor:
     """Causal attention with an online softmax over KV chunks of ``chunk``,
     so no more than a (Sq, chunk) score block exists per head.
     q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); GQA groups H // Hkv query heads
-    per KV head."""
+    per KV head.  ``window`` (sliding-window attention) keeps the keys at
+    ``kv_pos > q_pos - window``: each query sees its last ``window``
+    positions."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -91,6 +93,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         vb = v[:, c0:c0 + chunk].float()
         kv_pos = c0 + torch.arange(kb.shape[1], device=q.device)
         mask = kv_pos[None, :] <= q_pos[:, None]  # (Sq, chunk)
+        if window is not None:
+            mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb) * d ** -0.5
         s = torch.where(mask, s, _NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))

@@ -4,27 +4,33 @@ Parameters are a nested dict keyed like the reference (``embed/tok_embed``,
 ``final/norm_scale``, ``head_0/attn/w_q``, ``body/sb_0/moe/w_gate_e``, ...).
 ``layer_plan`` splits the layers as the reference does: unstacked leading
 ``head_*`` layers (DeepSeek's dense first layer), then ``n_body`` copies of
-one block stacked along a leading axis of every ``body/sb_0`` leaf, so a JAX
-tree carries over as it is.  Leaves may be ``CompressedTensor``: every
-weight matmul goes through ``layers.matmul``, so prefill and decode run on
-the compressed artifact directly (MoE expert stacks in one batched launch
-per weight).
+a period of blocks, block ``j`` of the period stacked along a leading axis
+of every ``body/sb_j`` leaf, then unstacked trailing ``tail_*`` layers
+(RecurrentGemma's 38 = 12 x (rec, rec, attn) + 2), so a JAX tree carries
+over as it is.  Leaves may be ``CompressedTensor``: every weight matmul
+goes through ``layers.matmul``, so prefill and decode run on the
+compressed artifact directly (MoE expert stacks in one batched launch per
+weight).
 
 The cache is a dict ``{"len": (B,) int32, "head_0": {...}, "body": {"sb_0":
-{...}}, "tables": {...}}`` (tables only on the paged layout) whose entries
-are ``{"k", "v"}`` for attention and ``{"ckv", "krope"}`` for MLA, updated
-in place.  On the paged layout decode attention goes through the
-``paged_attn`` kernel where the reference's kernel route does: the MHA/GQA
-form for attention (``model.py:794-815``), the MLA latent form (K2m) for
-MLA (``mla.py:202-237``).
+{...}, ...}, "tail_0": {...}, "tables": {...}}`` (tables only on the paged
+layout) whose entries are ``{"k", "v"}`` for attention, ``{"ckv",
+"krope"}`` for MLA and ``{"state", "conv"}`` for RG-LRU, updated in place.
+Attention and MLA entries live in the layout (slab or pages); RG-LRU
+states are per lane under both.  On the paged layout decode attention goes
+through the ``paged_attn`` kernel where the reference's kernel route does:
+the MHA/GQA form for attention (``model.py:794-815``; over the modular
+window table, K2w, for sliding-window layers), the MLA latent form (K2m)
+for MLA (``mla.py:202-237``).
 
-Ported: the dense family (MHA/GQA attention with RoPE and optional q/k/v/o
-biases) and the MoE family with MLA (DeepSeek-V2); SwiGLU and GeLU MLPs,
-RMSNorm and LayerNorm, tied and untied embeddings.  Sliding windows, SSM
-and RG-LRU mixers and M-RoPE raise; hybrid layer patterns and frontends
-have no config field yet (ROADMAP.md).  :func:`loss_fn` is the training
-loss; it differentiates through the forward with autograd, which keeps
-every layer's activations (the reference rematerializes them per layer).
+Ported: the dense family (MHA/GQA attention with RoPE, optional q/k/v/o
+biases and a sliding window), the MoE family with MLA (DeepSeek-V2) and
+the hybrid family of RG-LRU and local-attention blocks (RecurrentGemma);
+SwiGLU and GeLU MLPs, RMSNorm and LayerNorm, tied and untied embeddings.
+SSM mixers, M-RoPE, frontends and windows on MLA raise (ROADMAP.md).
+:func:`loss_fn` is the training loss; it differentiates through the
+forward with autograd, which keeps every layer's activations (the
+reference rematerializes them per layer).
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from repro_torch.kernels.paged_attn import paged_attn
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import recurrent as REC
 from repro_torch.models.cache import SlabLayout
 from repro_torch.sparse_infer.compress import CompressedTensor
 from repro_torch.utils.device import resolve_device
@@ -51,12 +58,19 @@ class LayerPlan:
 
 
 def layer_plan(cfg: ArchConfig) -> LayerPlan:
-    """One block kind stacked under ``body/sb_0``, after a ``head_0`` with a
-    dense MLP where the MoE config asks for one.  Raises for what is not
-    ported."""
+    """The reference's plan: a ``head_0`` with a dense MLP where the MoE
+    config asks for one; the layer pattern's period stacked ``n_body``
+    times under ``body/sb_j`` (one kind without a pattern); the layers
+    left over as ``tail_*``.  Raises for what is not ported."""
+    pattern = set(cfg.layer_pattern or ())
     unported = {
-        "family": cfg.family not in ("dense", "moe"), "rope": cfg.rope != "rope",
-        "local_window": cfg.local_window is not None,
+        "family": cfg.family not in ("dense", "moe", "hybrid"),
+        "rope": cfg.rope != "rope",
+        "layer_pattern": not pattern <= {"rec", "attn"},
+        "hybrid family without a rec/attn layer_pattern": (
+            cfg.family == "hybrid" and not pattern),
+        "rec layers without an rglru config": "rec" in pattern and cfg.rglru is None,
+        "local_window on MLA": cfg.local_window is not None and cfg.mla is not None,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -64,12 +78,43 @@ def layer_plan(cfg: ArchConfig) -> LayerPlan:
             f"{cfg.name}: {', '.join(bad)} not ported to repro_torch yet "
             "(see ROADMAP.md)"
         )
-    head = ("attn:dense",) if cfg.moe is not None and cfg.moe.first_layer_dense else ()
-    return LayerPlan(head, ("attn",), cfg.n_layers - len(head), ())
+    kinds = cfg.block_kinds()
+    head: tuple[str, ...] = ()
+    if cfg.moe is not None and cfg.moe.first_layer_dense:
+        head, kinds = (kinds[0] + ":dense",), kinds[1:]
+    if cfg.layer_pattern is None:
+        return LayerPlan(head, (kinds[0],), len(kinds), ())
+    p = len(cfg.layer_pattern)
+    n_body = len(kinds) // p
+    return LayerPlan(head, tuple(cfg.layer_pattern), n_body, tuple(kinds[n_body * p:]))
+
+
+def _groups(plan: LayerPlan) -> list[tuple[tuple[str, ...], str, int]]:
+    """Every layer group of the tree in order: ``(path, kind, stack)``,
+    ``stack`` the number of stacked layers (0 for an unstacked layer)."""
+    return ([((f"head_{i}",), kind, 0) for i, kind in enumerate(plan.head)]
+            + [(("body", f"sb_{j}"), kind, plan.n_body)
+               for j, kind in enumerate(plan.period) if plan.n_body]
+            + [((f"tail_{i}",), kind, 0) for i, kind in enumerate(plan.tail)])
+
+
+def _at(tree: dict, path: tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _put(tree: dict, path: tuple[str, ...], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
 
 
 def _block_mixer_mlp(kind: str, cfg: ArchConfig) -> tuple[str, str]:
-    """A layer kind -> ``(mixer, mlp)``: ``attn | mla`` and ``dense | moe``."""
+    """A layer kind -> ``(mixer, mlp)``: ``attn | mla | rec`` and ``dense |
+    moe``."""
+    if kind.split(":")[0] == "rec":
+        return "rec", "dense"
     mixer = "mla" if cfg.mla is not None else "attn"
     moe = cfg.moe is not None and not kind.endswith(":dense")
     return mixer, ("moe" if moe else "dense")
@@ -138,9 +183,21 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
             p["shared"] = swiglu(lead, m.n_shared * f)
         return p
 
+    def rglru(lead):
+        w, cw = cfg.rglru.lru_width, cfg.rglru.conv_width
+        lam = torch.log(torch.expm1(torch.linspace(0.9, 0.999, w, device=dev)))
+        return {"w_x": dense(lead, d, w), "w_gate_branch": dense(lead, d, w),
+                "w_out": dense(lead, w, d), "conv_w": normal(lead + (cw, w), 0.1),
+                "w_a_gate": dense(lead, d, w), "w_i_gate": dense(lead, d, w),
+                "a_log_lambda": lam.expand(lead + (w,)).contiguous()}
+
     def block(kind, lead):
-        _, mlp = _block_mixer_mlp(kind, cfg)
-        p = {"pre": norm(*lead), "attn": attn(lead), "post": norm(*lead)}
+        mixer, mlp = _block_mixer_mlp(kind, cfg)
+        p = {"pre": norm(*lead), "post": norm(*lead)}
+        if mixer == "rec":
+            p["mixer"] = rglru(lead)
+        else:
+            p["attn"] = attn(lead)
         if mlp == "moe":
             p["moe"] = moe(lead)
         elif cfg.mlp == "swiglu":
@@ -149,8 +206,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
             p["mlp"] = {"w_fc": dense(lead, d, cfg.d_ff), "w_proj": dense(lead, cfg.d_ff, d)}
         return p
 
-    params = {f"head_{i}": block(kind, ()) for i, kind in enumerate(plan.head)}
-    params["body"] = {"sb_0": block(plan.period[0], (plan.n_body,))}
+    params: dict = {}
+    for path, kind, stack in _groups(plan):
+        _put(params, path, block(kind, (stack,) if stack else ()))
     params["embed"] = {"tok_embed": normal((cfg.vocab, d), 0.02)}
     params["final"] = norm()
     if not cfg.tie_embeddings:
@@ -218,14 +276,20 @@ def _mlp(x, p, kind: str, cfg: ArchConfig):
 
 def _block_forward(x, p, kind: str, cfg: ArchConfig, positions, chunk: int):
     """Full-sequence block: ``(x, aux loss, cache entry)``, the entry
-    ``(k, v)`` for attention (after RoPE) and ``(c_kv, k_rope)`` for MLA."""
+    ``(k, v)`` for attention (after RoPE), ``(c_kv, k_rope)`` for MLA and
+    ``(lru_state, conv_tail)`` for RG-LRU."""
     h = _apply_norm(cfg, p["pre"], x)
-    if _block_mixer_mlp(kind, cfg)[0] == "mla":
+    mixer = _block_mixer_mlp(kind, cfg)[0]
+    if mixer == "rec":
+        mix, state, conv = REC.rglru_block(h, p["mixer"], cfg.rglru)
+        entry = (state, conv)
+    elif mixer == "mla":
         mix, entry = MLA.mla_attention(h, p["attn"], cfg.n_heads, cfg.mla, positions,
                                        cfg.rope_theta, chunk)
     else:
         q, k, v = _qkv(h, p["attn"], cfg, positions)
-        mix, entry = _out(L.chunked_attention(q, k, v, chunk=chunk), p["attn"], cfg), (k, v)
+        attn = L.chunked_attention(q, k, v, window=cfg.local_window, chunk=chunk)
+        mix, entry = _out(attn, p["attn"], cfg), (k, v)
     x, aux = _mlp(x + mix, p, kind, cfg)
     return x, aux, entry
 
@@ -233,13 +297,15 @@ def _block_forward(x, p, kind: str, cfg: ArchConfig, positions, chunk: int):
 def _attn_decode(x, p, cfg: ArchConfig, c: dict, pos, layout, tables):
     b = x.shape[0]
     q, k, v = _qkv(x, p, cfg, pos[:, None])
-    layout.write(c, {"k": k[:, 0], "v": v[:, 0]}, pos, tables)
+    layout.write(c, {"k": k[:, 0], "v": v[:, 0]}, pos, tables, window=cfg.local_window)
     if layout.kind == "paged":
         g = cfg.n_heads // cfg.n_kv
+        win = layout.view_window(cfg.local_window)
         attn = paged_attn(
             q[:, 0].reshape(b, cfg.n_kv, g, cfg.hd).contiguous(),
             layout.pool_view(c["k"]), layout.pool_view(c["v"]),
-            tables["full"], pos + 1, scale=cfg.hd ** -0.5,
+            tables[layout.table_key(cfg.local_window)], pos + 1, scale=cfg.hd ** -0.5,
+            window=win, win_slots=layout.pages_win if win else 0,
         ).reshape(b, 1, cfg.n_heads, cfg.hd)
     else:
         s_view = c["k"].shape[1]
@@ -249,7 +315,13 @@ def _attn_decode(x, p, cfg: ArchConfig, c: dict, pos, layout, tables):
 
 def _block_decode(x, p, kind: str, cfg: ArchConfig, c: dict, pos, layout, tables):
     h = _apply_norm(cfg, p["pre"], x)
-    if _block_mixer_mlp(kind, cfg)[0] == "mla":
+    mixer = _block_mixer_mlp(kind, cfg)[0]
+    if mixer == "rec":
+        mix, state, conv = REC.rglru_decode_step(h, p["mixer"], cfg.rglru, c["state"],
+                                                 c["conv"])
+        c["state"].copy_(state)
+        c["conv"].copy_(conv)
+    elif mixer == "mla":
         mix = MLA.mla_decode(h, p["attn"], cfg.n_heads, cfg.mla, c, pos, cfg.rope_theta,
                              layout, tables)
     else:
@@ -283,13 +355,22 @@ def _forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, want_cache: bo
         x, a, caches[f"head_{i}"] = _block_forward(x, params[f"head_{i}"], kind, cfg,
                                                    positions, chunk)
         aux = aux + a
-    body = []
-    for p in _layers(params["body"]["sb_0"], plan.n_body):
-        x, a, entry = _block_forward(x, p, plan.period[0], cfg, positions, chunk)
+    if plan.n_body:
+        stacks = [_layers(params["body"][f"sb_{j}"], plan.n_body)
+                  for j in range(len(plan.period))]
+        body: list[list] = [[] for _ in plan.period]
+        for i in range(plan.n_body):
+            for j, kind in enumerate(plan.period):
+                x, a, entry = _block_forward(x, stacks[j][i], kind, cfg, positions, chunk)
+                aux = aux + a
+                if want_cache:
+                    body[j].append(entry)
+        caches["body"] = {f"sb_{j}": tuple(torch.stack(t) for t in zip(*entries))
+                          for j, entries in enumerate(body) if entries}
+    for i, kind in enumerate(plan.tail):
+        x, a, caches[f"tail_{i}"] = _block_forward(x, params[f"tail_{i}"], kind, cfg,
+                                                   positions, chunk)
         aux = aux + a
-        if want_cache:
-            body.append(entry)
-    caches["body"] = {"sb_0": tuple(torch.stack(t) for t in zip(*body))}
     return _unembed(x, params, cfg), aux, (caches if want_cache else None)
 
 
@@ -298,9 +379,11 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), caches).
 
     With ``want_cache`` the caches hold each layer's cache entry over the
-    whole prompt: ``{"head_0": (c_kv, k_rope), "body": {"sb_0": (...)}}``,
-    body entries stacked ``(L, B, S, ...)`` — what ``write_prefill``
-    stores."""
+    whole prompt: ``{"head_0": (c_kv, k_rope), "body": {"sb_0": (...)},
+    "tail_0": (...)}``, body entries stacked ``(L, B, ...)`` — what
+    ``write_prefill`` stores.  RG-LRU entries are the final state and conv
+    tail, so a prompt batch with recurrent layers must be of exact length
+    (no pad tokens)."""
     logits, _, caches = _forward(params, cfg, tokens, want_cache, chunk)
     return logits, caches
 
@@ -337,19 +420,25 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, chunk: int = 512,
 
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
                layout=None, device="cuda") -> dict:
-    """Allocate the decode cache; ``layout`` defaults to a slab."""
+    """Allocate the decode cache; ``layout`` defaults to a slab.  RG-LRU
+    layers get ``{"state": (B, W) f32, "conv": (B, conv_width - 1, W)}``
+    under either layout."""
     plan = layer_plan(cfg)
     dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.param_dtype)
     layout = layout or SlabLayout(max_len)
 
-    def alloc(kind, lead):
-        return layout.alloc(lead, batch_size, _cache_entries(kind, cfg), dtype, dev)
+    def alloc(kind, stack):
+        lead, entries = (stack,) if stack else (), _cache_entries(kind, cfg)
+        if _block_mixer_mlp(kind, cfg)[0] == "rec":
+            return {name: torch.zeros(lead + (batch_size,) + shp, device=dev,
+                                      dtype=torch.float32 if name == "state" else dtype)
+                    for name, shp in entries.items()}
+        return layout.alloc(lead, batch_size, entries, dtype, dev, window=cfg.local_window)
 
     cache = {"len": torch.zeros((batch_size,), dtype=torch.int32, device=dev)}
-    for i, kind in enumerate(plan.head):
-        cache[f"head_{i}"] = alloc(kind, ())
-    cache["body"] = {"sb_0": alloc(plan.period[0], (plan.n_body,))}
+    for path, kind, stack in _groups(plan):
+        _put(cache, path, alloc(kind, stack))
     tables = layout.tables(batch_size, dev)
     if tables is not None:
         cache["tables"] = tables
@@ -357,9 +446,13 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
 
 
 def _cache_entries(kind: str, cfg: ArchConfig) -> dict:
-    """A layer's cache leaves -> per-token shape, in the order of the
-    entry ``forward(want_cache=True)`` produces."""
-    if _block_mixer_mlp(kind, cfg)[0] == "mla":
+    """A layer's cache leaves -> per-token (per-lane for RG-LRU) shape, in
+    the order of the entry ``forward(want_cache=True)`` produces."""
+    mixer = _block_mixer_mlp(kind, cfg)[0]
+    if mixer == "rec":
+        w = cfg.rglru.lru_width
+        return {"state": (w,), "conv": (cfg.rglru.conv_width - 1, w)}
+    if mixer == "mla":
         return {"ckv": (cfg.mla.kv_lora,), "krope": (cfg.mla.rope_head_dim,)}
     return {"k": (cfg.n_kv, cfg.hd), "v": (cfg.n_kv, cfg.hd)}
 
@@ -369,19 +462,24 @@ def write_prefill(cache: dict, cfg: ArchConfig, produced: dict, lanes, lens,
     """Store freshly prefilled rows: row ``r < len(lanes)`` of ``produced``
     (from ``forward(want_cache=True)``), valid below ``lens[r]``, lands in
     lane ``lanes[r]`` (lanes distinct); rows past ``len(lanes)`` are the
-    batch's pad rows and are dropped, leaf by leaf."""
+    batch's pad rows and are dropped, leaf by leaf.  Attention and MLA
+    rows go through the layout (a windowed layer keeps the last ``window``
+    positions); RG-LRU states scatter into their lanes, so their rows must
+    be of exact length."""
     plan = layer_plan(cfg)
     layout = layout or SlabLayout()
     tables, n = cache.get("tables"), lanes.shape[0]
-    for i, kind in enumerate(plan.head):
-        c = cache[f"head_{i}"]
-        rows = dict(zip(_cache_entries(kind, cfg), produced[f"head_{i}"]))
-        # an unstacked layer written as a stack of one (views: in place)
-        layout.write_rows({k: v[None] for k, v in c.items()},
-                          {k: v[None, :n] for k, v in rows.items()}, lanes, lens, tables)
-    rows = dict(zip(_cache_entries(plan.period[0], cfg), produced["body"]["sb_0"]))
-    layout.write_rows(cache["body"]["sb_0"], {k: v[:, :n] for k, v in rows.items()},
-                      lanes, lens, tables)
+    for path, kind, stack in _groups(plan):
+        c = _at(cache, path)
+        rows = dict(zip(_cache_entries(kind, cfg), _at(produced, path)))
+        if not stack:  # an unstacked layer written as a stack of one (views: in place)
+            c, rows = {k: v[None] for k, v in c.items()}, {k: v[None] for k, v in rows.items()}
+        rows = {k: v[:, :n] for k, v in rows.items()}
+        if _block_mixer_mlp(kind, cfg)[0] == "rec":
+            for name, x in rows.items():
+                c[name][:, lanes] = x.to(c[name].dtype)
+        else:
+            layout.write_rows(c, rows, lanes, lens, tables, window=cfg.local_window)
     cache["len"][lanes] = lens.to(torch.int32)
     return cache
 
@@ -402,8 +500,13 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         x = _block_decode(x, params[f"head_{i}"], kind, cfg, cache[f"head_{i}"], pos,
                           layout, tables)
     for i in range(plan.n_body):
-        x = _block_decode(x, _layer(params["body"]["sb_0"], i), plan.period[0], cfg,
-                          _layer(cache["body"]["sb_0"], i), pos, layout, tables)
+        for j, kind in enumerate(plan.period):
+            sb = f"sb_{j}"
+            x = _block_decode(x, _layer(params["body"][sb], i), kind, cfg,
+                              _layer(cache["body"][sb], i), pos, layout, tables)
+    for i, kind in enumerate(plan.tail):
+        x = _block_decode(x, params[f"tail_{i}"], kind, cfg, cache[f"tail_{i}"], pos,
+                          layout, tables)
     cache["len"] = pos + 1
     return _unembed(x, params, cfg)[:, 0], cache
 

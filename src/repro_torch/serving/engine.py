@@ -13,8 +13,10 @@ One scheduling step (:meth:`step`):
    paged) can back their prompts.  Admitted prompts are padded to a bucket
    length (powers of two up to ``max_len`` by default) and each bucket group
    is prefilled in one batched forward; a group is padded to a power of two
-   rows with sentinel rows that write nothing.  Each row's first token is
-   sampled from its last prompt position.
+   rows with sentinel rows that write nothing.  Archs with recurrent
+   (RG-LRU) layers group prompts by exact length instead, since pad tokens
+   would run into the recurrent state and the conv tail.  Each row's first
+   token is sampled from its last prompt position.
 2. **Capacity.**  On the paged layout every decoding lane reserves the pages
    of its next K writes (``ensure_steps``), oldest lane first; when the
    pool runs dry the youngest lane is preempted: its pages are freed and the
@@ -41,7 +43,16 @@ import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.models.cache import SlabLayout
-from repro_torch.models.model import decode_step, forward, init_cache, write_prefill
+from repro_torch.models.model import (
+    _at,
+    _block_mixer_mlp,
+    _groups,
+    decode_step,
+    forward,
+    init_cache,
+    layer_plan,
+    write_prefill,
+)
 from repro_torch.serving.kv_pool import PagedKVPool
 from repro_torch.serving.sampling import (
     SamplingParams,
@@ -123,7 +134,7 @@ class DecodeEngine:
         if num_pages is not None:
             self.pool: Optional[PagedKVPool] = PagedKVPool(
                 cfg, max_batch=max_batch, max_len=max_len, num_pages=num_pages,
-                page_size=page_size, device=self.device)
+                page_size=page_size, lookahead=steps_per_dispatch, device=self.device)
             self.layout = self.pool.layout
             self.cache = self.pool.cache
         else:
@@ -140,6 +151,11 @@ class DecodeEngine:
         if not buckets or buckets[-1] < max_len:
             buckets.append(max_len)
         self.prefill_buckets = tuple(buckets)
+        # each layer's (mixer, stacked layers), for the cache byte counts
+        self._mixers = [(_block_mixer_mlp(kind, cfg)[0], path, max(stack, 1))
+                        for path, kind, stack in _groups(layer_plan(cfg))]
+        # recurrent state cannot absorb pad tokens: group prompts by exact length
+        self._exact_prefill = any(m == "rec" for m, _, _ in self._mixers)
 
         self.slots: list[Optional[_Slot]] = [None] * max_batch
         self.queue: deque[_Request] = deque()
@@ -154,6 +170,7 @@ class DecodeEngine:
         self.prefill_batches = 0
         self.tokens_generated = 0
         self.decode_tokens = 0
+        self.kv_bytes_sum = 0  # live KV bytes a decode step reads, summed per dispatch
         self.decode_wall_s = 0.0  # decode dispatch wall time, device included
         self.sched_host_s = 0.0  # host scheduling time around dispatches
         self._itl_ms: list[float] = []
@@ -224,6 +241,8 @@ class DecodeEngine:
         self.queue.appendleft(_Request(s.uid, s.prompt, s.sampling, prefix=list(s.generated)))
 
     def _bucket(self, n: int) -> int:
+        if self._exact_prefill:
+            return n
         return next((b for b in self.prefill_buckets if b >= n), self.prefill_buckets[-1])
 
     def _admit(self, out: list) -> None:
@@ -352,6 +371,7 @@ class DecodeEngine:
             return out
         if self.pool is not None:
             self.pool.device_tables()
+        self.kv_bytes_sum += self.live_kv_bytes()
         k = self.steps_per_dispatch
         t0 = time.perf_counter()
         host_block = self._decode(k).cpu().numpy()  # one host sync per K tokens
@@ -380,10 +400,39 @@ class DecodeEngine:
     # -- reporting -----------------------------------------------------------
 
     def kv_cache_bytes(self) -> int:
-        """Device bytes of the KV storage (slab, or pool with its sink
-        page), summed over every layer's cache leaves."""
-        return sum(t.numel() * t.element_size() for name, t in tree_items(self.cache)
-                   if name not in ("len", "tables/full"))
+        """Device bytes of the attention and MLA cache storage (slab, or
+        pool with its sink page), summed over their layers' leaves."""
+        return sum(t.numel() * t.element_size()
+                   for mixer, path, _ in self._mixers if mixer in ("attn", "mla")
+                   for _, t in tree_items(_at(self.cache, path)))
+
+    def _kv_row_bytes(self) -> tuple[int, int]:
+        """(append-only, windowed) cache bytes of one token of one lane,
+        summed over layers: windowed attention layers keep at most the
+        window's tokens, the others (and MLA) every token."""
+        cfg = self.cfg
+        item = getattr(torch, cfg.param_dtype).itemsize
+        windowed = cfg.local_window is not None and cfg.local_window <= self.max_len
+        full_b = win_b = 0
+        for mixer, _, n in self._mixers:
+            if mixer == "attn":
+                rb = n * 2 * cfg.n_kv * cfg.hd * item
+                if windowed:
+                    win_b += rb
+                else:
+                    full_b += rb
+            elif mixer == "mla":
+                full_b += n * (cfg.mla.kv_lora + cfg.mla.rope_head_dim) * item
+        return full_b, win_b
+
+    def live_kv_bytes(self) -> int:
+        """KV bytes the paged kernel reads in one decode step: each busy
+        lane's live tokens once, the window's at most in windowed layers."""
+        full_b, win_b = self._kv_row_bytes()
+        win = (min(self.max_len, self.cfg.local_window)
+               if self.cfg.local_window is not None else self.max_len)
+        return sum(full_b * min(s.pos + 1, self.max_len) + win_b * min(s.pos + 1, win)
+                   for s in self.slots if s is not None)
 
     def kernel_route(self) -> str:
         """Which paged-attention implementation decode runs: ``"slab"`` when
@@ -414,6 +463,8 @@ class DecodeEngine:
             "decode_wall_s": self.decode_wall_s,
             "sched_host_s": self.sched_host_s,
             "kv_cache_bytes": self.kv_cache_bytes(),
+            "kv_bytes_per_step": (self.kv_bytes_sum / self.dispatches
+                                  if self.dispatches else 0.0),
             "weight_bytes_per_step": tree_nbytes(self.params),
             "ms_per_decode_step": self.decode_wall_s / steps * 1e3 if steps else 0.0,
             "ms_per_decode_step_host": self.sched_host_s / steps * 1e3 if steps else 0.0,
@@ -426,6 +477,7 @@ class DecodeEngine:
                 num_pages=self.pool.layout.num_pages,
                 page_size=self.pool.layout.page_size,
                 used_pages=self.pool.used_pages,
+                evicted_pages=self.pool.evicted_pages,
                 table_full_uploads=self.pool.table_full_uploads,
                 table_row_syncs=self.pool.table_row_syncs,
                 table_syncs=self.pool.table_syncs,

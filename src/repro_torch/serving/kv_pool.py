@@ -2,20 +2,30 @@
 
 ``PagedKVPool`` owns the device cache (one ``(..., P + 1, ps, ...)`` pool per
 cache leaf of each attention or MLA layer stack, see
-``models.cache.PagedLayout``; every layer reads the same page tables), the
-free-page list with per-page refcounts, and the per-lane append-only page
-tables.  The
-tables are mirrored host-side in numpy and synced to the device
+``models.cache.PagedLayout``; every layer reads the same page tables, and
+RG-LRU states stay per lane), the free-page list with per-page refcounts,
+and the per-lane page tables.  Two tables exist, as the architecture
+needs:
+
+- ``full``: append-only, ``ceil(max_len / ps)`` slots per lane, for
+  attention without a window and for MLA;
+- ``win``: modular, ``pages_win`` slots per lane, for sliding-window
+  layers.  Position ``pos`` lives in slot ``(pos // ps) % pages_win``; once
+  the window has slid wholly past a page, the page is evicted (returned to
+  the free list, counted in ``evicted_pages``) and its slot reused.
+
+The tables are mirrored host-side in numpy and synced to the device
 incrementally: mutations mark their lane dirty, and ``device_tables``
-copies only dirty rows into the resident device table.
+copies only dirty rows into the resident device tables.
 
 The engine asks ``can_admit``/``alloc_prefill`` at admission,
 ``ensure_steps(lane, pos, k)`` before every decode dispatch (reserving all K
-writes, so a dispatch never runs out of pages midway) and ``release`` on
-finish or preemption.  The device table is updated in place, so unlike the
+writes, so a dispatch never runs out of pages midway; ``lookahead``, the
+engine's steps per dispatch, sizes the window table so those pages never
+take the slot of a page still in the window) and ``release`` on finish or
+preemption.  The device tables are updated in place, so unlike the
 reference there is no donated buffer to re-adopt.  Copy-on-write, prefix
-sharing, staged refills, rollback and window tables are not ported yet
-(ROADMAP.md).
+sharing, staged refills and rollback are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -28,19 +38,22 @@ from repro_torch.models.model import init_cache
 
 class PagedKVPool:
     def __init__(self, cfg, *, max_batch: int, max_len: int, num_pages: int,
-                 page_size: int = 16, device="cuda"):
+                 page_size: int = 16, lookahead: int = 1, device="cuda"):
         self.layout: PagedLayout = paged_layout_for(
-            cfg, max_len, page_size=page_size, num_pages=num_pages)
+            cfg, max_len, page_size=page_size, num_pages=num_pages, lookahead=lookahead)
         self.max_batch = max_batch
         self.max_len = max_len
         self.cache = init_cache(cfg, max_batch, max_len, layout=self.layout, device=device)
-        self._pt = np.full((max_batch, self.layout.pages_full), self.layout.sentinel,
-                           np.int32)
+        lo = self.layout
+        self._pt = {"full": np.full((max_batch, lo.pages_full), lo.sentinel, np.int32),
+                    "win": np.full((max_batch, lo.pages_win), lo.sentinel, np.int32)}
         self._free: list[int] = list(range(num_pages - 1, -1, -1))
         self._ref = np.zeros(num_pages, np.int32)  # 0 = free, 1 = owned by a lane
-        self._pages: list[dict[int, int]] = [dict() for _ in range(max_batch)]
+        # per lane and table: logical page number -> page id
+        self._pages = {key: [dict() for _ in range(max_batch)] for key in self._pt}
         self._dirty: set[int] = set(range(max_batch))
         self._synced = False
+        self.evicted_pages = 0  # window pages freed as the window slid past them
         self.table_full_uploads = 0  # whole-table device uploads
         self.table_row_syncs = 0  # dirty rows copied incrementally
         self.table_syncs = 0  # device_tables calls that moved any data
@@ -55,30 +68,41 @@ class PagedKVPool:
     def used_pages(self) -> int:
         return self.layout.num_pages - len(self._free)
 
-    def lane_pages(self, lane: int) -> dict[int, int]:
-        """Logical page number -> page id of one lane (a copy)."""
-        return dict(self._pages[lane])
+    def lane_pages(self, lane: int) -> list[int]:
+        """The page ids one lane holds: its full table's, then its window
+        table's."""
+        return [pid for key in ("full", "win") for pid in self._pages[key][lane].values()]
+
+    def _win_span_pages(self, length: int) -> int:
+        """Distinct pages covering the live window of a length-``length``
+        sequence."""
+        if not self.layout.win or length <= 0:
+            return 0
+        ps = self.layout.page_size
+        return (length - 1) // ps - max(0, length - self.layout.win) // ps + 1
 
     def prefill_pages(self, prompt_len: int) -> int:
         """Pages a prompt needs through its first decode write at position
         ``prompt_len`` (reserved up front, so a freshly prefilled lane is
-        never preempted by its first ``ensure_steps``)."""
-        ps = self.layout.page_size
-        return cdiv(prompt_len, ps) + (1 if prompt_len % ps == 0 else 0)
+        never preempted by its first ``ensure_steps``): the whole prompt in
+        the full table, its live window span in the window table, plus the
+        page the first write opens in each."""
+        ps, lo = self.layout.page_size, self.layout
+        boundary = 1 if prompt_len % ps == 0 else 0
+        full = cdiv(prompt_len, ps) + boundary if lo.has_full else 0
+        win = self._win_span_pages(prompt_len) + boundary if lo.win else 0
+        return full + win
 
     def pages_for_request(self, cache_len_cap: int) -> int:
-        """Worst-case pages over a request's whole lifetime."""
-        return cdiv(cache_len_cap, self.layout.page_size)
+        """Worst-case pages held at once over a request's whole lifetime."""
+        lo = self.layout
+        need = cdiv(cache_len_cap, lo.page_size)
+        return (need if lo.has_full else 0) + (min(need, lo.pages_win) if lo.win else 0)
 
     # -- allocation ----------------------------------------------------------
 
     def can_admit(self, prompt_len: int) -> bool:
         return self.prefill_pages(prompt_len) <= len(self._free)
-
-    def _take(self) -> int:
-        pid = self._free.pop()
-        self._ref[pid] = 1
-        return pid
 
     def _decref(self, pid: int) -> None:
         if self._ref[pid] <= 0:
@@ -87,62 +111,96 @@ class PagedKVPool:
         if self._ref[pid] == 0:
             self._free.append(pid)
 
-    def _map(self, lane: int, pg: int) -> None:
-        pid = self._take()
-        self._pages[lane][pg] = pid
-        self._pt[lane, pg] = pid
+    def _map(self, key: str, lane: int, pg: int) -> None:
+        pid = self._free.pop()
+        self._ref[pid] = 1
+        self._pages[key][lane][pg] = pid
+        slot = pg % self.layout.pages_win if key == "win" else pg
+        self._pt[key][lane, slot] = pid
         self._dirty.add(lane)
 
     def alloc_prefill(self, lane: int, prompt_len: int) -> bool:
-        """Map every page the prompt lands in plus the page of the first
-        decode write; False (nothing allocated) if the pool is short."""
+        """Map every page the prompt's cache entries land in (in the window
+        table only its live window span) plus the page of the first decode
+        write; False (nothing allocated) if the pool is short.  Nothing is
+        evicted here: the prefill still writes into the oldest window page,
+        so eviction waits for the first ``ensure_steps``."""
         if not self.can_admit(prompt_len):
             return False
-        ps = self.layout.page_size
-        for pg in range(cdiv(prompt_len, ps)):
-            self._map(lane, pg)
-        if prompt_len // ps not in self._pages[lane]:
-            self._map(lane, prompt_len // ps)
+        lo, ps = self.layout, self.layout.page_size
+        nxt = prompt_len // ps
+        spans = []
+        if lo.has_full:
+            spans.append(("full", range(cdiv(prompt_len, ps))))
+        if lo.win:
+            spans.append(("win", range(max(0, prompt_len - lo.win) // ps,
+                                       (prompt_len - 1) // ps + 1)))
+        for key, pages in spans:
+            for pg in pages:
+                self._map(key, lane, pg)
+            if nxt not in self._pages[key][lane]:
+                self._map(key, lane, nxt)
         return True
 
     def ensure_steps(self, lane: int, pos: int, k: int = 1) -> bool:
         """Back the next ``k`` decode writes at ``pos..pos+k-1``; all or
-        nothing, False when the pool is short."""
-        ps = self.layout.page_size
+        nothing, False when the pool is short.  First evicts the window
+        pages wholly before the oldest position the write at ``pos`` still
+        attends to (pages expiring within the dispatch go at the next)."""
+        lo, ps = self.layout, self.layout.page_size
+        if lo.win:
+            self._evict_win(lane, pos)
         k = max(1, min(k, self.max_len - pos))  # writes past max_len freeze
-        need = [pg for pg in range(pos // ps, (pos + k - 1) // ps + 1)
-                if pg not in self._pages[lane]]
+        pages = range(pos // ps, (pos + k - 1) // ps + 1)
+        need = [(key, pg) for key, on in (("full", lo.has_full), ("win", bool(lo.win)))
+                if on for pg in pages if pg not in self._pages[key][lane]]
         if len(need) > len(self._free):
             return False
-        for pg in need:
-            self._map(lane, pg)
+        for key, pg in need:
+            self._map(key, lane, pg)
         return True
 
-    def release(self, lane: int) -> None:
-        """Drop the lane's pages (request finished or preempted)."""
-        for pid in self._pages[lane].values():
+    def _evict_win(self, lane: int, pos: int) -> None:
+        lo, ps = self.layout, self.layout.page_size
+        start = max(0, pos - lo.win + 1)  # the oldest live position after this write
+        pages = self._pages["win"][lane]
+        for pg in [pg for pg in pages if (pg + 1) * ps - 1 < start]:
+            pid = pages.pop(pg)
             self._decref(pid)
-        if self._pages[lane]:
+            self.evicted_pages += 1
+            if self._pt["win"][lane, pg % lo.pages_win] == pid:
+                self._pt["win"][lane, pg % lo.pages_win] = lo.sentinel
             self._dirty.add(lane)
-        self._pages[lane] = {}
-        self._pt[lane, :] = self.layout.sentinel
+
+    def release(self, lane: int) -> None:
+        """Drop the lane's pages in both tables (request finished or
+        preempted)."""
+        for key, pages in self._pages.items():
+            for pid in pages[lane].values():
+                self._decref(pid)
+            if pages[lane]:
+                self._dirty.add(lane)
+            pages[lane] = {}
+            self._pt[key][lane, :] = self.layout.sentinel
 
     # -- device view ---------------------------------------------------------
 
     def device_tables(self) -> dict:
         """The page tables on the device, synced incrementally: the first
-        call uploads the whole table, later calls copy only dirty rows."""
-        dev_pt = self.cache["tables"]["full"]
+        call uploads the whole tables, later calls copy only dirty rows."""
+        dev_tables = self.cache["tables"]
         if not self._synced:
-            dev_pt.copy_(torch.from_numpy(self._pt))
+            for key, dev_pt in dev_tables.items():
+                dev_pt.copy_(torch.from_numpy(self._pt[key]))
             self._synced = True
             self.table_full_uploads += 1
             self.table_syncs += 1
         elif self._dirty:
             rows = sorted(self._dirty)
-            dev_pt[torch.tensor(rows, device=dev_pt.device)] = (
-                torch.from_numpy(self._pt[rows]).to(dev_pt.device))
+            for key, dev_pt in dev_tables.items():
+                dev_pt[torch.tensor(rows, device=dev_pt.device)] = (
+                    torch.from_numpy(self._pt[key][rows]).to(dev_pt.device))
             self.table_row_syncs += len(rows)
             self.table_syncs += 1
         self._dirty.clear()
-        return self.cache["tables"]
+        return dev_tables

@@ -148,6 +148,47 @@ def test_paged_attn_mla_kernel_matches_plain(dev, page_dtype, g, d, d2, ps, extr
     assert float(y[3].abs().max()) == 0.0  # idle lane: exact zeros
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,d,ps,win,extra_lanes", [
+    (4, 16, 4, 10, 0), (16, 256, 16, 64, 0),
+    (16, 256, 16, 64, 59),  # 64 lanes: 16 heads a block, 66 KB of shared memory
+])
+def test_paged_attn_window_kernel_matches_plain(dev, dtype, g, d, ps, win, extra_lanes):
+    """K2w over a modular table: lanes past the window (a partial first
+    page), short of it with a page mapped ahead (a slot reading as a page
+    before 0), a stale id in an expired slot, an unmapped slot, an idle
+    lane; with 64 lanes a block keeps all 16 heads, past 48 KB of shared
+    memory."""
+    gen = torch.Generator().manual_seed(2)
+    win_slots = -(-(win + 4 - 1) // ps) + 1
+    lengths = [win + 3 * ps + 5, win - 3, 0, 2 * ps + 1, win + 7 * ps] + torch.randint(
+        0, 3 * win, (extra_lanes,), generator=gen).tolist()
+    num_pages = win_slots * len(lengths) + 1
+    perm = torch.randperm(num_pages, generator=gen).tolist()
+    tables = np.full((len(lengths), win_slots), num_pages, np.int32)
+    for i, ln in enumerate(lengths):
+        if ln:
+            for pg in range(max(0, ln - win) // ps, (ln - 1) // ps + 2):
+                tables[i, pg % win_slots] = perm.pop()
+    cur = (lengths[4] - 1) // ps
+    tables[4, (cur + 2) % win_slots] = perm.pop()  # a slot reading as an expired page: stale id
+    tables[0, ((lengths[0] - 1) // ps - 1) % win_slots] = num_pages  # unmapped, live range
+    q = torch.randn((len(lengths), 1, g, d), generator=gen).to(dtype).to(dev)
+    kp, vp = (torch.randn((num_pages, ps, 1, d), generator=gen).to(dtype).to(dev)
+              for _ in range(2))
+    t = torch.from_numpy(tables).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = dict(scale=d ** -0.5, window=win, win_slots=win_slots)
+    before = dict(dispatch.launches)
+    y = paged_attn(q, kp, vp, t, lens, **kw)
+    torch.cuda.synchronize()
+    assert dispatch.launches["paged_attn_win"] == before["paged_attn_win"] + 1
+    assert dispatch.launches["paged_attn"] == before["paged_attn"]
+    ref = paged_attn_plain(q, kp, vp, t, lens, **kw)
+    torch.testing.assert_close(y.float(), ref.float(), **TOL[dtype])
+    assert float(y[2].abs().max()) == 0.0  # idle lane: exact zeros
+
+
 def test_kernel_refuses_what_it_does_not_take(dev):
     vals, idx = _compressed(64, 32, 2, 4, 0, torch.float32, dev)
     x = torch.randn((2, 64), device=dev)

@@ -57,4 +57,6 @@ def test_entry_points_raise_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "deepseek-v2-lite-16b", "--batch", "1", "--gen", "2"])
     with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "recurrentgemma-9b", "--batch", "1", "--gen", "2"])
+    with pytest.raises(RuntimeError, match="cuda"):
         train.main(["--steps", "1"])

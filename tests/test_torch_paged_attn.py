@@ -1,7 +1,9 @@
 """The port's ``paged_attn`` (its plain version, which CPU tensors take)
 held against the JAX Pallas kernel in interpret mode, on the ragged lanes,
 sentinel slots and idle lane of ``tests/test_paged_attn.py``: the MHA/GQA
-form and the MLA latent form (K2m: ``q2``/``k2_pages``/``v_is_k``)."""
+form, its window option over modular tables (K2w: ``window``/
+``win_slots``) and the MLA latent form (K2m: ``q2``/``k2_pages``/
+``v_is_k``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -54,6 +56,65 @@ def test_plain_matches_pallas_interpret(hkv, g):
         np.testing.assert_allclose(y[i].reshape(1, 1, hkv * g, d).numpy(), ref.numpy(), **TOL)
 
 
+def _win_tables(lengths, ps, win, win_slots, num_pages, ahead=0):
+    """Modular window tables as the pool keeps them: each lane's live
+    window pages (plus ``ahead`` pages mapped past the current one, not yet
+    written) at slot ``pg % win_slots``; every other slot is the sentinel."""
+    t = np.full((len(lengths), win_slots), num_pages, np.int32)
+    nxt = 0
+    for i, ln in enumerate(lengths):
+        if ln == 0:
+            continue
+        for pg in range(max(0, ln - win) // ps, (ln - 1) // ps + 1 + ahead):
+            t[i, pg % win_slots] = nxt % num_pages
+            nxt += 1
+    return t
+
+
+@pytest.mark.parametrize("case", ["slid", "pg_below_zero", "stale_and_sentinel"])
+def test_window_form_matches_pallas_interpret(case):
+    """K2w (Hkv = 1, G = 4): lanes past the window with a partial first
+    page; lanes short of the window whose page mapped ahead of the write
+    sits in a slot that reads as a page before 0 (``pg < 0``); a stale slot
+    (an expired page's id left behind) and a sentinel slot; an idle lane; against the Pallas kernel and against slab decode attention
+    over each lane's last ``window`` positions."""
+    b, hkv, g, d, ps, win = 4, 1, 4, 16, 4, 10
+    win_slots = -(-(win + 4 - 1) // ps) + 1  # the pool's at K = 4: 5
+    lengths = {"slid": [23, 13, 0, 30], "pg_below_zero": [3, 6, 0, 1],
+               "stale_and_sentinel": [21, 17, 0, 9]}[case]
+    num_pages = 4 * win_slots + 1
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((b, hkv, g, d)).astype(np.float32)
+    kp = rng.standard_normal((num_pages, ps, hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((num_pages, ps, hkv, d)).astype(np.float32)
+    tables = _win_tables(lengths, ps, win, win_slots, num_pages,
+                         ahead=0 if case == "stale_and_sentinel" else 1)
+    if case == "stale_and_sentinel":
+        # lane 0 (len 21, window [11, 21)): slot of page 0 keeps an old id
+        # (page 0 is 5 pages back, aliasing page 5's slot 0: not mapped)
+        tables[0, 1] = num_pages - 1  # slot 1 = page 1, expired: a stale id
+        tables[1, 2] = num_pages  # lane 1 (len 17): page 2's slot unmapped
+    lens = np.asarray(lengths, np.int32)
+    scale = d ** -0.5
+    y_ref = paged_attn_pallas(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                              jnp.asarray(tables), jnp.asarray(lens), scale=scale,
+                              window=win, win_slots=win_slots, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, kp, vp))
+    y = paged_attn(tq, tk, tv, torch.from_numpy(tables), torch.from_numpy(lens),
+                   scale=scale, window=win, win_slots=win_slots)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), **TOL)
+    assert float(y[2].abs().max()) == 0.0  # idle lane: exact zeros
+    for i, ln in enumerate(lengths):
+        pos = np.arange(max(0, ln - win), ln)
+        if ln == 0 or (tables[i, (pos // ps) % win_slots] == num_pages).any():
+            continue  # the sentinel case drops positions: the kernel's answer only
+        rows = torch.from_numpy(tables[i, (pos // ps) % win_slots]).long()
+        a = torch.from_numpy(pos % ps)
+        ref = decode_attention(tq[i].reshape(1, 1, hkv * g, d), tk[rows, a][None],
+                               tv[rows, a][None], torch.tensor([len(pos)]))
+        np.testing.assert_allclose(y[i].reshape(1, 1, hkv * g, d).numpy(), ref.numpy(), **TOL)
+
+
 def test_mla_form_matches_pallas_interpret():
     """K2m at the reference's own case's layout (Hkv = 1, G = H, V is the
     latent pool): ragged lanes, a sentinel slot inside a live range and a
@@ -81,13 +142,20 @@ def test_mla_form_matches_pallas_interpret():
 
 
 def test_unported_options_are_refused():
-    """K2m is ported; the window, int8-scale and stats options are not, and
-    the wrapper takes no such argument."""
+    """K2m and K2w are ported; the int8-scale and stats options are not, and
+    the wrapper takes no such argument.  A window needs ``win_slots`` equal
+    to the table's width, and is not taken by the MLA form."""
     q = torch.zeros((1, 1, 1, 4))
     pages = torch.zeros((2, 4, 1, 4))
-    args = (q, pages, pages, torch.zeros((1, 1), dtype=torch.int32),
+    args = (q, pages, pages, torch.zeros((1, 2), dtype=torch.int32),
             torch.ones(1, dtype=torch.int32))
-    for option in (dict(window=4, win_slots=2), dict(k_scale=torch.ones((2, 4))),
-                   dict(emit_stats=True)):
+    for option in (dict(k_scale=torch.ones((2, 4))), dict(emit_stats=True)):
         with pytest.raises(TypeError):
             paged_attn(*args, scale=0.5, **option)
+    for option in (dict(window=4, win_slots=3), dict(window=4), dict(win_slots=2)):
+        with pytest.raises(ValueError):
+            paged_attn(*args, scale=0.5, **option)
+    with pytest.raises(ValueError):
+        paged_attn(q, pages, None, *args[3:], scale=0.5, window=4, win_slots=2, q2=q,
+                   k2_pages=pages, v_is_k=True)
+    assert paged_attn(*args, scale=0.5, window=4, win_slots=2).shape == (1, 1, 1, 4)

@@ -1,6 +1,6 @@
 """Shared helpers of the ``test_torch_*`` parity tests: the same reduced
-model (gpt2-paper by default, or DeepSeek-V2-Lite) built once in the JAX
-package and handed to the PyTorch port through
+model (gpt2-paper by default, DeepSeek-V2-Lite or RecurrentGemma-9B) built
+once in the JAX package and handed to the PyTorch port through
 ``repro_torch.checkpoint.carry_over``."""
 import dataclasses
 
@@ -10,11 +10,12 @@ import torch
 
 import repro.core as jcore
 from repro.configs import get_config as jax_get_config
+from repro.configs.base import reduced as jax_reduced
 from repro.models.model import TransformerLM
 from repro.sparse_infer import CompressedTensor as JaxCompressed
 from repro.sparse_infer import compress_params as jax_compress_params
 from repro_torch.checkpoint import carry_over
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, reduced
 from repro_torch.models import model as tmodel
 
 # Cross-framework checks run in f32 on both sides: the two frameworks round
@@ -28,10 +29,11 @@ LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 MARGIN = 1e-3
 
 
-def configs(arch="gpt2-paper"):
-    """(JAX cfg, port cfg) of the reduced ``arch`` in f32."""
-    return (dataclasses.replace(jax_get_config(arch, smoke=True), **F32),
-            dataclasses.replace(get_config(arch, smoke=True), **F32))
+def configs(arch="gpt2-paper", **overrides):
+    """(JAX cfg, port cfg) of the reduced ``arch`` in f32; ``overrides``
+    go to both packages' ``reduced`` (e.g. ``n_layers``)."""
+    return (dataclasses.replace(jax_reduced(jax_get_config(arch), **overrides), **F32),
+            dataclasses.replace(reduced(get_config(arch), **overrides), **F32))
 
 
 def to_numpy(tree):
@@ -45,10 +47,10 @@ def to_numpy(tree):
     return np.asarray(tree)
 
 
-def trees(seed=0, align=None, arch="gpt2-paper"):
+def trees(seed=0, align=None, arch="gpt2-paper", **overrides):
     """``(jcfg, tcfg, {"dense"|"compressed": (jax_tree, port_tree)})`` —
     the STEP 2:4 export of one random init and its compressed artifact."""
-    jcfg, tcfg = configs(arch)
+    jcfg, tcfg = configs(arch, **overrides)
     model = TransformerLM(jcfg)
     recipe = jcore.make_recipe("step", jcore.SparsityConfig(default=jcore.NMSparsity(2, 4)))
     sparse = recipe.export_sparse(model.init(jax.random.PRNGKey(seed)))
