@@ -22,7 +22,11 @@ Phases, in order; any failure exits non-zero:
    undersized paged pool that preempts.  Launch counts are zeroed before
    and read after; both kernels must have run.  Every request must finish
    with its token budget, and where the two greedy streams differ the
-   top-2 logit margin must be a near-tie.
+   top-2 logit margin must be a near-tie.  Then the same traffic on an
+   int8 pool (``kv_quant``) of no more device bytes than the fp pool
+   (about twice its pages): ``paged_attn``'s int8 form must launch 12
+   times per decode step and the fp form never, and the pool must preempt
+   fewer times than the fp pool.
 4. Train full-width gpt2-paper with the STEP recipe through the Trainer
    that ``repro_torch.launch.train`` builds (2:4, batch 8, seq 128,
    b2 0.98, 60 steps, AutoSwitch clipped to (6, 30]), checkpointing to a
@@ -41,10 +45,13 @@ Phases, in order; any failure exits non-zero:
    leaf, then 8 greedy requests of 64 + 32 tokens over 4 lanes, K = 4, on
    the slab, on a paged pool that never preempts (its streams must equal
    the slab's except at near-ties: top-2 margin under 0.1) and on an
-   undersized pool that preempts.  Launch counts are zeroed before and read after each run: the
-   batched ``nm_spmm`` must launch 3 x 26 times per decode step and per
-   prefill batch, and ``paged_attn``'s MLA form 27 times per paged decode
-   step.  Then a ``torch.profiler`` trace of a few decode steps.
+   undersized pool that preempts, then on an int8 pool of the first
+   pool's 28 pages.  Launch counts are zeroed before and read after each
+   run: the batched ``nm_spmm`` must launch 3 x 26 times per decode step
+   and per prefill batch, and ``paged_attn``'s MLA form (its int8 form on
+   the int8 pool) 27 times per paged decode step.  Then a
+   ``torch.profiler`` trace of a few decode steps on the fp and the int8
+   pool.
 7. Serve full-width RecurrentGemma-9B (all 38 layers: 12 x (RG-LRU,
    RG-LRU, local MQA) + 2 RG-LRU): random weights from seed 0, the STEP
    2:4 export and compression leaf by leaf, then 4 greedy requests of
@@ -53,20 +60,33 @@ Phases, in order; any failure exits non-zero:
    take the 2048-token window: a rolling slab, a modular page table), on
    the slab, on a 520-page pool that never preempts (its streams must
    equal the slab's except at near-ties: top-2 margin under 0.1; it must
-   hold only the window table and evict pages) and on a 340-page pool that
-   preempts.  ``nm_spmm`` must launch 254 times per decode step and per
-   prefill batch, ``paged_attn``'s window form 12 times per paged decode
-   step, and no other attention kernel.  The two decode routes from one
+   hold only the window table and evict pages), on a 340-page pool that
+   preempts and on a 520-page int8 pool (which must evict as the fp one
+   does).  ``nm_spmm`` must launch 254 times per decode step and per
+   prefill batch, ``paged_attn``'s window form (its int8 form on the int8
+   pool) 12 times per paged decode step, and no other attention kernel.  The two decode routes from one
    state past the window must agree within 1e-3 in f32 over the first
    period and the tail (the bf16 difference at full depth is printed as a
-   reading).  Then a ``torch.profiler`` trace of a few decode steps.
+   reading).  Then a ``torch.profiler`` trace of a few decode steps on the
+   fp and the int8 pool.
 
 Phase 2 also holds the kernels of phases 6 and 7 against their plain
 versions at their shapes: the batched ``nm_spmm`` at (64 experts, 8 rows,
 2048->1408 and 1408->2048), K2's MLA form (B = 4, 16 heads, latent 512,
 RoPE 64, ps = 16, ragged lengths up to 96) and its window form (B = 4, 16
 query heads over one KV head of 256, ps = 16, window 2048 over 130 modular
-slots, lengths 2100/2048/1000/0), with their times.
+slots, lengths 2100/2048/1000/0), with their times; and K2's int8 form
+(K2q) in each of its GQA, MLA and window forms at those shapes, over the
+port's own int8 codes and f16 scales of the same random pages (the MLA
+form, f32 in and out, to an f32 tolerance), timed beside the bound of the
+codes' and scales' bytes and, as a yardstick only, SDPA on the
+pre-dequantized bf16 view.
+
+Every int8 run also prints readings, with no gate: each request's first
+generated token against the fp run's (it comes from prefill, which reads
+fresh fp K/V), how many greedy tokens agree with the fp run, and the
+logit difference of one decode step from one state over int8 and fp
+pages.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -91,6 +111,9 @@ F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 # f32 results that differ by summation order can round one bf16 step apart,
 # and a bf16 step is at most 2^-7 of the value.  ATOL covers outputs near 0.
 BF16_RTOL, ATOL = 2.0 ** -7, 1e-5
+# f32 results of the same products summed in another order (K2q's MLA form:
+# f32 in, f32 math, f32 out)
+F32_RTOL = 1e-4
 # A greedy slab token may differ from its paged twin only at a near-tie:
 # bf16 logits (|logit| ~ 1) carry about 2^-8 of rounding per operation, and
 # 12 layers of it stay well inside 0.1.
@@ -105,6 +128,14 @@ KERNEL_ROWS = {
                        "(q2/k2_pages/v_is_k, called at src/repro/models/mla.py:222)"),
     "paged_attn_win": ("paged_attn", "src/repro/kernels/paged_attn.py:190 "
                        "(window/win_slots, paged_attn.py:109-125)"),
+    "paged_attn_q": ("paged_attn", "src/repro/kernels/paged_attn.py:190 "
+                     "(k_scale/v_scale, paged_attn.py:131-134, 159-161)"),
+    "paged_attn_win_q": ("paged_attn", "src/repro/kernels/paged_attn.py:190 "
+                         "(window/win_slots with k_scale/v_scale, paged_attn.py:109-134, "
+                         "159-161)"),
+    "paged_attn_mla_q": ("paged_attn", "src/repro/kernels/paged_attn.py:190 "
+                         "(q2/k2_pages/v_is_k with k_scale/k2_scale, paged_attn.py:131-142, "
+                         "called at src/repro/models/mla.py:222)"),
     "nm_mask": ("nm_mask", "src/repro/kernels/nm_mask.py:53"),
 }
 # DeepSeek-V2-Lite's MoE layers (26: layer 0 has a dense MLP), each with 3
@@ -191,11 +222,12 @@ def time_ms(torch, fn, reps: int = 50) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def check_close(name: str, y, ref) -> float:
+def check_close(name: str, y, ref, rtol=BF16_RTOL) -> float:
     err = (y.float() - ref.float()).abs()
-    bad = err > BF16_RTOL * ref.float().abs() + ATOL
-    log(f"  {name}: max_abs_err {err.max().item():.3e}  (tolerance 2^-7*|ref| + {ATOL}: "
-        f"one bf16 rounding step of an f32 result)")
+    bad = err > rtol * ref.float().abs() + ATOL
+    why = ("2^-7*|ref|: one bf16 rounding step of an f32 result" if rtol == BF16_RTOL
+           else f"{rtol}*|ref|: f32 sums in another order")
+    log(f"  {name}: max_abs_err {err.max().item():.3e}  (tolerance {why}, + {ATOL})")
     if bool(bad.any()):
         raise AssertionError(f"{name}: {int(bad.sum())} elements beyond tolerance")
     return err.max().item()
@@ -241,9 +273,30 @@ def check_nm_spmm(torch, comp: dict, dev) -> dict:
     return rec
 
 
-def check_paged_attn(torch, dev) -> dict:
-    """K2 at B=4, H=12, D=64, ps=16: ragged lanes, sentinel slots, one dead
-    lane."""
+def int8_pages(torch, pages: tuple, int8: bool) -> tuple:
+    """``(pages, scales, views)``: with ``int8`` the pages as the port's
+    int8 codes and their f16 ``(P, ps)`` scales (``models.cache.quant``),
+    and the bf16 pages the codes stand for (what a one-call yardstick
+    reads); else the pages as they are, no scales, and the pages again."""
+    from repro_torch.models.cache import dequant, quant
+
+    if not int8:
+        return pages, (None,) * len(pages), pages
+    coded = [quant(p, 2) for p in pages]
+    return (tuple(c for c, _ in coded), tuple(sc for _, sc in coded),
+            tuple(dequant(c, sc).to(torch.bfloat16) for c, sc in coded))
+
+
+def row_bytes(width: int, itemsize: int, int8: bool) -> int:
+    """Bytes of one stored row: ``width`` values, or int8 codes and an f16
+    scale."""
+    return width + 2 if int8 else width * itemsize
+
+
+def check_paged_attn(torch, dev, int8: bool = False) -> dict:
+    """K2 (``int8``: K2q, over the port's int8 codes and scales of the
+    same random bf16 pages) at B=4, H=12, D=64, ps=16: ragged lanes,
+    sentinel slots, one dead lane."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
@@ -258,34 +311,39 @@ def check_paged_attn(torch, dev) -> dict:
             tables[i, pg] = perm.pop()
     q, kp, vp = (torch.randn(s, generator=gen).to(torch.bfloat16).to(dev) for s in (
         (b, h, 1, d), (num_pages, ps, h, d), (num_pages, ps, h, d)))
+    (kp, vp), (ks, vs), (kv, vv) = int8_pages(torch, (kp, vp), int8)
     tables, lens = tables.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev)
-    scale = d ** -0.5
-    y = paged_attn(q, kp, vp, tables, lens, scale=scale)
-    err = check_close("paged_attn B=4 H=12 D=64 ps=16", y,
-                      paged_attn_plain(q, kp, vp, tables, lens, scale=scale))
+    kw = dict(scale=d ** -0.5, k_scale=ks, v_scale=vs)
+    what = "paged_attn int8" if int8 else "paged_attn"
+    y = paged_attn(q, kp, vp, tables, lens, **kw)
+    err = check_close(f"{what} B=4 H=12 D=64 ps=16", y,
+                      paged_attn_plain(q, kp, vp, tables, lens, **kw))
     if float(y[2].abs().max()) != 0.0:
-        raise AssertionError("paged_attn: the dead lane is not exactly zero")
+        raise AssertionError(f"{what}: the dead lane is not exactly zero")
     # yardstick: SDPA on the pre-gathered contiguous (B, H, S, D) view
+    # (pre-dequantized to bf16 for int8 pages)
     phys = tables.long().clamp(max=num_pages - 1)
-    kg = kp[phys].reshape(b, n_slots * ps, h, d).transpose(1, 2).contiguous()
-    vg = vp[phys].reshape(b, n_slots * ps, h, d).transpose(1, 2).contiguous()
+    kg = kv[phys].reshape(b, n_slots * ps, h, d).transpose(1, 2).contiguous()
+    vg = vv[phys].reshape(b, n_slots * ps, h, d).transpose(1, 2).contiguous()
     mask = (torch.arange(n_slots * ps, device=dev)[None, :] < lens[:, None])[:, None, None]
     qs = q.reshape(b, h, 1, d)
     live = sum(lengths)
-    nbytes = (q.numel() * 2 + 2 * live * h * d * 2 + tables.numel() * 4 + b * 4
-              + b * h * d * 2)
+    nbytes = (q.numel() * 2 + 2 * live * row_bytes(h * d, 2, int8) + tables.numel() * 4
+              + b * 4 + b * h * d * 2)
     rec = dict(
         max_abs_err=err,
-        ms=time_ms(torch, lambda: paged_attn(q, kp, vp, tables, lens, scale=scale)),
-        plain_ms=time_ms(torch, lambda: paged_attn_plain(q, kp, vp, tables, lens, scale=scale)),
+        ms=time_ms(torch, lambda: paged_attn(q, kp, vp, tables, lens, **kw)),
+        plain_ms=time_ms(torch, lambda: paged_attn_plain(q, kp, vp, tables, lens, **kw)),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask, scale=scale)),
-        at=f"q (4, 12, 1, 64) bf16, ps=16, lengths {lengths}",
+            qs, kg, vg, attn_mask=mask, scale=kw["scale"])),
+        at=f"q (4, 12, 1, 64) bf16, {'int8 pages + f16 scales' if int8 else 'bf16 pages'}, "
+           f"ps=16, lengths {lengths}",
     )
     rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 4.0 * live * h * d)
-    log(f"  time paged_attn: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-        f"SDPA on gathered view {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']})")
+    log(f"  time {what}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"SDPA on gathered {'bf16 ' if int8 else ''}view {rec['library_ms']:.4f} ms"
+        f"{' (a yardstick only: not the same function)' if int8 else ''}, bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
     return rec
 
 
@@ -303,12 +361,13 @@ def win_tables(torch, lengths, ps, win, win_slots, num_pages, gen):
     return tables
 
 
-def check_paged_attn_win(torch, dev) -> dict:
-    """K2's window form (K2w) at RecurrentGemma-9B's decode: B = 4 lanes,
-    one KV head of 256 under 16 query heads, ps = 16, window 2048 over the
-    130-slot modular table the pool keeps at K = 4; lengths 2100 (slid past
-    the window, a partial first page), 2048 (exactly the window), 1000
-    (short of it) and 0 (dead); bf16 queries and pages."""
+def check_paged_attn_win(torch, dev, int8: bool = False) -> dict:
+    """K2's window form (K2w; ``int8``: its int8 form over the port's codes
+    and scales of the same pages) at RecurrentGemma-9B's decode: B = 4
+    lanes, one KV head of 256 under 16 query heads, ps = 16, window 2048
+    over the 130-slot modular table the pool keeps at K = 4; lengths 2100
+    (slid past the window, a partial first page), 2048 (exactly the
+    window), 1000 (short of it) and 0 (dead); bf16 queries and pages."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
@@ -322,35 +381,41 @@ def check_paged_attn_win(torch, dev) -> dict:
     q = torch.randn((b, 1, h, d), generator=gen).to(torch.bfloat16).to(dev)
     kp, vp = (torch.randn((num_pages, ps, 1, d), generator=gen).to(torch.bfloat16).to(dev)
               for _ in range(2))
+    (kp, vp), (ks, vs), (kv, vv) = int8_pages(torch, (kp, vp), int8)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    kw = dict(scale=d ** -0.5, window=win, win_slots=win_slots)
+    kw = dict(scale=d ** -0.5, window=win, win_slots=win_slots, k_scale=ks, v_scale=vs)
+    what = "paged_attn window int8" if int8 else "paged_attn window"
     y = paged_attn(q, kp, vp, tables, lens, **kw)
-    err = check_close("paged_attn window B=4 Hkv=1 G=16 D=256 ps=16 window 2048", y,
+    err = check_close(f"{what} B=4 Hkv=1 G=16 D=256 ps=16 window 2048", y,
                       paged_attn_plain(q, kp, vp, tables, lens, **kw))
     if float(y[3].abs().max()) != 0.0:
-        raise AssertionError("paged_attn window: the dead lane is not exactly zero")
+        raise AssertionError(f"{what}: the dead lane is not exactly zero")
     # yardstick: SDPA on the pre-gathered window, (B, H, win, D), MQA expanded
+    # (pre-dequantized to bf16 for int8 pages)
     pos = torch.stack([torch.arange(win) + max(0, ln - win) for ln in lengths]).to(dev)
     phys = tables.long().gather(1, (pos // ps) % win_slots).clamp(max=num_pages - 1)
-    kg = kp[phys, pos % ps].reshape(b, 1, win, d).expand(b, h, win, d).contiguous()
-    vg = vp[phys, pos % ps].reshape(b, 1, win, d).expand(b, h, win, d).contiguous()
+    kg = kv[phys, pos % ps].reshape(b, 1, win, d).expand(b, h, win, d).contiguous()
+    vg = vv[phys, pos % ps].reshape(b, 1, win, d).expand(b, h, win, d).contiguous()
     mask = (torch.arange(win, device=dev)[None, :]
             < torch.tensor([min(ln, win) for ln in lengths], device=dev)[:, None])[:, None, None]
     qs = q.reshape(b, h, 1, d)
     live = sum(min(ln, win) for ln in lengths)
-    nbytes = (q.numel() * 2 + 2 * live * d * 2 + tables.numel() * 4 + b * 4 + b * h * d * 2)
+    nbytes = (q.numel() * 2 + 2 * live * row_bytes(d, 2, int8) + tables.numel() * 4 + b * 4
+              + b * h * d * 2)
     rec = dict(
         max_abs_err=err,
         ms=time_ms(torch, lambda: paged_attn(q, kp, vp, tables, lens, **kw)),
         plain_ms=time_ms(torch, lambda: paged_attn_plain(q, kp, vp, tables, lens, **kw)),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, kg, vg, attn_mask=mask, scale=kw["scale"])),
-        at=f"q (4, 1, 16, 256) bf16, ps=16, window 2048, 130 slots, lengths {lengths}",
+        at=f"q (4, 1, 16, 256) bf16, {'int8 pages + f16 scales' if int8 else 'bf16 pages'}, "
+           f"ps=16, window 2048, 130 slots, lengths {lengths}",
     )
     rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 4.0 * live * h * d)
-    log(f"  time paged_attn window: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-        f"SDPA on the gathered window {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.5f} "
-        f"ms ({rec['bound_by']})")
+    log(f"  time {what}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"SDPA on the gathered {'bf16 ' if int8 else ''}window {rec['library_ms']:.4f} ms"
+        f"{' (a yardstick only: not the same function)' if int8 else ''}, bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
     return rec
 
 
@@ -401,10 +466,13 @@ def check_nm_spmm_batched(torch, dev) -> dict:
     return rec
 
 
-def check_paged_attn_mla(torch, dev) -> dict:
-    """K2's MLA form at DeepSeek-V2-Lite's decode: B = 4, 16 heads, latent
-    512, RoPE 64, ps = 16, ragged lanes up to 96 tokens with a sentinel slot
-    and a dead lane; f32 queries and output over bf16 pages."""
+def check_paged_attn_mla(torch, dev, int8: bool = False) -> dict:
+    """K2's MLA form (K2m; ``int8``: its int8 form over the port's codes and
+    scales of the same pages, held to an f32 tolerance since both sides
+    compute and return f32) at DeepSeek-V2-Lite's decode: B = 4, 16 heads,
+    latent 512, RoPE 64, ps = 16, ragged lanes up to 96 tokens with a
+    sentinel slot and a dead lane; f32 queries and output over bf16 (or
+    int8) pages."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
@@ -420,25 +488,30 @@ def check_paged_attn_mla(torch, dev) -> dict:
     q, q2 = (torch.randn((b, 1, h, w), generator=gen).to(dev) for w in (lat, rd))
     cp, rp = (torch.randn((num_pages, ps, 1, w), generator=gen).to(torch.bfloat16).to(dev)
               for w in (lat, rd))
+    (cp, rp), (cs, rs), (cv, rv) = int8_pages(torch, (cp, rp), int8)
     tables, lens = tables.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev)
     scale = (128 + rd) ** -0.5
-    kw = dict(scale=scale, q2=q2, k2_pages=rp, v_is_k=True)
+    kw = dict(scale=scale, q2=q2, k2_pages=rp, v_is_k=True, k_scale=cs, k2_scale=rs)
+    what = "paged_attn MLA int8" if int8 else "paged_attn MLA"
     y = paged_attn(q, cp, None, tables, lens, **kw)
-    err = check_close("paged_attn MLA B=4 H=16 latent 512 rope 64 ps=16", y,
-                      paged_attn_plain(q, cp, None, tables, lens, **kw))
+    err = check_close(f"{what} B=4 H=16 latent 512 rope 64 ps=16", y,
+                      paged_attn_plain(q, cp, None, tables, lens, **kw),
+                      rtol=F32_RTOL if int8 else BF16_RTOL)
     if float(y[2].abs().max()) != 0.0:
-        raise AssertionError("paged_attn MLA: the dead lane is not exactly zero")
+        raise AssertionError(f"{what}: the dead lane is not exactly zero")
     # yardstick: SDPA on the pre-gathered view, q = [q_lat|q2], k = [ckv|krope], v = ckv
+    # (pre-dequantized to bf16 for int8 pages)
     phys = tables.long().clamp(max=num_pages - 1)
     s_all = n_slots * ps
-    kcat = torch.cat([cp, rp], -1)[phys].reshape(b, 1, s_all, lat + rd).float()
+    kcat = torch.cat([cv, rv], -1)[phys].reshape(b, 1, s_all, lat + rd).float()
     kg = kcat.expand(b, h, s_all, lat + rd).contiguous()
     vg = kcat[..., :lat].expand(b, h, s_all, lat).contiguous()
     qs = torch.cat([q, q2], -1).reshape(b, h, 1, lat + rd)
     mask = (torch.arange(s_all, device=dev)[None, :] < lens[:, None])[:, None, None]
     live = sum(lengths)
-    nbytes = (q.numel() * 4 + q2.numel() * 4 + live * (lat + rd) * 2 + tables.numel() * 4
-              + b * 4 + b * h * lat * 4)
+    nbytes = (q.numel() * 4 + q2.numel() * 4
+              + live * (row_bytes(lat, 2, int8) + row_bytes(rd, 2, int8))
+              + tables.numel() * 4 + b * 4 + b * h * lat * 4)
     flops = 2.0 * live * h * (lat + rd) + 2.0 * live * h * lat
     rec = dict(
         max_abs_err=err,
@@ -446,14 +519,16 @@ def check_paged_attn_mla(torch, dev) -> dict:
         plain_ms=time_ms(torch, lambda: paged_attn_plain(q, cp, None, tables, lens, **kw)),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, kg, vg, attn_mask=mask, scale=scale)),
-        at=f"q (4, 1, 16, 512) + q2 (4, 1, 16, 64) f32, bf16 pages, ps=16, lengths {lengths}",
+        at=f"q (4, 1, 16, 512) + q2 (4, 1, 16, 64) f32, "
+           f"{'int8 pages + f16 scales' if int8 else 'bf16 pages'}, ps=16, lengths {lengths}",
     )
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS  # the kernel's math is f32
     rec["bound_ms"] = max(t_bytes, t_ops) * 1e3
     rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"  time paged_attn MLA: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-        f"SDPA (f32) on gathered view {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
-        f"({rec['bound_by']})")
+    log(f"  time {what}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"SDPA (f32) on gathered view {rec['library_ms']:.4f} ms"
+        f"{' (a yardstick only: not the same function)' if int8 else ''}, bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
     return rec
 
 
@@ -503,9 +578,9 @@ def check_nm_mask(torch, dev) -> dict:
 
 
 def serve(torch, cfg, comp, dev, *, paged: bool, n_requests=8, lanes=4, prompt_len=64,
-          gen=32, k=4, num_pages=22, prompts=None, max_len=None):
-    """One greedy serving run of the port's engine; returns (engine,
-    prompts, streams, seconds)."""
+          gen=32, k=4, num_pages=22, prompts=None, max_len=None, kv_quant=False):
+    """One greedy serving run of the port's engine (``kv_quant``: on int8
+    pages); returns (engine, prompts, streams, seconds)."""
     import numpy as np
 
     from repro_torch.serving import DecodeEngine, SamplingParams
@@ -513,7 +588,7 @@ def serve(torch, cfg, comp, dev, *, paged: bool, n_requests=8, lanes=4, prompt_l
     max_len = max_len or prompt_len + gen + 1
     eng = DecodeEngine(cfg, comp, max_batch=lanes, max_len=max_len, seed=0,
                        num_pages=num_pages if paged else None, page_size=16,
-                       steps_per_dispatch=k, device=dev)
+                       steps_per_dispatch=k, kv_quant=kv_quant, device=dev)
     if prompts is None:
         prompts = [np.random.default_rng(1000 + r).integers(0, cfg.vocab, prompt_len).tolist()
                    for r in range(n_requests)]
@@ -573,15 +648,38 @@ def serve_phase(torch, cfg, comp, dev, dispatch) -> dict:
     log(f"  slab vs paged greedy streams: {agree}/{total} tokens equal before each "
         f"request's first difference; top-2 margins at the differences {margins} "
         f"(all < {MARGIN})")
+    # int8 pages in the fp pool's device bytes: each page of each layer
+    # holds K and V codes plus one f16 scale per slot for each
+    fp_bytes = paged.kv_cache_bytes()
+    q_page = cfg.n_layers * 16 * 2 * (cfg.n_kv * cfg.hd + 2)
+    q_pages = fp_bytes // q_page - 1  # the sink page
+    dispatch.reset_launches()
+    quant, _, q_streams, q_wall = serve(torch, cfg, comp, dev, paged=True, num_pages=q_pages,
+                                        kv_quant=True)
+    q_launches = dict(dispatch.launches)
+    log(f"  int8 pool of {q_pages} pages: {quant.kv_cache_bytes():,} B against the fp pool's "
+        f"{fp_bytes:,} B ({paged.layout.num_pages} pages); launches {q_launches}")
+    want = {"paged_attn_q": cfg.n_layers * quant.decode_steps, "paged_attn": 0}
+    if any(q_launches[k] != v for k, v in want.items()) or q_launches["nm_spmm"] == 0:
+        raise AssertionError(f"int8 run: launches {q_launches}, want {want} and nm_spmm > 0")
+    if quant.kv_cache_bytes() > fp_bytes or not quant.preemptions < paged.preemptions:
+        raise AssertionError(f"int8 pool: {quant.kv_cache_bytes()} B, {quant.preemptions} "
+                             f"preemptions, against {fp_bytes} B, {paged.preemptions}")
+    launches["paged_attn_q"] = q_launches["paged_attn_q"]
+    log("  int8 vs fp pages (readings): " + json.dumps({
+        **int8_readings(p_streams, q_streams),
+        "one_step": route_difference(torch, cfg, comp, prompts[:4], dev)}))
     name = torch.cuda.get_device_name(0)
-    for eng, wall in ((slab, s_wall), (paged, p_wall)):
+    for eng, wall in ((slab, s_wall), (paged, p_wall), (quant, q_wall)):
         st = eng.stats()
         log("  serve " + json.dumps({
-            "layout": st["layout"], "tokens_per_s": st["tokens_per_s"],
+            "layout": st["layout"], "kv_quant": st.get("kv_quant", False),
+            "tokens_per_s": st["tokens_per_s"],
             "ms_per_decode_step": st["ms_per_decode_step"],
             "ms_per_decode_step_host": st["ms_per_decode_step_host"],
             "decode_steps": st["decode_steps"], "preemptions": st["preemptions"],
             "max_concurrency": st["max_concurrency"], "run_wall_s": wall,
+            "kv_cache_bytes": st["kv_cache_bytes"],
             "weight_bytes_per_step": st["weight_bytes_per_step"],
             "weight_stream_bound_ms": st["weight_bytes_per_step"] / HBM_BYTES_PER_S * 1e3,
             "peak_memory_bytes": peak, "device": name,
@@ -617,19 +715,23 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
         f"{torch.cuda.memory_allocated():,} B")
     serve(torch, cfg, comp, dev, paged=True, n_requests=1, gen=4, num_pages=28)  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    totals = {"nm_spmm_batched": 0, "paged_attn_mla": 0}
+    totals = {"nm_spmm_batched": 0, "paged_attn_mla": 0, "paged_attn_mla_q": 0}
     runs = {}
-    for name, pages in (("slab", None), ("paged", 28), ("paged_preempting", 22)):
+    for name, pages in (("slab", None), ("paged", 28), ("paged_preempting", 22),
+                        ("paged_int8", 28)):
+        int8 = name == "paged_int8"
         dispatch.reset_launches()
         eng, prompts, streams, wall = serve(torch, cfg, comp, dev, paged=pages is not None,
-                                            num_pages=pages or 0)
+                                            num_pages=pages or 0, kv_quant=int8)
         launches = dict(dispatch.launches)
         steps, groups = eng.decode_steps, eng.prefill_batches
+        mla = "paged_attn_mla_q" if int8 else "paged_attn_mla"
         want = {"nm_spmm_batched": 3 * DS_MOE_LAYERS * (steps + groups),
-                "paged_attn_mla": DS_LAYERS * steps if pages else 0}
+                "paged_attn_mla": DS_LAYERS * steps if pages and not int8 else 0,
+                "paged_attn_mla_q": DS_LAYERS * steps if int8 else 0}
         log(f"  {name}: launches {launches}; {steps} decode steps, {groups} prefill batches: "
             f"batched nm_spmm wants 3 x {DS_MOE_LAYERS} x ({steps} + {groups}) = "
-            f"{want['nm_spmm_batched']}, MLA paged_attn {DS_LAYERS} x {steps if pages else 0}")
+            f"{want['nm_spmm_batched']}, {mla} {DS_LAYERS} x {steps if pages else 0}")
         if any(launches[k] != v for k, v in want.items()) or launches["nm_spmm"] == 0:
             raise AssertionError(f"{name}: launches {launches}, want {want} and nm_spmm > 0")
         if (eng.preemptions > 0) != (name == "paged_preempting"):
@@ -637,6 +739,8 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
         for k in totals:
             totals[k] += launches[k]
         runs[name] = (eng, streams, wall)
+    log("  int8 vs fp pages, 28-page pools (readings): "
+        + json.dumps(int8_readings(runs["paged"][1], runs["paged_int8"][1])))
     # the two decode routes from one state: f32 on the first 4 layers must
     # agree to summation order; bf16 shows the rounding the streams see
     routes = {}
@@ -669,7 +773,9 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
             "weight_stream_bound_ms": st["weight_bytes_per_step"] / HBM_BYTES_PER_S * 1e3,
             "peak_memory_bytes": peak, "device": torch.cuda.get_device_name(0),
         }))
-    log("  profile deepseek paged decode " + json.dumps(profile_decode(torch, cfg, comp, dev)))
+    for quant in (False, True):
+        log(f"  profile deepseek {'int8 ' if quant else ''}paged decode "
+            + json.dumps(profile_decode(torch, cfg, comp, dev, kv_quant=quant)))
     return totals
 
 
@@ -699,10 +805,11 @@ def first_layers(torch, cfg, comp, n_body: int, dtype: str):
 
 
 def route_difference(torch, cfg, comp, prompts, dev) -> dict:
-    """The two decode routes from one state: the prompts prefilled once,
-    written into a slab and a paged cache, then one decode step of the same
-    tokens through each; the largest logit difference, beside the logits'
-    spread and the lanes' top-2 margins."""
+    """The decode routes from one state: the prompts prefilled once,
+    written into a slab, an fp paged cache and an int8 paged cache, then
+    one decode step of the same tokens through each; the largest logit
+    difference slab vs fp pages (and int8 vs fp pages, a reading), beside
+    the logits' spread and the lanes' top-2 margins."""
     from repro_torch.models.cache import PagedLayout
     from repro_torch.models.model import decode_step, forward, init_cache, write_prefill
 
@@ -711,27 +818,48 @@ def route_difference(torch, cfg, comp, prompts, dev) -> dict:
     logits, produced = forward(comp, cfg, toks, want_cache=True)
     lanes = torch.arange(b, device=dev)
     lens = torch.full((b,), s, dtype=torch.int32, device=dev)
-    layout = PagedLayout(page_size=16, num_pages=b * -(-(s + 1) // 16), max_len=s + 1)
-    slab = init_cache(cfg, b, s + 1, device=dev)
-    paged = init_cache(cfg, b, s + 1, layout=layout, device=dev)
-    paged["tables"]["full"].copy_(torch.arange(layout.num_pages, dtype=torch.int32).reshape(b, -1))
-    write_prefill(slab, cfg, produced, lanes, lens)
-    write_prefill(paged, cfg, produced, lanes, lens, layout)
     nxt = logits[:, -1].argmax(-1)
+    slab = init_cache(cfg, b, s + 1, device=dev)
+    write_prefill(slab, cfg, produced, lanes, lens)
     ls = decode_step(comp, cfg, nxt, slab)[0].float()
-    lp = decode_step(comp, cfg, nxt, paged, layout)[0].float()
+    del slab
+    lp = {}
+    for quant in (False, True):
+        layout = PagedLayout(page_size=16, num_pages=b * -(-(s + 1) // 16), max_len=s + 1,
+                             quant=quant)
+        paged = init_cache(cfg, b, s + 1, layout=layout, device=dev)
+        paged["tables"]["full"].copy_(
+            torch.arange(layout.num_pages, dtype=torch.int32).reshape(b, -1))
+        write_prefill(paged, cfg, produced, lanes, lens, layout)
+        lp[quant] = decode_step(comp, cfg, nxt, paged, layout)[0].float()
+        del paged
     top2 = torch.topk(ls, 2).values
-    return {"max_abs_diff": (ls - lp).abs().max().item(), "logit_std": ls.std().item(),
+    return {"max_abs_diff": (ls - lp[False]).abs().max().item(), "logit_std": ls.std().item(),
             "top2_margins": (top2[:, 0] - top2[:, 1]).tolist(),
-            "same_argmax": (ls.argmax(-1) == lp.argmax(-1)).tolist()}
+            "same_argmax": (ls.argmax(-1) == lp[False].argmax(-1)).tolist(),
+            "int8_vs_fp_pages_max_abs_diff": (lp[True] - lp[False]).abs().max().item(),
+            "int8_vs_fp_pages_same_argmax": (lp[True].argmax(-1) == lp[False].argmax(-1)).tolist()}
+
+
+def int8_readings(fp_streams: list, q_streams: list) -> dict:
+    """An int8 run against the fp run of the same traffic, as readings (no
+    gate): each request's first generated token (from prefill, which reads
+    fresh fp K/V: it should be the fp run's), and how many greedy tokens
+    agree before each request's first difference."""
+    agree = sum(next((i for i, (u, v) in enumerate(zip(a, b)) if u != v), len(a))
+                for a, b in zip(fp_streams, q_streams))
+    return {"first_token_equal": [a[0] == b[0] for a, b in zip(fp_streams, q_streams)],
+            "greedy_tokens_equal_before_first_difference":
+                f"{agree}/{sum(len(a) for a in fp_streams)}"}
 
 
 def profile_decode(torch, cfg, comp, dev, n_dispatch: int = 2, max_len=97, num_pages=28,
-                   prompt_lens=(64, 64, 64, 64)) -> dict:
+                   prompt_lens=(64, 64, 64, 64), kv_quant=False) -> dict:
     """A ``torch.profiler`` trace of ``n_dispatch`` decode dispatches (K = 4
-    steps each) with 4 busy lanes on a pool that does not preempt: wall and
-    device-busy ms per decode step, the idle share, kernels per step and
-    the eight kernels with the most device time."""
+    steps each) with 4 busy lanes on a pool (``kv_quant``: of int8 pages)
+    that does not preempt: wall and device-busy ms per decode step, the
+    idle share, kernels per step and the eight kernels with the most device
+    time."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -739,7 +867,7 @@ def profile_decode(torch, cfg, comp, dev, n_dispatch: int = 2, max_len=97, num_p
     from repro_torch.serving import DecodeEngine, SamplingParams
 
     eng = DecodeEngine(cfg, comp, max_batch=4, max_len=max_len, seed=0, num_pages=num_pages,
-                       page_size=16, steps_per_dispatch=4, device=dev)
+                       page_size=16, steps_per_dispatch=4, kv_quant=kv_quant, device=dev)
     for r, n in enumerate(prompt_lens):
         eng.submit(np.random.default_rng(2000 + r).integers(0, cfg.vocab, n).tolist(),
                    SamplingParams(max_new_tokens=32))
@@ -783,22 +911,29 @@ def window_route_difference(torch, cfg, comp, prompt_len: int, dev) -> dict:
         logits, produced = forward(comp, cfg, toks, want_cache=True)
     lanes = torch.arange(b, device=dev)
     lens = torch.full((b,), prompt_len, dtype=torch.int32, device=dev)
-    pool = PagedKVPool(cfg, max_batch=b, max_len=max_len, num_pages=b * 130, device=dev)
-    for i in range(b):
-        pool.alloc_prefill(i, prompt_len)
-        pool.ensure_steps(i, prompt_len, 1)
-    pool.device_tables()
+    pools = {}
+    for quant in (False, True):  # fp pages, and int8 pages for a reading
+        pool = PagedKVPool(cfg, max_batch=b, max_len=max_len, num_pages=b * 130, quant=quant,
+                           device=dev)
+        for i in range(b):
+            pool.alloc_prefill(i, prompt_len)
+            pool.ensure_steps(i, prompt_len, 1)
+        pool.device_tables()
+        write_prefill(pool.cache, cfg, produced, lanes, lens, pool.layout)
+        pools[quant] = pool
     slab = init_cache(cfg, b, max_len, device=dev)
     write_prefill(slab, cfg, produced, lanes, lens)
-    write_prefill(pool.cache, cfg, produced, lanes, lens, pool.layout)
     del produced
     nxt = logits[:, -1].argmax(-1)
     del logits
     ls = decode_step(comp, cfg, nxt, slab)[0].float()
-    lp = decode_step(comp, cfg, nxt, pool.cache, pool.layout)[0].float()
+    lp, lq = (decode_step(comp, cfg, nxt, p.cache, p.layout)[0].float()
+              for p in (pools[False], pools[True]))
     return {"max_abs_diff": (ls - lp).abs().max().item(), "logit_std": ls.std().item(),
-            "window_table": "win" in pool.cache["tables"],
-            "same_argmax": (ls.argmax(-1) == lp.argmax(-1)).tolist()}
+            "window_table": "win" in pools[False].cache["tables"],
+            "same_argmax": (ls.argmax(-1) == lp.argmax(-1)).tolist(),
+            "int8_vs_fp_pages_max_abs_diff": (lq - lp).abs().max().item(),
+            "int8_vs_fp_pages_same_argmax": (lq.argmax(-1) == lp.argmax(-1)).tolist()}
 
 
 def recurrentgemma_phase(torch, dev, dispatch) -> dict:
@@ -834,21 +969,26 @@ def recurrentgemma_phase(torch, dev, dispatch) -> dict:
     serve(torch, cfg, comp, dev, paged=True, prompts=[prompts[3][:32]], gen=4,
           num_pages=RG_PAGES, max_len=RG_MAX_LEN)  # warm-up, uncounted
     torch.cuda.reset_peak_memory_stats()
-    totals = {"nm_spmm": 0, "paged_attn_win": 0}
+    totals = {"nm_spmm": 0, "paged_attn_win": 0, "paged_attn_win_q": 0}
     runs = {}
     for name, pages in (("slab", None), ("paged", RG_PAGES),
-                        ("paged_preempting", RG_PAGES_PREEMPTING)):
+                        ("paged_preempting", RG_PAGES_PREEMPTING), ("paged_int8", RG_PAGES)):
+        int8 = name == "paged_int8"
         dispatch.reset_launches()
         eng, _, streams, wall = serve(torch, cfg, comp, dev, paged=pages is not None,
-                                      num_pages=pages or 0, prompts=prompts, **run)
+                                      num_pages=pages or 0, prompts=prompts, kv_quant=int8,
+                                      **run)
         launches = dict(dispatch.launches)
         steps, groups = eng.decode_steps, eng.prefill_batches
+        win = "paged_attn_win_q" if int8 else "paged_attn_win"
         want = {"nm_spmm": RG_K1_PER_PASS * (steps + groups),
-                "paged_attn_win": RG_ATTN_LAYERS * steps if pages else 0,
-                "paged_attn": 0, "paged_attn_mla": 0, "nm_spmm_batched": 0}
+                "paged_attn_win": RG_ATTN_LAYERS * steps if pages and not int8 else 0,
+                "paged_attn_win_q": RG_ATTN_LAYERS * steps if int8 else 0,
+                "paged_attn": 0, "paged_attn_mla": 0, "nm_spmm_batched": 0,
+                "paged_attn_q": 0, "paged_attn_mla_q": 0}
         log(f"  {name}: launches {launches}; {steps} decode steps, {groups} prefill batches: "
             f"nm_spmm wants {RG_K1_PER_PASS} x ({steps} + {groups}) = {want['nm_spmm']}, "
-            f"window paged_attn {RG_ATTN_LAYERS} x {steps if pages else 0}")
+            f"{win} {RG_ATTN_LAYERS} x {steps if pages else 0}")
         if any(launches[k] != v for k, v in want.items()):
             raise AssertionError(f"{name}: launches {launches}, want {want}")
         if (eng.preemptions > 0) != (name == "paged_preempting"):
@@ -860,9 +1000,14 @@ def recurrentgemma_phase(torch, dev, dispatch) -> dict:
             if tables != ["win"] or eng.pool.evicted_pages == 0:
                 raise AssertionError(f"{name}: tables {tables}, "
                                      f"{eng.pool.evicted_pages} evicted pages")
+        if int8 and eng.pool.evicted_pages != runs["paged"][0].pool.evicted_pages:
+            raise AssertionError(f"int8 run evicted {eng.pool.evicted_pages} pages, the fp "
+                                 f"run {runs['paged'][0].pool.evicted_pages}")
         for k in totals:
             totals[k] += launches[k]
         runs[name] = (eng, streams, wall)
+    log("  int8 vs fp pages, 520-page pools (readings): "
+        + json.dumps(int8_readings(runs["paged"][1], runs["paged_int8"][1])))
     agree, total, margins = compare_streams(torch, cfg, comp, prompts, runs["slab"][1],
                                             runs["paged"][1], dev, margin=RG_MARGIN)
     log(f"  slab vs non-preempting paged greedy streams: {agree}/{total} tokens equal before "
@@ -899,9 +1044,11 @@ def recurrentgemma_phase(torch, dev, dispatch) -> dict:
             "weight_stream_bound_ms": st["weight_bytes_per_step"] / HBM_BYTES_PER_S * 1e3,
             "peak_memory_bytes": peak, "device": torch.cuda.get_device_name(0),
         }))
-    log("  profile recurrentgemma paged decode " + json.dumps(profile_decode(
-        torch, cfg, comp, dev, max_len=RG_MAX_LEN, num_pages=RG_PAGES,
-        prompt_lens=RG_PROMPTS)))
+    for quant in (False, True):
+        log(f"  profile recurrentgemma {'int8 ' if quant else ''}paged decode "
+            + json.dumps(profile_decode(torch, cfg, comp, dev, max_len=RG_MAX_LEN,
+                                        num_pages=RG_PAGES, prompt_lens=RG_PROMPTS,
+                                        kv_quant=quant)))
     return totals
 
 
@@ -1098,8 +1245,13 @@ def main() -> int:
     records["paged_attn_mla"] = check_paged_attn_mla(torch, dev)
     log("phase 2: paged_attn's window form (RecurrentGemma-9B shapes)")
     records["paged_attn_win"] = check_paged_attn_win(torch, dev)
+    log("phase 2: paged_attn's int8 forms (K2q) at the shapes of its GQA, MLA and window forms")
+    records["paged_attn_q"] = check_paged_attn(torch, dev, int8=True)
+    records["paged_attn_mla_q"] = check_paged_attn_mla(torch, dev, int8=True)
+    records["paged_attn_win_q"] = check_paged_attn_win(torch, dev, int8=True)
 
-    log("phase 3: serve full-width gpt2-paper, slab then undersized paged pool")
+    log("phase 3: serve full-width gpt2-paper: slab, undersized paged pool, int8 pool of "
+        "the same bytes")
     launches = serve_phase(torch, cfg, comp, dev, dispatch)
     del comp
 
@@ -1109,12 +1261,15 @@ def main() -> int:
         log("phase 5: serve the trained checkpoint, compressed")
         serve_trained_phase(torch, cfg, dev, dispatch, ckpt_dir)
 
-    log("phase 6: serve full-width DeepSeek-V2-Lite (27 layers), slab, paged, preempting pool")
+    log("phase 6: serve full-width DeepSeek-V2-Lite (27 layers): slab, paged, preempting, "
+        "int8 pool")
     launches.update(deepseek_phase(torch, dev, dispatch))
 
-    log("phase 7: serve full-width RecurrentGemma-9B (38 layers), slab, paged, preempting pool")
+    log("phase 7: serve full-width RecurrentGemma-9B (38 layers): slab, paged, preempting, "
+        "int8 pool")
     rg = recurrentgemma_phase(torch, dev, dispatch)
     launches["paged_attn_win"] = rg["paged_attn_win"]
+    launches["paged_attn_win_q"] = rg["paged_attn_win_q"]
 
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():

@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attn.py:_paged_attn_kernel
 // (launched by paged_attn_pallas, emit_stats=False) in three of its forms,
-// fp pages in all:
+// each over fp pages or, with its int8-scale option (K2q, the reference's
+// k_scale / v_scale / k2_scale, paged_attn.py:131-134, 141-142, 159-161),
+// over int8 pages:
 //
 // paged_attn_launch, MHA/GQA (K2), with the window option (K2w, the
 // reference's window / win_slots, paged_attn.py:109-125):
@@ -27,13 +29,20 @@
 //   scores are (q.k + q2.k2) * scale; V is the K page already staged.
 // All: tables (B, n_slots) int32 page ids, P = sentinel (unmapped);
 // lengths (B,) int32 live tokens per lane.  Queries and output share one
-// type and the pages another (f32 or bf16 each), so the MLA form keeps the
-// reference's f32 queries and output over bf16 pages.
+// type (f32 or bf16) and the pages another (f32, bf16 or int8), so the MLA
+// form keeps the reference's f32 queries and output over bf16 or int8
+// pages.  Int8 pages come with one f16 scale per (page, slot) for each page
+// stream, (P, ps): k_scale, v_scale (GQA and window forms), k_scale and
+// k2_scale (MLA, whose V is the dequantized K page); a row is its codes
+// times its scale, in f32, as models/cache.py:dequant computes it.
 // Positions at or past lengths[b] are dead.  A lane with length 0 writes
 // exact zeros.
 //
 // What bounds it: the bytes of the live pages (decode does ~1 FMA per
-// byte read per query head, far below the tensor cores' break-even).  The
+// byte read per query head, far below the tensor cores' break-even); int8
+// pages halve them against bf16.  A row is dequantized as it is staged into
+// shared memory, so device memory streams only the 1-byte codes and one
+// 2-byte scale per row, and everything after the staging is the fp path.  The
 // design gives one block to each (lane, KV head) and walks the lane's table
 // slots in order, so every live page is read once and all G query heads of
 // the KV head share that read; in the MLA form the latent page is read once
@@ -62,7 +71,11 @@
 // One page per step leaves much of the card idle at small batch; splitting
 // the page walk across blocks (the stats form, K3) is later work.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -73,6 +86,7 @@ constexpr int WARP_ROW_MIN = 256;  // D + D2 from which a warp scores a row
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -99,17 +113,21 @@ __host__ __device__ inline int smem_floats(int G, int D, int D2, int Dv, int ps,
          + G * ps + G * Dv + 3 * G;
 }
 
-// TQ: queries and output; TP: pages.  D2 = 0 without a second stream.
-// The block owns query heads [blockIdx.z * G, +G) of the Gt that share KV
-// head blockIdx.y.  ROW_WARP: a warp (else a thread) per (head, row) score.
+// TQ: queries and output; TP: pages (int8_t: codes with f16 scales ksc,
+// k2sc, vsc of (P, ps), else the scale pointers are unused).  D2 = 0
+// without a second stream.  The block owns query heads [blockIdx.z * G, +G)
+// of the Gt that share KV head blockIdx.y.  ROW_WARP: a warp (else a
+// thread) per (head, row) score.
 template <typename TQ, typename TP, bool V_IS_K, bool ROW_WARP>
 __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
     const TQ* __restrict__ q, const TQ* __restrict__ q2,
     const TP* __restrict__ kp, const TP* __restrict__ k2p,
-    const TP* __restrict__ vp, const int* __restrict__ tables,
-    const int* __restrict__ lengths, TQ* __restrict__ out, int Hkv, int Gt,
-    int G, int D, int D2, int Dv, int P, int ps, int n_slots, int window,
-    int win_slots, float scale) {
+    const TP* __restrict__ vp, const __half* __restrict__ ksc,
+    const __half* __restrict__ k2sc, const __half* __restrict__ vsc,
+    const int* __restrict__ tables, const int* __restrict__ lengths,
+    TQ* __restrict__ out, int Hkv, int Gt, int G, int D, int D2, int Dv, int P,
+    int ps, int n_slots, int window, int win_slots, float scale) {
+  constexpr bool QUANT = std::is_same<TP, int8_t>::value;
   extern __shared__ float smem[];
   const int KS = D + 1, K2S = D2 + 1;  // padded row strides
   float* qs = smem;                     // G*D
@@ -149,19 +167,25 @@ __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
     const int r1 = min(ps, length - pg * ps);
     if (r0 >= r1) continue;                            // nothing live: nothing loaded
     const int nv = r1 - r0;
-    const size_t row0 = (size_t)phys * ps + r0;
+    const size_t row0 = (size_t)phys * ps + r0;  // also the rows' index in a scale plane
     for (int e = tid; e < nv * D; e += THREADS) {
       const int r = e / D, d = e - r * D;
-      ks[r * KS + d] = to_f(kp[((row0 + r) * Hkv + h) * D + d]);
+      float x = to_f(kp[((row0 + r) * Hkv + h) * D + d]);
+      if constexpr (QUANT) x *= __half2float(ksc[row0 + r]);
+      ks[r * KS + d] = x;
     }
     for (int e = tid; e < nv * D2; e += THREADS) {
       const int r = e / D2, d = e - r * D2;
-      k2s[r * K2S + d] = to_f(k2p[((row0 + r) * Hkv + h) * D2 + d]);
+      float x = to_f(k2p[((row0 + r) * Hkv + h) * D2 + d]);
+      if constexpr (QUANT) x *= __half2float(k2sc[row0 + r]);
+      k2s[r * K2S + d] = x;
     }
     if (!V_IS_K) {
       for (int e = tid; e < nv * Dv; e += THREADS) {
         const int r = e / Dv, d = e - r * Dv;
-        vs[e] = to_f(vp[((row0 + r) * Hkv + h) * Dv + d]);
+        float x = to_f(vp[((row0 + r) * Hkv + h) * Dv + d]);
+        if constexpr (QUANT) x *= __half2float(vsc[row0 + r]);
+        vs[e] = x;
       }
     }
     __syncthreads();
@@ -225,7 +249,8 @@ __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
 
 template <typename TQ, typename TP, bool V_IS_K>
 int launch(const void* q, const void* q2, const void* k, const void* k2,
-           const void* v, const void* tables, const void* lengths, void* out,
+           const void* v, const void* ksc, const void* k2sc, const void* vsc,
+           const void* tables, const void* lengths, void* out,
            int B, int Hkv, int G, int D, int D2, int Dv, int P, int ps,
            int n_slots, int window, int win_slots, float scale, cudaStream_t s) {
   // split a KV head's query heads across blocks (halving while G stays
@@ -245,21 +270,28 @@ int launch(const void* q, const void* q2, const void* k, const void* k2,
   kernel<<<dim3(B, Hkv, G / gb), THREADS, smem, s>>>(
       static_cast<const TQ*>(q), static_cast<const TQ*>(q2),
       static_cast<const TP*>(k), static_cast<const TP*>(k2),
-      static_cast<const TP*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<TQ*>(out), Hkv, G, gb, D,
-      D2, Dv, P, ps, n_slots, window, win_slots, scale);
+      static_cast<const TP*>(v), static_cast<const __half*>(ksc),
+      static_cast<const __half*>(k2sc), static_cast<const __half*>(vsc),
+      static_cast<const int*>(tables), static_cast<const int*>(lengths),
+      static_cast<TQ*>(out), Hkv, G, gb, D, D2, Dv, P, ps, n_slots, window,
+      win_slots, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool V_IS_K>
 int launch_types(int q_dtype, int page_dtype, const void* q, const void* q2,
-                 const void* k, const void* k2, const void* v,
-                 const void* tables, const void* lengths, void* out, int B,
-                 int Hkv, int G, int D, int D2, int Dv, int P, int ps,
-                 int n_slots, int window, int win_slots, float scale, void* stream) {
+                 const void* k, const void* k2, const void* v, const void* ksc,
+                 const void* k2sc, const void* vsc, const void* tables,
+                 const void* lengths, void* out, int B, int Hkv, int G, int D,
+                 int D2, int Dv, int P, int ps, int n_slots, int window,
+                 int win_slots, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PA_ARGS q, q2, k, k2, v, tables, lengths, out, B, Hkv, G, D, D2, Dv, P, ps, \
-                n_slots, window, win_slots, scale, s
+#define PA_ARGS q, q2, k, k2, v, ksc, k2sc, vsc, tables, lengths, out, B, Hkv, G, D, \
+                D2, Dv, P, ps, n_slots, window, win_slots, scale, s
+  if (page_dtype == 2) {
+    return q_dtype == 0 ? launch<float, int8_t, V_IS_K>(PA_ARGS)
+                        : launch<__nv_bfloat16, int8_t, V_IS_K>(PA_ARGS);
+  }
   if (q_dtype == 0 && page_dtype == 0) return launch<float, float, V_IS_K>(PA_ARGS);
   if (q_dtype == 0) return launch<float, __nv_bfloat16, V_IS_K>(PA_ARGS);
   if (page_dtype == 0) return launch<__nv_bfloat16, float, V_IS_K>(PA_ARGS);
@@ -277,30 +309,35 @@ extern "C" int paged_attn_smem_bytes(int G, int D, int D2, int Dv, int ps, int v
 
 extern "C" int paged_attn_smem_max() { return SMEM_MAX; }
 
-// q_dtype / page_dtype: 0 = float32, 1 = bfloat16.  Each returns the error
-// of the shared-memory opt-in, else cudaGetLastError() after the launch.
-// The wrapper (kernels/paged_attn.py) checks shapes, types and contiguity.
+// q_dtype: 0 = float32, 1 = bfloat16; page_dtype: the same, or 2 = int8
+// (then the f16 scale planes k_scale and v_scale, or k_scale and k2_scale,
+// are given; otherwise they are null).  Each returns the error of the
+// shared-memory opt-in, else cudaGetLastError() after the launch.  The
+// wrapper (kernels/paged_attn.py) checks shapes, types and contiguity.
 // window = 0 (and win_slots = 0) for an append-only table, else the live
 // window's width and the modular table's slot count (= n_slots).
 extern "C" int paged_attn_launch(const void* q, const void* k, const void* v,
+                                 const void* k_scale, const void* v_scale,
                                  const void* tables, const void* lengths,
                                  void* out, int B, int Hkv, int G, int D,
                                  int Dv, int P, int ps, int n_slots,
                                  int window, int win_slots, float scale,
                                  int q_dtype, int page_dtype, void* stream) {
   return launch_types<false>(q_dtype, page_dtype, q, nullptr, k, nullptr, v,
-                             tables, lengths, out, B, Hkv, G, D, 0, Dv, P, ps,
-                             n_slots, window, win_slots, scale, stream);
+                             k_scale, nullptr, v_scale, tables, lengths, out, B,
+                             Hkv, G, D, 0, Dv, P, ps, n_slots, window, win_slots,
+                             scale, stream);
 }
 
 extern "C" int paged_attn_mla_launch(const void* q, const void* q2,
                                      const void* k, const void* k2,
+                                     const void* k_scale, const void* k2_scale,
                                      const void* tables, const void* lengths,
                                      void* out, int B, int Hkv, int G, int D,
                                      int D2, int P, int ps, int n_slots,
                                      float scale, int q_dtype, int page_dtype,
                                      void* stream) {
-  return launch_types<true>(q_dtype, page_dtype, q, q2, k, k2, nullptr, tables,
-                            lengths, out, B, Hkv, G, D, D2, D, P, ps, n_slots,
-                            0, 0, scale, stream);
+  return launch_types<true>(q_dtype, page_dtype, q, q2, k, k2, nullptr, k_scale,
+                            k2_scale, nullptr, tables, lengths, out, B, Hkv, G, D,
+                            D2, D, P, ps, n_slots, 0, 0, scale, stream);
 }

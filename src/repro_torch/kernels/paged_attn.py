@@ -1,8 +1,8 @@
 """Single-query paged decode attention over a ``(P, ps, Hkv, D)`` pool.
 
 Replaces the TPU kernel ``src/repro/kernels/paged_attn.py:_paged_attn_kernel``
-(launched by ``paged_attn_pallas`` with ``emit_stats=False``) in the three
-forms the ported models run, all with fp pages:
+(launched by ``paged_attn_pallas`` with ``emit_stats=False``) in the forms
+the ported models run:
 
 - MHA/GQA (K2): q ``(B, Hkv, G, D)``; k/v pages ``(P, ps, Hkv, D|Dv)``;
   append-only tables.
@@ -16,9 +16,15 @@ forms the ported models run, all with fp pages:
   ``k2_pages (P, ps, Hkv, D2)`` is added before the softmax, and V is the
   K pool itself (``v_pages`` is None).  DeepSeek's decode passes f32
   queries over bf16 pages and gets f32 back.
+- Its int8-scale option (K2q, the reference's ``k_scale``/``v_scale``/
+  ``k2_scale``), in each of the three forms above: int8 pages with one f16
+  scale per (page, slot), ``(P, ps)``, per page stream; a row is its codes
+  times its scale in f32 (``models.cache.dequant``).  The MLA form takes
+  ``k_scale`` and ``k2_scale`` (V is the dequantized K page), the others
+  ``k_scale`` and ``v_scale``.
 
-Its int8-scale option (K2q) and the stats-emitting variant (K3) are not
-ported (ROADMAP.md §2); this wrapper has no such arguments.
+The stats-emitting variant (K3, ``emit_stats``) is not ported (ROADMAP.md
+§2); the wrapper refuses it.
 
 On the card :func:`paged_attn` launches ``csrc/paged_attn.cu`` (whose
 header says what bounds it and how the design answers that); on the CPU it
@@ -40,9 +46,10 @@ from repro_torch.kernels import dispatch
 
 _NEG = -1e30  # finite -inf stand-in: keeps dead lanes exp()-safe
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PAGE_DTYPES = {**_DTYPES, torch.int8: 2}
 _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # scale, types, stream
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + _TAIL
-_ARGTYPES_MLA = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + _TAIL
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + _TAIL
+_ARGTYPES_MLA = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + _TAIL
 
 
 def paged_attn(
@@ -50,19 +57,23 @@ def paged_attn(
     tables: torch.Tensor, lengths: torch.Tensor, *, scale: float,
     window: int = 0, win_slots: int = 0,
     q2: Optional[torch.Tensor] = None, k2_pages: Optional[torch.Tensor] = None,
-    v_is_k: bool = False,
+    k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
+    k2_scale: Optional[torch.Tensor] = None, v_is_k: bool = False,
+    emit_stats: bool = False,
 ) -> torch.Tensor:
-    ops = [t for t in (q, k_pages, v_pages, tables, lengths, q2, k2_pages) if t is not None]
+    if emit_stats:
+        raise NotImplementedError("emit_stats (the stats form, K3) is not ported")
+    kw = dict(scale=scale, window=window, win_slots=win_slots, q2=q2, k2_pages=k2_pages,
+              k_scale=k_scale, v_scale=v_scale, k2_scale=k2_scale, v_is_k=v_is_k)
+    ops = [t for t in (q, k_pages, v_pages, tables, lengths, q2, k2_pages, k_scale,
+                       v_scale, k2_scale) if t is not None]
     if dispatch.on_card(*ops):
-        return _launch(q, k_pages, v_pages, tables, lengths, scale, window, win_slots,
-                       q2, k2_pages, v_is_k)
-    return paged_attn_plain(q, k_pages, v_pages, tables, lengths, scale=scale,
-                            window=window, win_slots=win_slots,
-                            q2=q2, k2_pages=k2_pages, v_is_k=v_is_k)
+        return _launch(q, k_pages, v_pages, tables, lengths, **kw)
+    return paged_attn_plain(q, k_pages, v_pages, tables, lengths, **kw)
 
 
 def _check(q, k_pages, v_pages, tables, lengths, window, win_slots, q2, k2_pages,
-           v_is_k) -> bool:
+           k_scale, v_scale, k2_scale, v_is_k) -> bool:
     """Validate the operands; True for the MLA form."""
     mla = q2 is not None
     if mla != (k2_pages is not None) or mla != bool(v_is_k) or mla != (v_pages is None):
@@ -87,24 +98,42 @@ def _check(q, k_pages, v_pages, tables, lengths, window, win_slots, q2, k2_pages
     if tables.dim() != 2 or tables.shape[0] != b or lengths.shape != (b,):
         raise ValueError(f"tables {tuple(tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match batch {b}")
+    # int8 pages take one (P, ps) scale plane per page stream: K and K2 in
+    # the MLA form (V is K), K and V otherwise
+    given = {"k_scale": k_scale, "v_scale": v_scale, "k2_scale": k2_scale}
+    wanted = ("k_scale", "k2_scale") if mla else ("k_scale", "v_scale")
+    quant = k_pages.dtype == torch.int8
+    if quant != any(s is not None for s in given.values()):
+        raise ValueError("int8 pages take their scale planes, and only int8 pages take scales")
+    if quant:
+        if any((given[n] is None) != (n not in wanted) for n in given):
+            raise ValueError(f"int8 pages of this form take exactly {wanted}, got "
+                             f"{[n for n, s in given.items() if s is not None]}")
+        for n in wanted:
+            if given[n].shape != k_pages.shape[:2]:
+                raise ValueError(f"{n} {tuple(given[n].shape)} is not the pages' (P, ps) "
+                                 f"{tuple(k_pages.shape[:2])}")
     return mla
 
 
-def _launch(q, k_pages, v_pages, tables, lengths, scale, window, win_slots, q2, k2_pages,
-            v_is_k):
+def _launch(q, k_pages, v_pages, tables, lengths, *, scale, window, win_slots, q2, k2_pages,
+            k_scale, v_scale, k2_scale, v_is_k):
     mla = _check(q, k_pages, v_pages, tables, lengths, window, win_slots, q2, k2_pages,
-                 v_is_k)
+                 k_scale, v_scale, k2_scale, v_is_k)
     queries = (q, q2) if mla else (q,)
     pages = (k_pages, k2_pages) if mla else (k_pages, v_pages)
-    if (q.dtype not in _DTYPES or k_pages.dtype not in _DTYPES
+    scales = tuple(s for s in (k_scale, v_scale, k2_scale) if s is not None)
+    if (q.dtype not in _DTYPES or k_pages.dtype not in _PAGE_DTYPES
             or any(t.dtype != q.dtype for t in queries)
             or any(t.dtype != k_pages.dtype for t in pages)):
         raise TypeError(f"paged_attn kernel takes f32 or bf16 queries of one type and "
-                        f"pages of one type, got {[t.dtype for t in queries]} and "
-                        f"{[t.dtype for t in pages]}")
+                        f"f32, bf16 or int8 pages of one type, got "
+                        f"{[t.dtype for t in queries]} and {[t.dtype for t in pages]}")
+    if any(s.dtype != torch.float16 for s in scales):
+        raise TypeError(f"the kernel reads f16 scales, got {[s.dtype for s in scales]}")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("tables and lengths must be int32")
-    if not all(t.is_contiguous() for t in queries + pages + (tables, lengths)):
+    if not all(t.is_contiguous() for t in queries + pages + scales + (tables, lengths)):
         raise ValueError("paged_attn kernel needs contiguous operands")
     b, hkv, g, d = q.shape
     n_pages, ps = k_pages.shape[:2]
@@ -119,21 +148,27 @@ def _launch(q, k_pages, v_pages, tables, lengths, scale, window, win_slots, q2, 
     out = torch.empty((b, hkv, g, dv), dtype=q.dtype, device=q.device)
     if b == 0 or hkv == 0:
         return out
-    types = (_DTYPES[q.dtype], _DTYPES[k_pages.dtype], dispatch.stream_ptr(q.device))
+    types = (_DTYPES[q.dtype], _PAGE_DTYPES[k_pages.dtype], dispatch.stream_ptr(q.device))
     if mla:
         fn = dispatch.kernel_fn("paged_attn", "paged_attn_mla_launch", _ARGTYPES_MLA)
         rc = fn(q.data_ptr(), q2.data_ptr(), k_pages.data_ptr(), k2_pages.data_ptr(),
-                tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                b, hkv, g, d, d2, n_pages, ps, tables.shape[1], float(scale), *types)
-        dispatch.check_launch("paged_attn_mla", rc)
+                _ptr(k_scale), _ptr(k2_scale), tables.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), b, hkv, g, d, d2, n_pages, ps, tables.shape[1],
+                float(scale), *types)
+        name = "paged_attn_mla"
     else:
         fn = dispatch.kernel_fn("paged_attn", "paged_attn_launch", _ARGTYPES)
-        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), _ptr(k_scale),
+                _ptr(v_scale), tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                 b, hkv, g, d, dv, n_pages, ps, tables.shape[1], int(window),
                 int(win_slots), float(scale), *types)
-        dispatch.check_launch("paged_attn_win" if window else "paged_attn", rc)
+        name = "paged_attn_win" if window else "paged_attn"
+    dispatch.check_launch(name + ("_q" if scales else ""), rc)
     return out
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def paged_attn_plain(
@@ -141,14 +176,16 @@ def paged_attn_plain(
     tables: torch.Tensor, lengths: torch.Tensor, *, scale: float,
     window: int = 0, win_slots: int = 0,
     q2: Optional[torch.Tensor] = None, k2_pages: Optional[torch.Tensor] = None,
-    v_is_k: bool = False,
+    k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
+    k2_scale: Optional[torch.Tensor] = None, v_is_k: bool = False,
 ) -> torch.Tensor:
     """The same function in plain PyTorch, the gathered math of the
     reference's ``_gathered_stats``: gather every lane's table slots into a
-    ``(B, n_slots·ps)`` view and apply the per-position masks in one f32
-    softmax."""
+    ``(B, n_slots·ps)`` view (int8 pages dequantized, as
+    ``src/repro/kernels/ref.py:_dequant_pages``) and apply the per-position
+    masks in one f32 softmax."""
     mla = _check(q, k_pages, v_pages, tables, lengths, window, win_slots, q2, k2_pages,
-                 v_is_k)
+                 k_scale, v_scale, k2_scale, v_is_k)
     n_pages, ps = k_pages.shape[:2]
     lens = lengths.long()[:, None]  # (B, 1)
     slot = torch.arange(tables.shape[1], device=q.device)[None, :]  # (1, S)
@@ -165,13 +202,18 @@ def paged_attn_plain(
     valid = ((apos < lens[..., None]) & (apos >= lo[..., None])
              & (tables[..., None] != n_pages) & (pg[..., None] >= 0))  # (B, S, ps)
     phys = tables.long().clamp(0, n_pages - 1)  # sentinel rows are masked
-    kg = k_pages[phys].float()
+
+    def gather(pages, sc):  # (B, S, ps, Hkv, D) f32
+        rows = pages[phys].float()
+        return rows if sc is None else rows * sc[phys].float()[..., None, None]
+
+    kg = gather(k_pages, k_scale)
     s = torch.einsum("bhgd,bsphd->bhgsp", q.float(), kg)
     if mla:
-        s = s + torch.einsum("bhgd,bsphd->bhgsp", q2.float(), k2_pages[phys].float())
+        s = s + torch.einsum("bhgd,bsphd->bhgsp", q2.float(), gather(k2_pages, k2_scale))
     s = torch.where(valid[:, None, None], s * scale, _NEG)
     mx = s.amax(dim=(-2, -1), keepdim=True)  # _NEG on dead lanes
     pexp = torch.exp(s - mx) * valid[:, None, None]
     l = pexp.sum(dim=(-2, -1))
-    acc = torch.einsum("bhgsp,bsphd->bhgd", pexp, kg if mla else v_pages[phys].float())
+    acc = torch.einsum("bhgsp,bsphd->bhgd", pexp, kg if mla else gather(v_pages, v_scale))
     return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \\
         [--arch gpt2-paper|deepseek-v2-lite-16b|recurrentgemma-9b] \\
-        [--paged --page-size 16 --num-pages 64] [--steps-per-dispatch 4] \\
+        [--paged --page-size 16 --num-pages 64 [--kv-int8]] [--steps-per-dispatch 4] \\
         [--ckpt-dir RUN] [--dense] [--temperature 0.8 --top-k 40] [--device cpu]
 
 Counterpart of ``repro/launch/serve.py`` (sync scheduler only).  Loads or
@@ -12,7 +12,9 @@ compresses the maskable leaves and serves the compressed tree through
 kernel (MoE expert stacks its batched form, RG-LRU blocks all five
 projections), and ``--paged`` decode attention the ``paged_attn`` kernel
 (MLA its latent form; sliding-window layers its window form over the
-modular window table, once ``prompt_len + gen + 1`` reaches the window).
+modular window table, once ``prompt_len + gen + 1`` reaches the window;
+``--kv-int8`` stores the pages as int8 with per-(page, slot) scales and
+runs each form's int8 option).
 Export and compression go leaf by leaf (``export_compressed``), so a
 full-width DeepSeek-V2-Lite fits one 80 GB card.  ``--dense`` serves the masked-dense
 tree instead.  Prints two JSON lines: the compression report and the run
@@ -70,6 +72,9 @@ def parse_args(argv=None):
     ap.add_argument("--paged", action="store_true",
                     help="paged KV-cache pool instead of the per-lane slab")
     ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="int8 KV pages with per-page-row scales (~2x the tokens of "
+                         "bf16 pages at equal bytes; paged only)")
     ap.add_argument("--num-pages", type=int, default=None,
                     help="pages in the pool (default: slab-equivalent "
                          "batch*ceil(max_len/page_size))")
@@ -85,6 +90,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    if args.kv_int8 and not args.paged:
+        raise SystemExit("--prefix-cache/--kv-int8 require --paged")  # the reference's words
     device = resolve_device(args.device)
     cfg, serving_tree, rep = build_serving_state(args, device)
     print(json.dumps({"compression": rep}))
@@ -98,8 +105,8 @@ def main(argv=None) -> dict:
     engine = DecodeEngine(
         cfg, serving_tree, max_batch=args.batch, max_len=max_len, seed=0,
         num_pages=num_pages if args.paged else None, page_size=args.page_size,
-        steps_per_dispatch=args.steps_per_dispatch, prefill_buckets=buckets,
-        device=device,
+        steps_per_dispatch=args.steps_per_dispatch, kv_quant=args.kv_int8,
+        prefill_buckets=buckets, device=device,
     )
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                               max_new_tokens=args.gen)
@@ -148,7 +155,7 @@ def make_summary(cfg, engine: DecodeEngine, results: dict, rep: dict, args) -> d
         summary.update(
             evicted_pages=st["evicted_pages"], table_full_uploads=st["table_full_uploads"],
             table_row_syncs=st["table_row_syncs"], table_syncs=st["table_syncs"],
-            kv_quant=False, shared_pages=0, cow_copies=0,
+            kv_quant=st["kv_quant"], shared_pages=0, cow_copies=0,
         )
     if args.temperature == 0.0:
         summary["greedy_streams"] = [[int(t) for t in results[u].tokens]

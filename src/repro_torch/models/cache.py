@@ -35,9 +35,19 @@ index ``P`` that absorbs those writes; it is never read (the kernel and the
 plain attention see only pages ``[0, P)``).  Slab writes past the slab's end
 are masked per lane instead.
 
+Int8 pages (``PagedLayout.quant``, the reference's ``quant``): every pool
+leaf stores int8 codes beside a ``<leaf>_scale`` plane of ``lead + (P + 1,
+ps)`` f16 scales, one per (page, slot), sink page included.  A token's scale
+is the absmax over all its per-token dims (every KV head together) over
+127, floored at ``_QEPS`` and rounded through f16 before the divide, so
+the codes divide by exactly the scale every reader multiplies back
+(:func:`quant` / :func:`dequant`).  Writes quantize on the way in; prefill
+attention still reads the fresh fp K/V, and a decode step reads the codes
+it has just written, so the current token is seen int8-rounded, as in the
+reference.
+
 Writes update the cache tensors in place.  RG-LRU states are per lane
-under both layouts and do not pass through here (``models.model``).  Int8
-pages are not ported yet (ROADMAP.md).
+under both layouts and do not pass through here (``models.model``).
 """
 from __future__ import annotations
 
@@ -45,9 +55,30 @@ import dataclasses
 
 import torch
 
+# the int8 scale's floor: keeps all-zero tokens from dividing by zero, and
+# survives the f16 round trip as a normal number
+_QEPS = 1e-4
+
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def quant(x: torch.Tensor, lead: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Int8 codes and f16 scales of ``x``, one scale per index of its first
+    ``lead`` dims (a token): the absmax over the rest / 127, floored at
+    ``_QEPS`` and rounded through f16 before the divide; codes round half to
+    even."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=tuple(range(lead, x.dim()))) / 127.0).clamp_min(_QEPS)
+    scale = scale.half().float()
+    q = torch.round(xf / scale.reshape(scale.shape + (1,) * (x.dim() - lead)))
+    return q.to(torch.int8), scale.half()
+
+
+def dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Codes times their per-token scales, in f32."""
+    return q.float() * scale.float().reshape(scale.shape + (1,) * (q.dim() - scale.dim()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +146,7 @@ class PagedLayout:
     win: int = 0  # min(max_len, local_window) when the arch has windowed layers
     has_full: bool = True  # any non-windowed attention or MLA layer
     lookahead: int = 1  # decode steps one dispatch may take (pages mapped ahead)
+    quant: bool = False  # int8 codes + per-(page, slot) f16 scale planes
     kind = "paged"
 
     @property
@@ -145,27 +177,42 @@ class PagedLayout:
     def alloc(self, lead: tuple, batch: int, entries: dict, dtype, device,
               window=None) -> dict:
         """Zeroed ``lead + (P + 1, ps) + shape`` pools (the last page is the
-        sink), one per ``entries`` name -> per-token shape."""
+        sink), one per ``entries`` name -> per-token shape; under ``quant``
+        int8 pools and a ``<name>_scale`` plane ``lead + (P + 1, ps)`` of f16
+        beside each."""
         pool = (self.num_pages + 1, self.page_size)
-        return {name: torch.zeros(lead + pool + shp, dtype=dtype, device=device)
-                for name, shp in entries.items()}
+        if not self.quant:
+            return {name: torch.zeros(lead + pool + shp, dtype=dtype, device=device)
+                    for name, shp in entries.items()}
+        out = {}
+        for name, shp in entries.items():
+            out[name] = torch.zeros(lead + pool + shp, dtype=torch.int8, device=device)
+            out[name + "_scale"] = torch.zeros(lead + pool, dtype=torch.float16, device=device)
+        return out
 
     def tables(self, batch: int, device) -> dict:
         return {key: torch.full((batch, n), self.sentinel, dtype=torch.int32, device=device)
                 for key, n in (("full", self.pages_full), ("win", self.pages_win)) if n}
 
     def pool_view(self, pages: torch.Tensor) -> torch.Tensor:
-        """The ``(P, ps, ...)`` pages attention reads (the sink page cut)."""
+        """The ``(P, ps, ...)`` pages (or ``(P, ps)`` scales) attention
+        reads: the sink page cut."""
         return pages[: self.num_pages]
 
-    @staticmethod
-    def _scatter(c: dict, entries: dict, widx: torch.Tensor, lead: int) -> None:
+    def _scatter(self, c: dict, entries: dict, widx: torch.Tensor, lead: int) -> None:
         """Store ``entries`` (``lead`` layer axes, then one token per
-        ``widx``) at the pool's flat ``(page, slot)`` indices ``widx``."""
+        ``widx``) at the pool's flat ``(page, slot)`` indices ``widx``;
+        under ``quant`` each token's codes, and its scale into the
+        ``<name>_scale`` plane at the same index."""
+        at = (slice(None),) * lead + (widx,)
         for name, x in entries.items():
             pool = c[name]
             flat = pool.view(pool.shape[:lead] + (-1,) + pool.shape[lead + 2:])
-            flat[(slice(None),) * lead + (widx,)] = x.to(flat.dtype)
+            if self.quant:
+                x, s = quant(x, lead + 1)
+                sc = c[name + "_scale"]
+                sc.view(sc.shape[:lead] + (-1,))[at] = s
+            flat[at] = x.to(flat.dtype)
 
     def write(self, c: dict, entries: dict, pos, tables, window=None) -> None:
         """Scatter one token per lane into its page of one layer's pool
@@ -199,11 +246,11 @@ class PagedLayout:
 
 
 def paged_layout_for(cfg, max_len: int, *, page_size: int, num_pages: int,
-                     lookahead: int = 1) -> PagedLayout:
+                     lookahead: int = 1, quant: bool = False) -> PagedLayout:
     """The layout an arch needs at a given logical capacity: attention
     layers are windowed iff ``local_window <= max_len``; the full table
     serves the others and MLA.  ``lookahead`` is the engine's steps per
-    dispatch (it sizes the window table)."""
+    dispatch (it sizes the window table); ``quant`` stores int8 pages."""
     from repro_torch.models.model import _block_mixer_mlp, _groups, layer_plan
 
     mixers = {_block_mixer_mlp(kind, cfg)[0] for _, kind, _ in _groups(layer_plan(cfg))}
@@ -213,4 +260,4 @@ def paged_layout_for(cfg, max_len: int, *, page_size: int, num_pages: int,
         page_size=page_size, num_pages=num_pages, max_len=max_len,
         win=min(max_len, cfg.local_window) if windowed else 0,
         has_full="mla" in mixers or ("attn" in mixers and not windowed),
-        lookahead=max(1, lookahead))
+        lookahead=max(1, lookahead), quant=quant)

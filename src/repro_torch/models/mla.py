@@ -14,7 +14,8 @@ Decode takes one of two routes, by layout:
   runs in latent space through the page table: K2m (``kernels.paged_attn``
   with ``q2``/``k2_pages``/``v_is_k``) on the card, its plain version on
   the CPU.  As in the reference the latent queries, the RoPE queries and the
-  kernel's output stay f32 over pages of the cache's type, and a compressed
+  kernel's output stay f32 over pages of the cache's type (int8 pages with
+  their ``ckv_scale``/``krope_scale`` planes: K2q), and a compressed
   ``w_ukv`` is decompressed in the step (:func:`_absorbed_ukv`).
 """
 from __future__ import annotations
@@ -95,11 +96,13 @@ def mla_decode(x, p, n_heads: int, cfg: MLAConfig, cache: dict, pos,
     if layout.kind == "paged":
         wk, wv = _absorbed_ukv(p, n_heads, cfg)
         q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].float(), wk.float())
+        scales = (dict(k_scale=layout.pool_view(cache["ckv_scale"]),
+                       k2_scale=layout.pool_view(cache["krope_scale"])) if layout.quant else {})
         o_lat = paged_attn(
             q_lat[:, None].contiguous(),  # (B, 1, H, kv_lora): Hkv = 1, G = H
             layout.pool_view(cache["ckv"])[:, :, None, :], None, tables["full"], pos + 1,
             scale=(nd + rd) ** -0.5, q2=q_rope[:, 0].float()[:, None].contiguous(),
-            k2_pages=layout.pool_view(cache["krope"])[:, :, None, :], v_is_k=True,
+            k2_pages=layout.pool_view(cache["krope"])[:, :, None, :], v_is_k=True, **scales,
         )  # (B, 1, H, kv_lora) f32
         out = torch.einsum("bhl,lhv->bhv", o_lat[:, 0], wv.float()).to(x.dtype)
         return L.matmul(out.reshape(b, 1, n_heads * vd), p["w_o"])

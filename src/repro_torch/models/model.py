@@ -21,7 +21,8 @@ states are per lane under both.  On the paged layout decode attention goes
 through the ``paged_attn`` kernel where the reference's kernel route does:
 the MHA/GQA form for attention (``model.py:794-815``; over the modular
 window table, K2w, for sliding-window layers), the MLA latent form (K2m)
-for MLA (``mla.py:202-237``).
+for MLA (``mla.py:202-237``); on an int8 pool (``PagedLayout.quant``) each
+with its scale planes (K2q).
 
 Ported: the dense family (MHA/GQA attention with RoPE, optional q/k/v/o
 biases and a sliding window), the MoE family with MLA (DeepSeek-V2) and
@@ -301,11 +302,13 @@ def _attn_decode(x, p, cfg: ArchConfig, c: dict, pos, layout, tables):
     if layout.kind == "paged":
         g = cfg.n_heads // cfg.n_kv
         win = layout.view_window(cfg.local_window)
+        scales = ({f"{n}_scale": layout.pool_view(c[f"{n}_scale"]) for n in ("k", "v")}
+                  if layout.quant else {})
         attn = paged_attn(
             q[:, 0].reshape(b, cfg.n_kv, g, cfg.hd).contiguous(),
             layout.pool_view(c["k"]), layout.pool_view(c["v"]),
             tables[layout.table_key(cfg.local_window)], pos + 1, scale=cfg.hd ** -0.5,
-            window=win, win_slots=layout.pages_win if win else 0,
+            window=win, win_slots=layout.pages_win if win else 0, **scales,
         ).reshape(b, 1, cfg.n_heads, cfg.hd)
     else:
         s_view = c["k"].shape[1]

@@ -21,7 +21,9 @@ One scheduling step (:meth:`step`):
    of its next K writes (``ensure_steps``), oldest lane first; when the
    pool runs dry the youngest lane is preempted: its pages are freed and the
    request is requeued at the front with its generated tokens as a resume
-   prefix, which is prefilled with the prompt on re-admission.
+   prefix, which is prefilled with the prompt on re-admission.  With
+   ``kv_quant`` the pool stores int8 pages (``models.cache``), about half
+   the bytes of bf16 pages, so the same bytes hold twice the tokens.
 3. **Decode.**  K decode steps run back to back on the device
    (``steps_per_dispatch``; the reference's ``lax.scan`` is a Python loop
    here) with per-lane stops applied on the device (``advance_stops``): a
@@ -113,7 +115,7 @@ class DecodeEngine:
     def __init__(
         self, cfg, params: dict, *, max_batch: int = 8, max_len: int = 128,
         seed: int = 0, num_pages: Optional[int] = None, page_size: int = 16,
-        steps_per_dispatch: int = 1,
+        steps_per_dispatch: int = 1, kv_quant: bool = False,
         prefill_buckets: Optional[Sequence[int]] = None, device="cuda",
     ):
         self.device = resolve_device(device)
@@ -123,6 +125,9 @@ class DecodeEngine:
                 raise ValueError(f"param {name} is on {t.device}, engine on {self.device}")
         if steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+        if kv_quant and num_pages is None:
+            # the slab stays fp: serving it would fake the int8 pool's byte saving
+            raise ValueError("kv_quant=True needs the paged pool (num_pages)")
         if self.device.type == "cuda":
             dispatch.load_kernels()
         self.cfg = cfg
@@ -134,7 +139,8 @@ class DecodeEngine:
         if num_pages is not None:
             self.pool: Optional[PagedKVPool] = PagedKVPool(
                 cfg, max_batch=max_batch, max_len=max_len, num_pages=num_pages,
-                page_size=page_size, lookahead=steps_per_dispatch, device=self.device)
+                page_size=page_size, lookahead=steps_per_dispatch, quant=kv_quant,
+                device=self.device)
             self.layout = self.pool.layout
             self.cache = self.pool.cache
         else:
@@ -409,7 +415,9 @@ class DecodeEngine:
     def _kv_row_bytes(self) -> tuple[int, int]:
         """(append-only, windowed) cache bytes of one token of one lane,
         summed over layers: windowed attention layers keep at most the
-        window's tokens, the others (and MLA) every token."""
+        window's tokens, the others (and MLA) every token.  Counted at the
+        param dtype's width even for int8 pages, as the reference counts
+        them, so the number stays comparable across pools."""
         cfg = self.cfg
         item = getattr(torch, cfg.param_dtype).itemsize
         windowed = cfg.local_window is not None and cfg.local_window <= self.max_len
@@ -481,5 +489,6 @@ class DecodeEngine:
                 table_full_uploads=self.pool.table_full_uploads,
                 table_row_syncs=self.pool.table_row_syncs,
                 table_syncs=self.pool.table_syncs,
+                kv_quant=self.pool.layout.quant,
             )
         return st

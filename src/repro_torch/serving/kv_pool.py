@@ -3,7 +3,8 @@
 ``PagedKVPool`` owns the device cache (one ``(..., P + 1, ps, ...)`` pool per
 cache leaf of each attention or MLA layer stack, see
 ``models.cache.PagedLayout``; every layer reads the same page tables, and
-RG-LRU states stay per lane), the free-page list with per-page refcounts,
+RG-LRU states stay per lane; with ``quant`` int8 pools and their
+``<leaf>_scale`` planes), the free-page list with per-page refcounts,
 and the per-lane page tables.  Two tables exist, as the architecture
 needs:
 
@@ -38,9 +39,11 @@ from repro_torch.models.model import init_cache
 
 class PagedKVPool:
     def __init__(self, cfg, *, max_batch: int, max_len: int, num_pages: int,
-                 page_size: int = 16, lookahead: int = 1, device="cuda"):
+                 page_size: int = 16, lookahead: int = 1, quant: bool = False,
+                 device="cuda"):
         self.layout: PagedLayout = paged_layout_for(
-            cfg, max_len, page_size=page_size, num_pages=num_pages, lookahead=lookahead)
+            cfg, max_len, page_size=page_size, num_pages=num_pages, lookahead=lookahead,
+            quant=quant)
         self.max_batch = max_batch
         self.max_len = max_len
         self.cache = init_cache(cfg, max_batch, max_len, layout=self.layout, device=device)

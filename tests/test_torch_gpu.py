@@ -189,6 +189,78 @@ def test_paged_attn_window_kernel_matches_plain(dev, dtype, g, d, ps, win, extra
     assert float(y[2].abs().max()) == 0.0  # idle lane: exact zeros
 
 
+def _int8(pages):
+    """The port's int8 codes and f16 ``(P, ps)`` scales of fp pages."""
+    from repro_torch.models.cache import quant
+
+    return quant(pages, 2)
+
+
+@pytest.mark.parametrize("lanes", [5, 64])
+@pytest.mark.parametrize("form", ["gqa", "window", "mla"])
+def test_paged_attn_int8_kernel_matches_plain(dev, form, lanes):
+    """K2q, each form over int8 pages made by the port's own ``quant`` from
+    random pages: GQA at gpt2-paper's heads (12 KV heads of 64, ps 16), the
+    window form at RecurrentGemma's (16 query heads over one KV head of
+    256, window 64 over a modular table with a stale and an unmapped slot)
+    and the MLA form at DeepSeek's (16 heads, latent 512, RoPE 64, f32
+    queries and output); ragged lanes with an idle one, 5 and 64 lanes.
+    Counted under the form's int8 entry, none under the fp ones."""
+    gen = torch.Generator().manual_seed(3)
+    ps = 16
+    if form == "window":
+        g, d, win = 16, 256, 64
+        n_slots = -(-(win + 4 - 1) // ps) + 1
+        lengths = [win + 3 * ps + 5, win - 3, 0, 2 * ps + 1, win + 7 * ps]
+    else:
+        n_slots, win = 6, 0
+        lengths = [1, 2 * ps + 3, 5 * ps, 0, 3 * ps - 1]
+    lengths += torch.randint(0, 3 * win if win else 5 * ps + 1, (lanes - 5,),
+                             generator=gen).tolist()
+    num_pages = n_slots * lanes + 1
+    perm = torch.randperm(num_pages, generator=gen).tolist()
+    tables = np.full((lanes, n_slots), num_pages, np.int32)
+    for i, ln in enumerate(lengths):
+        if ln:
+            pages = (range(max(0, ln - win) // ps, (ln - 1) // ps + 2) if win
+                     else range(-(-ln // ps)))
+            for pg in pages:
+                tables[i, pg % n_slots] = perm.pop()
+    if win:
+        tables[4, ((lengths[4] - 1) // ps + 2) % n_slots] = perm.pop()  # a stale id
+        tables[0, ((lengths[0] - 1) // ps - 1) % n_slots] = num_pages  # unmapped, live range
+    else:
+        tables[4, 1] = num_pages  # an unmapped slot inside a live range
+    t = torch.from_numpy(tables).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    if form == "mla":
+        q, q2 = (torch.randn((lanes, 1, 16, w), generator=gen).to(dev) for w in (512, 64))
+        (kp, ks), (k2p, k2s) = (_int8(torch.randn((num_pages, ps, 1, w), generator=gen)
+                                      .to(torch.bfloat16).to(dev)) for w in (512, 64))
+        args = (q, kp, None, t, lens)
+        kw = dict(scale=576 ** -0.5, q2=q2, k2_pages=k2p, v_is_k=True, k_scale=ks, k2_scale=k2s)
+        entry, dtype = "paged_attn_mla_q", torch.float32
+    else:
+        hkv, g, d = (1, 16, 256) if win else (12, 1, 64)
+        q = torch.randn((lanes, hkv, g, d), generator=gen).to(torch.bfloat16).to(dev)
+        (kp, ks), (vp, vs) = (_int8(torch.randn((num_pages, ps, hkv, d), generator=gen)
+                                    .to(torch.bfloat16).to(dev)) for _ in range(2))
+        args = (q, kp, vp, t, lens)
+        kw = dict(scale=d ** -0.5, window=win, win_slots=n_slots if win else 0,
+                  k_scale=ks, v_scale=vs)
+        entry, dtype = ("paged_attn_win_q" if win else "paged_attn_q"), torch.bfloat16
+    before = dict(dispatch.launches)
+    y = paged_attn(*args, **kw)
+    torch.cuda.synchronize()
+    after = dict(dispatch.launches)
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {entry: 1}
+    ref = paged_attn_plain(*args, **kw)
+    assert y.dtype == dtype
+    torch.testing.assert_close(y.float(), ref.float(), **TOL[dtype])
+    idle = 2 if win else 3
+    assert float(y[idle].abs().max()) == 0.0  # idle lane: exact zeros
+
+
 def test_kernel_refuses_what_it_does_not_take(dev):
     vals, idx = _compressed(64, 32, 2, 4, 0, torch.float32, dev)
     x = torch.randn((2, 64), device=dev)

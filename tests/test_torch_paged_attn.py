@@ -3,7 +3,8 @@ held against the JAX Pallas kernel in interpret mode, on the ragged lanes,
 sentinel slots and idle lane of ``tests/test_paged_attn.py``: the MHA/GQA
 form, its window option over modular tables (K2w: ``window``/
 ``win_slots``) and the MLA latent form (K2m: ``q2``/``k2_pages``/
-``v_is_k``)."""
+``v_is_k``); and which options and operands the wrapper refuses.  The
+int8-scale option (K2q) is held in ``tests/test_torch_kv_int8.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,20 +13,10 @@ import torch
 from repro.kernels.paged_attn import paged_attn_pallas
 from repro_torch.kernels.paged_attn import paged_attn
 from repro_torch.models.layers import decode_attention
+from torch_parity import full_tables, win_tables
 
 # f32 on both sides: page-by-page online softmax vs one gathered softmax
 TOL = dict(atol=1e-5, rtol=1e-5)
-
-
-def _full_tables(lengths, ps, n_slots, num_pages):
-    """Append-only tables: distinct pages for every lane's live prefix."""
-    t = np.full((len(lengths), n_slots), num_pages, np.int32)
-    nxt = 0
-    for i, ln in enumerate(lengths):
-        for pg in range(-(-ln // ps)):
-            t[i, pg] = nxt % num_pages
-            nxt += 1
-    return t
 
 
 @pytest.mark.parametrize("hkv,g", [(4, 1), (2, 3)])  # MHA, GQA
@@ -36,7 +27,7 @@ def test_plain_matches_pallas_interpret(hkv, g):
     q = rng.standard_normal((b, hkv, g, d)).astype(np.float32)
     kp = rng.standard_normal((num_pages, ps, hkv, d)).astype(np.float32)
     vp = rng.standard_normal((num_pages, ps, hkv, d)).astype(np.float32)
-    tables = _full_tables(lengths, ps, n_slots, num_pages)
+    tables = full_tables(lengths, ps, n_slots, num_pages)
     lens = np.asarray(lengths, np.int32)
     scale = d ** -0.5
     y_ref = paged_attn_pallas(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
@@ -56,21 +47,6 @@ def test_plain_matches_pallas_interpret(hkv, g):
         np.testing.assert_allclose(y[i].reshape(1, 1, hkv * g, d).numpy(), ref.numpy(), **TOL)
 
 
-def _win_tables(lengths, ps, win, win_slots, num_pages, ahead=0):
-    """Modular window tables as the pool keeps them: each lane's live
-    window pages (plus ``ahead`` pages mapped past the current one, not yet
-    written) at slot ``pg % win_slots``; every other slot is the sentinel."""
-    t = np.full((len(lengths), win_slots), num_pages, np.int32)
-    nxt = 0
-    for i, ln in enumerate(lengths):
-        if ln == 0:
-            continue
-        for pg in range(max(0, ln - win) // ps, (ln - 1) // ps + 1 + ahead):
-            t[i, pg % win_slots] = nxt % num_pages
-            nxt += 1
-    return t
-
-
 @pytest.mark.parametrize("case", ["slid", "pg_below_zero", "stale_and_sentinel"])
 def test_window_form_matches_pallas_interpret(case):
     """K2w (Hkv = 1, G = 4): lanes past the window with a partial first
@@ -87,7 +63,7 @@ def test_window_form_matches_pallas_interpret(case):
     q = rng.standard_normal((b, hkv, g, d)).astype(np.float32)
     kp = rng.standard_normal((num_pages, ps, hkv, d)).astype(np.float32)
     vp = rng.standard_normal((num_pages, ps, hkv, d)).astype(np.float32)
-    tables = _win_tables(lengths, ps, win, win_slots, num_pages,
+    tables = win_tables(lengths, ps, win, win_slots, num_pages,
                          ahead=0 if case == "stale_and_sentinel" else 1)
     if case == "stale_and_sentinel":
         # lane 0 (len 21, window [11, 21)): slot of page 0 keeps an old id
@@ -125,7 +101,7 @@ def test_mla_form_matches_pallas_interpret():
     ql, q2 = (rng.standard_normal((b, 1, h, w)).astype(np.float32) for w in (latent, rd))
     c_pages = rng.standard_normal((num_pages, ps, 1, latent)).astype(np.float32)
     r_pages = rng.standard_normal((num_pages, ps, 1, rd)).astype(np.float32)
-    tables = _full_tables(lengths, ps, n_slots, num_pages)
+    tables = full_tables(lengths, ps, n_slots, num_pages)
     tables[1, 2] = num_pages  # an unmapped slot inside lane 1's live range
     lens = np.asarray(lengths, np.int32)
     scale = 0.17
@@ -142,20 +118,42 @@ def test_mla_form_matches_pallas_interpret():
 
 
 def test_unported_options_are_refused():
-    """K2m and K2w are ported; the int8-scale and stats options are not, and
-    the wrapper takes no such argument.  A window needs ``win_slots`` equal
-    to the table's width, and is not taken by the MLA form."""
+    """K2m, K2w and K2q are ported; the stats option (K3) is not and is
+    refused.  Int8 pages take exactly their form's ``(P, ps)`` scale planes
+    (K and V; K and K2 for MLA), and fp pages none.  A window needs
+    ``win_slots`` equal to the table's width, and is not taken by the MLA
+    form."""
     q = torch.zeros((1, 1, 1, 4))
     pages = torch.zeros((2, 4, 1, 4))
-    args = (q, pages, pages, torch.zeros((1, 2), dtype=torch.int32),
-            torch.ones(1, dtype=torch.int32))
-    for option in (dict(k_scale=torch.ones((2, 4))), dict(emit_stats=True)):
-        with pytest.raises(TypeError):
-            paged_attn(*args, scale=0.5, **option)
+    codes = torch.zeros((2, 4, 1, 4), dtype=torch.int8)
+    sc = torch.ones((2, 4), dtype=torch.float16)
+    tl = (torch.zeros((1, 2), dtype=torch.int32), torch.ones(1, dtype=torch.int32))
+    args = (q, pages, pages, *tl)
+    with pytest.raises(NotImplementedError):
+        paged_attn(*args, scale=0.5, emit_stats=True)
+    for bad in (
+        dict(k_scale=sc, v_scale=sc),  # scales without int8 pages
+        dict(codes=True),  # int8 pages without their scales
+        dict(codes=True, k_scale=sc),  # V's plane missing
+        dict(codes=True, k_scale=sc, v_scale=sc, k2_scale=sc),  # no K2 stream here
+        dict(codes=True, k_scale=sc, v_scale=sc[:1]),  # not (P, ps)
+        dict(codes=True, k_scale=sc.reshape(1, 8), v_scale=sc),
+    ):
+        kp = codes if bad.pop("codes", False) else pages
+        with pytest.raises(ValueError):
+            paged_attn(q, kp, kp, *tl, scale=0.5, **bad)
+    mla = dict(q2=q, k2_pages=codes, v_is_k=True)
+    for bad in (dict(k_scale=sc), dict(k_scale=sc, v_scale=sc), dict(k2_scale=sc)):
+        with pytest.raises(ValueError):
+            paged_attn(q, codes, None, *tl, scale=0.5, **mla, **bad)
+    assert paged_attn(q, codes, None, *tl, scale=0.5, k_scale=sc, k2_scale=sc,
+                      **mla).shape == (1, 1, 1, 4)
+    assert paged_attn(q, codes, codes, *tl, scale=0.5, k_scale=sc,
+                      v_scale=sc).shape == (1, 1, 1, 4)
     for option in (dict(window=4, win_slots=3), dict(window=4), dict(win_slots=2)):
         with pytest.raises(ValueError):
             paged_attn(*args, scale=0.5, **option)
     with pytest.raises(ValueError):
-        paged_attn(q, pages, None, *args[3:], scale=0.5, window=4, win_slots=2, q2=q,
+        paged_attn(q, pages, None, *tl, scale=0.5, window=4, win_slots=2, q2=q,
                    k2_pages=pages, v_is_k=True)
     assert paged_attn(*args, scale=0.5, window=4, win_slots=2).shape == (1, 1, 1, 4)

@@ -61,6 +61,32 @@ def trees(seed=0, align=None, arch="gpt2-paper", **overrides):
     }
 
 
+def full_tables(lengths, ps, n_slots, num_pages):
+    """Append-only tables: distinct pages for every lane's live prefix."""
+    t = np.full((len(lengths), n_slots), num_pages, np.int32)
+    nxt = 0
+    for i, ln in enumerate(lengths):
+        for pg in range(-(-ln // ps)):
+            t[i, pg] = nxt % num_pages
+            nxt += 1
+    return t
+
+
+def win_tables(lengths, ps, win, win_slots, num_pages, ahead=0):
+    """Modular window tables as the pool keeps them: each lane's live
+    window pages (plus ``ahead`` pages mapped past the current one, not yet
+    written) at slot ``pg % win_slots``; every other slot is the sentinel."""
+    t = np.full((len(lengths), win_slots), num_pages, np.int32)
+    nxt = 0
+    for i, ln in enumerate(lengths):
+        if ln == 0:
+            continue
+        for pg in range(max(0, ln - win) // ps, (ln - 1) // ps + 1 + ahead):
+            t[i, pg % win_slots] = nxt % num_pages
+            nxt += 1
+    return t
+
+
 def prompts(n, vocab, lo=3, step=3, seed=100):
     return [np.random.default_rng(seed + r).integers(0, vocab, lo + step * r).tolist()
             for r in range(n)]
