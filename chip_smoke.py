@@ -82,6 +82,32 @@ form, f32 in and out, to an f32 tolerance), timed beside the bound of the
 codes' and scales' bytes and, as a yardstick only, SDPA on the
 pre-dequantized bf16 view.
 
+8. Serve full-width gpt2-paper tensor-parallel: two ranks
+   (``launch.mesh.run_ranks``, ``gloo`` since they share the one card)
+   each keep half the compressed weights, half of ``tok_embed`` and half
+   of the pool plus a sink page, and serve phase 3's traffic on its
+   22-page fp pool and its 44-page int8 pool, decode attention through
+   K3 over each rank's page range and the combine.  Every rank's streams,
+   host page tables and one forward's logits must be identical; the
+   streams must equal phase 3's single-rank runs except at near-ties
+   (top-2 margin under 0.1), with the same preemptions; per rank and
+   decode step K3's form of the pool must launch 12 times and no other
+   attention kernel at all, K1 72 times per decode step and prefill
+   batch, with 98 collectives a decode step.  Prints ms a step, tok/s,
+   collectives and the host time inside them, and each rank's weight and
+   KV bytes.
+
+Phase 2 also holds K3, the stats flush of ``paged_attn``, in all six
+forms (GQA, window, MLA; fp and int8 pages) at K2's, K2w's and K2m's
+shapes: ``(acc, m, l)`` against its plain version in f32, dead lanes
+exactly ``(0, -1e30, 0)``, then each form's pool split into 2 and 4 page
+ranges, K3 on each range and the combine, against K2 on the whole pool;
+timed beside its bound and its plain version (no one PyTorch call returns
+unnormalized flash stats: SDPA is timed as a yardstick only).  K3's
+window and MLA forms run on no serving path yet (tensor-parallel DeepSeek
+and RecurrentGemma are later work): their rows show the 0 launches phase
+8's ranks count of them.
+
 Every int8 run also prints readings, with no gate: each request's first
 generated token against the fp run's (it comes from prefill, which reads
 fresh fp K/V), how many greedy tokens agree with the fp run, and the
@@ -136,8 +162,31 @@ KERNEL_ROWS = {
     "paged_attn_mla_q": ("paged_attn", "src/repro/kernels/paged_attn.py:190 "
                          "(q2/k2_pages/v_is_k with k_scale/k2_scale, paged_attn.py:131-142, "
                          "called at src/repro/models/mla.py:222)"),
+    "paged_attn_stats": ("paged_attn", "src/repro/kernels/paged_attn.py:190 "
+                         "(emit_stats=True, paged_attn.py:171-176, 273-284, 318-320; "
+                         "registered as paged_attn_stats at :453-461)"),
+    "paged_attn_stats_q": ("paged_attn", "src/repro/kernels/paged_attn.py:190 "
+                           "(emit_stats=True with k_scale/v_scale, paged_attn.py:131-134, "
+                           "159-161, 171-176)"),
+    "paged_attn_win_stats": ("paged_attn", "src/repro/kernels/paged_attn.py:190 "
+                             "(emit_stats=True with window/win_slots, paged_attn.py:109-125, "
+                             "171-176)"),
+    "paged_attn_win_stats_q": ("paged_attn", "src/repro/kernels/paged_attn.py:190 "
+                               "(emit_stats=True with window/win_slots and k_scale/v_scale, "
+                               "paged_attn.py:109-134, 159-161, 171-176)"),
+    "paged_attn_mla_stats": ("paged_attn", "src/repro/kernels/paged_attn.py:190 "
+                             "(emit_stats=True with q2/k2_pages/v_is_k, paged_attn.py:171-176; "
+                             "per shard at src/repro/kernels/sharded.py:147-155)"),
+    "paged_attn_mla_stats_q": ("paged_attn", "src/repro/kernels/paged_attn.py:190 "
+                               "(emit_stats=True with q2/k2_pages/v_is_k and k_scale/k2_scale, "
+                               "paged_attn.py:131-142, 171-176)"),
     "nm_mask": ("nm_mask", "src/repro/kernels/nm_mask.py:53"),
 }
+# K3's forms: phase 8 reads each one's launches from its ranks.  The
+# window and MLA forms run on no path yet (tensor-parallel serving of
+# RecurrentGemma and DeepSeek is later work, ROADMAP.md §1 item 1), so
+# their counts read 0
+K3_FORMS = tuple(name for name in KERNEL_ROWS if "_stats" in name)
 # DeepSeek-V2-Lite's MoE layers (26: layer 0 has a dense MLP), each with 3
 # batched nm_spmm launches (gate, up, down), and its layers
 DS_MOE_LAYERS, DS_LAYERS = 26, 27
@@ -174,6 +223,10 @@ TRAIN_ARGS = ["--no-smoke", "--recipe", "step", "--nm", "2:4", "--batch", "8", "
               "--b2", "0.98", "--steps", "60", "--lr", "3e-3", "--ckpt-every", "30"]
 # gpt2-paper's maskable leaves, stacked (L, in, out): wq wk wv wo, w_fc, w_proj
 MASK_LEAVES = {(12, 768, 768): 4, (12, 768, 3072): 1, (12, 3072, 768): 1}
+# gpt2-paper per forward: K1 for q/k/v/o, fc and proj in each layer
+GPT2_K1_PER_LAYER = 6
+# phase 8's model axis: ranks that share the one card
+MESH_RANKS = 2
 
 
 def log(msg: str) -> None:
@@ -195,8 +248,8 @@ def host_cpu() -> str:
     return f"{platform.machine()} {model}"
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -293,33 +346,60 @@ def row_bytes(width: int, itemsize: int, int8: bool) -> int:
     return width + 2 if int8 else width * itemsize
 
 
-def check_paged_attn(torch, dev, int8: bool = False) -> dict:
-    """K2 (``int8``: K2q, over the port's int8 codes and scales of the
-    same random bf16 pages) at B=4, H=12, D=64, ps=16: ragged lanes,
-    sentinel slots, one dead lane."""
-    import torch.nn.functional as F
+def _tables(torch, lengths, ps, n_slots, num_pages, gen):
+    """Append-only tables: each lane's live pages at scattered ids, the rest
+    sentinel."""
+    perm = torch.randperm(num_pages, generator=gen).tolist()
+    tables = torch.full((len(lengths), n_slots), num_pages, dtype=torch.int32)
+    for i, ln in enumerate(lengths):
+        for pg in range(-(-ln // ps)):
+            tables[i, pg] = perm.pop()
+    return tables
 
-    from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
+
+@dataclasses.dataclass
+class AttnCase:
+    """One ``paged_attn`` form's operands at its phase-2 shapes, with what
+    its records need: ``pools`` names the operands that carry the pages
+    axis (split by the K3 check), ``in_bytes`` the bytes every input is
+    read once, ``out`` the output's elements, ``flops`` and ``peak`` the
+    operations and the peak rate of their type, ``sdpa`` a one-call
+    yardstick on the pre-gathered view."""
+
+    name: str
+    label: str
+    at: str
+    q: object
+    pages: tuple  # (k_pages, v_pages or None)
+    tables: object
+    lens: object
+    kw: dict
+    dead: int
+    rtol: float
+    in_bytes: int
+    out: int
+    heads: int
+    flops: float
+    peak: float
+    sdpa: object
+    sdpa_label: str
+
+
+def gqa_case(torch, dev, int8: bool) -> AttnCase:
+    """K2's GQA form at B=4, H=12, D=64, ps=16: ragged lanes, sentinel
+    slots, one dead lane; bf16 queries over bf16 pages (``int8``: the port's
+    int8 codes and scales of the same pages)."""
+    import torch.nn.functional as F
 
     b, h, d, ps, n_slots, num_pages = 4, 12, 64, 16, 7, 40
     lengths = [97, 33, 0, 70]
     gen = torch.Generator(device="cpu").manual_seed(2)
-    perm = torch.randperm(num_pages, generator=gen).tolist()
-    tables = torch.full((b, n_slots), num_pages, dtype=torch.int32)
-    for i, ln in enumerate(lengths):
-        for pg in range(-(-ln // ps)):
-            tables[i, pg] = perm.pop()
+    tables = _tables(torch, lengths, ps, n_slots, num_pages, gen)
     q, kp, vp = (torch.randn(s, generator=gen).to(torch.bfloat16).to(dev) for s in (
         (b, h, 1, d), (num_pages, ps, h, d), (num_pages, ps, h, d)))
     (kp, vp), (ks, vs), (kv, vv) = int8_pages(torch, (kp, vp), int8)
     tables, lens = tables.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev)
     kw = dict(scale=d ** -0.5, k_scale=ks, v_scale=vs)
-    what = "paged_attn int8" if int8 else "paged_attn"
-    y = paged_attn(q, kp, vp, tables, lens, **kw)
-    err = check_close(f"{what} B=4 H=12 D=64 ps=16", y,
-                      paged_attn_plain(q, kp, vp, tables, lens, **kw))
-    if float(y[2].abs().max()) != 0.0:
-        raise AssertionError(f"{what}: the dead lane is not exactly zero")
     # yardstick: SDPA on the pre-gathered contiguous (B, H, S, D) view
     # (pre-dequantized to bf16 for int8 pages)
     phys = tables.long().clamp(max=num_pages - 1)
@@ -328,23 +408,17 @@ def check_paged_attn(torch, dev, int8: bool = False) -> dict:
     mask = (torch.arange(n_slots * ps, device=dev)[None, :] < lens[:, None])[:, None, None]
     qs = q.reshape(b, h, 1, d)
     live = sum(lengths)
-    nbytes = (q.numel() * 2 + 2 * live * row_bytes(h * d, 2, int8) + tables.numel() * 4
-              + b * 4 + b * h * d * 2)
-    rec = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: paged_attn(q, kp, vp, tables, lens, **kw)),
-        plain_ms=time_ms(torch, lambda: paged_attn_plain(q, kp, vp, tables, lens, **kw)),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask, scale=kw["scale"])),
+    return AttnCase(
+        name="paged_attn" + ("_q" if int8 else ""), label="B=4 H=12 D=64 ps=16",
         at=f"q (4, 12, 1, 64) bf16, {'int8 pages + f16 scales' if int8 else 'bf16 pages'}, "
            f"ps=16, lengths {lengths}",
-    )
-    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 4.0 * live * h * d)
-    log(f"  time {what}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-        f"SDPA on gathered {'bf16 ' if int8 else ''}view {rec['library_ms']:.4f} ms"
-        f"{' (a yardstick only: not the same function)' if int8 else ''}, bound "
-        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
-    return rec
+        q=q, pages=(kp, vp), tables=tables, lens=lens, kw=kw, dead=2, rtol=BF16_RTOL,
+        in_bytes=(q.numel() * 2 + 2 * live * row_bytes(h * d, 2, int8) + tables.numel() * 4
+                  + b * 4),
+        out=b * h * d, heads=b * h, flops=4.0 * live * h * d, peak=BF16_FLOPS,
+        sdpa=lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask,
+                                                    scale=kw["scale"]),
+        sdpa_label=f"SDPA on gathered {'bf16 ' if int8 else ''}view")
 
 
 def win_tables(torch, lengths, ps, win, win_slots, num_pages, gen):
@@ -361,16 +435,14 @@ def win_tables(torch, lengths, ps, win, win_slots, num_pages, gen):
     return tables
 
 
-def check_paged_attn_win(torch, dev, int8: bool = False) -> dict:
-    """K2's window form (K2w; ``int8``: its int8 form over the port's codes
-    and scales of the same pages) at RecurrentGemma-9B's decode: B = 4
-    lanes, one KV head of 256 under 16 query heads, ps = 16, window 2048
-    over the 130-slot modular table the pool keeps at K = 4; lengths 2100
-    (slid past the window, a partial first page), 2048 (exactly the
-    window), 1000 (short of it) and 0 (dead); bf16 queries and pages."""
+def win_case(torch, dev, int8: bool) -> AttnCase:
+    """K2's window form (K2w) at RecurrentGemma-9B's decode: B = 4 lanes,
+    one KV head of 256 under 16 query heads, ps = 16, window 2048 over the
+    130-slot modular table the pool keeps at K = 4; lengths 2100 (slid past
+    the window, a partial first page), 2048 (exactly the window), 1000
+    (short of it) and 0 (dead); bf16 queries and pages (``int8``: the port's
+    codes and scales of the same pages)."""
     import torch.nn.functional as F
-
-    from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
 
     b, h, d, ps, win = 4, 16, 256, 16, 2048
     win_slots = -(-(win + 4 - 1) // ps) + 1
@@ -384,12 +456,6 @@ def check_paged_attn_win(torch, dev, int8: bool = False) -> dict:
     (kp, vp), (ks, vs), (kv, vv) = int8_pages(torch, (kp, vp), int8)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     kw = dict(scale=d ** -0.5, window=win, win_slots=win_slots, k_scale=ks, v_scale=vs)
-    what = "paged_attn window int8" if int8 else "paged_attn window"
-    y = paged_attn(q, kp, vp, tables, lens, **kw)
-    err = check_close(f"{what} B=4 Hkv=1 G=16 D=256 ps=16 window 2048", y,
-                      paged_attn_plain(q, kp, vp, tables, lens, **kw))
-    if float(y[3].abs().max()) != 0.0:
-        raise AssertionError(f"{what}: the dead lane is not exactly zero")
     # yardstick: SDPA on the pre-gathered window, (B, H, win, D), MQA expanded
     # (pre-dequantized to bf16 for int8 pages)
     pos = torch.stack([torch.arange(win) + max(0, ln - win) for ln in lengths]).to(dev)
@@ -400,22 +466,157 @@ def check_paged_attn_win(torch, dev, int8: bool = False) -> dict:
             < torch.tensor([min(ln, win) for ln in lengths], device=dev)[:, None])[:, None, None]
     qs = q.reshape(b, h, 1, d)
     live = sum(min(ln, win) for ln in lengths)
-    nbytes = (q.numel() * 2 + 2 * live * row_bytes(d, 2, int8) + tables.numel() * 4 + b * 4
-              + b * h * d * 2)
-    rec = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: paged_attn(q, kp, vp, tables, lens, **kw)),
-        plain_ms=time_ms(torch, lambda: paged_attn_plain(q, kp, vp, tables, lens, **kw)),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask, scale=kw["scale"])),
+    return AttnCase(
+        name="paged_attn_win" + ("_q" if int8 else ""),
+        label="B=4 Hkv=1 G=16 D=256 ps=16 window 2048",
         at=f"q (4, 1, 16, 256) bf16, {'int8 pages + f16 scales' if int8 else 'bf16 pages'}, "
            f"ps=16, window 2048, 130 slots, lengths {lengths}",
-    )
-    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 4.0 * live * h * d)
+        q=q, pages=(kp, vp), tables=tables, lens=lens, kw=kw, dead=3, rtol=BF16_RTOL,
+        in_bytes=(q.numel() * 2 + 2 * live * row_bytes(d, 2, int8) + tables.numel() * 4
+                  + b * 4),
+        out=b * h * d, heads=b * h, flops=4.0 * live * h * d, peak=BF16_FLOPS,
+        sdpa=lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask,
+                                                    scale=kw["scale"]),
+        sdpa_label=f"SDPA on the gathered {'bf16 ' if int8 else ''}window")
+
+
+def mla_case(torch, dev, int8: bool) -> AttnCase:
+    """K2's MLA form (K2m) at DeepSeek-V2-Lite's decode: B = 4, 16 heads,
+    latent 512, RoPE 64, ps = 16, ragged lanes up to 96 tokens with a
+    sentinel slot and a dead lane; f32 queries and output over bf16 pages
+    (``int8``: the port's codes and scales of the same pages, held to an
+    f32 tolerance since both sides compute and return f32)."""
+    import torch.nn.functional as F
+
+    b, h, lat, rd, ps, n_slots, num_pages = 4, 16, 512, 64, 16, 7, 40
+    lengths = [96, 33, 0, 70]
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    tables = _tables(torch, lengths, ps, n_slots, num_pages, gen)
+    q, q2 = (torch.randn((b, 1, h, w), generator=gen).to(dev) for w in (lat, rd))
+    cp, rp = (torch.randn((num_pages, ps, 1, w), generator=gen).to(torch.bfloat16).to(dev)
+              for w in (lat, rd))
+    (cp, rp), (cs, rs), (cv, rv) = int8_pages(torch, (cp, rp), int8)
+    tables, lens = tables.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev)
+    scale = (128 + rd) ** -0.5
+    kw = dict(scale=scale, q2=q2, k2_pages=rp, v_is_k=True, k_scale=cs, k2_scale=rs)
+    # yardstick: SDPA on the pre-gathered view, q = [q_lat|q2], k = [ckv|krope], v = ckv
+    # (pre-dequantized to bf16 for int8 pages)
+    phys = tables.long().clamp(max=num_pages - 1)
+    s_all = n_slots * ps
+    kcat = torch.cat([cv, rv], -1)[phys].reshape(b, 1, s_all, lat + rd).float()
+    kg = kcat.expand(b, h, s_all, lat + rd).contiguous()
+    vg = kcat[..., :lat].expand(b, h, s_all, lat).contiguous()
+    qs = torch.cat([q, q2], -1).reshape(b, h, 1, lat + rd)
+    mask = (torch.arange(s_all, device=dev)[None, :] < lens[:, None])[:, None, None]
+    live = sum(lengths)
+    return AttnCase(
+        name="paged_attn_mla" + ("_q" if int8 else ""), label="B=4 H=16 latent 512 rope 64 ps=16",
+        at=f"q (4, 1, 16, 512) + q2 (4, 1, 16, 64) f32, "
+           f"{'int8 pages + f16 scales' if int8 else 'bf16 pages'}, ps=16, lengths {lengths}",
+        q=q, pages=(cp, None), tables=tables, lens=lens, kw=kw, dead=2,
+        rtol=F32_RTOL if int8 else BF16_RTOL,
+        in_bytes=(q.numel() * 4 + q2.numel() * 4
+                  + live * (row_bytes(lat, 2, int8) + row_bytes(rd, 2, int8))
+                  + tables.numel() * 4 + b * 4),
+        out=b * h * lat, heads=b * h, flops=2.0 * live * h * (lat + rd) + 2.0 * live * h * lat,
+        peak=F32_FLOPS,  # the kernel's math is f32
+        sdpa=lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask, scale=scale),
+        sdpa_label="SDPA (f32) on gathered view")
+
+
+ATTN_CASES = {"gqa": gqa_case, "window": win_case, "mla": mla_case}
+
+
+def check_paged_attn(torch, dev, form: str, int8: bool = False) -> dict:
+    """K2 in one form (``int8``: K2q over the port's int8 codes and scales
+    of the same pages) against its plain version at its phase-2 shapes,
+    the dead lane exactly zero; then its time beside its bound, its plain
+    version's and SDPA's on the pre-gathered view (for int8 pages a
+    yardstick only: not the same function)."""
+    from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
+
+    c = ATTN_CASES[form](torch, dev, int8)
+    args = (c.q, *c.pages, c.tables, c.lens)
+    y = paged_attn(*args, **c.kw)
+    what = c.name.replace("_q", " int8")
+    err = check_close(f"{what} {c.label}", y, paged_attn_plain(*args, **c.kw), rtol=c.rtol)
+    if float(y[c.dead].abs().max()) != 0.0:
+        raise AssertionError(f"{what}: the dead lane is not exactly zero")
+    rec = dict(max_abs_err=err, ms=time_ms(torch, lambda: paged_attn(*args, **c.kw)),
+               plain_ms=time_ms(torch, lambda: paged_attn_plain(*args, **c.kw)),
+               library_ms=time_ms(torch, c.sdpa), at=c.at)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(c.in_bytes + c.out * c.q.element_size(),
+                                                c.flops, c.peak)
     log(f"  time {what}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-        f"SDPA on the gathered {'bf16 ' if int8 else ''}window {rec['library_ms']:.4f} ms"
+        f"{c.sdpa_label} {rec['library_ms']:.4f} ms"
         f"{' (a yardstick only: not the same function)' if int8 else ''}, bound "
         f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    return rec
+
+
+def _split(c: AttnCase, shard: int, shards: int) -> tuple:
+    """Shard ``shard`` of ``shards`` page ranges of the case's pool: its
+    pages, scale planes and second stream, and its table."""
+    from repro_torch.kernels.sharded import shard_local_tables
+
+    per = c.pages[0].shape[0] // shards
+
+    def part(t):
+        return None if t is None else t[shard * per:(shard + 1) * per]
+
+    kw = {k: part(v) if k in ("k2_pages", "k_scale", "v_scale", "k2_scale") else v
+          for k, v in c.kw.items()}
+    local, _ = shard_local_tables(c.tables, shard, per)
+    return (c.q, *(part(p) for p in c.pages), local.contiguous(), c.lens), kw
+
+
+def check_paged_attn_stats(torch, dev, form: str, int8: bool = False) -> dict:
+    """K3 (the stats form) in one form: ``(acc, m, l)`` against its plain
+    version at K2's phase-2 shapes (``acc / l``, ``m`` and ``l`` each within
+    1e-4·|ref| + 1e-5: f32 sums in another order), the dead lane exactly
+    ``(0, -1e30, 0)``; then the one-card split check: the pool cut into S
+    = 2 and 4 page ranges, K3 over each range with the table remapped to
+    it (``shard_local_tables``), the triples combined
+    (``combine_stats_local``) and cast, equal to K2 over the whole pool
+    within K2's own tolerance, dead lanes exactly zero.  Timed beside its
+    bound (K2's inputs, f32 ``acc``, ``m`` and ``l`` out) and its plain
+    version; no one PyTorch call returns unnormalized flash stats, so
+    ``library_ms`` is null and SDPA's time is kept as a yardstick."""
+    from repro_torch.kernels.paged_attn import entry, paged_attn, paged_attn_stats_plain
+    from repro_torch.kernels.sharded import combine_stats_local
+
+    c = ATTN_CASES[form](torch, dev, int8)
+    args = (c.q, *c.pages, c.tables, c.lens)
+    name = entry(mla=form == "mla", window=form == "window", stats=True, quant=int8)
+    acc, m, l = paged_attn(*args, emit_stats=True, **c.kw)
+    racc, rm, rl = paged_attn_stats_plain(*args, **c.kw)
+    err = 0.0
+    for part, y, ref in (("acc / l", acc / l.clamp_min(1e-30)[..., None],
+                          racc / rl.clamp_min(1e-30)[..., None]), ("m", m, rm), ("l", l, rl)):
+        err = max(err, check_close(f"{name} {part} {c.label}", y, ref, rtol=F32_RTOL))
+    err = max(err, float((acc - racc).abs().max()))
+    dead = (float(acc[c.dead].abs().max()), set(m[c.dead].flatten().tolist()),
+            float(l[c.dead].abs().max()))
+    if dead != (0.0, {float(torch.tensor(-1e30, dtype=torch.float32))}, 0.0):
+        raise AssertionError(f"{name}: the dead lane's stats are {dead}, not (0, -1e30, 0)")
+    whole = paged_attn(*args, **c.kw)
+    for shards in (2, 4):
+        parts = [paged_attn(*a, emit_stats=True, **kw)
+                 for a, kw in (_split(c, s, shards) for s in range(shards))]
+        y = combine_stats_local(*(torch.stack(t) for t in zip(*parts))).to(c.q.dtype)
+        check_close(f"{name} split into {shards} page ranges, combined, vs "
+                    f"{c.name} on the whole pool", y, whole, rtol=c.rtol)
+        if float(y[c.dead].abs().max()) != 0.0:
+            raise AssertionError(f"{name} split {shards}: the dead lane is not exactly zero")
+    rec = dict(max_abs_err=err,
+               ms=time_ms(torch, lambda: paged_attn(*args, emit_stats=True, **c.kw)),
+               plain_ms=time_ms(torch, lambda: paged_attn_stats_plain(*args, **c.kw)),
+               library_ms=None, sdpa_yardstick_ms=time_ms(torch, c.sdpa), at=c.at)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(c.in_bytes + c.out * 4 + c.heads * 8,
+                                                c.flops, c.peak)
+    log(f"  time {name}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"{c.sdpa_label} {rec['sdpa_yardstick_ms']:.4f} ms (a yardstick only: not the same "
+        f"function), bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
     return rec
 
 
@@ -463,72 +664,6 @@ def check_nm_spmm_batched(torch, dev) -> dict:
         del dense
     rec["at"] = ("one MoE layer's three decode launches: x (64, 8, K) bf16, "
                  "2 x (64, 1024, 1408) + (64, 704, 2048), 2:4")
-    return rec
-
-
-def check_paged_attn_mla(torch, dev, int8: bool = False) -> dict:
-    """K2's MLA form (K2m; ``int8``: its int8 form over the port's codes and
-    scales of the same pages, held to an f32 tolerance since both sides
-    compute and return f32) at DeepSeek-V2-Lite's decode: B = 4, 16 heads,
-    latent 512, RoPE 64, ps = 16, ragged lanes up to 96 tokens with a
-    sentinel slot and a dead lane; f32 queries and output over bf16 (or
-    int8) pages."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
-
-    b, h, lat, rd, ps, n_slots, num_pages = 4, 16, 512, 64, 16, 7, 40
-    lengths = [96, 33, 0, 70]
-    gen = torch.Generator(device="cpu").manual_seed(5)
-    perm = torch.randperm(num_pages, generator=gen).tolist()
-    tables = torch.full((b, n_slots), num_pages, dtype=torch.int32)
-    for i, ln in enumerate(lengths):
-        for pg in range(-(-ln // ps)):
-            tables[i, pg] = perm.pop()
-    q, q2 = (torch.randn((b, 1, h, w), generator=gen).to(dev) for w in (lat, rd))
-    cp, rp = (torch.randn((num_pages, ps, 1, w), generator=gen).to(torch.bfloat16).to(dev)
-              for w in (lat, rd))
-    (cp, rp), (cs, rs), (cv, rv) = int8_pages(torch, (cp, rp), int8)
-    tables, lens = tables.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev)
-    scale = (128 + rd) ** -0.5
-    kw = dict(scale=scale, q2=q2, k2_pages=rp, v_is_k=True, k_scale=cs, k2_scale=rs)
-    what = "paged_attn MLA int8" if int8 else "paged_attn MLA"
-    y = paged_attn(q, cp, None, tables, lens, **kw)
-    err = check_close(f"{what} B=4 H=16 latent 512 rope 64 ps=16", y,
-                      paged_attn_plain(q, cp, None, tables, lens, **kw),
-                      rtol=F32_RTOL if int8 else BF16_RTOL)
-    if float(y[2].abs().max()) != 0.0:
-        raise AssertionError(f"{what}: the dead lane is not exactly zero")
-    # yardstick: SDPA on the pre-gathered view, q = [q_lat|q2], k = [ckv|krope], v = ckv
-    # (pre-dequantized to bf16 for int8 pages)
-    phys = tables.long().clamp(max=num_pages - 1)
-    s_all = n_slots * ps
-    kcat = torch.cat([cv, rv], -1)[phys].reshape(b, 1, s_all, lat + rd).float()
-    kg = kcat.expand(b, h, s_all, lat + rd).contiguous()
-    vg = kcat[..., :lat].expand(b, h, s_all, lat).contiguous()
-    qs = torch.cat([q, q2], -1).reshape(b, h, 1, lat + rd)
-    mask = (torch.arange(s_all, device=dev)[None, :] < lens[:, None])[:, None, None]
-    live = sum(lengths)
-    nbytes = (q.numel() * 4 + q2.numel() * 4
-              + live * (row_bytes(lat, 2, int8) + row_bytes(rd, 2, int8))
-              + tables.numel() * 4 + b * 4 + b * h * lat * 4)
-    flops = 2.0 * live * h * (lat + rd) + 2.0 * live * h * lat
-    rec = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: paged_attn(q, cp, None, tables, lens, **kw)),
-        plain_ms=time_ms(torch, lambda: paged_attn_plain(q, cp, None, tables, lens, **kw)),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask, scale=scale)),
-        at=f"q (4, 1, 16, 512) + q2 (4, 1, 16, 64) f32, "
-           f"{'int8 pages + f16 scales' if int8 else 'bf16 pages'}, ps=16, lengths {lengths}",
-    )
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS  # the kernel's math is f32
-    rec["bound_ms"] = max(t_bytes, t_ops) * 1e3
-    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"  time {what}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-        f"SDPA (f32) on gathered view {rec['library_ms']:.4f} ms"
-        f"{' (a yardstick only: not the same function)' if int8 else ''}, bound "
-        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
     return rec
 
 
@@ -627,7 +762,9 @@ def compare_streams(torch, cfg, comp, prompts, a, b, dev,
     return agree, total, margins
 
 
-def serve_phase(torch, cfg, comp, dev, dispatch) -> dict:
+def serve_phase(torch, cfg, comp, dev, dispatch) -> tuple[dict, dict]:
+    """Phase 3; returns the launches and, for phase 8, the prompts and the
+    fp and int8 pools' pages, greedy streams and preemptions."""
     serve(torch, cfg, comp, dev, paged=True, n_requests=1, gen=4)  # warm-up, uncounted
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launches()
@@ -684,7 +821,92 @@ def serve_phase(torch, cfg, comp, dev, dispatch) -> dict:
             "weight_stream_bound_ms": st["weight_bytes_per_step"] / HBM_BYTES_PER_S * 1e3,
             "peak_memory_bytes": peak, "device": name,
         }))
-    return launches
+    single = {"prompts": prompts,
+              "fp": dict(pages=paged.layout.num_pages, streams=p_streams,
+                         preemptions=paged.preemptions),
+              "int8": dict(pages=q_pages, streams=q_streams, preemptions=quant.preemptions)}
+    return launches, single
+
+
+def mesh_phase(torch, cfg, comp, dev, single: dict) -> dict:
+    """Phase 8: full-width gpt2-paper served tensor-parallel by MESH_RANKS
+    ranks on the one card (``launch.mesh.run_ranks``: gloo, since the ranks
+    share it), phase 3's traffic on its fp and int8 pools.  Each rank keeps
+    half the compressed weights and half the pool plus a sink page; its
+    decode attention is K3 over its page range and the combine.  Gates:
+    every request finishes its 32 tokens; streams, host page tables and one
+    forward's logits are identical on every rank; streams equal phase 3's
+    single-rank runs except at near-ties (top-2 margin under MARGIN); the
+    same preemptions; per rank, K3's form of the pool (``paged_attn_stats``
+    or ``_stats_q``) launches once a layer and decode step (12) and no other
+    attention kernel launches, K1 six times a layer (72) a decode step and a
+    prefill batch; 2 + 8 x 12 collectives a decode step.  Returns each K3
+    form's launches summed over both pools' runs and the ranks."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.serve import serve_rank
+
+    prompts = single["prompts"]
+    engine_kw = dict(max_batch=4, max_len=64 + 32 + 1, seed=0, page_size=16,
+                     steps_per_dispatch=4)
+    runs = [dict(num_pages=single["fp"]["pages"], prompts=prompts[:1],
+                 sampling=dict(max_new_tokens=4)),  # warm-up, uncounted
+            dict(num_pages=single["fp"]["pages"]),
+            dict(num_pages=single["int8"]["pages"], kv_quant=True)]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(serve_rank, (cfg, runs, prompts, dict(max_new_tokens=32), engine_kw),
+                      model=MESH_RANKS, device=dev.type, tree=comp, log=lambda m: log("  " + m))
+    log(f"  {MESH_RANKS} ranks started, served three runs and stopped in "
+        f"{time.perf_counter() - t0:.1f} s")
+    totals = {name: sum(r[i]["launches"][name] for r in ranks for i in (1, 2))
+              for name in K3_FORMS}
+    for i, pool in ((1, "fp"), (2, "int8")):
+        recs = [r[i] for r in ranks]
+        streams = [[rec["results"][u].tokens for u in sorted(rec["results"])] for rec in recs]
+        for rec, st in zip(recs, streams):
+            bad = [(u, r.finish_reason, len(r.tokens)) for u, r in rec["results"].items()
+                   if r.finish_reason != "length" or len(r.tokens) != 32]
+            if len(st) != len(prompts) or bad:
+                raise AssertionError(f"{pool}: unfinished requests {bad}")
+        for key in ("tables_digest", "logits_digest"):
+            if len({rec[key] for rec in recs}) != 1 or any(s != streams[0] for s in streams):
+                raise AssertionError(f"{pool}: the ranks disagree on their streams or {key}")
+        k3 = "paged_attn_stats_q" if pool == "int8" else "paged_attn_stats"
+        for r, rec in enumerate(recs):
+            st, n = rec["stats"], rec["launches"]
+            steps, groups = st["decode_steps"], st["prefill_batches"]
+            want = {name: 0 for name in n if name.startswith("paged_attn")}
+            want.update({k3: cfg.n_layers * steps,
+                         "nm_spmm": GPT2_K1_PER_LAYER * cfg.n_layers * (steps + groups)})
+            got = {name: n[name] for name in want}
+            if got != want:
+                raise AssertionError(f"{pool} rank {r}: launches {got}, want {want}")
+            if st["collectives_per_decode_step"] != 2 + 8 * cfg.n_layers:
+                raise AssertionError(f"{pool} rank {r}: {st['collectives_per_decode_step']} "
+                                     "collectives a decode step")
+        st = recs[0]["stats"]
+        if st["preemptions"] != single[pool]["preemptions"]:
+            raise AssertionError(f"{pool}: {st['preemptions']} preemptions against phase 3's "
+                                 f"{single[pool]['preemptions']}")
+        agree, total, margins = compare_streams(torch, cfg, comp, prompts,
+                                                single[pool]["streams"], streams[0], dev)
+        log(f"  {pool} pool of {single[pool]['pages']} pages on {MESH_RANKS} ranks: launches "
+            f"per rank {recs[0]['launches']}; single-rank vs mesh greedy streams: "
+            f"{agree}/{total} tokens equal before each request's first difference, top-2 "
+            f"margins at the differences {margins} (all < {MARGIN})")
+        log("  serve mesh " + json.dumps({
+            "pool": pool, "num_pages": single[pool]["pages"], "mesh": st["mesh"],
+            "tokens_per_s": st["tokens_per_s"], "ms_per_decode_step": st["ms_per_decode_step"],
+            "ms_per_decode_step_host": st["ms_per_decode_step_host"],
+            "decode_steps": st["decode_steps"], "preemptions": st["preemptions"],
+            "collectives_per_decode_step": st["collectives_per_decode_step"],
+            "collective_ms_per_decode_step": st["collective_ms_per_decode_step"],
+            "kernel_route": recs[0]["kernel_route"], "run_wall_s": recs[0]["wall_s"],
+            "per_rank_weight_bytes": [rec["stats"]["weight_bytes_per_step"] for rec in recs],
+            "per_rank_kv_cache_bytes": [rec["stats"]["kv_cache_bytes"] for rec in recs],
+            "device": torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"}))
+    return totals
 
 
 def deepseek_phase(torch, dev, dispatch) -> dict:
@@ -1207,6 +1429,7 @@ def main() -> int:
     from repro_torch import core
     from repro_torch.configs import get_config
     from repro_torch.kernels import dispatch
+    from repro_torch.kernels.paged_attn import entry
     from repro_torch.models.model import init_params
     from repro_torch.sparse_infer import export_compressed
 
@@ -1238,22 +1461,27 @@ def main() -> int:
     recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(2, 4)))
     comp, _ = export_compressed(params, recipe)
     records = {"nm_spmm": check_nm_spmm(torch, comp, dev),
-               "paged_attn": check_paged_attn(torch, dev),
+               "paged_attn": check_paged_attn(torch, dev, "gqa"),
                "nm_mask": check_nm_mask(torch, dev)}
     log("phase 2: the batched nm_spmm and paged_attn's MLA form (DeepSeek-V2-Lite shapes)")
     records["nm_spmm_batched"] = check_nm_spmm_batched(torch, dev)
-    records["paged_attn_mla"] = check_paged_attn_mla(torch, dev)
+    records["paged_attn_mla"] = check_paged_attn(torch, dev, "mla")
     log("phase 2: paged_attn's window form (RecurrentGemma-9B shapes)")
-    records["paged_attn_win"] = check_paged_attn_win(torch, dev)
+    records["paged_attn_win"] = check_paged_attn(torch, dev, "window")
     log("phase 2: paged_attn's int8 forms (K2q) at the shapes of its GQA, MLA and window forms")
-    records["paged_attn_q"] = check_paged_attn(torch, dev, int8=True)
-    records["paged_attn_mla_q"] = check_paged_attn_mla(torch, dev, int8=True)
-    records["paged_attn_win_q"] = check_paged_attn_win(torch, dev, int8=True)
+    records["paged_attn_q"] = check_paged_attn(torch, dev, "gqa", int8=True)
+    records["paged_attn_mla_q"] = check_paged_attn(torch, dev, "mla", int8=True)
+    records["paged_attn_win_q"] = check_paged_attn(torch, dev, "window", int8=True)
+    log("phase 2: paged_attn's stats form (K3) in its six forms, and split over 2 and 4 page "
+        "ranges against K2")
+    for form in ("gqa", "window", "mla"):
+        for int8 in (False, True):
+            name = entry(mla=form == "mla", window=form == "window", stats=True, quant=int8)
+            records[name] = check_paged_attn_stats(torch, dev, form, int8)
 
     log("phase 3: serve full-width gpt2-paper: slab, undersized paged pool, int8 pool of "
         "the same bytes")
-    launches = serve_phase(torch, cfg, comp, dev, dispatch)
-    del comp
+    launches, single = serve_phase(torch, cfg, comp, dev, dispatch)
 
     with tempfile.TemporaryDirectory() as ckpt_dir:
         log("phase 4: train full-width gpt2-paper with STEP (2:4, batch 8, seq 128, 60 steps)")
@@ -1271,6 +1499,11 @@ def main() -> int:
     launches["paged_attn_win"] = rg["paged_attn_win"]
     launches["paged_attn_win_q"] = rg["paged_attn_win_q"]
 
+    log(f"phase 8: serve full-width gpt2-paper tensor-parallel on {MESH_RANKS} ranks of the "
+        "one card: phase 3's fp and int8 pools")
+    launches.update(mesh_phase(torch, cfg, comp, dev, single))
+    del comp
+
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         rec = records[name]
@@ -1279,6 +1512,8 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{source}.cu", "replaces": replaces,
             "launches": launches[name], **{k: rec[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at")},
+            **({"sdpa_yardstick_ms": rec["sdpa_yardstick_ms"]} if "sdpa_yardstick_ms" in rec
+               else {}),
         })
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)

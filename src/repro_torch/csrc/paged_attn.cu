@@ -1,10 +1,11 @@
 // Single-query paged decode attention, for Hopper.
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attn.py:_paged_attn_kernel
-// (launched by paged_attn_pallas, emit_stats=False) in three of its forms,
-// each over fp pages or, with its int8-scale option (K2q, the reference's
-// k_scale / v_scale / k2_scale, paged_attn.py:131-134, 141-142, 159-161),
-// over int8 pages:
+// (launched by paged_attn_pallas) in three of its forms, each over fp pages
+// or, with its int8-scale option (K2q, the reference's k_scale / v_scale /
+// k2_scale, paged_attn.py:131-134, 141-142, 159-161), over int8 pages, and
+// each with either flush: normalized (emit_stats=False: K2) or the raw
+// flash stats (emit_stats=True: K3, paged_attn.py:171-176).
 //
 // paged_attn_launch, MHA/GQA (K2), with the window option (K2w, the
 // reference's window / win_slots, paged_attn.py:109-125):
@@ -27,6 +28,13 @@
 //   k2_pages (P, ps, Hkv, D2) the shared RoPE keys
 //   out      (B, Hkv, G, D)   in q's type
 //   scores are (q.k + q2.k2) * scale; V is the K page already staged.
+// The stats flush (K3, either launch with m_out and l_out given): out is
+// the unnormalized f32 accumulator (B, Hkv, G, Dv), m_out the running max
+// and l_out the denominator (B, Hkv, G), both f32; a lane with no live
+// position writes acc = 0, m = -1e30, l = 0.  A tensor-parallel pool
+// shard runs it over its own page range (the rest of a lane's table is
+// its local sentinel) and the shards' triples merge in one combine
+// (kernels/sharded.py).  Otherwise out is acc / max(l, 1e-30) in q's type.
 // All: tables (B, n_slots) int32 page ids, P = sentinel (unmapped);
 // lengths (B,) int32 live tokens per lane.  Queries and output share one
 // type (f32 or bf16) and the pages another (f32, bf16 or int8), so the MLA
@@ -36,7 +44,7 @@
 // k2_scale (MLA, whose V is the dequantized K page); a row is its codes
 // times its scale, in f32, as models/cache.py:dequant computes it.
 // Positions at or past lengths[b] are dead.  A lane with length 0 writes
-// exact zeros.
+// exact zeros (the stats flush: the dead-lane triple above).
 //
 // What bounds it: the bytes of the live pages (decode does ~1 FMA per
 // byte read per query head, far below the tensor cores' break-even); int8
@@ -68,8 +76,11 @@
 // 512 + 64) take a warp per (head, row), its lanes splitting the dot
 // product; narrower rows (GQA's 64-128) a thread per (head, row), which
 // needs no shuffle reduction.
-// One page per step leaves much of the card idle at small batch; splitting
-// the page walk across blocks (the stats form, K3) is later work.
+// The stats flush changes only the last loop: the f32 accumulator and the
+// per-head max and denominator leave as they are, so K3 costs what K2
+// costs in each form.  One page per step leaves much of the card idle at
+// small batch; splitting one lane's page walk across blocks with the stats
+// form is later work.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -117,16 +128,20 @@ __host__ __device__ inline int smem_floats(int G, int D, int D2, int Dv, int ps,
 // k2sc, vsc of (P, ps), else the scale pointers are unused).  D2 = 0
 // without a second stream.  The block owns query heads [blockIdx.z * G, +G)
 // of the Gt that share KV head blockIdx.y.  ROW_WARP: a warp (else a
-// thread) per (head, row) score.
-template <typename TQ, typename TP, bool V_IS_K, bool ROW_WARP>
+// thread) per (head, row) score.  STATS: the K3 flush (f32 acc into out,
+// the running max and denominator into m_out and l_out), else the
+// normalized output in TQ.
+template <typename TQ, typename TP, bool V_IS_K, bool ROW_WARP, bool STATS>
 __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
     const TQ* __restrict__ q, const TQ* __restrict__ q2,
     const TP* __restrict__ kp, const TP* __restrict__ k2p,
     const TP* __restrict__ vp, const __half* __restrict__ ksc,
     const __half* __restrict__ k2sc, const __half* __restrict__ vsc,
     const int* __restrict__ tables, const int* __restrict__ lengths,
-    TQ* __restrict__ out, int Hkv, int Gt, int G, int D, int D2, int Dv, int P,
-    int ps, int n_slots, int window, int win_slots, float scale) {
+    std::conditional_t<STATS, float, TQ>* __restrict__ out,
+    float* __restrict__ m_out, float* __restrict__ l_out, int Hkv, int Gt, int G,
+    int D, int D2, int Dv, int P, int ps, int n_slots, int window, int win_slots,
+    float scale) {
   constexpr bool QUANT = std::is_same<TP, int8_t>::value;
   extern __shared__ float smem[];
   const int KS = D + 1, K2S = D2 + 1;  // padded row strides
@@ -242,16 +257,24 @@ __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
     }
     __syncthreads();
   }
-  for (int e = tid; e < G * Dv; e += THREADS) {
-    out[head * Dv + e] = from_f<TQ>(acc[e] / fmaxf(lrow[e / Dv], 1e-30f));
+  if constexpr (STATS) {
+    for (int e = tid; e < G * Dv; e += THREADS) out[head * Dv + e] = acc[e];
+    for (int g = tid; g < G; g += THREADS) {
+      m_out[head + g] = mrow[g];
+      l_out[head + g] = lrow[g];
+    }
+  } else {
+    for (int e = tid; e < G * Dv; e += THREADS) {
+      out[head * Dv + e] = from_f<TQ>(acc[e] / fmaxf(lrow[e / Dv], 1e-30f));
+    }
   }
 }
 
-template <typename TQ, typename TP, bool V_IS_K>
+template <typename TQ, typename TP, bool V_IS_K, bool STATS>
 int launch(const void* q, const void* q2, const void* k, const void* k2,
            const void* v, const void* ksc, const void* k2sc, const void* vsc,
-           const void* tables, const void* lengths, void* out,
-           int B, int Hkv, int G, int D, int D2, int Dv, int P, int ps,
+           const void* tables, const void* lengths, void* out, void* m_out,
+           void* l_out, int B, int Hkv, int G, int D, int D2, int Dv, int P, int ps,
            int n_slots, int window, int win_slots, float scale, cudaStream_t s) {
   // split a KV head's query heads across blocks (halving while G stays
   // even) until the grid has 64 blocks or a block has 2 heads: every block
@@ -260,8 +283,8 @@ int launch(const void* q, const void* q2, const void* k, const void* k2,
   int gb = G;
   while (gb > 2 && gb % 2 == 0 && B * Hkv * (G / gb) < 64) gb /= 2;
   const int smem = (int)sizeof(float) * smem_floats(gb, D, D2, Dv, ps, V_IS_K);
-  auto kernel = D + D2 >= WARP_ROW_MIN ? paged_attn_kernel<TQ, TP, V_IS_K, true>
-                                      : paged_attn_kernel<TQ, TP, V_IS_K, false>;
+  auto kernel = D + D2 >= WARP_ROW_MIN ? paged_attn_kernel<TQ, TP, V_IS_K, true, STATS>
+                                      : paged_attn_kernel<TQ, TP, V_IS_K, false, STATS>;
   if (smem > 48 * 1024) {  // past the default: opt in, or fail the launch
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -273,29 +296,31 @@ int launch(const void* q, const void* q2, const void* k, const void* k2,
       static_cast<const TP*>(v), static_cast<const __half*>(ksc),
       static_cast<const __half*>(k2sc), static_cast<const __half*>(vsc),
       static_cast<const int*>(tables), static_cast<const int*>(lengths),
-      static_cast<TQ*>(out), Hkv, G, gb, D, D2, Dv, P, ps, n_slots, window,
-      win_slots, scale);
+      static_cast<std::conditional_t<STATS, float, TQ>*>(out),
+      static_cast<float*>(m_out), static_cast<float*>(l_out), Hkv, G, gb, D, D2,
+      Dv, P, ps, n_slots, window, win_slots, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool V_IS_K>
+template <bool V_IS_K, bool STATS>
 int launch_types(int q_dtype, int page_dtype, const void* q, const void* q2,
                  const void* k, const void* k2, const void* v, const void* ksc,
                  const void* k2sc, const void* vsc, const void* tables,
-                 const void* lengths, void* out, int B, int Hkv, int G, int D,
-                 int D2, int Dv, int P, int ps, int n_slots, int window,
-                 int win_slots, float scale, void* stream) {
+                 const void* lengths, void* out, void* m_out, void* l_out,
+                 int B, int Hkv, int G, int D, int D2, int Dv, int P, int ps,
+                 int n_slots, int window, int win_slots, float scale,
+                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PA_ARGS q, q2, k, k2, v, ksc, k2sc, vsc, tables, lengths, out, B, Hkv, G, D, \
-                D2, Dv, P, ps, n_slots, window, win_slots, scale, s
+#define PA_ARGS q, q2, k, k2, v, ksc, k2sc, vsc, tables, lengths, out, m_out, l_out, \
+                B, Hkv, G, D, D2, Dv, P, ps, n_slots, window, win_slots, scale, s
   if (page_dtype == 2) {
-    return q_dtype == 0 ? launch<float, int8_t, V_IS_K>(PA_ARGS)
-                        : launch<__nv_bfloat16, int8_t, V_IS_K>(PA_ARGS);
+    return q_dtype == 0 ? launch<float, int8_t, V_IS_K, STATS>(PA_ARGS)
+                        : launch<__nv_bfloat16, int8_t, V_IS_K, STATS>(PA_ARGS);
   }
-  if (q_dtype == 0 && page_dtype == 0) return launch<float, float, V_IS_K>(PA_ARGS);
-  if (q_dtype == 0) return launch<float, __nv_bfloat16, V_IS_K>(PA_ARGS);
-  if (page_dtype == 0) return launch<__nv_bfloat16, float, V_IS_K>(PA_ARGS);
-  return launch<__nv_bfloat16, __nv_bfloat16, V_IS_K>(PA_ARGS);
+  if (q_dtype == 0 && page_dtype == 0) return launch<float, float, V_IS_K, STATS>(PA_ARGS);
+  if (q_dtype == 0) return launch<float, __nv_bfloat16, V_IS_K, STATS>(PA_ARGS);
+  if (page_dtype == 0) return launch<__nv_bfloat16, float, V_IS_K, STATS>(PA_ARGS);
+  return launch<__nv_bfloat16, __nv_bfloat16, V_IS_K, STATS>(PA_ARGS);
 #undef PA_ARGS
 }
 
@@ -311,33 +336,41 @@ extern "C" int paged_attn_smem_max() { return SMEM_MAX; }
 
 // q_dtype: 0 = float32, 1 = bfloat16; page_dtype: the same, or 2 = int8
 // (then the f16 scale planes k_scale and v_scale, or k_scale and k2_scale,
-// are given; otherwise they are null).  Each returns the error of the
-// shared-memory opt-in, else cudaGetLastError() after the launch.  The
-// wrapper (kernels/paged_attn.py) checks shapes, types and contiguity.
+// are given; otherwise they are null).  m_out and l_out null: the
+// normalized flush into out (q's type); both given: the stats flush (K3),
+// f32 acc into out.  Each returns the error of the shared-memory opt-in,
+// else cudaGetLastError() after the launch.  The wrapper
+// (kernels/paged_attn.py) checks shapes, types and contiguity.
 // window = 0 (and win_slots = 0) for an append-only table, else the live
 // window's width and the modular table's slot count (= n_slots).
 extern "C" int paged_attn_launch(const void* q, const void* k, const void* v,
                                  const void* k_scale, const void* v_scale,
                                  const void* tables, const void* lengths,
-                                 void* out, int B, int Hkv, int G, int D,
-                                 int Dv, int P, int ps, int n_slots,
-                                 int window, int win_slots, float scale,
-                                 int q_dtype, int page_dtype, void* stream) {
-  return launch_types<false>(q_dtype, page_dtype, q, nullptr, k, nullptr, v,
-                             k_scale, nullptr, v_scale, tables, lengths, out, B,
-                             Hkv, G, D, 0, Dv, P, ps, n_slots, window, win_slots,
-                             scale, stream);
+                                 void* out, void* m_out, void* l_out, int B,
+                                 int Hkv, int G, int D, int Dv, int P, int ps,
+                                 int n_slots, int window, int win_slots,
+                                 float scale, int q_dtype, int page_dtype,
+                                 void* stream) {
+#define PA_GQA_ARGS q_dtype, page_dtype, q, nullptr, k, nullptr, v, k_scale, nullptr, \
+                    v_scale, tables, lengths, out, m_out, l_out, B, Hkv, G, D, 0, Dv, \
+                    P, ps, n_slots, window, win_slots, scale, stream
+  return m_out != nullptr ? launch_types<false, true>(PA_GQA_ARGS)
+                          : launch_types<false, false>(PA_GQA_ARGS);
+#undef PA_GQA_ARGS
 }
 
 extern "C" int paged_attn_mla_launch(const void* q, const void* q2,
                                      const void* k, const void* k2,
                                      const void* k_scale, const void* k2_scale,
                                      const void* tables, const void* lengths,
-                                     void* out, int B, int Hkv, int G, int D,
-                                     int D2, int P, int ps, int n_slots,
-                                     float scale, int q_dtype, int page_dtype,
-                                     void* stream) {
-  return launch_types<true>(q_dtype, page_dtype, q, q2, k, k2, nullptr, k_scale,
-                            k2_scale, nullptr, tables, lengths, out, B, Hkv, G, D,
-                            D2, D, P, ps, n_slots, 0, 0, scale, stream);
+                                     void* out, void* m_out, void* l_out, int B,
+                                     int Hkv, int G, int D, int D2, int P,
+                                     int ps, int n_slots, float scale,
+                                     int q_dtype, int page_dtype, void* stream) {
+#define PA_MLA_ARGS q_dtype, page_dtype, q, q2, k, k2, nullptr, k_scale, k2_scale, \
+                    nullptr, tables, lengths, out, m_out, l_out, B, Hkv, G, D, D2, D, \
+                    P, ps, n_slots, 0, 0, scale, stream
+  return m_out != nullptr ? launch_types<true, true>(PA_MLA_ARGS)
+                          : launch_types<true, false>(PA_MLA_ARGS);
+#undef PA_MLA_ARGS
 }

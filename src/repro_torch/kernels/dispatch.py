@@ -26,10 +26,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("nm_spmm", "paged_attn", "nm_mask")  # csrc/<name>.cu, one library each
 # the kernels' entry points, each with its own launch count: the batched K1
-# lives in nm_spmm.cu, K2's MLA and window forms and their int8 (K2q) forms
-# in paged_attn.cu
-KERNELS = ("nm_spmm", "nm_spmm_batched", "paged_attn", "paged_attn_mla", "paged_attn_win",
-           "paged_attn_q", "paged_attn_mla_q", "paged_attn_win_q", "nm_mask")
+# lives in nm_spmm.cu; K2's GQA, MLA and window forms, their stats flush
+# (K3) and the int8 option (K2q) of each in paged_attn.cu
+PAGED_ATTN = tuple(f"paged_attn{form}{flush}{quant}" for form in ("", "_mla", "_win")
+                   for flush in ("", "_stats") for quant in ("", "_q"))
+KERNELS = ("nm_spmm", "nm_spmm_batched", *PAGED_ATTN, "nm_mask")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

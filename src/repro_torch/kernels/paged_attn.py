@@ -1,8 +1,7 @@
 """Single-query paged decode attention over a ``(P, ps, Hkv, D)`` pool.
 
 Replaces the TPU kernel ``src/repro/kernels/paged_attn.py:_paged_attn_kernel``
-(launched by ``paged_attn_pallas`` with ``emit_stats=False``) in the forms
-the ported models run:
+(launched by ``paged_attn_pallas``) in all its forms:
 
 - MHA/GQA (K2): q ``(B, Hkv, G, D)``; k/v pages ``(P, ps, Hkv, D|Dv)``;
   append-only tables.
@@ -23,17 +22,25 @@ the ported models run:
   ``k_scale`` and ``k2_scale`` (V is the dequantized K page), the others
   ``k_scale`` and ``v_scale``.
 
-The stats-emitting variant (K3, ``emit_stats``) is not ported (ROADMAP.md
-§2); the wrapper refuses it.
+Each form has two flushes.  The normalized one (K2, ``emit_stats=False``)
+returns ``(B, Hkv, G, Dv)`` in ``q.dtype``; lanes of length 0 return exact
+zeros.  The stats one (K3, ``emit_stats=True``, the reference's
+``paged_attn_stats``) skips the normalization and returns the raw flash
+triple in f32: ``acc (B, Hkv, G, Dv)``, the running max ``m (B, Hkv, G)``
+and the denominator ``l (B, Hkv, G)``; a lane with no live position gives
+``(0, -1e30, 0)``.  A tensor-parallel pool shard runs it over its own page
+range and ``kernels.sharded.combine_stats`` merges the shards.  Each form
+and flush counts launches under its own entry (``dispatch.KERNELS``):
+``paged_attn``, ``paged_attn_win``, ``paged_attn_mla``, then ``_stats``
+for K3 and ``_q`` for int8 pages.
 
 On the card :func:`paged_attn` launches ``csrc/paged_attn.cu`` (whose
 header says what bounds it and how the design answers that); on the CPU it
-runs :func:`paged_attn_plain`, the gathered math of the reference's
-``_gathered_stats``/``paged_attn_xla``.
+runs :func:`paged_attn_stats_plain`, the gathered math of the reference's
+``_gathered_stats``, and :func:`paged_attn_plain` normalizes that.
 
 Tables are ``(B, n_slots)`` int32 with sentinel ``P`` for unmapped slots;
-lengths ``(B,)`` int32 live tokens per lane.  Returns ``(B, Hkv, G, Dv)`` in
-``q.dtype``; lanes of length 0 return exact zeros.
+lengths ``(B,)`` int32 live tokens per lane.
 """
 from __future__ import annotations
 
@@ -48,8 +55,9 @@ _NEG = -1e30  # finite -inf stand-in: keeps dead lanes exp()-safe
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_DTYPES = {**_DTYPES, torch.int8: 2}
 _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # scale, types, stream
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + _TAIL
-_ARGTYPES_MLA = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + _TAIL
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + _TAIL
+_ARGTYPES_MLA = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + _TAIL
+Stats = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def paged_attn(
@@ -60,16 +68,17 @@ def paged_attn(
     k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
     k2_scale: Optional[torch.Tensor] = None, v_is_k: bool = False,
     emit_stats: bool = False,
-) -> torch.Tensor:
-    if emit_stats:
-        raise NotImplementedError("emit_stats (the stats form, K3) is not ported")
+) -> "torch.Tensor | Stats":
+    """The normalized output, or with ``emit_stats`` the f32 triple
+    ``(acc, m, l)`` (module docstring)."""
     kw = dict(scale=scale, window=window, win_slots=win_slots, q2=q2, k2_pages=k2_pages,
               k_scale=k_scale, v_scale=v_scale, k2_scale=k2_scale, v_is_k=v_is_k)
     ops = [t for t in (q, k_pages, v_pages, tables, lengths, q2, k2_pages, k_scale,
                        v_scale, k2_scale) if t is not None]
     if dispatch.on_card(*ops):
-        return _launch(q, k_pages, v_pages, tables, lengths, **kw)
-    return paged_attn_plain(q, k_pages, v_pages, tables, lengths, **kw)
+        return _launch(q, k_pages, v_pages, tables, lengths, emit_stats=emit_stats, **kw)
+    plain = paged_attn_stats_plain if emit_stats else paged_attn_plain
+    return plain(q, k_pages, v_pages, tables, lengths, **kw)
 
 
 def _check(q, k_pages, v_pages, tables, lengths, window, win_slots, q2, k2_pages,
@@ -117,7 +126,7 @@ def _check(q, k_pages, v_pages, tables, lengths, window, win_slots, q2, k2_pages
 
 
 def _launch(q, k_pages, v_pages, tables, lengths, *, scale, window, win_slots, q2, k2_pages,
-            k_scale, v_scale, k2_scale, v_is_k):
+            k_scale, v_scale, k2_scale, v_is_k, emit_stats):
     mla = _check(q, k_pages, v_pages, tables, lengths, window, win_slots, q2, k2_pages,
                  k_scale, v_scale, k2_scale, v_is_k)
     queries = (q, q2) if mla else (q,)
@@ -145,45 +154,61 @@ def _launch(q, k_pages, v_pages, tables, lengths, *, scale, window, win_slots, q
     if smem > limit:
         raise ValueError(f"G={g}, D={d}, D2={d2}, Dv={dv}, ps={ps} need {smem} B of "
                          f"shared memory, over the block's {limit}")
-    out = torch.empty((b, hkv, g, dv), dtype=q.dtype, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = torch.empty((b, hkv, g, dv), **f32) if emit_stats else torch.empty(
+        (b, hkv, g, dv), dtype=q.dtype, device=q.device)
+    m, l = (torch.empty((b, hkv, g), **f32) for _ in range(2)) if emit_stats else (None, None)
+    result = (out, m, l) if emit_stats else out
     if b == 0 or hkv == 0:
-        return out
+        return result
     types = (_DTYPES[q.dtype], _PAGE_DTYPES[k_pages.dtype], dispatch.stream_ptr(q.device))
+    outs = (out.data_ptr(), _ptr(m), _ptr(l))
     if mla:
         fn = dispatch.kernel_fn("paged_attn", "paged_attn_mla_launch", _ARGTYPES_MLA)
         rc = fn(q.data_ptr(), q2.data_ptr(), k_pages.data_ptr(), k2_pages.data_ptr(),
                 _ptr(k_scale), _ptr(k2_scale), tables.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), b, hkv, g, d, d2, n_pages, ps, tables.shape[1],
-                float(scale), *types)
-        name = "paged_attn_mla"
+                *outs, b, hkv, g, d, d2, n_pages, ps, tables.shape[1], float(scale), *types)
     else:
         fn = dispatch.kernel_fn("paged_attn", "paged_attn_launch", _ARGTYPES)
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), _ptr(k_scale),
-                _ptr(v_scale), tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                _ptr(v_scale), tables.data_ptr(), lengths.data_ptr(), *outs,
                 b, hkv, g, d, dv, n_pages, ps, tables.shape[1], int(window),
                 int(win_slots), float(scale), *types)
-        name = "paged_attn_win" if window else "paged_attn"
-    dispatch.check_launch(name + ("_q" if scales else ""), rc)
-    return out
+    dispatch.check_launch(entry(mla=mla, window=window, stats=emit_stats, quant=bool(scales)), rc)
+    return result
+
+
+def entry(*, mla: bool, window: int, stats: bool, quant: bool) -> str:
+    """The launch-count entry of one form: ``paged_attn[_mla|_win][_stats][_q]``."""
+    return ("paged_attn" + ("_mla" if mla else "_win" if window else "")
+            + ("_stats" if stats else "") + ("_q" if quant else ""))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def paged_attn_plain(
+def paged_attn_plain(q: torch.Tensor, *args, **kw) -> torch.Tensor:
+    """The normalized function in plain PyTorch (the reference's
+    ``paged_attn_xla``): :func:`paged_attn_stats_plain` divided through,
+    cast to ``q.dtype``; dead lanes give exact zeros."""
+    acc, _, l = paged_attn_stats_plain(q, *args, **kw)
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def paged_attn_stats_plain(
     q: torch.Tensor, k_pages: torch.Tensor, v_pages: Optional[torch.Tensor],
     tables: torch.Tensor, lengths: torch.Tensor, *, scale: float,
     window: int = 0, win_slots: int = 0,
     q2: Optional[torch.Tensor] = None, k2_pages: Optional[torch.Tensor] = None,
     k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
     k2_scale: Optional[torch.Tensor] = None, v_is_k: bool = False,
-) -> torch.Tensor:
-    """The same function in plain PyTorch, the gathered math of the
-    reference's ``_gathered_stats``: gather every lane's table slots into a
-    ``(B, n_slots·ps)`` view (int8 pages dequantized, as
-    ``src/repro/kernels/ref.py:_dequant_pages``) and apply the per-position
-    masks in one f32 softmax."""
+) -> Stats:
+    """The stats form in plain PyTorch, the reference's ``_gathered_stats``:
+    gather every lane's table slots into a ``(B, n_slots·ps)`` view (int8
+    pages dequantized, as ``src/repro/kernels/ref.py:_dequant_pages``),
+    apply the per-position masks and return the f32 ``(acc, m, l)`` of one
+    softmax over it."""
     mla = _check(q, k_pages, v_pages, tables, lengths, window, win_slots, q2, k2_pages,
                  k_scale, v_scale, k2_scale, v_is_k)
     n_pages, ps = k_pages.shape[:2]
@@ -212,8 +237,8 @@ def paged_attn_plain(
     if mla:
         s = s + torch.einsum("bhgd,bsphd->bhgsp", q2.float(), gather(k2_pages, k2_scale))
     s = torch.where(valid[:, None, None], s * scale, _NEG)
-    mx = s.amax(dim=(-2, -1), keepdim=True)  # _NEG on dead lanes
-    pexp = torch.exp(s - mx) * valid[:, None, None]
+    m = s.amax(dim=(-2, -1))  # _NEG on dead lanes
+    pexp = torch.exp(s - m[..., None, None]) * valid[:, None, None]
     l = pexp.sum(dim=(-2, -1))
     acc = torch.einsum("bhgsp,bsphd->bhgd", pexp, kg if mla else gather(v_pages, v_scale))
-    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    return acc, m, l

@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \\
         [--arch gpt2-paper|deepseek-v2-lite-16b|recurrentgemma-9b] \\
         [--paged --page-size 16 --num-pages 64 [--kv-int8]] [--steps-per-dispatch 4] \\
-        [--ckpt-dir RUN] [--dense] [--temperature 0.8 --top-k 40] [--device cpu]
+        [--ckpt-dir RUN] [--dense] [--temperature 0.8 --top-k 40] [--device cpu] \\
+        [--mesh 1,2 [--kv-shard seq]]
 
 Counterpart of ``repro/launch/serve.py`` (sync scheduler only).  Loads or
 initializes the parameters, applies the final STEP N:M mask (Π_T ⊙ w_T),
@@ -19,18 +20,31 @@ Export and compression go leaf by leaf (``export_compressed``), so a
 full-width DeepSeek-V2-Lite fits one 80 GB card.  ``--dense`` serves the masked-dense
 tree instead.  Prints two JSON lines: the compression report and the run
 summary, with the reference's keys.
+
+``--mesh data,model`` serves tensor-parallel (dense family, ``--paged``,
+data 1): the export happens once here, then ``data × model`` ranks start
+(``launch.mesh.run_ranks``: ``gloo`` where ranks share a card or run on the
+CPU, ``nccl`` where each has a card of its own; the choice is printed),
+each keeps its shard of the tree and of the pool, and rank 0's summary is
+printed with ``mesh``, the collectives per decode step and every rank's
+weight and KV bytes (``per_rank``).
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import time
 
 import numpy as np
+import torch
 
 from repro_torch import core
 from repro_torch.checkpoint import restore_latest
 from repro_torch.configs import get_config, list_archs
-from repro_torch.models.model import init_params
+from repro_torch.kernels import dispatch
+from repro_torch.launch.mesh import make_local_mesh, run_ranks
+from repro_torch.models.model import forward, init_params
 from repro_torch.serving import DecodeEngine, SamplingParams
 from repro_torch.sparse_infer import export_compressed
 from repro_torch.utils.device import resolve_device
@@ -85,6 +99,12 @@ def parse_args(argv=None):
                     help="decode steps per host sync")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain versions)")
+    ap.add_argument("--mesh", default=None,
+                    help="serve tensor-parallel on a 'data,model' mesh of local ranks "
+                         "(e.g. --mesh 1,2 with --paged): compressed weights and the "
+                         "pool's pages shard over the model axis")
+    ap.add_argument("--kv-shard", default="seq", choices=("seq", "feature"),
+                    help="model-axis dim of the KV pool under --mesh")
     return ap.parse_args(argv)
 
 
@@ -92,6 +112,10 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.kv_int8 and not args.paged:
         raise SystemExit("--prefix-cache/--kv-int8 require --paged")  # the reference's words
+    mesh_shape = tuple(int(v) for v in args.mesh.split(",")) if args.mesh else None
+    if mesh_shape is not None and (len(mesh_shape) != 2 or mesh_shape[0] != 1):
+        raise SystemExit(f"--mesh {args.mesh}: give 'data,model' with data 1 (a data axis "
+                         "> 1 is not ported yet, ROADMAP.md §1 item 1)")
     device = resolve_device(args.device)
     cfg, serving_tree, rep = build_serving_state(args, device)
     print(json.dumps({"compression": rep}))
@@ -102,28 +126,84 @@ def main(argv=None) -> dict:
         num_pages = args.batch * (-(-max_len // args.page_size))
     buckets = ([int(b) for b in args.prefill_buckets.split(",")]
                if args.prefill_buckets else None)
-    engine = DecodeEngine(
-        cfg, serving_tree, max_batch=args.batch, max_len=max_len, seed=0,
+    engine_kw = dict(
+        max_batch=args.batch, max_len=max_len, seed=0,
         num_pages=num_pages if args.paged else None, page_size=args.page_size,
         steps_per_dispatch=args.steps_per_dispatch, kv_quant=args.kv_int8,
-        prefill_buckets=buckets, device=device,
+        prefill_buckets=buckets, kv_shard=args.kv_shard,
     )
-    sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
-                              max_new_tokens=args.gen)
+    sampling = dict(temperature=args.temperature, top_k=args.top_k, max_new_tokens=args.gen)
     n_requests = args.batch if args.requests is None else args.requests
-    for r in range(n_requests):
-        prompt = np.random.default_rng(1000 + r).integers(0, cfg.vocab, args.prompt_len)
-        engine.submit(prompt.tolist(), sampling)
-    results = engine.run()
-    summary = make_summary(cfg, engine, results, rep, args)
+    prompts = [np.random.default_rng(1000 + r).integers(0, cfg.vocab, args.prompt_len).tolist()
+               for r in range(n_requests)]
+    if mesh_shape is None or mesh_shape == (1, 1):
+        mesh = make_local_mesh(1, 1, device=device) if mesh_shape else None
+        ranks = serve_rank(mesh, serving_tree, cfg, [{}], prompts, sampling, engine_kw,
+                           device=str(device))
+    else:
+        ranks = [r[0] for r in run_ranks(
+            serve_rank, (cfg, [{}], prompts, sampling, engine_kw), model=mesh_shape[1],
+            data=mesh_shape[0], device=str(device), tree=serving_tree)]
+    summary = make_summary(cfg, ranks[0], rep, args)
+    if mesh_shape is not None:
+        summary["per_rank"] = [{"rank": i, "weight_bytes": r["stats"]["weight_bytes_per_step"],
+                                "kv_cache_bytes": r["stats"]["kv_cache_bytes"]}
+                               for i, r in enumerate(ranks)]
     print(json.dumps({"summary": summary}))
     return summary
 
 
-def make_summary(cfg, engine: DecodeEngine, results: dict, rep: dict, args) -> dict:
-    """The reference's summary keys; features not ported yet report their
-    idle values (sync scheduler, no chunking, no refills, no mesh)."""
-    st = engine.stats()
+def serve_rank(mesh, tree: dict, cfg, runs: list, prompts: list, sampling: dict,
+               engine_kw: dict, device: str = "cuda") -> list:
+    """Serve ``prompts`` once per entry of ``runs`` (engine keywords over
+    ``engine_kw``, and optionally its own ``prompts`` and ``sampling``
+    keywords over ``sampling``), each on a fresh ``DecodeEngine`` over
+    ``tree``; with a
+    ``mesh`` this is one rank's part, the function ``launch.mesh.run_ranks``
+    runs on every rank.  Returns per run: the results by uid, ``stats()``,
+    ``kernel_route()``, each kernel's launches counted from the run's
+    start, a digest of the host page tables after every scheduling step, a
+    digest of one full forward's logits of the first prompt (after the
+    launches are read), and the run's wall seconds."""
+    out = []
+    for run in runs:
+        run = dict(run)
+        run_prompts = run.pop("prompts", prompts)
+        sp = SamplingParams(**{**sampling, **run.pop("sampling", {})})
+        eng = DecodeEngine(cfg, tree, mesh=mesh, device=mesh.device if mesh else device,
+                           **{**engine_kw, **run})
+        for p in run_prompts:
+            eng.submit(p, sp)
+        tables = hashlib.sha256()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        results = {}
+        while eng.queue or any(s is not None for s in eng.slots):
+            for r in eng.step():
+                results[r.uid] = r
+            if eng.pool is not None:
+                for key in sorted(eng.pool._pt):
+                    tables.update(eng.pool._pt[key].tobytes())
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(dispatch.launches)
+        with eng._mesh_ctx():
+            logits, _ = forward(eng.params, cfg, torch.tensor([run_prompts[0]],
+                                                              device=eng.device))
+        out.append({"results": results, "stats": eng.stats(), "kernel_route": eng.kernel_route(),
+                    "launches": launches, "tables_digest": tables.hexdigest(),
+                    "logits_digest": hashlib.sha256(
+                        logits.float().cpu().numpy().tobytes()).hexdigest(),
+                    "wall_s": wall})
+    return out
+
+
+def make_summary(cfg, rank: dict, rep: dict, args) -> dict:
+    """The reference's summary keys from one :func:`serve_rank` record;
+    features not ported yet report their idle values (sync scheduler, no
+    chunking, no refills)."""
+    st, results = rank["stats"], rank["results"]
     summary = {
         "arch": cfg.name,
         "compressed": not args.dense,
@@ -148,8 +228,10 @@ def make_summary(cfg, engine: DecodeEngine, results: dict, rep: dict, args) -> d
         "preemptions": st["preemptions"],
         "kv_cache_bytes": st["kv_cache_bytes"],
         "hbm_weight_ratio": round(rep["ratio"], 3),
-        "mesh": None,
-        "kernel_route": engine.kernel_route(),
+        "mesh": st["mesh"],
+        "collectives_per_decode_step": st["collectives_per_decode_step"],
+        "collective_ms_per_decode_step": st["collective_ms_per_decode_step"],
+        "kernel_route": rank["kernel_route"],
     }
     if args.paged:
         summary.update(

@@ -46,6 +46,15 @@ attention still reads the fresh fp K/V, and a decode step reads the codes
 it has just written, so the current token is seen int8-rounded, as in the
 reference.
 
+Tensor-parallel pools (``PagedLayout.shards`` > 1, the reference's
+``shards``): the pages axis is split over the mesh's model axis, so the
+rank at model index ``shard`` holds global pages ``[shard·P/S,
+(shard+1)·P/S)`` as local pages ``[0, P/S)`` plus its own sink page
+``P/S``, which is also the local sentinel ``kernels.sharded.
+shard_local_tables`` gives every page the rank does not hold.  Tables keep
+global ids and are replicated; a write whose page lives on another rank
+lands on the local sink.
+
 Writes update the cache tensors in place.  RG-LRU states are per lane
 under both layouts and do not pass through here (``models.model``).
 """
@@ -54,6 +63,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from repro_torch.kernels.sharded import shard_local_tables
 
 # the int8 scale's floor: keeps all-zero tokens from dividing by zero, and
 # survives the f16 round trip as a normal number
@@ -147,6 +158,8 @@ class PagedLayout:
     has_full: bool = True  # any non-windowed attention or MLA layer
     lookahead: int = 1  # decode steps one dispatch may take (pages mapped ahead)
     quant: bool = False  # int8 codes + per-(page, slot) f16 scale planes
+    shards: int = 1  # model-axis ranks the pages axis is split over
+    shard: int = 0  # this rank's model index
     kind = "paged"
 
     @property
@@ -161,7 +174,20 @@ class PagedLayout:
 
     @property
     def sentinel(self) -> int:
+        """The tables' id for an unmapped slot (global, replicated)."""
         return self.num_pages
+
+    @property
+    def local_pages(self) -> int:
+        """Pages this rank holds (``P/S``); its sink page is the next one."""
+        return self.num_pages // self.shards
+
+    def _local(self, phys: torch.Tensor) -> torch.Tensor:
+        """Global page ids -> this rank's pages, foreign pages and the
+        sentinel to the sink ``local_pages`` (the read path's remap)."""
+        if self.shards == 1:
+            return phys
+        return shard_local_tables(phys, self.shard, self.local_pages)[0]
 
     def _windowed(self, window) -> bool:
         return window is not None and window <= self.max_len
@@ -176,11 +202,11 @@ class PagedLayout:
 
     def alloc(self, lead: tuple, batch: int, entries: dict, dtype, device,
               window=None) -> dict:
-        """Zeroed ``lead + (P + 1, ps) + shape`` pools (the last page is the
-        sink), one per ``entries`` name -> per-token shape; under ``quant``
-        int8 pools and a ``<name>_scale`` plane ``lead + (P + 1, ps)`` of f16
-        beside each."""
-        pool = (self.num_pages + 1, self.page_size)
+        """Zeroed ``lead + (P/S + 1, ps) + shape`` pools (the last page is
+        the sink), one per ``entries`` name -> per-token shape; under
+        ``quant`` int8 pools and a ``<name>_scale`` plane ``lead + (P/S + 1,
+        ps)`` of f16 beside each."""
+        pool = (self.local_pages + 1, self.page_size)
         if not self.quant:
             return {name: torch.zeros(lead + pool + shp, dtype=dtype, device=device)
                     for name, shp in entries.items()}
@@ -195,9 +221,9 @@ class PagedLayout:
                 for key, n in (("full", self.pages_full), ("win", self.pages_win)) if n}
 
     def pool_view(self, pages: torch.Tensor) -> torch.Tensor:
-        """The ``(P, ps, ...)`` pages (or ``(P, ps)`` scales) attention
+        """The ``(P/S, ps, ...)`` pages (or ``(P/S, ps)`` scales) attention
         reads: the sink page cut."""
-        return pages[: self.num_pages]
+        return pages[: self.local_pages]
 
     def _scatter(self, c: dict, entries: dict, widx: torch.Tensor, lead: int) -> None:
         """Store ``entries`` (``lead`` layer axes, then one token per
@@ -226,7 +252,7 @@ class PagedLayout:
             pt = tables["full"]
             phys = pt.gather(1, page.clamp(max=pt.shape[1] - 1)[:, None])[:, 0]
             phys = torch.where(page < pt.shape[1], phys, self.sentinel)
-        self._scatter(c, entries, phys.long() * ps + pos.long() % ps, 0)
+        self._scatter(c, entries, self._local(phys.long()) * ps + pos.long() % ps, 0)
 
     def write_rows(self, c: dict, rows: dict, lanes, lens, tables, window=None) -> None:
         """Scatter prefilled rows ``(L, N, Lp, ...)`` of lanes ``lanes``
@@ -241,16 +267,22 @@ class PagedLayout:
             phys = tables["win"][lanes.long()][:, (a[0] // ps) % self.pages_win]
         else:
             phys = tables["full"][lanes.long()][:, a[0] // ps]
-        widx = torch.where(valid, phys.long() * ps + a % ps, self.sentinel * ps).reshape(-1)
+        widx = torch.where(valid, self._local(phys.long()) * ps + a % ps,
+                           self.local_pages * ps).reshape(-1)
         self._scatter(c, {name: x.flatten(1, 2) for name, x in rows.items()}, widx, 1)
 
 
 def paged_layout_for(cfg, max_len: int, *, page_size: int, num_pages: int,
-                     lookahead: int = 1, quant: bool = False) -> PagedLayout:
+                     lookahead: int = 1, quant: bool = False, shards: int = 1,
+                     shard: int = 0) -> PagedLayout:
     """The layout an arch needs at a given logical capacity: attention
     layers are windowed iff ``local_window <= max_len``; the full table
     serves the others and MLA.  ``lookahead`` is the engine's steps per
-    dispatch (it sizes the window table); ``quant`` stores int8 pages."""
+    dispatch (it sizes the window table); ``quant`` stores int8 pages;
+    ``shards``/``shard`` split the pages axis over a model axis."""
+    if shards < 1 or num_pages % shards or not 0 <= shard < shards:
+        raise ValueError(f"num_pages={num_pages} does not split over the {shards} ranks of "
+                         f"the model axis (rank {shard})")
     from repro_torch.models.model import _block_mixer_mlp, _groups, layer_plan
 
     mixers = {_block_mixer_mlp(kind, cfg)[0] for _, kind, _ in _groups(layer_plan(cfg))}
@@ -260,4 +292,4 @@ def paged_layout_for(cfg, max_len: int, *, page_size: int, num_pages: int,
         page_size=page_size, num_pages=num_pages, max_len=max_len,
         win=min(max_len, cfg.local_window) if windowed else 0,
         has_full="mla" in mixers or ("attn" in mixers and not windowed),
-        lookahead=max(1, lookahead), quant=quant)
+        lookahead=max(1, lookahead), quant=quant, shards=shards, shard=shard)

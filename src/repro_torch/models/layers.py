@@ -12,6 +12,7 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import sharded
 from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_batched
 from repro_torch.sparse_infer.compress import CompressedTensor
 
@@ -24,11 +25,18 @@ def matmul(x: torch.Tensor, w: Weight) -> torch.Tensor:
 
     A 2-D compressed weight takes any ``(..., K)`` activation; a stacked
     ``(E, K·n/m, O)`` one (MoE experts) takes ``(E, B, K)`` and runs every
-    expert in one batched launch, where the reference vmaps the kernel."""
+    expert in one batched launch, where the reference vmaps the kernel.
+
+    One rank's shard of a tensor-parallel weight keeps the contract of
+    replicated activations in and out (the reference's ``shard_map``
+    in/out specs): an output-sharded shard (``oshards``) runs K1 on its
+    columns and all-gathers them; a reduction-sharded one (``rshards``)
+    takes the rank's K-slice of ``x`` through ``sharded.nm_spmm_sharded``."""
     if not isinstance(w, CompressedTensor):
         return x @ w
     nd = w.values.dim()
-    if nd not in (2, 3) or w.group_axis % nd != nd - 2 or (nd == 3 and x.dim() != 3):
+    if (nd not in (2, 3) or w.group_axis % nd != nd - 2 or (nd == 3 and x.dim() != 3)
+            or (nd == 3 and max(w.rshards, w.oshards) > 1)):
         raise ValueError(
             f"unsupported compressed matmul: x {tuple(x.shape)} @ values "
             f"{tuple(w.values.shape)} grouped along axis {w.group_axis}"
@@ -37,8 +45,14 @@ def matmul(x: torch.Tensor, w: Weight) -> torch.Tensor:
         return nm_spmm_batched(x.contiguous(), w.values, w.indices, w.n, w.m,
                                o_true=w.out_features)
     lead = x.shape[:-1]
-    y = nm_spmm(x.reshape(-1, x.shape[-1]).contiguous(), w.values, w.indices,
-                w.n, w.m, o_true=w.out_features)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if w.oshards > 1:
+        y = sharded.all_gather(nm_spmm(x2, w.values, w.indices, w.n, w.m))
+        y = y[:, : w.out_features]
+    elif w.rshards > 1:
+        y = sharded.nm_spmm_sharded(x2, w.values, w.indices, w.n, w.m, o_true=w.out_features)
+    else:
+        y = nm_spmm(x2, w.values, w.indices, w.n, w.m, o_true=w.out_features)
     return y.reshape(lead + (w.out_features,))
 
 

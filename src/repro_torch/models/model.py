@@ -24,6 +24,16 @@ window table, K2w, for sliding-window layers), the MLA latent form (K2m)
 for MLA (``mla.py:202-237``); on an int8 pool (``PagedLayout.quant``) each
 with its scale planes (K2q).
 
+Tensor-parallel serving (the engine's ``mesh``, dense family only): each
+rank holds its shard of the compressed matmul weights (``layers.matmul``
+combines them) and of the vocab-sharded ``tok_embed`` (the lookup is
+masked to the rank's rows and summed, the tied unembedding computes the
+rank's vocab slice of the logits and gathers them), and its page range of
+the pool, on which decode attention runs the stats form of the kernel
+(K3) and combines the ranks' partial softmaxes
+(``kernels.sharded.paged_attn_sharded``).  Activations, logits, tables and
+lengths are replicated, so every rank computes the same tokens.
+
 Ported: the dense family (MHA/GQA attention with RoPE, optional q/k/v/o
 biases and a sliding window), the MoE family with MLA (DeepSeek-V2) and
 the hybrid family of RG-LRU and local-attention blocks (RecurrentGemma);
@@ -40,6 +50,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import sharded
 from repro_torch.kernels.paged_attn import paged_attn
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
@@ -109,6 +120,16 @@ def _put(tree: dict, path: tuple[str, ...], value) -> None:
     for key in path[:-1]:
         tree = tree.setdefault(key, {})
     tree[path[-1]] = value
+
+
+def check_mesh(cfg: ArchConfig, mesh) -> None:
+    """Raise for what tensor-parallel serving does not run yet: a model axis
+    of more than one rank outside the dense family (MLA's absorbed decode,
+    MoE expert stacks and RG-LRU are ROADMAP.md §1 item 1)."""
+    if mesh is not None and mesh.model > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: tensor-parallel serving of the {cfg.family} family is not ported "
+            "yet (ROADMAP.md §1 item 1); serve it with mesh=None")
 
 
 def _block_mixer_mlp(kind: str, cfg: ArchConfig) -> tuple[str, str]:
@@ -304,7 +325,8 @@ def _attn_decode(x, p, cfg: ArchConfig, c: dict, pos, layout, tables):
         win = layout.view_window(cfg.local_window)
         scales = ({f"{n}_scale": layout.pool_view(c[f"{n}_scale"]) for n in ("k", "v")}
                   if layout.quant else {})
-        attn = paged_attn(
+        kernel = sharded.paged_attn_sharded if layout.shards > 1 else paged_attn
+        attn = kernel(
             q[:, 0].reshape(b, cfg.n_kv, g, cfg.hd).contiguous(),
             layout.pool_view(c["k"]), layout.pool_view(c["v"]),
             tables[layout.table_key(cfg.local_window)], pos + 1, scale=cfg.hd ** -0.5,
@@ -332,12 +354,24 @@ def _block_decode(x, p, kind: str, cfg: ArchConfig, c: dict, pos, layout, tables
     return _mlp(x + mix, p, kind, cfg)[0]
 
 
+def _embed(params, cfg: ArchConfig, tokens):
+    """Token embeddings; a rank's vocab shard of ``tok_embed`` (fewer rows
+    than the vocab) looks up its own rows and sums over the ranks."""
+    tok = params["embed"]["tok_embed"]
+    if tok.shape[0] == cfg.vocab:
+        return tok[tokens]
+    return sharded.embed_sharded(tok, tokens)
+
+
 def _unembed(x, params, cfg: ArchConfig):
-    """Logits from the final norm: tied (``tok_embed.T``, dense) or through
+    """Logits from the final norm: tied (``tok_embed.T``, dense; a vocab
+    shard computes its slice of the logits and gathers) or through
     ``unembed/out_embed`` (left dense by the sparsity config)."""
     x = _apply_norm(cfg, params["final"], x)
     if cfg.tie_embeddings:
-        return x @ params["embed"]["tok_embed"].T
+        tok = params["embed"]["tok_embed"]
+        logits = x @ tok.T
+        return logits if tok.shape[0] == cfg.vocab else sharded.all_gather(logits)
     return L.matmul(x, params["unembed"]["out_embed"])
 
 
@@ -350,7 +384,7 @@ def _forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, want_cache: bo
              chunk: int):
     plan = layer_plan(cfg)
     b, s = tokens.shape
-    x = params["embed"]["tok_embed"][tokens]
+    x = _embed(params, cfg, tokens)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     aux = torch.zeros((), device=x.device)
     caches: dict = {}
@@ -498,7 +532,7 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     layout = layout or SlabLayout()
     pos = cache["len"]
     tables = cache.get("tables")
-    x = params["embed"]["tok_embed"][tokens][:, None, :]
+    x = _embed(params, cfg, tokens)[:, None, :]
     for i, kind in enumerate(plan.head):
         x = _block_decode(x, params[f"head_{i}"], kind, cfg, cache[f"head_{i}"], pos,
                           layout, tables)

@@ -30,11 +30,24 @@ One scheduling step (:meth:`step`):
    lane that hits EOS, its token budget or ``max_len`` freezes.  The host
    reads the ``(K, B)`` token block once, then replays the same stop rules.
 
-Chunked prefill, prefix caching, the device-resident scheduler, speculative
-decoding and mesh serving are not ported yet (ROADMAP.md).
+Mesh serving (``mesh=``, one ``launch.mesh.Mesh`` rank's view; the
+reference's ``DecodeEngine(mesh=, kv_shard=)``): every rank runs an engine
+over the same whole tree and keeps only its shard of it
+(``distributed.compressed_pspecs.shard_serving_params``) and its page
+range of the pool (``kv_shard="seq"``); prefill and decode combine the
+shards with collectives (``kernels.sharded``), so the logits are
+replicated bit for bit and every rank's host scheduler takes the same
+decisions.  Only the dense family on the paged pool with a data axis of 1
+is ported; the slab under a model axis, ``data > 1`` and other families
+raise (ROADMAP.md §1 item 1).  A 1×1 mesh runs exactly the single-device
+engine.
+
+Chunked prefill, prefix caching, the device-resident scheduler and
+speculative decoding are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -43,12 +56,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels import dispatch
+from repro_torch.distributed.compressed_pspecs import check_kv_shard, shard_serving_params
+from repro_torch.kernels import dispatch, sharded
 from repro_torch.models.cache import SlabLayout
 from repro_torch.models.model import (
     _at,
     _block_mixer_mlp,
     _groups,
+    check_mesh,
     decode_step,
     forward,
     init_cache,
@@ -109,7 +124,9 @@ class DecodeEngine:
 
     ``params`` (dense tensors and/or ``CompressedTensor`` leaves) must lie on
     ``device``; on ``cuda`` the kernels are built and loaded here, before
-    any timed work.
+    any timed work.  With ``mesh`` the engine runs on the mesh's device and
+    takes the whole tree from anywhere (e.g. memory-mapped on the CPU),
+    keeping only this rank's shard of it.
     """
 
     def __init__(
@@ -117,8 +134,22 @@ class DecodeEngine:
         seed: int = 0, num_pages: Optional[int] = None, page_size: int = 16,
         steps_per_dispatch: int = 1, kv_quant: bool = False,
         prefill_buckets: Optional[Sequence[int]] = None, device="cuda",
+        mesh=None, kv_shard: str = "seq",
     ):
         self.device = resolve_device(device)
+        check_kv_shard(mesh, kv_shard)  # pools shard pages: "feature" only where trivial
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"mesh on {mesh.device}, engine asked for {self.device}")
+            if mesh.data > 1:
+                raise NotImplementedError("a data axis > 1 is not ported yet (ROADMAP.md §1 "
+                                          "item 1)")
+            check_mesh(cfg, mesh)
+            if mesh.model > 1 and num_pages is None:
+                raise NotImplementedError("the slab under a model axis > 1 is not ported yet "
+                                          "(ROADMAP.md §1 item 1); pass num_pages")
+            self.device = mesh.device
+            params = shard_serving_params(params, mesh, cfg=cfg)
         for name, leaf in tree_items(params):
             t = leaf.values if isinstance(leaf, CompressedTensor) else leaf
             if t.device.type != self.device.type:
@@ -132,6 +163,7 @@ class DecodeEngine:
             dispatch.load_kernels()
         self.cfg = cfg
         self.params = params
+        self.mesh = mesh
         self.max_batch = max_batch
         self.max_len = max_len
         self.seed = seed
@@ -140,7 +172,7 @@ class DecodeEngine:
             self.pool: Optional[PagedKVPool] = PagedKVPool(
                 cfg, max_batch=max_batch, max_len=max_len, num_pages=num_pages,
                 page_size=page_size, lookahead=steps_per_dispatch, quant=kv_quant,
-                device=self.device)
+                device=self.device, mesh=mesh)
             self.layout = self.pool.layout
             self.cache = self.pool.cache
         else:
@@ -176,6 +208,8 @@ class DecodeEngine:
         self.prefill_batches = 0
         self.tokens_generated = 0
         self.decode_tokens = 0
+        self.decode_collectives = 0  # collectives over the mesh during decode
+        self.decode_collective_s = 0.0  # host seconds inside them
         self.kv_bytes_sum = 0  # live KV bytes a decode step reads, summed per dispatch
         self.decode_wall_s = 0.0  # decode dispatch wall time, device included
         self.sched_host_s = 0.0  # host scheduling time around dispatches
@@ -364,9 +398,20 @@ class DecodeEngine:
         self.tokens = tok
         return torch.stack(block)
 
+    def _mesh_ctx(self):
+        """The mesh sharded leaves and pools combine over, around prefill
+        and decode (a no-op without a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return sharded.mesh_context(self.mesh)
+
     def step(self) -> list[GenerationResult]:
         """Admit, reserve, run one K-step decode dispatch; return the
         requests that finished."""
+        with self._mesh_ctx():
+            return self._step()
+
+    def _step(self) -> list[GenerationResult]:
         out: list[GenerationResult] = []
         self._admit(out)
         t_sched0 = time.perf_counter()
@@ -380,8 +425,11 @@ class DecodeEngine:
         self.kv_bytes_sum += self.live_kv_bytes()
         k = self.steps_per_dispatch
         t0 = time.perf_counter()
+        c0, s0 = sharded.collectives, sharded.collective_s
         host_block = self._decode(k).cpu().numpy()  # one host sync per K tokens
         t1 = time.perf_counter()
+        self.decode_collectives += sharded.collectives - c0
+        self.decode_collective_s += sharded.collective_s - s0
         self.decode_wall_s += t1 - t0
         self.decode_steps += k
         self.dispatches += 1
@@ -444,10 +492,13 @@ class DecodeEngine:
 
     def kernel_route(self) -> str:
         """Which paged-attention implementation decode runs: ``"slab"`` when
-        none, else ``"cuda"`` (the kernel) or ``"plain"`` (CPU tensors)."""
+        none, else ``"cuda"`` (the kernel) or ``"plain"`` (CPU tensors),
+        prefixed ``"shard_map/"`` (the reference's name of the route) where
+        a pages-sharded pool runs the stats form and the combine."""
         if self.pool is None:
             return "slab"
-        return "cuda" if self.device.type == "cuda" else "plain"
+        inner = "cuda" if self.device.type == "cuda" else "plain"
+        return f"shard_map/{inner}" if self.layout.shards > 1 else inner
 
     def stats(self) -> dict:
         """Throughput counts decode-produced tokens over decode wall time;
@@ -479,6 +530,10 @@ class DecodeEngine:
             "host_overhead_frac": self.sched_host_s / total_wall if total_wall > 0 else 0.0,
             "tokens_per_s": (self.decode_tokens / self.decode_wall_s
                              if self.decode_wall_s > 0 else 0.0),
+            "mesh": self.mesh.describe() if self.mesh is not None else None,
+            "collectives_per_decode_step": self.decode_collectives / steps if steps else 0.0,
+            "collective_ms_per_decode_step": (self.decode_collective_s / steps * 1e3
+                                              if steps else 0.0),
         }
         if self.pool is not None:
             st.update(

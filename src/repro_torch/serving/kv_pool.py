@@ -27,6 +27,13 @@ take the slot of a page still in the window) and ``release`` on finish or
 preemption.  The device tables are updated in place, so unlike the
 reference there is no donated buffer to re-adopt.  Copy-on-write, prefix
 sharing, staged refills and rollback are not ported yet (ROADMAP.md).
+
+A pool on a mesh (``mesh=``, one ``launch.mesh.Mesh`` rank's view) splits
+its pages axis over the model axis (the reference's ``kv_shard="seq"``,
+``PagedLayout.shards``): ``num_pages`` must divide by the ranks, and each
+rank allocates only its ``P/S`` pages plus a sink.  Page ids stay global:
+the host allocator runs identically on every rank, so every rank keeps
+the same tables.
 """
 from __future__ import annotations
 
@@ -40,10 +47,12 @@ from repro_torch.models.model import init_cache
 class PagedKVPool:
     def __init__(self, cfg, *, max_batch: int, max_len: int, num_pages: int,
                  page_size: int = 16, lookahead: int = 1, quant: bool = False,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        shards = mesh.model if mesh is not None else 1
+        self.mesh = mesh
         self.layout: PagedLayout = paged_layout_for(
             cfg, max_len, page_size=page_size, num_pages=num_pages, lookahead=lookahead,
-            quant=quant)
+            quant=quant, shards=shards, shard=mesh.model_index if mesh is not None else 0)
         self.max_batch = max_batch
         self.max_len = max_len
         self.cache = init_cache(cfg, max_batch, max_len, layout=self.layout, device=device)

@@ -27,6 +27,13 @@ class CompressedTensor:
     O_true)`` weight.  ``shape`` is the dense shape at construction; ``pad``
     counts alignment columns appended to the last axis at compress time
     (JAX exports made for a TPU carry them), which the matmul strips.
+
+    On a tensor-parallel rank the leaf may be one shard of the whole
+    (``distributed.compressed_pspecs.shard_serving_params``): ``rshards``
+    (the reference's field) counts the model-axis shards of the reduction
+    axis, whole N:M groups each, and ``oshards`` those of the output axis;
+    ``values``/``indices`` then hold this rank's slice, and ``shape`` and
+    ``pad`` stay the whole leaf's.
     """
 
     values: torch.Tensor
@@ -36,6 +43,8 @@ class CompressedTensor:
     group_axis: int
     shape: tuple
     pad: int = 0
+    rshards: int = 1  # model-axis shards of the group (reduction) axis
+    oshards: int = 1  # model-axis shards of the output axis
 
     def dense(self) -> torch.Tensor:
         d = nm_decompress(self.values, self.indices, self.n, self.m, self.group_axis)
@@ -43,8 +52,8 @@ class CompressedTensor:
 
     @property
     def out_features(self) -> int:
-        """True (unpadded) width of the last axis."""
-        return self.values.shape[-1] - self.pad
+        """True (unpadded) width of the whole leaf's last axis."""
+        return self.values.shape[-1] * self.oshards - self.pad
 
     @property
     def nbytes(self) -> int:
@@ -53,6 +62,22 @@ class CompressedTensor:
             self.values.numel() * self.values.element_size()
             + self.indices.numel() * self.indices.element_size()
         )
+
+    def shard(self, axis: int, index: int, shards: int) -> "CompressedTensor":
+        """Shard ``index`` of ``shards`` equal slices of ``values`` and
+        ``indices`` along ``axis``: the reduction axis (-2, then
+        ``rshards = shards``; the caller keeps whole N:M groups per shard)
+        or the output axis (-1, ``oshards = shards``).  Views, not copies."""
+        nd = self.values.dim()
+        axis %= nd
+        if axis not in (nd - 2, nd - 1) or self.values.shape[axis] % shards:
+            raise ValueError(f"cannot split axis {axis} of {tuple(self.values.shape)} "
+                             f"into {shards} shards")
+        n = self.values.shape[axis] // shards
+        field = "rshards" if axis == nd - 2 else "oshards"
+        return dataclasses.replace(
+            self, values=self.values.narrow(axis, index * n, n),
+            indices=self.indices.narrow(axis, index * n, n), **{field: shards})
 
     def layer(self, i: int) -> "CompressedTensor":
         """Layer ``i`` of a stacked ``(L, K·n/m, O)`` leaf, as views."""

@@ -17,7 +17,11 @@ from repro_torch.kernels.nm_spmm import (
     nm_spmm_batched_plain,
     nm_spmm_plain,
 )
-from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
+from repro_torch.kernels.paged_attn import (
+    paged_attn,
+    paged_attn_plain,
+    paged_attn_stats_plain,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -196,16 +200,15 @@ def _int8(pages):
     return quant(pages, 2)
 
 
-@pytest.mark.parametrize("lanes", [5, 64])
-@pytest.mark.parametrize("form", ["gqa", "window", "mla"])
-def test_paged_attn_int8_kernel_matches_plain(dev, form, lanes):
-    """K2q, each form over int8 pages made by the port's own ``quant`` from
-    random pages: GQA at gpt2-paper's heads (12 KV heads of 64, ps 16), the
-    window form at RecurrentGemma's (16 query heads over one KV head of
-    256, window 64 over a modular table with a stale and an unmapped slot)
-    and the MLA form at DeepSeek's (16 heads, latent 512, RoPE 64, f32
-    queries and output); ragged lanes with an idle one, 5 and 64 lanes.
-    Counted under the form's int8 entry, none under the fp ones."""
+def _form_case(dev, form, lanes, int8=True):
+    """Operands of one ``paged_attn`` form: GQA at gpt2-paper's heads (12
+    KV heads of 64, ps 16), the window form at RecurrentGemma's (16 query
+    heads over one KV head of 256, window 64 over a modular table with a
+    stale and an unmapped slot) and the MLA form at DeepSeek's (16 heads,
+    latent 512, RoPE 64, f32 queries and output); ragged lanes with an idle
+    one; pages of bf16, or int8 made by the port's own ``quant``.  Returns
+    ``(args, kw, entry, dtype, idle)``, ``entry`` the form's launch entry
+    of the normalized flush."""
     gen = torch.Generator().manual_seed(3)
     ps = 16
     if form == "window":
@@ -233,32 +236,72 @@ def test_paged_attn_int8_kernel_matches_plain(dev, form, lanes):
         tables[4, 1] = num_pages  # an unmapped slot inside a live range
     t = torch.from_numpy(tables).to(dev)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+    def pages(shape):
+        x = torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
+        return _int8(x) if int8 else (x, None)
+
     if form == "mla":
         q, q2 = (torch.randn((lanes, 1, 16, w), generator=gen).to(dev) for w in (512, 64))
-        (kp, ks), (k2p, k2s) = (_int8(torch.randn((num_pages, ps, 1, w), generator=gen)
-                                      .to(torch.bfloat16).to(dev)) for w in (512, 64))
+        (kp, ks), (k2p, k2s) = (pages((num_pages, ps, 1, w)) for w in (512, 64))
         args = (q, kp, None, t, lens)
         kw = dict(scale=576 ** -0.5, q2=q2, k2_pages=k2p, v_is_k=True, k_scale=ks, k2_scale=k2s)
-        entry, dtype = "paged_attn_mla_q", torch.float32
+        entry, dtype = "paged_attn_mla", torch.float32
     else:
         hkv, g, d = (1, 16, 256) if win else (12, 1, 64)
         q = torch.randn((lanes, hkv, g, d), generator=gen).to(torch.bfloat16).to(dev)
-        (kp, ks), (vp, vs) = (_int8(torch.randn((num_pages, ps, hkv, d), generator=gen)
-                                    .to(torch.bfloat16).to(dev)) for _ in range(2))
+        (kp, ks), (vp, vs) = (pages((num_pages, ps, hkv, d)) for _ in range(2))
         args = (q, kp, vp, t, lens)
         kw = dict(scale=d ** -0.5, window=win, win_slots=n_slots if win else 0,
                   k_scale=ks, v_scale=vs)
-        entry, dtype = ("paged_attn_win_q" if win else "paged_attn_q"), torch.bfloat16
+        entry, dtype = ("paged_attn_win" if win else "paged_attn"), torch.bfloat16
+    return args, kw, entry + ("_q" if int8 else ""), dtype, 2 if win else 3
+
+
+def _launched(fn):
+    """``fn()`` and the launch entries it counted (synchronized)."""
     before = dict(dispatch.launches)
-    y = paged_attn(*args, **kw)
+    y = fn()
     torch.cuda.synchronize()
     after = dict(dispatch.launches)
-    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {entry: 1}
+    return y, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.parametrize("lanes", [5, 64])
+@pytest.mark.parametrize("form", ["gqa", "window", "mla"])
+def test_paged_attn_int8_kernel_matches_plain(dev, form, lanes):
+    """K2q in each form over int8 pages (``_form_case``), 5 and 64 lanes.
+    Counted under the form's int8 entry, none under the fp ones."""
+    args, kw, entry, dtype, idle = _form_case(dev, form, lanes)
+    y, counted = _launched(lambda: paged_attn(*args, **kw))
+    assert counted == {entry: 1}
     ref = paged_attn_plain(*args, **kw)
     assert y.dtype == dtype
     torch.testing.assert_close(y.float(), ref.float(), **TOL[dtype])
-    idle = 2 if win else 3
     assert float(y[idle].abs().max()) == 0.0  # idle lane: exact zeros
+
+
+@pytest.mark.parametrize("lanes", [5, 64])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("form", ["gqa", "window", "mla"])
+def test_paged_attn_stats_kernel_matches_plain(dev, form, int8, lanes):
+    """K3, the stats flush, in each form over bf16 and int8 pages: ``acc /
+    l``, ``m`` and ``l`` against the plain stats in f32 (sums in another
+    order), the idle lane exactly ``(0, -1e30, 0)``, counted under the
+    form's ``_stats`` entry only."""
+    args, kw, entry, _, idle = _form_case(dev, form, lanes, int8)
+    (acc, m, l), counted = _launched(lambda: paged_attn(*args, emit_stats=True, **kw))
+    stats = entry.replace("_q", "") + "_stats" + ("_q" if int8 else "")
+    assert counted == {stats: 1}
+    racc, rm, rl = paged_attn_stats_plain(*args, **kw)
+    assert acc.dtype == m.dtype == l.dtype == torch.float32
+    tol = TOL[torch.float32]
+    torch.testing.assert_close(acc / l.clamp_min(1e-30)[..., None],
+                               racc / rl.clamp_min(1e-30)[..., None], **tol)
+    torch.testing.assert_close(m, rm, **tol)
+    torch.testing.assert_close(l, rl, **tol)
+    assert float(acc[idle].abs().max()) == 0.0 and float(l[idle].abs().max()) == 0.0
+    assert bool((m[idle] == -1e30).all())
 
 
 def test_kernel_refuses_what_it_does_not_take(dev):

@@ -60,3 +60,11 @@ def test_entry_points_raise_without_a_card(tmp_path):
         serve.main(["--arch", "recurrentgemma-9b", "--batch", "1", "--gen", "2"])
     with pytest.raises(RuntimeError, match="cuda"):
         train.main(["--steps", "1"])
+    from repro_torch.launch.mesh import make_local_mesh, run_ranks
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_local_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_ranks(print, model=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--batch", "1", "--gen", "2", "--paged", "--mesh", "1,2"])

@@ -118,8 +118,8 @@ def test_mla_form_matches_pallas_interpret():
 
 
 def test_unported_options_are_refused():
-    """K2m, K2w and K2q are ported; the stats option (K3) is not and is
-    refused.  Int8 pages take exactly their form's ``(P, ps)`` scale planes
+    """K2m, K2w, K2q and the stats option (K3) are ported: the stats triple
+    normalizes to the plain output.  Int8 pages take exactly their form's ``(P, ps)`` scale planes
     (K and V; K and K2 for MLA), and fp pages none.  A window needs
     ``win_slots`` equal to the table's width, and is not taken by the MLA
     form."""
@@ -129,8 +129,9 @@ def test_unported_options_are_refused():
     sc = torch.ones((2, 4), dtype=torch.float16)
     tl = (torch.zeros((1, 2), dtype=torch.int32), torch.ones(1, dtype=torch.int32))
     args = (q, pages, pages, *tl)
-    with pytest.raises(NotImplementedError):
-        paged_attn(*args, scale=0.5, emit_stats=True)
+    acc, m, l = paged_attn(*args, scale=0.5, emit_stats=True)
+    assert acc.shape == (1, 1, 1, 4) and m.shape == l.shape == (1, 1, 1)
+    assert torch.equal(acc / l.clamp_min(1e-30)[..., None], paged_attn(*args, scale=0.5))
     for bad in (
         dict(k_scale=sc, v_scale=sc),  # scales without int8 pages
         dict(codes=True),  # int8 pages without their scales
@@ -153,7 +154,8 @@ def test_unported_options_are_refused():
     for option in (dict(window=4, win_slots=3), dict(window=4), dict(win_slots=2)):
         with pytest.raises(ValueError):
             paged_attn(*args, scale=0.5, **option)
-    with pytest.raises(ValueError):
-        paged_attn(q, pages, None, *tl, scale=0.5, window=4, win_slots=2, q2=q,
-                   k2_pages=pages, v_is_k=True)
+    for stats in (False, True):  # the window option stays refused on the MLA form
+        with pytest.raises(ValueError):
+            paged_attn(q, pages, None, *tl, scale=0.5, window=4, win_slots=2, q2=q,
+                       k2_pages=pages, v_is_k=True, emit_stats=stats)
     assert paged_attn(*args, scale=0.5, window=4, win_slots=2).shape == (1, 1, 1, 4)
