@@ -68,7 +68,8 @@ Phases, in order; any failure exits non-zero:
    state past the window must agree within 1e-3 in f32 over the first
    period and the tail (the bf16 difference at full depth is printed as a
    reading).  Then a ``torch.profiler`` trace of a few decode steps on the
-   fp and the int8 pool.
+   fp and the int8 pool, with the device ms a step of K2w's walk and
+   combine.
 
 Phase 2 also holds the kernels of phases 6 and 7 against their plain
 versions at their shapes: the batched ``nm_spmm`` at (64 experts, 8 rows,
@@ -80,7 +81,12 @@ slots, lengths 2100/2048/1000/0), with their times; and K2's int8 form
 port's own int8 codes and f16 scales of the same random pages (the MLA
 form, f32 in and out, to an f32 tolerance), timed beside the bound of the
 codes' and scales' bytes and, as a yardstick only, SDPA on the
-pre-dequantized bf16 view.
+pre-dequantized bf16 view.  The window form's four variants (fp and int8
+pages, normalized and stats flush) run the split walk: each lane's 130
+slots over S blocks (``window_splits``; each row carries the S its timed
+launch ran with, as the wrapper recorded it), their partials merged by the
+combine kernel; each must give the same bytes when called twice, and its
+log line names the time of the one-block-per-lane walk it replaced.
 
 8. Serve full-width gpt2-paper tensor-parallel: two ranks
    (``launch.mesh.run_ranks``, ``gloo`` since they share the one card)
@@ -104,6 +110,7 @@ exactly ``(0, -1e30, 0)``, then each form's pool split into 2 and 4 page
 ranges, K3 on each range and the combine, against K2 on the whole pool;
 timed beside its bound and its plain version (no one PyTorch call returns
 unnormalized flash stats: SDPA is timed as a yardstick only).  K3's
+window forms run K2w's split walk and combine, with the stats flush.  K3's
 window and MLA forms run on no serving path yet (tensor-parallel DeepSeek
 and RecurrentGemma are later work): their rows show the 0 launches phase
 8's ranks count of them.
@@ -123,6 +130,7 @@ import dataclasses
 import json
 import os
 import platform
+import re
 import subprocess
 import sys
 import tempfile
@@ -140,6 +148,11 @@ BF16_RTOL, ATOL = 2.0 ** -7, 1e-5
 # f32 results of the same products summed in another order (K2q's MLA form:
 # f32 in, f32 math, f32 out)
 F32_RTOL = 1e-4
+# The window form's times at phase 2's shapes with the one-block-per-lane
+# walk the split walk replaced, for the log only (PERF.md §6, PR 16: H100
+# 80GB HBM3, 700 W)
+WINDOW_EARLIER_MS = {"paged_attn_win": 1.7858, "paged_attn_win_q": 2.3763,
+                     "paged_attn_win_stats": 2.0399, "paged_attn_win_stats_q": 2.3269}
 # A greedy slab token may differ from its paged twin only at a near-tie:
 # bf16 logits (|logit| ~ 1) carry about 2^-8 of rounding per operation, and
 # 12 layers of it stay well inside 0.1.
@@ -547,11 +560,37 @@ def check_paged_attn(torch, dev, form: str, int8: bool = False) -> dict:
                library_ms=time_ms(torch, c.sdpa), at=c.at)
     rec["bound_ms"], rec["bound_by"] = bound_ms(c.in_bytes + c.out * c.q.element_size(),
                                                 c.flops, c.peak)
-    log(f"  time {what}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-        f"{c.sdpa_label} {rec['library_ms']:.4f} ms"
+    rec.update(window_walk(torch, c.name, y, lambda: paged_attn(*args, **c.kw)))
+    log(f"  time {what}: kernel {rec['ms']:.4f} ms{split_note(c.name, rec)}, plain "
+        f"{rec['plain_ms']:.4f} ms, {c.sdpa_label} {rec['library_ms']:.4f} ms"
         f"{' (a yardstick only: not the same function)' if int8 else ''}, bound "
         f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
     return rec
+
+
+def window_walk(torch, name: str, y, call) -> dict:
+    """For the window form's entry ``name``: the blocks a lane of its split
+    walk (``splits``), as the wrapper recorded it for a second call on the
+    timed inputs, after checking that this call gives the same bytes as
+    the first (``y``, a tensor or the stats triple).  Other forms:
+    nothing."""
+    from repro_torch.kernels import dispatch
+
+    if name not in WINDOW_EARLIER_MS:
+        return {}
+    dispatch.last_splits.pop(name, None)
+    again = call()
+    torch.cuda.synchronize()
+    pairs = zip(y, again) if isinstance(y, tuple) else [(y, again)]
+    if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8)) for a, b in pairs):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    log(f"  {name}: {dispatch.last_splits[name]} blocks a lane, two calls byte-identical")
+    return {"splits": dispatch.last_splits[name]}
+
+
+def split_note(name: str, rec: dict) -> str:
+    return (f" (S = {rec['splits']}; PR 16's one-block walk took "
+            f"{WINDOW_EARLIER_MS[name]} ms)" if "splits" in rec else "")
 
 
 def _split(c: AttnCase, shard: int, shards: int) -> tuple:
@@ -614,9 +653,12 @@ def check_paged_attn_stats(torch, dev, form: str, int8: bool = False) -> dict:
                library_ms=None, sdpa_yardstick_ms=time_ms(torch, c.sdpa), at=c.at)
     rec["bound_ms"], rec["bound_by"] = bound_ms(c.in_bytes + c.out * 4 + c.heads * 8,
                                                 c.flops, c.peak)
-    log(f"  time {name}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-        f"{c.sdpa_label} {rec['sdpa_yardstick_ms']:.4f} ms (a yardstick only: not the same "
-        f"function), bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    rec.update(window_walk(torch, name, (acc, m, l),
+                           lambda: paged_attn(*args, emit_stats=True, **c.kw)))
+    log(f"  time {name}: kernel {rec['ms']:.4f} ms{split_note(name, rec)}, plain "
+        f"{rec['plain_ms']:.4f} ms, {c.sdpa_label} {rec['sdpa_yardstick_ms']:.4f} ms (a "
+        f"yardstick only: not the same function), bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']})")
     return rec
 
 
@@ -1080,8 +1122,9 @@ def profile_decode(torch, cfg, comp, dev, n_dispatch: int = 2, max_len=97, num_p
     """A ``torch.profiler`` trace of ``n_dispatch`` decode dispatches (K = 4
     steps each) with 4 busy lanes on a pool (``kv_quant``: of int8 pages)
     that does not preempt: wall and device-busy ms per decode step, the
-    idle share, kernels per step and the eight kernels with the most device
-    time."""
+    idle share, kernels per step, the device ms a step of each of
+    ``paged_attn``'s CUDA kernels and the eight kernels with the most
+    device time."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1105,11 +1148,19 @@ def profile_decode(torch, cfg, comp, dev, n_dispatch: int = 2, max_len=97, num_p
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    # paged_attn's CUDA kernels by name (the window form's walk and combine
+    # are paged_attn_win_kernel and paged_attn_win_combine)
+    attn = {}
+    for e in kernels:
+        found = re.search(r"(paged_attn\w*)<", e.key)
+        if found:
+            attn[found[1]] = attn.get(found[1], 0.0) + e.self_device_time_total / 1e3 / n
     return {
         "ms_per_decode_step": wall_ms / n,
         "device_busy_ms_per_step": busy_ms / n if busy_ms > 0 else "not measured",
         "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured",
         "kernels_per_step": sum(e.count for e in kernels) / n,
+        "paged_attn_device_ms_per_step": attn if busy_ms > 0 else "not measured",
         "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / 1e3 / n for e in top},
     }
 
@@ -1512,8 +1563,7 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{source}.cu", "replaces": replaces,
             "launches": launches[name], **{k: rec[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at")},
-            **({"sdpa_yardstick_ms": rec["sdpa_yardstick_ms"]} if "sdpa_yardstick_ms" in rec
-               else {}),
+            **{k: rec[k] for k in ("sdpa_yardstick_ms", "splits") if k in rec},
         })
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)

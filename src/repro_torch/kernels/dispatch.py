@@ -39,6 +39,8 @@ NVCC_FLAGS = (
 # launches of each kernel since the last reset_launches(); the plain
 # versions never count
 launches = {name: 0 for name in KERNELS}
+# the blocks a lane (S) of each window entry's last launch (its split walk)
+last_splits: dict[str, int] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, ctypes._CFuncPtr] = {}

@@ -37,7 +37,13 @@ for K3 and ``_q`` for int8 pages.
 On the card :func:`paged_attn` launches ``csrc/paged_attn.cu`` (whose
 header says what bounds it and how the design answers that); on the CPU it
 runs :func:`paged_attn_stats_plain`, the gathered math of the reference's
-``_gathered_stats``, and :func:`paged_attn_plain` normalizes that.
+``_gathered_stats``, and :func:`paged_attn_plain` normalizes that.  The
+window form splits each lane's table slots over ``S`` blocks
+(:func:`window_splits`, from the shapes and the card's SM count alone: no
+host sync), each block streaming its pages through a double-buffered
+pipeline into its own f32 ``(acc, m, l)``, and a second kernel of the same
+C entry merges the ``S`` partials in a fixed order and flushes either way;
+one call still counts one launch.
 
 Tables are ``(B, n_slots)`` int32 with sentinel ``P`` for unmapped slots;
 lengths ``(B,)`` int32 live tokens per lane.
@@ -45,6 +51,7 @@ lengths ``(B,)`` int32 live tokens per lane.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -55,8 +62,14 @@ _NEG = -1e30  # finite -inf stand-in: keeps dead lanes exp()-safe
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_DTYPES = {**_DTYPES, torch.int8: 2}
 _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # scale, types, stream
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + _TAIL
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + _TAIL
+_ARGTYPES_WIN = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + _TAIL
 _ARGTYPES_MLA = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + _TAIL
+# the window kernel: blocks of 32 * ceil(G / 2) threads, 8 columns a lane
+# (csrc/paged_attn.cu)
+WINDOW_MAX_G, WINDOW_MAX_D, WINDOW_VEC = 32, 256, 8
+# the fewest table slots a block of the split window walk takes
+WINDOW_MIN_SLOTS = 4
 Stats = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
@@ -146,10 +159,18 @@ def _launch(q, k_pages, v_pages, tables, lengths, *, scale, window, win_slots, q
         raise ValueError("paged_attn kernel needs contiguous operands")
     b, hkv, g, d = q.shape
     n_pages, ps = k_pages.shape[:2]
+    n_slots = tables.shape[1]
     d2 = q2.shape[-1] if mla else 0
     dv = d if mla else v_pages.shape[-1]
-    smem = dispatch.kernel_fn("paged_attn", "paged_attn_smem_bytes",
-                              [ctypes.c_int] * 6)(g, d, d2, dv, ps, int(mla))
+    if window:
+        splits = window_splits(b, hkv, n_slots, sm_count(q.device))
+        _check_window_shapes(g, d, dv, ps, bool(scales))
+        smem = dispatch.kernel_fn("paged_attn", "paged_attn_win_smem_bytes",
+                                  [ctypes.c_int] * 6)(d, dv, ps, n_slots, splits,
+                                                      _PAGE_DTYPES[k_pages.dtype])
+    else:
+        smem = dispatch.kernel_fn("paged_attn", "paged_attn_smem_bytes",
+                                  [ctypes.c_int] * 6)(g, d, d2, dv, ps, int(mla))
     limit = dispatch.kernel_fn("paged_attn", "paged_attn_smem_max", [])()
     if smem > limit:
         raise ValueError(f"G={g}, D={d}, D2={d2}, Dv={dv}, ps={ps} need {smem} B of "
@@ -167,15 +188,55 @@ def _launch(q, k_pages, v_pages, tables, lengths, *, scale, window, win_slots, q
         fn = dispatch.kernel_fn("paged_attn", "paged_attn_mla_launch", _ARGTYPES_MLA)
         rc = fn(q.data_ptr(), q2.data_ptr(), k_pages.data_ptr(), k2_pages.data_ptr(),
                 _ptr(k_scale), _ptr(k2_scale), tables.data_ptr(), lengths.data_ptr(),
-                *outs, b, hkv, g, d, d2, n_pages, ps, tables.shape[1], float(scale), *types)
+                *outs, b, hkv, g, d, d2, n_pages, ps, n_slots, float(scale), *types)
+    elif window:
+        # the splits' partials: acc (S, B, Hkv, G, Dv), then m and l (S, B, Hkv, G)
+        work = torch.empty(splits * b * hkv * g * (dv + 2), **f32) if splits > 1 else None
+        fn = dispatch.kernel_fn("paged_attn", "paged_attn_win_launch", _ARGTYPES_WIN)
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), _ptr(k_scale),
+                _ptr(v_scale), tables.data_ptr(), lengths.data_ptr(), *outs, _ptr(work),
+                b, hkv, g, d, dv, n_pages, ps, n_slots, int(window), splits, float(scale),
+                *types)
     else:
         fn = dispatch.kernel_fn("paged_attn", "paged_attn_launch", _ARGTYPES)
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), _ptr(k_scale),
                 _ptr(v_scale), tables.data_ptr(), lengths.data_ptr(), *outs,
-                b, hkv, g, d, dv, n_pages, ps, tables.shape[1], int(window),
-                int(win_slots), float(scale), *types)
-    dispatch.check_launch(entry(mla=mla, window=window, stats=emit_stats, quant=bool(scales)), rc)
+                b, hkv, g, d, dv, n_pages, ps, n_slots, float(scale), *types)
+    name = entry(mla=mla, window=window, stats=emit_stats, quant=bool(scales))
+    dispatch.check_launch(name, rc)
+    if window:
+        dispatch.last_splits[name] = splits
     return result
+
+
+def window_splits(b: int, hkv: int, n_slots: int, sms: int) -> int:
+    """Blocks ``S`` over which the window kernel splits each (lane, KV
+    head)'s ``n_slots`` table slots, from the shapes alone (never the
+    lengths, which live on the card): ``ceil(n_slots / c)``, ``c`` slots
+    being at least :data:`WINDOW_MIN_SLOTS` and enough that the ``b * hkv``
+    walks make about one block per SM (one wave: more blocks than SMs
+    measured slower at RecurrentGemma's decode), so ``S = 1`` once ``b *
+    hkv`` fills the ``sms`` SMs.  The kernel's blocks of ``ceil(n_slots /
+    S)`` slots then cover the table in exactly ``S`` blocks, none empty."""
+    return -(-n_slots // max(WINDOW_MIN_SLOTS, -(-n_slots * b * hkv // sms)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (read once per device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check_window_shapes(g, d, dv, ps, quant) -> None:
+    """What the window kernel takes: G <= 32 query heads a KV head, D and
+    Dv multiples of 8 (a lane reads 8 columns at once) up to 256, and for
+    int8 pages an even ps (it stages a page's f16 scales in 4-byte words
+    or wider)."""
+    if g > WINDOW_MAX_G or max(d, dv) > WINDOW_MAX_D or d % WINDOW_VEC or dv % WINDOW_VEC:
+        raise ValueError(f"the window kernel takes G <= {WINDOW_MAX_G} and D, Dv multiples "
+                         f"of {WINDOW_VEC} up to {WINDOW_MAX_D}, got G={g}, D={d}, Dv={dv}")
+    if quant and ps % 2:
+        raise ValueError(f"the window kernel takes int8 pages of an even ps, got ps={ps}")
 
 
 def entry(*, mla: bool, window: int, stats: bool, quant: bool) -> str:

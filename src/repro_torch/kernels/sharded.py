@@ -47,7 +47,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels.nm_spmm import nm_spmm
-from repro_torch.kernels.paged_attn import paged_attn
+from repro_torch.kernels.paged_attn import Stats, paged_attn
 
 collectives = 0  # collectives issued since the last reset_collectives()
 collective_s = 0.0  # host seconds inside them
@@ -120,9 +120,14 @@ def shard_local_tables(tables: torch.Tensor, shard: int,
 
 
 def _merge(acc, m, l, m_g, total):
+    """The rescaled sums ``(acc, l)`` of the flash combine at max ``m_g``."""
     corr = torch.exp(m - m_g)
     both = total(torch.cat([acc * corr[..., None], (l * corr)[..., None]], -1))
-    return both[..., :-1] / both[..., -1:].clamp_min(1e-30)
+    return both[..., :-1], both[..., -1]
+
+
+def _normalize(acc, l):
+    return acc / l.clamp_min(1e-30)[..., None]
 
 
 def combine_stats(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
@@ -134,15 +139,25 @@ def combine_stats(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
     clamp, as the single-shard kernel does."""
     mesh = mesh or active_mesh()
     m_g = all_reduce(m, dist.ReduceOp.MAX, mesh)
-    return _merge(acc.float(), m.float(), l.float(), m_g,
-                  lambda x: all_reduce(x, dist.ReduceOp.SUM, mesh))
+    return _normalize(*_merge(acc.float(), m.float(), l.float(), m_g,
+                              lambda x: all_reduce(x, dist.ReduceOp.SUM, mesh)))
+
+
+def merge_stats_local(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> Stats:
+    """The merged f32 triple ``(acc, m, l)`` of a stacked shard axis 0 of
+    one process's tensors, before the divide: what the window kernel's
+    combine flushes in the stats form."""
+    acc, m, l = acc.float(), m.float(), l.float()
+    m_g = m.amax(0)
+    acc, l = _merge(acc, m, l, m_g, lambda x: x.sum(0))
+    return acc, m_g, l
 
 
 def combine_stats_local(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
     """:func:`combine_stats` over a stacked shard axis 0 of one process's
     tensors (the one-card split check)."""
-    acc, m, l = acc.float(), m.float(), l.float()
-    return _merge(acc, m, l, m.amax(0), lambda x: x.sum(0))
+    acc, _, l = merge_stats_local(acc, m, l)
+    return _normalize(acc, l)
 
 
 def paged_attn_sharded(

@@ -21,6 +21,8 @@ from repro_torch.kernels.paged_attn import (
     paged_attn,
     paged_attn_plain,
     paged_attn_stats_plain,
+    sm_count,
+    window_splits,
 )
 
 pytestmark = pytest.mark.gpu
@@ -153,18 +155,24 @@ def test_paged_attn_mla_kernel_matches_plain(dev, page_dtype, g, d, d2, ps, extr
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,d,ps,win,extra_lanes", [
-    (4, 16, 4, 10, 0), (16, 256, 16, 64, 0),
-    (16, 256, 16, 64, 59),  # 64 lanes: 16 heads a block, 66 KB of shared memory
+@pytest.mark.parametrize("g,d,ps,win,extra_lanes,split", [
+    (4, 16, 4, 10, 0, True),  # 5 slots over 2 blocks a lane
+    (16, 256, 16, 64, 0, True), (16, 256, 16, 64, 59, True),  # 6 slots over 2 blocks
+    (4, 16, 4, 40, 0, True),  # 12 slots over 3 blocks a lane
+    (16, 256, 16, 256, 0, True),  # 18 slots over 5 blocks a lane
+    (16, 256, 16, 256, 27, True),  # 32 ragged lanes, 3-4 blocks each
+    (16, 256, 16, 256, 135, False),  # 140 lanes fill the card: one block each
 ])
-def test_paged_attn_window_kernel_matches_plain(dev, dtype, g, d, ps, win, extra_lanes):
+def test_paged_attn_window_kernel_matches_plain(dev, dtype, g, d, ps, win, extra_lanes, split):
     """K2w over a modular table: lanes past the window (a partial first
     page), short of it with a page mapped ahead (a slot reading as a page
     before 0), a stale id in an expired slot, an unmapped slot, an idle
-    lane; with 64 lanes a block keeps all 16 heads, past 48 KB of shared
-    memory."""
+    lane; tables split over several blocks a lane (``split``: S > 1,
+    partials merged by the combine) or walked by one (S = 1)."""
     gen = torch.Generator().manual_seed(2)
     win_slots = -(-(win + 4 - 1) // ps) + 1
+    n_lanes = 5 + extra_lanes
+    assert (window_splits(n_lanes, 1, win_slots, sm_count(dev)) > 1) == split
     lengths = [win + 3 * ps + 5, win - 3, 0, 2 * ps + 1, win + 7 * ps] + torch.randint(
         0, 3 * win, (extra_lanes,), generator=gen).tolist()
     num_pages = win_slots * len(lengths) + 1
@@ -203,16 +211,18 @@ def _int8(pages):
 def _form_case(dev, form, lanes, int8=True):
     """Operands of one ``paged_attn`` form: GQA at gpt2-paper's heads (12
     KV heads of 64, ps 16), the window form at RecurrentGemma's (16 query
-    heads over one KV head of 256, window 64 over a modular table with a
-    stale and an unmapped slot) and the MLA form at DeepSeek's (16 heads,
-    latent 512, RoPE 64, f32 queries and output); ragged lanes with an idle
-    one; pages of bf16, or int8 made by the port's own ``quant``.  Returns
-    ``(args, kw, entry, dtype, idle)``, ``entry`` the form's launch entry
-    of the normalized flush."""
+    heads over one KV head of 256, window 64 over a modular table of 6
+    slots with a stale and an unmapped slot; ``window_wide``: window 256
+    over 18 slots; the kernel splits either over several blocks a lane at
+    these lane counts) and the MLA form at DeepSeek's (16 heads, latent 512, RoPE
+    64, f32 queries and output); ragged lanes with an idle one; pages of
+    bf16, or int8 made by the port's own ``quant``.  Returns ``(args, kw,
+    entry, dtype, idle)``, ``entry`` the form's launch entry of the
+    normalized flush."""
     gen = torch.Generator().manual_seed(3)
     ps = 16
-    if form == "window":
-        g, d, win = 16, 256, 64
+    if form.startswith("window"):
+        g, d, win = 16, 256, 256 if form == "window_wide" else 64
         n_slots = -(-(win + 4 - 1) // ps) + 1
         lengths = [win + 3 * ps + 5, win - 3, 0, 2 * ps + 1, win + 7 * ps]
     else:
@@ -268,7 +278,7 @@ def _launched(fn):
 
 
 @pytest.mark.parametrize("lanes", [5, 64])
-@pytest.mark.parametrize("form", ["gqa", "window", "mla"])
+@pytest.mark.parametrize("form", ["gqa", "window", "window_wide", "mla"])
 def test_paged_attn_int8_kernel_matches_plain(dev, form, lanes):
     """K2q in each form over int8 pages (``_form_case``), 5 and 64 lanes.
     Counted under the form's int8 entry, none under the fp ones."""
@@ -283,7 +293,7 @@ def test_paged_attn_int8_kernel_matches_plain(dev, form, lanes):
 
 @pytest.mark.parametrize("lanes", [5, 64])
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("form", ["gqa", "window", "mla"])
+@pytest.mark.parametrize("form", ["gqa", "window", "window_wide", "mla"])
 def test_paged_attn_stats_kernel_matches_plain(dev, form, int8, lanes):
     """K3, the stats flush, in each form over bf16 and int8 pages: ``acc /
     l``, ``m`` and ``l`` against the plain stats in f32 (sums in another
@@ -302,6 +312,21 @@ def test_paged_attn_stats_kernel_matches_plain(dev, form, int8, lanes):
     torch.testing.assert_close(l, rl, **tol)
     assert float(acc[idle].abs().max()) == 0.0 and float(l[idle].abs().max()) == 0.0
     assert bool((m[idle] == -1e30).all())
+
+
+@pytest.mark.parametrize("lanes", [5, 140])
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_attn_window_kernel_is_deterministic(dev, int8, stats, lanes):
+    """The same window call twice gives the same bytes, split over several
+    blocks a lane and merged (5 lanes) or walked by one block (140 lanes),
+    in all four variants: the combine sums the partials in a fixed order,
+    with no atomics."""
+    args, kw, _, _, _ = _form_case(dev, "window_wide", lanes, int8)
+    first, second = (paged_attn(*args, emit_stats=stats, **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second) if stats else [(first, second)]:
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
 def test_kernel_refuses_what_it_does_not_take(dev):
