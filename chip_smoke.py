@@ -16,7 +16,13 @@ Phases, in order; any failure exits non-zero:
    timings of the kernel, the plain version and, where one exists, a
    one-call PyTorch yardstick, beside the least time the card could take
    (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s, counted
-   from the shapes).
+   from the shapes).  ``nm_spmm`` (K1) runs its decode kernel for B <= 8
+   rows (a ring of kept weight rows in flight per lane) and its first
+   version's body above, both summing every output in one fixed order:
+   every K1 call runs twice and must give the same bytes, and a prefill's
+   first rows the bytes of a decode call of those rows alone.  K1 is also
+   timed at RecurrentGemma-9B's MLP widths (4096->12288, 12288->4096, B =
+   4), with its rate in GB/s.
 3. Serve full-width gpt2-paper (random weights from a seed, STEP 2:4
    export, compression) through ``DecodeEngine``: on the slab, then on an
    undersized paged pool that preempts.  Launch counts are zeroed before
@@ -69,14 +75,15 @@ Phases, in order; any failure exits non-zero:
    period and the tail (the bf16 difference at full depth is printed as a
    reading).  Then a ``torch.profiler`` trace of a few decode steps on the
    fp and the int8 pool, with the device ms a step of K2w's walk and
-   combine.
+   combine and of K1's decode kernel.
 
 Phase 2 also holds the kernels of phases 6 and 7 against their plain
 versions at their shapes: the batched ``nm_spmm`` at (64 experts, 8 rows,
-2048->1408 and 1408->2048), K2's MLA form (B = 4, 16 heads, latent 512,
-RoPE 64, ps = 16, ragged lengths up to 96) and its window form (B = 4, 16
-query heads over one KV head of 256, ps = 16, window 2048 over 130 modular
-slots, lengths 2100/2048/1000/0), with their times; and K2's int8 form
+2048->1408 and 1408->2048; each call twice, the same bytes), K2's MLA
+form (B = 4, 16 heads, latent 512, RoPE 64, ps = 16, ragged lengths up to
+96) and its window form (B = 4, 16 query heads over one KV head of 256,
+ps = 16, window 2048 over 130 modular slots, lengths 2100/2048/1000/0),
+with their times; and K2's int8 form
 (K2q) in each of its GQA, MLA and window forms at those shapes, over the
 port's own int8 codes and f16 scales of the same random pages (the MLA
 form, f32 in and out, to an f32 tolerance), timed beside the bound of the
@@ -299,10 +306,20 @@ def check_close(name: str, y, ref, rtol=BF16_RTOL) -> float:
     return err.max().item()
 
 
+def same_bytes(torch, name: str, y, again) -> None:
+    """Two calls of one kernel on the same inputs must give the same bytes
+    (its sums run in a fixed order: no atomics)."""
+    if not torch.equal(y.view(torch.uint8), again.view(torch.uint8)):
+        raise AssertionError(f"{name}: two calls gave different bytes")
+
+
 def check_nm_spmm(torch, comp: dict, dev) -> dict:
     """K1 at the six matmuls of one gpt2-paper layer (q/k/v/o 768->768,
     fc 768->3072, proj 3072->768), in decode (B = 1, 4, 8) and prefill
-    (B = 4 x 64 rows).  The record is one layer's six decode calls at B=4."""
+    (B = 4 x 64 rows), each call twice (the same bytes; the prefill's rows
+    0-3 also the bytes of a decode call of those rows alone); then at
+    RecurrentGemma-9B's MLP widths (4096->12288, 12288->4096, B = 4) with
+    its rate.  The record is one layer's six decode calls at B=4."""
     from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_plain
 
     layer = comp["body"]["sb_0"]
@@ -315,8 +332,13 @@ def check_nm_spmm(torch, comp: dict, dev) -> dict:
             k_dim = w.values.shape[0] * w.m // w.n
             x = torch.randn((b, k_dim), generator=gen, device=dev).to(torch.bfloat16)
             args = (x, w.values, w.indices, w.n, w.m, w.out_features)
-            err = check_close(f"nm_spmm {name} B={b} ({k_dim}->{w.out_features})",
-                              nm_spmm(*args), nm_spmm_plain(*args))
+            label = f"nm_spmm {name} B={b} ({k_dim}->{w.out_features})"
+            y = nm_spmm(*args)
+            same_bytes(torch, label, y, nm_spmm(*args))
+            if b == 256:  # the prefill body gives rows 0-3 the decode kernel's bytes
+                same_bytes(torch, f"{label} rows 0-3 alone", y[:4],
+                           nm_spmm(x[:4].contiguous(), *args[1:]))
+            err = check_close(label, y, nm_spmm_plain(*args))
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             # time every decode call at B=4, and prefill once per distinct shape
             if not (b == 4 or (b == 256 and name in ("wq", "w_fc", "w_proj"))):
@@ -336,6 +358,20 @@ def check_nm_spmm(torch, comp: dict, dev) -> dict:
                     rec[key] += t[key]
                 rec["bound_by"] = by
     rec["at"] = "sum of one layer's six decode calls, x (4, K) bf16, 2:4"
+    for k_dim, o in ((4096, 12288), (12288, 4096)):  # RecurrentGemma-9B's MLP, decode
+        vals, idx = random_stack(torch, 1, k_dim, o, gen, dev)
+        x = torch.randn((4, k_dim), generator=gen, device=dev).to(torch.bfloat16)
+        args = (x, vals[0], idx[0], 2, 4)
+        label = f"nm_spmm B=4 ({k_dim}->{o})"
+        y = nm_spmm(*args)
+        same_bytes(torch, label, y, nm_spmm(*args))
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 check_close(label, y, nm_spmm_plain(*args)))
+        ms = time_ms(torch, lambda: nm_spmm(*args))
+        nbytes = x.numel() * 2 + vals.numel() * 3 + 4 * o * 2
+        log(f"  time nm_spmm B=4 {k_dim}->{o} (RecurrentGemma-9B MLP): kernel {ms:.4f} ms "
+            f"({nbytes / ms / 1e6:.0f} GB/s), bound "
+            f"{bound_ms(nbytes, 2.0 * 4 * vals.numel())[0]:.4f} ms")
     return rec
 
 
@@ -675,7 +711,8 @@ def check_nm_spmm_batched(torch, dev) -> dict:
     """The batched K1 at DeepSeek-V2-Lite's expert stacks: 64 experts of
     2048->1408 (gate, up) and 1408->2048 (down), 2:4, bf16, with C = 8 rows
     per expert (decode) and C = 32 (a 256-token prefill).  The record is one
-    MoE layer's three decode launches."""
+    MoE layer's three decode launches.  Each call runs twice: the same
+    bytes; C = 32's rows 0-7 also give a C = 8 call's bytes."""
     from repro_torch.kernels.nm_spmm import nm_spmm_batched, nm_spmm_batched_plain
 
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -688,8 +725,13 @@ def check_nm_spmm_batched(torch, dev) -> dict:
         for c in (8, 32):
             x = torch.randn((64, c, k), generator=gen, device=dev).to(torch.bfloat16)
             args = (x, vals, idx, 2, 4)
-            err = check_close(f"nm_spmm_batched E=64 C={c} ({k}->{o})",
-                              nm_spmm_batched(*args), nm_spmm_batched_plain(*args))
+            label = f"nm_spmm_batched E=64 C={c} ({k}->{o})"
+            y = nm_spmm_batched(*args)
+            same_bytes(torch, label, y, nm_spmm_batched(*args))
+            if c == 32:  # the prefill body gives rows 0-7 the decode kernel's bytes
+                same_bytes(torch, f"{label} rows 0-7 alone", y[:, :8],
+                           nm_spmm_batched(x[:, :8].contiguous(), *args[1:]))
+            err = check_close(label, y, nm_spmm_batched_plain(*args))
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             t = dict(ms=time_ms(torch, lambda: nm_spmm_batched(*args)),
                      plain_ms=time_ms(torch, lambda: nm_spmm_batched_plain(*args), reps=10),
@@ -1123,8 +1165,8 @@ def profile_decode(torch, cfg, comp, dev, n_dispatch: int = 2, max_len=97, num_p
     steps each) with 4 busy lanes on a pool (``kv_quant``: of int8 pages)
     that does not preempt: wall and device-busy ms per decode step, the
     idle share, kernels per step, the device ms a step of each of
-    ``paged_attn``'s CUDA kernels and the eight kernels with the most
-    device time."""
+    ``paged_attn``'s and ``nm_spmm``'s CUDA kernels and the eight kernels
+    with the most device time."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1148,19 +1190,22 @@ def profile_decode(torch, cfg, comp, dev, n_dispatch: int = 2, max_len=97, num_p
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    # paged_attn's CUDA kernels by name (the window form's walk and combine
-    # are paged_attn_win_kernel and paged_attn_win_combine)
-    attn = {}
+    # paged_attn's and nm_spmm's CUDA kernels by name (the window form's walk
+    # and combine are paged_attn_win_kernel and paged_attn_win_combine; K1's
+    # are nm_spmm_decode and, in prefill, nm_spmm_prefill)
+    by_name = {"paged_attn": {}, "nm_spmm": {}}
     for e in kernels:
-        found = re.search(r"(paged_attn\w*)<", e.key)
+        found = re.search(r"((paged_attn|nm_spmm)\w*)<", e.key)
         if found:
-            attn[found[1]] = attn.get(found[1], 0.0) + e.self_device_time_total / 1e3 / n
+            into = by_name[found[2]]
+            into[found[1]] = into.get(found[1], 0.0) + e.self_device_time_total / 1e3 / n
     return {
         "ms_per_decode_step": wall_ms / n,
         "device_busy_ms_per_step": busy_ms / n if busy_ms > 0 else "not measured",
         "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured",
         "kernels_per_step": sum(e.count for e in kernels) / n,
-        "paged_attn_device_ms_per_step": attn if busy_ms > 0 else "not measured",
+        **{f"{name}_device_ms_per_step": ms if busy_ms > 0 else "not measured"
+           for name, ms in by_name.items()},
         "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / 1e3 / n for e in top},
     }
 

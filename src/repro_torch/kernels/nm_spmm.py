@@ -2,8 +2,13 @@
 
 Replaces the TPU kernel ``src/repro/kernels/nm_spmm.py:_nm_spmm_kernel``
 (launched by ``nm_spmm_pallas``).  On the card :func:`nm_spmm` launches the
-hand-written CUDA kernel in ``csrc/nm_spmm.cu`` (whose header says what
-bounds it and how the design answers that); on the CPU it runs
+hand-written CUDA kernels in ``csrc/nm_spmm.cu``: for ``B <= 8`` rows (and
+x that fits a block's shared memory) a decode kernel that keeps a ring of
+16 or 32 kept weight rows in flight per lane, else the first version's
+body.  Both sum every
+output in one fixed order, so a row of x gives the same bytes whatever
+other rows share its call (the source's header says what bounds each
+kernel and how the design answers it).  On the CPU it runs
 :func:`nm_spmm_plain`, the two regimes of the reference's ``nm_spmm_xla``.
 
 Layout: ``values``/``indices`` are ``(K·n/m, O)`` row-major; compressed row
@@ -28,9 +33,13 @@ from repro_torch.kernels import dispatch
 # at or below this many rows the plain version gathers activations instead
 # of decompressing (the reference's GATHER_ROWS)
 GATHER_ROWS = 8
+# the decode kernel (csrc/nm_spmm.cu) takes B <= DECODE_ROWS rows and
+# stages all of x in a block (at most X_SMEM_BYTES: two blocks an SM); its
+# lanes take 4 columns each where that still makes MIN_WIDE_BLOCKS blocks
+DECODE_ROWS, X_SMEM_BYTES, MIN_WIDE_BLOCKS = 8, 96 * 1024, 80
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_ARGTYPES_BATCHED = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES_BATCHED = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def nm_spmm(
@@ -70,18 +79,41 @@ def _check_kernel(x, values, indices, m) -> None:
         raise ValueError("nm_spmm kernel needs contiguous operands")
 
 
+def decode_cols(b: int, k: int, o: int, o_true: int, e: int, itemsize: int,
+                aligned: bool) -> int:
+    """Columns a lane of the decode kernel takes, from the shapes alone: 4
+    where ``o`` divides by 4, the operands lie on 4 of their elements
+    (``aligned``) and the ``e`` products' blocks of 128 columns still number
+    :data:`MIN_WIDE_BLOCKS`, else 1; 0 (the first version's body) for more
+    than :data:`DECODE_ROWS` rows or an x beyond :data:`X_SMEM_BYTES` as the
+    kernel stages it (4 or 8 rows: bf16 in pairs, f32 alone)."""
+    rows = 4 if b <= 4 else DECODE_ROWS
+    if b > DECODE_ROWS or k * rows * itemsize > X_SMEM_BYTES:
+        return 0
+    wide = o % 4 == 0 and aligned and -(-o_true // 128) * e >= MIN_WIDE_BLOCKS
+    return 4 if wide else 1
+
+
+def _run(name, symbol, argtypes, x, values, indices, y, e, n, m, o_true):
+    """One launch of entry ``name`` with :func:`decode_cols`'s columns."""
+    b, k = x.shape[-2:]
+    o = values.shape[-1]
+    size = x.element_size()
+    cols = decode_cols(b, k, o, o_true, e, size, values.data_ptr() % (4 * size) == 0
+                       and indices.data_ptr() % 4 == 0)
+    fn = dispatch.kernel_fn("nm_spmm", symbol, argtypes)
+    lead = (e,) if symbol == "nm_spmm_batched_launch" else ()
+    rc = fn(x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(), *lead, b, k, o,
+            o_true, n, m, cols, _DTYPES[x.dtype], dispatch.stream_ptr(x.device))
+    dispatch.check_launch(name, rc)
+
+
 def _launch(x, values, indices, n, m, o_true):
     o_true = _check(x, values, indices, n, m, o_true)
     _check_kernel(x, values, indices, m)
-    b, k = x.shape
-    y = torch.empty((b, o_true), dtype=x.dtype, device=x.device)
-    if b == 0:
-        return y
-    fn = dispatch.kernel_fn("nm_spmm", "nm_spmm_launch", _ARGTYPES)
-    rc = fn(x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
-            b, k, values.shape[1], o_true, n, m, _DTYPES[x.dtype],
-            dispatch.stream_ptr(x.device))
-    dispatch.check_launch("nm_spmm", rc)
+    y = torch.empty((x.shape[0], o_true), dtype=x.dtype, device=x.device)
+    if x.shape[0]:
+        _run("nm_spmm", "nm_spmm_launch", _ARGTYPES, x, values, indices, y, 1, n, m, o_true)
     return y
 
 
@@ -131,17 +163,13 @@ def _launch_batched(x, values, indices, n, m, o_true):
     _check_batched(x, values, indices)
     o_true = _check(x[0], values[0], indices[0], n, m, o_true)
     _check_kernel(x, values, indices, m)
-    e, b, k = x.shape
+    e, b, _ = x.shape
     if e > 65535:
         raise ValueError(f"{e} experts exceed the grid's z extent 65535")
     y = torch.empty((e, b, o_true), dtype=x.dtype, device=x.device)
-    if b == 0:
-        return y
-    fn = dispatch.kernel_fn("nm_spmm", "nm_spmm_batched_launch", _ARGTYPES_BATCHED)
-    rc = fn(x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
-            e, b, k, values.shape[2], o_true, n, m, _DTYPES[x.dtype],
-            dispatch.stream_ptr(x.device))
-    dispatch.check_launch("nm_spmm_batched", rc)
+    if b:
+        _run("nm_spmm_batched", "nm_spmm_batched_launch", _ARGTYPES_BATCHED, x, values,
+             indices, y, e, n, m, o_true)
     return y
 
 

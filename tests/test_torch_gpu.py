@@ -24,6 +24,7 @@ from repro_torch.kernels.paged_attn import (
     sm_count,
     window_splits,
 )
+from repro_torch.sparse_infer import CompressedTensor
 
 pytestmark = pytest.mark.gpu
 
@@ -54,14 +55,35 @@ def _compressed(k, o, n, m, pad, dtype, dev, seed=0):
     return vals.to(dev).contiguous(), idx.to(dev).contiguous()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b", [1, 3, 8, 9, 40])
-@pytest.mark.parametrize("k,o,n,m,pad", [
-    (64, 40, 2, 4, 0), (64, 40, 1, 4, 24), (512, 96, 2, 8, 0), (512, 64, 4, 16, 8),
-    (768, 768, 2, 4, 0), (3072, 768, 2, 4, 0),
-])
-def test_nm_spmm_kernel_matches_plain(dev, dtype, b, k, o, n, m, pad):
-    vals, idx = _compressed(k, o, n, m, pad, dtype, dev)
+# (k, o, n, m, pad, stack): stack > 0 takes .layer(1) of that many stacked leaves
+NM_SPMM_SHAPES = [
+    (64, 40, 2, 4, 0, 0), (64, 40, 1, 4, 24, 0), (512, 96, 2, 8, 0, 0), (512, 64, 4, 16, 8, 0),
+    (768, 768, 2, 4, 0, 0), (3072, 768, 2, 4, 0, 0),  # gpt2-paper
+    (320, 64, 2, 64, 0, 0), (384, 64, 1, 128, 0, 0),  # fewer than 8 groups a chunk
+    (768, 3072, 2, 4, 0, 2),  # .layer(1) of a stack of two: a view Kc*O elements in
+    (256, 37, 2, 4, 0, 0), (256, 37, 1, 4, 0, 3),  # O not a multiple of 32
+    (512, 10240, 2, 4, 0, 0), (512, 10240, 2, 4, 8, 0),  # 4 columns a lane, a padded tail
+]
+# RecurrentGemma-9B's MLP, in bf16 as it is served (f32 sums of its 12288
+# products in two orders differ by more than TOL's f32 1e-4 near zero);
+# 12288 columns of x at B = 8 exceed the decode kernel's staging budget
+NM_SPMM_RG_SHAPES = [(4096, 12288, 2, 4, 0, 0), (12288, 4096, 2, 4, 0, 0)]
+
+
+@pytest.mark.parametrize("dtype,b,k,o,n,m,pad,stack", [
+    (dtype, b, *shape) for shape in NM_SPMM_SHAPES for b in (1, 3, 4, 8, 9, 40)
+    for dtype in (torch.float32, torch.bfloat16)
+] + [(torch.bfloat16, b, *shape) for shape in NM_SPMM_RG_SHAPES for b in (1, 4, 8, 9)])
+def test_nm_spmm_kernel_matches_plain(dev, dtype, b, k, o, n, m, pad, stack):
+    if stack:
+        parts = [_compressed(k, o, n, m, pad, dtype, dev, seed=s) for s in range(stack)]
+        leaf = CompressedTensor(torch.stack([v for v, _ in parts]),
+                                torch.stack([i for _, i in parts]), n, m, -2,
+                                (stack, k, o + pad), pad=pad)
+        vals, idx = leaf.layer(1).values, leaf.layer(1).indices
+        assert vals.storage_offset() == k * n // m * (o + pad)
+    else:
+        vals, idx = _compressed(k, o, n, m, pad, dtype, dev)
     x = torch.randn((b, k), generator=torch.Generator().manual_seed(1)).to(dtype).to(dev)
     before = dispatch.launches["nm_spmm"]
     y = nm_spmm(x, vals, idx, n, m, o_true=o)
@@ -70,6 +92,49 @@ def test_nm_spmm_kernel_matches_plain(dev, dtype, b, k, o, n, m, pad):
     ref = nm_spmm_plain(x, vals, idx, n, m, o_true=o)
     assert y.shape == (b, o) and y.dtype == dtype
     torch.testing.assert_close(y.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("batched,e,b,k,o", [
+    (False, 1, 4, 12288, 4096), (False, 1, 8, 768, 768), (False, 1, 3, 256, 37),
+    (True, 64, 8, 2048, 1408), (True, 4, 8, 512, 96),
+])
+def test_nm_spmm_kernel_is_deterministic(dev, batched, e, b, k, o):
+    """The same call twice gives the same bytes: sums in a fixed order, no
+    atomics."""
+    stacks = [_compressed(k, o, 2, 4, 0, torch.bfloat16, dev, seed=s) for s in range(e)]
+    vals = torch.stack([v for v, _ in stacks])
+    idx = torch.stack([i for _, i in stacks])
+    x = torch.randn((e, b, k), generator=torch.Generator().manual_seed(3)).bfloat16().to(dev)
+    if batched:
+        first, second = (nm_spmm_batched(x, vals, idx, 2, 4) for _ in range(2))
+    else:
+        first, second = (nm_spmm(x[0], vals[0], idx[0], 2, 4) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
+
+
+@pytest.mark.parametrize("batched,e,k,o", [
+    (False, 1, 768, 768), (False, 1, 3072, 768), (False, 1, 256, 37), (True, 8, 512, 96),
+    (False, 1, 320, 64),
+])
+def test_nm_spmm_row_does_not_depend_on_its_batch(dev, batched, e, k, o):
+    """A row of x gives the same bytes alone, in a decode batch (the decode
+    kernel) and in a prefill batch (the first version's body): both sum
+    every output in one order, fixed by the weight's shapes."""
+    m = 64 if k == 320 else 4
+    stacks = [_compressed(k, o, 2, m, 0, torch.bfloat16, dev, seed=s) for s in range(e)]
+    vals = torch.stack([v for v, _ in stacks])
+    idx = torch.stack([i for _, i in stacks])
+    x = torch.randn((e, 40, k), generator=torch.Generator().manual_seed(4)).bfloat16().to(dev)
+
+    def call(rows):
+        xr = x[:, :rows].contiguous()
+        return (nm_spmm_batched(xr, vals, idx, 2, m) if batched
+                else nm_spmm(xr[0], vals[0], idx[0], 2, m)[None])
+
+    full = call(40)
+    for rows in (1, 4, 7, 8, 9):
+        assert torch.equal(call(rows).view(torch.uint8), full[:, :rows].view(torch.uint8))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -2,7 +2,8 @@
 against the JAX Pallas kernel run in interpret mode, in both regimes of the
 plain version (B <= 8 gathers, B > 8 decompresses), with and without
 alignment padding; and its expert-batched form against the JAX ``vmap`` of
-the kernel that the reference's stacked matmul runs."""
+the kernel that the reference's stacked matmul runs.  Also the CUDA
+launch's plan, a plain function of the shapes (``decode_cols``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +13,15 @@ import torch
 from repro.core.masking import nm_compress as jax_compress
 from repro.kernels.nm_spmm import nm_spmm_pallas
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_batched, nm_spmm_plain
+from repro_torch.kernels.nm_spmm import (
+    DECODE_ROWS,
+    MIN_WIDE_BLOCKS,
+    X_SMEM_BYTES,
+    decode_cols,
+    nm_spmm,
+    nm_spmm_batched,
+    nm_spmm_plain,
+)
 from repro_torch.models.layers import matmul
 from repro_torch.sparse_infer import CompressedTensor
 
@@ -88,3 +97,33 @@ def test_batched_plain_matches_vmapped_pallas_interpret(b):
     ct = CompressedTensor(torch.from_numpy(v), torch.from_numpy(i), 2, 4, -2, (e, k, o + pad),
                           pad=pad)
     assert torch.equal(matmul(torch.from_numpy(x), ct), y)  # the stacked matmul takes it
+
+
+@pytest.mark.parametrize("b,k,o,e,itemsize,aligned,cols", [
+    (4, 768, 768, 1, 2, True, 1),  # gpt2-paper q/k/v/o: few columns, 1 a lane
+    (4, 3072, 768, 1, 2, True, 1),  # gpt2-paper proj
+    (4, 4096, 12288, 1, 2, True, 4),  # RecurrentGemma-9B w_up: 96 blocks of 128 columns
+    (4, 12288, 4096, 1, 2, True, 1),  # RecurrentGemma-9B w_down: x fills 96 KB at B = 4
+    (8, 12288, 4096, 1, 2, True, 0),  # ... and overflows it at B = 8
+    (8, 2048, 1408, 64, 2, True, 4),  # DeepSeek-V2-Lite experts, C = 8
+    (8, 1408, 2048, 64, 2, True, 4),
+    (4, 2048, 10944, 1, 2, True, 4), (4, 2048, 10944, 1, 2, False, 1),  # alignment
+    (4, 512, 10242, 1, 2, True, 1),  # O not a multiple of 4
+    (9, 64, 40, 1, 2, True, 0), (256, 768, 768, 1, 2, True, 0),  # prefill
+    (1, 6144, 4096, 1, 4, True, 1), (5, 6144, 4096, 1, 4, True, 0),  # f32 staging
+])
+def test_decode_plan_from_shapes(b, k, o, e, itemsize, aligned, cols):
+    assert decode_cols(b, k, o, o, e, itemsize, aligned) == cols
+
+
+def test_decode_plan_edges():
+    """4 columns a lane exactly from MIN_WIDE_BLOCKS blocks of 128 on; the
+    decode kernel up to DECODE_ROWS rows and X_SMEM_BYTES of staged x."""
+    o = 128 * MIN_WIDE_BLOCKS
+    assert decode_cols(4, 64, o, o, 1, 2, True) == 4
+    assert decode_cols(4, 64, o - 128, o - 128, 1, 2, True) == 1
+    assert decode_cols(4, 64, o // 2, o // 2, 2, 2, True) == 4  # the experts count too
+    k = X_SMEM_BYTES // (DECODE_ROWS * 2)
+    assert decode_cols(DECODE_ROWS, k, 64, 64, 1, 2, True) == 1
+    assert decode_cols(DECODE_ROWS, k + 4, 64, 64, 1, 2, True) == 0
+    assert decode_cols(DECODE_ROWS + 1, 64, 64, 64, 1, 2, True) == 0
