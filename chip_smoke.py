@@ -32,7 +32,8 @@ Phases, in order; any failure exits non-zero:
    int8 pool (``kv_quant``) of no more device bytes than the fp pool
    (about twice its pages): ``paged_attn``'s int8 form must launch 12
    times per decode step and the fp form never, and the pool must preempt
-   fewer times than the fp pool.
+   fewer times than the fp pool.  Then a ``torch.profiler`` trace of a few
+   decode steps on a 28-page fp and int8 pool (device ms a step by kernel).
 4. Train full-width gpt2-paper with the STEP recipe through the Trainer
    that ``repro_torch.launch.train`` builds (2:4, batch 8, seq 128,
    b2 0.98, 60 steps, AutoSwitch clipped to (6, 30]), checkpointing to a
@@ -93,7 +94,15 @@ pages, normalized and stats flush) run the split walk: each lane's 130
 slots over S blocks (``window_splits``; each row carries the S its timed
 launch ran with, as the wrapper recorded it), their partials merged by the
 combine kernel; each must give the same bytes when called twice, and its
-log line names the time of the one-block-per-lane walk it replaced.
+log line names the time of the one-block-per-lane walk it replaced.  The
+GQA and MLA forms (K2, K2m, K2q, K3) run a pipelined walk that keeps the
+first version's arithmetic: phase 2 first holds every case of
+``kernels/paged_attn_check.py`` (both forms x f32/bf16 queries x
+f32/bf16/int8 pages x both flushes, at these shapes, the card tests' and
+edge shapes, and 256 grid shapes) against the SHA-256 digests of the first version's outputs, then each
+such row must give the same bytes when called twice, and its log line
+names the first version's time; the GQA and MLA rows also log their time
+with every lane at 0, 1, 2, 4 and 7 live pages.
 
 8. Serve full-width gpt2-paper tensor-parallel: two ranks
    (``launch.mesh.run_ranks``, ``gloo`` since they share the one card)
@@ -160,6 +169,18 @@ F32_RTOL = 1e-4
 # 80GB HBM3, 700 W)
 WINDOW_EARLIER_MS = {"paged_attn_win": 1.7858, "paged_attn_win_q": 2.3763,
                      "paged_attn_win_stats": 2.0399, "paged_attn_win_stats_q": 2.3269}
+# The GQA and MLA forms' times at phase 2's shapes with the first version's
+# body, which the pipelined walk replaced with the same bytes, for the log
+# only: the earlier times of PERF.md §6's table (H100 80GB HBM3, 700 W),
+# not measured by this script
+BODY_EARLIER_MS = {"paged_attn": 0.0360, "paged_attn_q": 0.0356, "paged_attn_stats": 0.0353,
+                   "paged_attn_stats_q": 0.0358, "paged_attn_mla": 0.1093,
+                   "paged_attn_mla_q": 0.1294, "paged_attn_mla_stats": 0.1193,
+                   "paged_attn_mla_stats_q": 0.1301}
+# the commit whose GQA/MLA kernel wrote the digests of kernels/paged_attn_check.py
+FIRST_BODY = "064ba4a"
+# live pages a lane at which phase 2 times the GQA and MLA body (log only)
+LIVE_PAGES = (0, 1, 2, 4, 7)
 # A greedy slab token may differ from its paged twin only at a near-tie:
 # bf16 logits (|logit| ~ 1) carry about 2^-8 of rounding per operation, and
 # 12 layers of it stay well inside 0.1.
@@ -273,6 +294,14 @@ def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[flo
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def f32_ceiling(nbytes: float, flops: float) -> str:
+    """For K1's prefill (more than 8 rows): the least time of a design that
+    keeps the first version's order of summation, which leaves the tensor
+    cores out (f32 FMAs at the f32 peak), beside its bound."""
+    ms, by = bound_ms(nbytes, flops, F32_FLOPS)
+    return f"; an order-keeping f32 design's bound {ms:.4f} ms ({by})"
+
+
 def time_ms(torch, fn, reps: int = 50) -> float:
     """Median device time of one call, by CUDA events, L2 flushed before
     each call (on the serving path the 205 MB a decode step streams do not
@@ -349,10 +378,12 @@ def check_nm_spmm(torch, comp: dict, dev) -> dict:
                      library_ms=time_ms(torch, lambda: torch.matmul(x, dense)))
             nbytes = (x.numel() * 2 + w.values.numel() * 2 + w.indices.numel()
                       + b * w.out_features * 2)
-            t["bound_ms"], by = bound_ms(nbytes, 2.0 * b * w.values.shape[0] * w.out_features)
+            flops = 2.0 * b * w.values.shape[0] * w.out_features
+            t["bound_ms"], by = bound_ms(nbytes, flops)
             log(f"  time nm_spmm {name} B={b}: kernel {t['ms']:.4f} ms, plain "
                 f"{t['plain_ms']:.4f} ms, torch.matmul(dense) {t['library_ms']:.4f} ms, "
-                f"bound {t['bound_ms']:.4f} ms ({by})")
+                f"bound {t['bound_ms']:.4f} ms ({by})"
+                f"{f32_ceiling(nbytes, flops) if b > 8 else ''}")
             if b == 4:
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
                     rec[key] += t[key]
@@ -576,7 +607,7 @@ def mla_case(torch, dev, int8: bool) -> AttnCase:
 ATTN_CASES = {"gqa": gqa_case, "window": win_case, "mla": mla_case}
 
 
-def check_paged_attn(torch, dev, form: str, int8: bool = False) -> dict:
+def check_paged_attn(torch, dev, form: str, first_bytes: dict, int8: bool = False) -> dict:
     """K2 in one form (``int8``: K2q over the port's int8 codes and scales
     of the same pages) against its plain version at its phase-2 shapes,
     the dead lane exactly zero; then its time beside its bound, its plain
@@ -596,7 +627,10 @@ def check_paged_attn(torch, dev, form: str, int8: bool = False) -> dict:
                library_ms=time_ms(torch, c.sdpa), at=c.at)
     rec["bound_ms"], rec["bound_by"] = bound_ms(c.in_bytes + c.out * c.q.element_size(),
                                                 c.flops, c.peak)
-    rec.update(window_walk(torch, c.name, y, lambda: paged_attn(*args, **c.kw)))
+    rec.update(second_call(torch, c.name, y, lambda: paged_attn(*args, **c.kw), first_bytes))
+    if form != "window" and not int8:
+        log(f"  time {what} at {'/'.join(map(str, LIVE_PAGES))} live pages a lane: "
+            f"{live_page_times(torch, c)} ms")
     log(f"  time {what}: kernel {rec['ms']:.4f} ms{split_note(c.name, rec)}, plain "
         f"{rec['plain_ms']:.4f} ms, {c.sdpa_label} {rec['library_ms']:.4f} ms"
         f"{' (a yardstick only: not the same function)' if int8 else ''}, bound "
@@ -604,29 +638,76 @@ def check_paged_attn(torch, dev, form: str, int8: bool = False) -> dict:
     return rec
 
 
-def window_walk(torch, name: str, y, call) -> dict:
-    """For the window form's entry ``name``: the blocks a lane of its split
-    walk (``splits``), as the wrapper recorded it for a second call on the
-    timed inputs, after checking that this call gives the same bytes as
-    the first (``y``, a tensor or the stats triple).  Other forms:
-    nothing."""
+def live_page_times(torch, c: AttnCase) -> str:
+    """The case's kernel with every lane at each of ``LIVE_PAGES`` live
+    pages, each table slot on a page of its own: what a page costs beside
+    the fixed cost of a call (log only)."""
+    from repro_torch.kernels.paged_attn import paged_attn
+
+    b, n_slots = c.tables.shape
+    ps, dev = c.pages[0].shape[1], c.q.device
+    tables = torch.arange(b * n_slots, dtype=torch.int32, device=dev).reshape(b, n_slots)
+    times = []
+    for pages in LIVE_PAGES:
+        lens = torch.full((b,), pages * ps, dtype=torch.int32, device=dev)
+        times.append(time_ms(torch, lambda: paged_attn(c.q, *c.pages, tables, lens, **c.kw)))
+    return " / ".join(f"{t:.4f}" for t in times)
+
+
+def second_call(torch, name: str, y, call, first_bytes: dict) -> dict:
+    """A second call on the timed inputs must give the same bytes as the
+    first (``y``, a tensor or the stats triple).  For the window form's
+    entries also the blocks a lane of its split walk (``splits``), as the
+    wrapper recorded it for that call; for the GQA and MLA forms the
+    cases of their byte check against the first version's digests
+    (``first_version_bytes``, from ``first_bytes``, what
+    :func:`check_first_body_bytes` returned)."""
     from repro_torch.kernels import dispatch
 
-    if name not in WINDOW_EARLIER_MS:
-        return {}
     dispatch.last_splits.pop(name, None)
     again = call()
     torch.cuda.synchronize()
     pairs = zip(y, again) if isinstance(y, tuple) else [(y, again)]
     if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8)) for a, b in pairs):
         raise AssertionError(f"{name}: two calls on the same inputs differ")
-    log(f"  {name}: {dispatch.last_splits[name]} blocks a lane, two calls byte-identical")
-    return {"splits": dispatch.last_splits[name]}
+    if name in WINDOW_EARLIER_MS:
+        log(f"  {name}: {dispatch.last_splits[name]} blocks a lane, two calls byte-identical")
+        return {"splits": dispatch.last_splits[name]}
+    cases = first_bytes[name]
+    log(f"  {name}: two calls byte-identical; bytes equal to {FIRST_BODY} on {cases} cases")
+    return {"first_version_bytes": f"equal to {FIRST_BODY} on {cases} cases"}
 
 
 def split_note(name: str, rec: dict) -> str:
-    return (f" (S = {rec['splits']}; PR 16's one-block walk took "
-            f"{WINDOW_EARLIER_MS[name]} ms)" if "splits" in rec else "")
+    if "splits" in rec:
+        return (f" (S = {rec['splits']}; the one-block-per-lane walk took "
+                f"{WINDOW_EARLIER_MS[name]} ms)")
+    return f" (the first version's body took {BODY_EARLIER_MS[name]} ms)"
+
+
+def check_first_body_bytes(torch, dev) -> dict:
+    """The GQA and MLA body (K2, K2m, K2q, K3) against the first version's
+    bytes: every case of ``kernels/paged_attn_check.py`` (both forms x f32
+    and bf16 queries x f32, bf16 and int8 pages x both flushes, at phase
+    2's shapes, the card tests' and edge shapes, and 256 grid shapes; dead
+    lanes, sentinel slots and partial pages included) must hash to the digest the first version's kernel
+    wrote.  Returns the cases each launch entry passed."""
+    from repro_torch.kernels import paged_attn_check as check
+    from repro_torch.kernels.paged_attn import paged_attn
+
+    bad, cases = [], {}
+    for key in check.keys():
+        name = check.launch_entry(key)
+        y = check.run(paged_attn, key, dev)
+        if check.digest(y) != check.DIGESTS[key]:
+            bad.append(key)
+        cases[name] = cases.get(name, 0) + 1
+    if bad:
+        raise AssertionError(f"paged_attn's GQA/MLA body: {len(bad)} of {len(check.keys())} "
+                             f"cases differ from {FIRST_BODY}'s bytes: {bad[:8]}")
+    log(f"  paged_attn GQA/MLA body: all {len(check.keys())} cases byte-equal to {FIRST_BODY}'s "
+        f"digests ({', '.join(f'{k} {v}' for k, v in cases.items())})")
+    return cases
 
 
 def _split(c: AttnCase, shard: int, shards: int) -> tuple:
@@ -645,7 +726,8 @@ def _split(c: AttnCase, shard: int, shards: int) -> tuple:
     return (c.q, *(part(p) for p in c.pages), local.contiguous(), c.lens), kw
 
 
-def check_paged_attn_stats(torch, dev, form: str, int8: bool = False) -> dict:
+def check_paged_attn_stats(torch, dev, form: str, first_bytes: dict,
+                           int8: bool = False) -> dict:
     """K3 (the stats form) in one form: ``(acc, m, l)`` against its plain
     version at K2's phase-2 shapes (``acc / l``, ``m`` and ``l`` each within
     1e-4·|ref| + 1e-5: f32 sums in another order), the dead lane exactly
@@ -689,8 +771,8 @@ def check_paged_attn_stats(torch, dev, form: str, int8: bool = False) -> dict:
                library_ms=None, sdpa_yardstick_ms=time_ms(torch, c.sdpa), at=c.at)
     rec["bound_ms"], rec["bound_by"] = bound_ms(c.in_bytes + c.out * 4 + c.heads * 8,
                                                 c.flops, c.peak)
-    rec.update(window_walk(torch, name, (acc, m, l),
-                           lambda: paged_attn(*args, emit_stats=True, **c.kw)))
+    rec.update(second_call(torch, name, (acc, m, l),
+                           lambda: paged_attn(*args, emit_stats=True, **c.kw), first_bytes))
     log(f"  time {name}: kernel {rec['ms']:.4f} ms{split_note(name, rec)}, plain "
         f"{rec['plain_ms']:.4f} ms, {c.sdpa_label} {rec['sdpa_yardstick_ms']:.4f} ms (a "
         f"yardstick only: not the same function), bound {rec['bound_ms']:.5f} ms "
@@ -737,10 +819,12 @@ def check_nm_spmm_batched(torch, dev) -> dict:
                      plain_ms=time_ms(torch, lambda: nm_spmm_batched_plain(*args), reps=10),
                      library_ms=time_ms(torch, lambda: torch.bmm(x, dense)))
             nbytes = x.numel() * 2 + vals.numel() * 2 + idx.numel() + 64 * c * o * 2
-            t["bound_ms"], by = bound_ms(nbytes, 2.0 * 64 * c * (k // 2) * o)
+            flops = 2.0 * 64 * c * (k // 2) * o
+            t["bound_ms"], by = bound_ms(nbytes, flops)
             log(f"  time nm_spmm_batched E=64 C={c} {k}->{o}: kernel {t['ms']:.4f} ms "
                 f"({nbytes / t['ms'] / 1e6:.0f} GB/s), plain {t['plain_ms']:.4f} ms, "
-                f"torch.bmm(dense) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by})")
+                f"torch.bmm(dense) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by})"
+                f"{f32_ceiling(nbytes, flops) if c > 8 else ''}")
             if c == 8:
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
                     rec[key] += count * t[key]
@@ -898,13 +982,17 @@ def serve_phase(torch, cfg, comp, dev, dispatch) -> tuple[dict, dict]:
             "tokens_per_s": st["tokens_per_s"],
             "ms_per_decode_step": st["ms_per_decode_step"],
             "ms_per_decode_step_host": st["ms_per_decode_step_host"],
-            "decode_steps": st["decode_steps"], "preemptions": st["preemptions"],
+            "decode_steps": st["decode_steps"], "prefill_batches": st["prefill_batches"],
+            "preemptions": st["preemptions"],
             "max_concurrency": st["max_concurrency"], "run_wall_s": wall,
             "kv_cache_bytes": st["kv_cache_bytes"],
             "weight_bytes_per_step": st["weight_bytes_per_step"],
             "weight_stream_bound_ms": st["weight_bytes_per_step"] / HBM_BYTES_PER_S * 1e3,
             "peak_memory_bytes": peak, "device": name,
         }))
+    for kv_quant in (False, True):  # 4 lanes of 64 + 32 tokens: 28 pages, no preemption
+        log(f"  profile gpt2 {'int8 ' if kv_quant else ''}paged decode "
+            + json.dumps(profile_decode(torch, cfg, comp, dev, kv_quant=kv_quant)))
     single = {"prompts": prompts,
               "fp": dict(pages=paged.layout.num_pages, streams=p_streams,
                          preemptions=paged.preemptions),
@@ -1556,24 +1644,25 @@ def main() -> int:
     params = init_params(cfg, seed=0, device=dev)
     recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(2, 4)))
     comp, _ = export_compressed(params, recipe)
+    first = check_first_body_bytes(torch, dev)
     records = {"nm_spmm": check_nm_spmm(torch, comp, dev),
-               "paged_attn": check_paged_attn(torch, dev, "gqa"),
+               "paged_attn": check_paged_attn(torch, dev, "gqa", first),
                "nm_mask": check_nm_mask(torch, dev)}
     log("phase 2: the batched nm_spmm and paged_attn's MLA form (DeepSeek-V2-Lite shapes)")
     records["nm_spmm_batched"] = check_nm_spmm_batched(torch, dev)
-    records["paged_attn_mla"] = check_paged_attn(torch, dev, "mla")
+    records["paged_attn_mla"] = check_paged_attn(torch, dev, "mla", first)
     log("phase 2: paged_attn's window form (RecurrentGemma-9B shapes)")
-    records["paged_attn_win"] = check_paged_attn(torch, dev, "window")
+    records["paged_attn_win"] = check_paged_attn(torch, dev, "window", first)
     log("phase 2: paged_attn's int8 forms (K2q) at the shapes of its GQA, MLA and window forms")
-    records["paged_attn_q"] = check_paged_attn(torch, dev, "gqa", int8=True)
-    records["paged_attn_mla_q"] = check_paged_attn(torch, dev, "mla", int8=True)
-    records["paged_attn_win_q"] = check_paged_attn(torch, dev, "window", int8=True)
+    records["paged_attn_q"] = check_paged_attn(torch, dev, "gqa", first, int8=True)
+    records["paged_attn_mla_q"] = check_paged_attn(torch, dev, "mla", first, int8=True)
+    records["paged_attn_win_q"] = check_paged_attn(torch, dev, "window", first, int8=True)
     log("phase 2: paged_attn's stats form (K3) in its six forms, and split over 2 and 4 page "
         "ranges against K2")
     for form in ("gqa", "window", "mla"):
         for int8 in (False, True):
             name = entry(mla=form == "mla", window=form == "window", stats=True, quant=int8)
-            records[name] = check_paged_attn_stats(torch, dev, form, int8)
+            records[name] = check_paged_attn_stats(torch, dev, form, first, int8)
 
     log("phase 3: serve full-width gpt2-paper: slab, undersized paged pool, int8 pool of "
         "the same bytes")
@@ -1608,7 +1697,8 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{source}.cu", "replaces": replaces,
             "launches": launches[name], **{k: rec[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at")},
-            **{k: rec[k] for k in ("sdpa_yardstick_ms", "splits") if k in rec},
+            **{k: rec[k] for k in ("sdpa_yardstick_ms", "splits", "first_version_bytes")
+               if k in rec},
         })
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)

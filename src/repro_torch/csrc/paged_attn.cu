@@ -50,26 +50,52 @@
 // per byte read per query head, far below the tensor cores' break-even);
 // int8 pages halve them against bf16.
 //
-// The GQA and MLA forms (paged_attn_kernel) give one block to each (lane,
-// KV head) and walk the lane's table slots in order, so every live page is
-// read once and all G query heads of the KV head share that read; in the
-// MLA form the latent page is read once for both the scores and the
-// output.  Where that leaves few blocks (MLA: one KV head, 16 query
-// heads), the query heads are split across blocks that each read the pages
-// (L2 serves the repeats).  Sentinel slots and pages with no live row are
-// skipped before any load starts, and only a page's live rows are
-// loaded.  A row is dequantized as it is staged into shared memory (rows
-// padded by one float against bank conflicts), and a flash-style online
-// softmax in f32 carries (max, denominator, accumulator) from page to page,
-// with the finite -1e30 in place of -inf so dead positions never make
-// NaNs.  The MLA form at DeepSeek's widths needs 105 KB of shared memory
-// for 16 heads in a block and the GQA form 66 KB for 16 heads of 256, past
-// the 48 KB a launch gets by default: the launch opts in with
-// cudaFuncSetAttribute above 48 KB and returns its error if that fails.
-// Rows of at least WARP_ROW_MIN floats over both streams (MLA's 512 + 64)
-// are scored by a warp per (head, row), narrower rows (GQA's 64) by a
-// thread per (head, row).  The stats flush changes only the last loop.
-//
+// The GQA and MLA forms (paged_attn_kernel) walk each lane's table slots in
+// order, one block per (lane, KV head, group of query heads), and keep the
+// first version's arithmetic to the bit (its bytes are held against SHA-256
+// digests of that kernel's outputs, kernels/paged_attn_check.py): each
+// score one fmaf chain in ascending d over D, then D2 (a warp's lanes each
+// summing d = lane (mod 32), then warp_sum's butterfly, from D + D2 >=
+// WARP_ROW_MIN; else one thread's chain), times the scale; per page the
+// max, expf(s - m), the lane-strided partial sums and warp_sum, c =
+// expf(m_old - m) and l = fmaf(c, l, sum); each accumulator c * a, then one
+// fmaf per live row in row order; int8 rows their codes times the row's
+// f16 scale in f32.  Decode at these shapes is bound by latency, not by
+// bytes (a gpt2 page is 4 KB, a DeepSeek page 18 KB), so the design cuts
+// the latency a page pays:
+// - The pipeline.  A stage holds up to pg live pages (their live K, K2
+//   and V rows and, for int8 pages, the pages' f16 scales, raw), copied
+//   with cp.async, 16 bytes a copy where the rows' bytes and addresses
+//   allow (else 8 or 4; rows and scale planes that are not whole 4-byte
+//   words take plain 2- or 1-byte copies), into a ring of 2-4 stages, so
+//   the next stages' copies are in flight while the block works on the
+//   current one.  Two barriers a stage: after the first the stage is
+//   visible and every warp is done with the stage refilled next; after the
+//   second its scores are.
+//   (Where two stages of one page overflow the shared memory, one stage
+//   is filled, used and, after a third barrier, refilled.)
+//   The table is read 32 slots at a time, one a lane, and sentinel slots
+//   and slots past the length are skipped before any copy.
+// - More threads on a page.  All (head, row) scores of a stage are
+//   independent, so a stage of several pages (pg from the shapes: gpt2's
+//   128 threads score 8 pages of 16 rows at once) gives every thread a
+//   chain; the warp path scores PA_ROWS pairs a warp at once, its loads
+//   issued ahead of its fmafs.
+// - Warps that own their output.  A warp owns (head, column slice) items
+//   with their softmax state and accumulators in registers; a warp whose
+//   slice is not a head's first runs that head's softmax too (the same
+//   bits), so the page walk needs no third barrier.  Past the running
+//   max, the pages of a stage do not depend on one another: their maxima,
+//   probabilities and sums are taken together, their warp reductions
+//   interleaved, and only m, l and the accumulators chain page by page.
+// - Heads a block from the shapes and the SM count (kernels/paged_attn.py:
+//   attn_plan): the fewest that keep the grid within one wave, so 4 lanes
+//   of 16 DeepSeek heads take 64 blocks of one head (L2 serves the pages'
+//   repeats).  The MLA form reads the latent page once for scores and
+//   output.
+// The stats flush changes only the last loop.  Finite -1e30 stands in for
+// -inf, so dead positions never make NaNs.
+
 // The window form (paged_attn_win_kernel) has few lanes, one KV head and a
 // long table (RecurrentGemma: 4 lanes, 16 query heads over one KV head of
 // 256, 130 slots of 16 rows), so a walk of one block per lane would leave
@@ -112,11 +138,11 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 namespace {
 
-constexpr int THREADS = 128;
 constexpr float NEG = -1e30f;
 constexpr int SMEM_MAX = 232448;  // 227 KB: a block's limit on Hopper
 constexpr int WARP_ROW_MIN = 256;  // D + D2 from which a warp scores a row
@@ -149,159 +175,6 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(FULL, v, s);
   return v;
-}
-
-// Floats of shared memory: q, q2, K page, K2 page, V page (none when V is
-// K), scores, accumulator, and three per-head rows.
-__host__ __device__ inline int smem_floats(int G, int D, int D2, int Dv, int ps,
-                                           bool v_is_k) {
-  return G * D + G * D2 + ps * (D + 1) + ps * (D2 + 1) + (v_is_k ? 0 : ps * Dv)
-         + G * ps + G * Dv + 3 * G;
-}
-
-// TQ: queries and output; TP: pages (int8_t: codes with f16 scales ksc,
-// k2sc, vsc of (P, ps), else the scale pointers are unused).  D2 = 0
-// without a second stream.  The block owns query heads [blockIdx.z * G, +G)
-// of the Gt that share KV head blockIdx.y.  ROW_WARP: a warp (else a
-// thread) per (head, row) score.  STATS: the K3 flush (f32 acc into out,
-// the running max and denominator into m_out and l_out), else the
-// normalized output in TQ.  The table is append-only: slot p holds page p.
-template <typename TQ, typename TP, bool V_IS_K, bool ROW_WARP, bool STATS>
-__global__ void __launch_bounds__(THREADS) paged_attn_kernel(
-    const TQ* __restrict__ q, const TQ* __restrict__ q2,
-    const TP* __restrict__ kp, const TP* __restrict__ k2p,
-    const TP* __restrict__ vp, const __half* __restrict__ ksc,
-    const __half* __restrict__ k2sc, const __half* __restrict__ vsc,
-    const int* __restrict__ tables, const int* __restrict__ lengths,
-    std::conditional_t<STATS, float, TQ>* __restrict__ out,
-    float* __restrict__ m_out, float* __restrict__ l_out, int Hkv, int Gt, int G,
-    int D, int D2, int Dv, int P, int ps, int n_slots, float scale) {
-  constexpr bool QUANT = std::is_same<TP, int8_t>::value;
-  extern __shared__ float smem[];
-  const int KS = D + 1, K2S = D2 + 1;  // padded row strides
-  float* qs = smem;                     // G*D
-  float* q2s = qs + G * D;              // G*D2
-  float* ks = q2s + G * D2;             // ps*KS
-  float* k2s = ks + ps * KS;            // ps*K2S
-  float* vs = k2s + ps * K2S;           // ps*Dv, absent when V is K
-  const int VS = V_IS_K ? KS : Dv;      // row stride of the V tile
-  if (V_IS_K) vs = ks;
-  float* ss = k2s + ps * K2S + (V_IS_K ? 0 : ps * Dv);  // G*ps scores, then probabilities
-  float* acc = ss + G * ps;             // G*Dv
-  float* mrow = acc + G * Dv;           // G   running max
-  float* lrow = mrow + G;               // G   running denominator
-  float* corr = lrow + G;               // G   this page's rescale factor
-
-  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int length = lengths[b];
-  const size_t head = ((size_t)b * Hkv + h) * Gt + (size_t)blockIdx.z * G;  // first query head
-
-  for (int e = tid; e < G * D; e += THREADS) qs[e] = to_f(q[head * D + e]);
-  for (int e = tid; e < G * D2; e += THREADS) q2s[e] = to_f(q2[head * D2 + e]);
-  for (int e = tid; e < G * Dv; e += THREADS) acc[e] = 0.f;
-  for (int g = tid; g < G; g += THREADS) { mrow[g] = NEG; lrow[g] = 0.f; }
-  __syncthreads();
-
-  // every value here is uniform across the block, so whole pages skip together
-  const int n_walk = length <= 0 ? 0 : min(n_slots, (length + ps - 1) / ps);
-  for (int p = 0; p < n_walk; ++p) {
-    const int phys = tables[(size_t)b * n_slots + p];
-    if (phys < 0 || phys >= P) continue;               // sentinel: nothing loaded
-    const int nv = min(ps, length - p * ps);           // live rows [0, nv) of the page
-    const size_t row0 = (size_t)phys * ps;  // also the rows' index in a scale plane
-    // each staging loop unrolled by 8, so a thread can have 8 loads of a
-    // stream in flight before its first store: at the compiler's own
-    // unroll of 4 these instances' times moved by up to a quarter with
-    // unrelated edits of the body (PERF.md §6)
-    #pragma unroll 8
-    for (int e = tid; e < nv * D; e += THREADS) {
-      const int r = e / D, d = e - r * D;
-      float x = to_f(kp[((row0 + r) * Hkv + h) * D + d]);
-      if constexpr (QUANT) x *= __half2float(ksc[row0 + r]);
-      ks[r * KS + d] = x;
-    }
-    #pragma unroll 8
-    for (int e = tid; e < nv * D2; e += THREADS) {
-      const int r = e / D2, d = e - r * D2;
-      float x = to_f(k2p[((row0 + r) * Hkv + h) * D2 + d]);
-      if constexpr (QUANT) x *= __half2float(k2sc[row0 + r]);
-      k2s[r * K2S + d] = x;
-    }
-    if (!V_IS_K) {
-      #pragma unroll 8
-      for (int e = tid; e < nv * Dv; e += THREADS) {
-        const int r = e / Dv, d = e - r * Dv;
-        float x = to_f(vp[((row0 + r) * Hkv + h) * Dv + d]);
-        if constexpr (QUANT) x *= __half2float(vsc[row0 + r]);
-        vs[e] = x;
-      }
-    }
-    __syncthreads();
-    if (ROW_WARP) {
-      for (int e = warp; e < G * nv; e += THREADS / 32) {
-        const int g = e / nv, r = e - g * nv;
-        const float *qg = qs + g * D, *kr = ks + r * KS;
-        const float *q2g = q2s + g * D2, *k2r = k2s + r * K2S;
-        float s = 0.f;
-        for (int d = lane; d < D; d += 32) s = fmaf(qg[d], kr[d], s);
-        for (int d = lane; d < D2; d += 32) s = fmaf(q2g[d], k2r[d], s);
-        s = warp_sum(s);
-        if (lane == 0) ss[g * ps + r] = s * scale;
-      }
-    } else {
-      for (int e = tid; e < G * nv; e += THREADS) {
-        const int g = e / nv, r = e - g * nv;
-        const float *qg = qs + g * D, *kr = ks + r * KS;
-        const float *q2g = q2s + g * D2, *k2r = k2s + r * K2S;
-        float s = 0.f;
-        for (int d = 0; d < D; ++d) s = fmaf(qg[d], kr[d], s);
-        for (int d = 0; d < D2; ++d) s = fmaf(q2g[d], k2r[d], s);
-        ss[g * ps + r] = s * scale;
-      }
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += THREADS / 32) {
-      float mx = NEG;
-      for (int r = lane; r < nv; r += 32) mx = fmaxf(mx, ss[g * ps + r]);
-      mx = warp_max(mx);
-      const float m_old = mrow[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int r = lane; r < nv; r += 32) {
-        const float pr = expf(ss[g * ps + r] - m_new);
-        ss[g * ps + r] = pr;
-        sum += pr;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float c = expf(m_old - m_new);
-        corr[g] = c;
-        lrow[g] = c * lrow[g] + sum;
-        mrow[g] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < G * Dv; e += THREADS) {
-      const int g = e / Dv, d = e - g * Dv;
-      const float* pg = ss + g * ps;
-      float a = corr[g] * acc[e];
-      for (int r = 0; r < nv; ++r) a = fmaf(pg[r], vs[r * VS + d], a);
-      acc[e] = a;
-    }
-    __syncthreads();
-  }
-  if constexpr (STATS) {
-    for (int e = tid; e < G * Dv; e += THREADS) out[head * Dv + e] = acc[e];
-    for (int g = tid; g < G; g += THREADS) {
-      m_out[head + g] = mrow[g];
-      l_out[head + g] = lrow[g];
-    }
-  } else {
-    for (int e = tid; e < G * Dv; e += THREADS) {
-      out[head * Dv + e] = from_f<TQ>(acc[e] / fmaxf(lrow[e / Dv], 1e-30f));
-    }
-  }
 }
 
 // ---- the window form: a split, pipelined walk and its combine ----
@@ -615,26 +488,537 @@ __global__ void paged_attn_win_combine(const float* __restrict__ acc,
   }
 }
 
+// The largest of 16, 8 and 4 bytes (then 2 and 1, down to `least`) that
+// divides `bytes` and the address `p` (every row then starts aligned to
+// it), or 0.
+int copy_bytes(const void* p, int bytes, int least = 4) {
+  for (int v = 16; v >= least; v >>= 1) {
+    if (bytes % v == 0 && reinterpret_cast<uintptr_t>(p) % v == 0) return v;
+  }
+  return 0;
+}
+
+// ---- the GQA and MLA forms: a pipelined walk in slot order ----
+
+// The GQA/MLA kernel: a warp owns at most PA_ITEMS (head, column slice)
+// items of the output, lane l columns [32 CV j + CV l, +CV) of slice j
+// (CV: 4 in the MLA form, 2 in the GQA form; Dv a multiple of CV); the
+// warp path scores PA_ROWS (head, row) pairs at once, PA_UNROLL columns a
+// lane loaded ahead; a stage holds at most PA_PAGES pages of up to 32
+// rows, or one page of up to 32 PA_PAGES rows (a lane keeps one register a
+// page, or one per 32 rows of the one page).
+constexpr int PA_ITEMS = 4, PA_ROWS = 4, PA_UNROLL = 4, PA_PAGES = 8;
+constexpr int PA_THREADS_MAX = 512, PA_STAGES_MAX = 4;
+
+// A staged row's stride in bytes: 16-byte aligned (cp.async's widest copy)
+// and an odd number of 16-byte units, so the 8 rows that 8 neighbouring
+// threads read at one offset fall in 8 distinct bank groups.
+__host__ __device__ inline int row_stride(int bytes) {
+  const int s = align16(bytes);
+  return bytes == 0 ? 0 : (s / 16) % 2 ? s : s + 16;
+}
+
+// Shared memory of the GQA/MLA kernel, in bytes, for gb heads and nw
+// warps a block and stages of pg pages each: the queries (f32), the scores
+// of a stage's pages (gb x pg ps f32), each stage's page count and live
+// rows (ints), each warp's probabilities and rescales of a stage (pg ps +
+// PA_PAGES f32), then the stages: raw K rows, K2 rows, V rows (none when V
+// is K) and, for int8 pages, two f16 scale planes (K's, and V's or K2's).
+struct AttnSmem {
+  int ksd, k2sd, vsd;  // row strides
+  int kb, k2b, vb, sb;  // a stage's K, K2 and V rows and one scale plane
+  int head, stage, total;
+  __host__ __device__ AttnSmem(int gb, int nw, int D, int D2, int Dv, int ps, int item,
+                               bool quant, bool v_is_k, int pg, int stages) {
+    ksd = row_stride(D * item), k2sd = row_stride(D2 * item);
+    vsd = v_is_k ? ksd : row_stride(Dv * item);
+    kb = pg * ps * ksd, k2b = pg * ps * k2sd, vb = v_is_k ? 0 : pg * ps * vsd;
+    sb = quant ? align16(pg * ps * 2) : 0;
+    head = align16(4 * (gb * (D + D2) + gb * pg * ps + stages * (pg + 1)
+                        + nw * (pg * ps + PA_PAGES)));
+    stage = kb + k2b + vb + 2 * sb;
+    total = head + stages * stage;
+  }
+};
+
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  // cp.async.wait_group takes an immediate: at most `pending` groups in flight
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+  }
+}
+
+// One piece of `w` bytes of a stage: cp.async for 16, 8 or 4 bytes; a
+// plain load and store for the 2 or 1 bytes of rows that are not whole
+// 4-byte words (and of int8 pages' scale planes at an odd ps).  The stage
+// being filled is one no warp reads before the barrier that makes it
+// visible, so both kinds of copy land in time.
+__device__ __forceinline__ void copy_piece(unsigned char* dst, const unsigned char* src, int w) {
+  if (w >= 4) {
+    cp_async(dst, src, w);
+  } else if (w == 2) {
+    *reinterpret_cast<unsigned short*>(dst) = *reinterpret_cast<const unsigned short*>(src);
+  } else {
+    *dst = *src;
+  }
+}
+
+// Start the copies of `rows` rows of `row_bytes` bytes, `w` bytes a copy,
+// neighbouring threads on neighbouring bytes (NARROW: w may be under 4).
+template <bool NARROW>
+__device__ __forceinline__ void copy_rows(unsigned char* dst, int dst_stride,
+                                          const unsigned char* src, size_t src_stride,
+                                          int row_bytes, int rows, int w, int tid, int nt) {
+  const int per = row_bytes / w, dr = nt / per, dc = nt - dr * per;
+  int r = tid / per, c = tid - r * per;  // copy e = r per + c, stepped by nt
+  for (int e = tid; e < rows * per; e += nt) {
+    if constexpr (NARROW) {
+      copy_piece(dst + r * dst_stride + c * w, src + r * src_stride + c * w, w);
+    } else {
+      cp_async(dst + r * dst_stride + c * w, src + r * src_stride + c * w, w);
+    }
+    r += dr, c += dc;
+    if (c >= per) c -= per, ++r;
+  }
+}
+
+template <int BYTES> struct Raw;
+template <> struct Raw<16> { using type = uint4; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<4> { using type = unsigned; };
+template <> struct Raw<2> { using type = unsigned short; };
+template <> struct Raw<1> { using type = unsigned char; };
+
+// N consecutive staged values at p (aligned to their bytes) as f32; int8
+// codes times their row's scale sc, in f32 (what the first version staged).
+template <typename TP, int N>
+__device__ __forceinline__ void load_vals(const unsigned char* p, float sc, float (&x)[N]) {
+  using R = typename Raw<N * (int)sizeof(TP)>::type;
+  const R raw = *reinterpret_cast<const R*>(p);
+  TP v[N];
+  memcpy(v, &raw, sizeof(raw));
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    x[t] = to_f(v[t]);
+    if constexpr (std::is_same<TP, int8_t>::value) x[t] = __fmul_rn(x[t], sc);
+  }
+}
+
+// One value of a staged row as f32.
+template <typename TP>
+__device__ __forceinline__ float load_one(const unsigned char* row, int d, float sc) {
+  float x[1];
+  load_vals<TP, 1>(row + d * sizeof(TP), sc, x);
+  return x[0];
+}
+
+// s + q . row over n values in ascending order, one fmaf each (the first
+// version's chain); the staged row is 16-byte aligned, and n * sizeof(TP)
+// a multiple of 4 unless NARROW.
+template <typename TP, bool NARROW>
+__device__ __forceinline__ float dot_chain(const float* qg, const unsigned char* row, int n,
+                                           float sc, float s) {
+  constexpr int V16 = 16 / sizeof(TP), V4 = 4 / sizeof(TP);
+  int d = 0;
+#pragma unroll 2
+  for (; d + V16 <= n; d += V16) {
+    float x[V16];
+    load_vals<TP, V16>(row + d * sizeof(TP), sc, x);
+#pragma unroll
+    for (int t = 0; t < V16; ++t) s = fmaf(qg[d + t], x[t], s);
+  }
+  for (; NARROW ? d + V4 <= n : d < n; d += V4) {
+    float x[V4];
+    load_vals<TP, V4>(row + d * sizeof(TP), sc, x);
+#pragma unroll
+    for (int t = 0; t < V4; ++t) s = fmaf(qg[d + t], x[t], s);
+  }
+  if constexpr (NARROW) {
+    for (; d < n; ++d) s = fmaf(qg[d], load_one<TP>(row, d, sc), s);
+  }
+  return s;
+}
+
+// TQ: queries and output; TP: pages (int8_t: codes with f16 scales ksc,
+// k2sc, vsc of (P, ps), else the scale pointers are unused).  D2 = 0
+// without a second stream.  Block (b, h, z) owns query heads [z G, +G) of
+// the Gt that share KV head h, blockDim.x threads (a multiple of 32).
+// ROW_WARP: a warp (else a thread) per (head, row) score.  STATS: the K3
+// flush (f32 acc into out, the running max and denominator into m_out and
+// l_out), else the normalized output in TQ.  The table is append-only:
+// slot p holds page p.  pg: pages a stage; stages: the ring's depth (1 to
+// PA_STAGES_MAX; 1 where two stages of one page do not fit); vk, vk2, vv,
+// vs: bytes a copy of the K, K2 and V rows and the scale planes (16, 8 or
+// 4 by cp.async; 2 or 1 by a plain copy).  NARROW: a copy may be under 4
+// bytes, a row's bytes and Dv need not be multiples of 4 and of CV; the
+// shapes of every configuration of the port take the other instance,
+// which carries none of that code.
+template <typename TQ, typename TP, bool V_IS_K, bool ROW_WARP, bool STATS, bool NARROW>
+__global__ void __launch_bounds__(PA_THREADS_MAX) paged_attn_kernel(
+    const TQ* __restrict__ q, const TQ* __restrict__ q2,
+    const TP* __restrict__ kp, const TP* __restrict__ k2p,
+    const TP* __restrict__ vp, const __half* __restrict__ ksc,
+    const __half* __restrict__ k2sc, const __half* __restrict__ vsc,
+    const int* __restrict__ tables, const int* __restrict__ lengths,
+    std::conditional_t<STATS, float, TQ>* __restrict__ out,
+    float* __restrict__ m_out, float* __restrict__ l_out, int Hkv, int Gt, int G,
+    int D, int D2, int Dv, int P, int ps, int n_slots, int pg, int stages, int vk, int vk2,
+    int vv, int vs, float scale) {
+  constexpr bool QUANT = std::is_same<TP, int8_t>::value;
+  constexpr int CV = V_IS_K ? 4 : 2, SW = 32 * CV;  // columns a lane, a slice
+  constexpr int IT = (int)sizeof(TP);
+  extern __shared__ __align__(16) unsigned char psm[];
+  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, nw = nt / 32;
+  const AttnSmem L(G, nw, D, D2, Dv, ps, IT, QUANT, V_IS_K, pg, stages);
+  const int RG = pg * ps, ppr = (ps + 31) / 32;  // rows of a stage; registers a page
+  float* qs = reinterpret_cast<float*>(psm);  // G*D
+  float* q2s = qs + G * D;                    // G*D2
+  float* ss = q2s + G * D2;                   // G*RG scores of the stage's rows
+  int* meta = reinterpret_cast<int*>(ss + G * RG);  // a stage: its pages, their live rows
+  float* pw = reinterpret_cast<float*>(meta + stages * (pg + 1)) + warp * (RG + PA_PAGES);
+  unsigned char* stage0 = psm + L.head;
+
+  const size_t head = ((size_t)b * Hkv + h) * Gt + (size_t)blockIdx.z * G;  // first query head
+
+  // the first 32 table slots, one a lane (loaded beside the length)
+  int wbase = 0;
+  int tw = lane < n_slots ? tables[(size_t)b * n_slots + lane] : P;
+  const int length = lengths[b];
+  // every value here is uniform across the block, so whole pages skip together
+  const int n_walk = length <= 0 ? 0 : min(n_slots, (length + ps - 1) / ps);
+  unsigned live = __ballot_sync(FULL, lane < n_walk && tw >= 0 && tw < P);
+  // the first live slot after `slot`, or n_walk: the window of 32 slots
+  // moves forward as the walk does
+  auto next_live = [&](int slot) {
+    for (int s = slot + 1; s < n_walk;) {
+      if (s >= wbase + 32) {
+        wbase = s & ~31;
+        tw = wbase + lane < n_walk ? tables[(size_t)b * n_slots + wbase + lane] : P;
+        live = __ballot_sync(FULL, tw >= 0 && tw < P);
+      }
+      const unsigned ahead = live >> (s - wbase);
+      if (ahead) return s + __ffs(ahead) - 1;
+      s = wbase + 32;
+    }
+    return n_walk;
+  };
+
+  // fill stage st with the next pg live pages after slot `cursor`: start
+  // the copies of their live rows (and int8 pages' scales), record each
+  // page's live rows and their count
+  int cursor = -1;
+  const auto* kb = reinterpret_cast<const unsigned char*>(kp);
+  const auto* k2b = reinterpret_cast<const unsigned char*>(k2p);
+  const auto* vb = reinterpret_cast<const unsigned char*>(vp);
+  const int rowk = D * IT, rowk2 = D2 * IT, rowv = Dv * IT;
+  auto prefetch = [&](int st) {
+    unsigned char* sk = stage0 + st * L.stage;
+    int* sm = meta + st * (pg + 1);
+    int cnt = 0;
+    for (; cnt < pg; ++cnt) {
+      const int slot = next_live(cursor);
+      if (slot >= n_walk) break;
+      cursor = slot;
+      const int phys = __shfl_sync(FULL, tw, slot - wbase);
+      const int nv = min(ps, length - slot * ps);  // live rows [0, nv) of the page
+      const size_t row0 = (size_t)phys * ps;  // also the rows' index in a scale plane
+      const int R0 = cnt * ps;
+      copy_rows<NARROW>(sk + R0 * L.ksd, L.ksd, kb + (row0 * Hkv + h) * rowk,
+                        (size_t)Hkv * rowk, rowk, nv, vk, tid, nt);
+      if (D2) {
+        copy_rows<NARROW>(sk + L.kb + R0 * L.k2sd, L.k2sd, k2b + (row0 * Hkv + h) * rowk2,
+                          (size_t)Hkv * rowk2, rowk2, nv, vk2, tid, nt);
+      }
+      if (!V_IS_K) {
+        copy_rows<NARROW>(sk + L.kb + L.k2b + R0 * L.vsd, L.vsd, vb + (row0 * Hkv + h) * rowv,
+                          (size_t)Hkv * rowv, rowv, nv, vv, tid, nt);
+      }
+      if constexpr (QUANT) {
+        unsigned char* sc = sk + L.kb + L.k2b + L.vb + R0 * 2;
+        const auto* pa = reinterpret_cast<const unsigned char*>(ksc + row0);
+        const auto* pb = reinterpret_cast<const unsigned char*>((V_IS_K ? k2sc : vsc) + row0);
+        for (int o = tid * vs; o < ps * 2; o += nt * vs) {
+          if constexpr (NARROW) {
+            copy_piece(sc + o, pa + o, vs);
+            copy_piece(sc + L.sb + o, pb + o, vs);
+          } else {
+            cp_async(sc + o, pa + o, vs);
+            cp_async(sc + L.sb + o, pb + o, vs);
+          }
+        }
+      }
+      if (tid == 0) sm[1 + cnt] = nv;
+    }
+    if (tid == 0) sm[0] = cnt;
+  };
+
+  for (int s = 0; s < stages - 1; ++s) {
+    prefetch(s);
+    cp_async_commit();
+  }
+  for (int e = tid; e < G * D; e += nt) qs[e] = to_f(q[head * D + e]);
+  for (int e = tid; e < G * D2; e += nt) q2s[e] = to_f(q2[head * D2 + e]);
+
+  // the warp's items (head g, slice j): softmax state and accumulators
+  const int nsl = (Dv + SW - 1) / SW, items = G * nsl;
+  float acc[PA_ITEMS][CV], m_run[PA_ITEMS], l_run[PA_ITEMS];
+#pragma unroll
+  for (int it = 0; it < PA_ITEMS; ++it) {
+    m_run[it] = NEG, l_run[it] = 0.f;
+#pragma unroll
+    for (int t = 0; t < CV; ++t) acc[it][t] = 0.f;
+  }
+
+  for (int st = 0;; st = st + 1 == stages ? 0 : st + 1) {
+    if (stages == 1) {  // no ring: fill the one stage, wait for it, use it
+      prefetch(0);
+      cp_async_commit();
+    }
+    cp_async_wait(max(stages - 2, 0));
+    __syncthreads();  // stage st staged; every warp is done with the stage refilled next
+    const int* sm = meta + st * (pg + 1);
+    const int cnt = sm[0];
+    if (cnt == 0) break;
+    if (stages > 1) {
+      prefetch(st == 0 ? stages - 1 : st - 1);
+      cp_async_commit();
+    }
+
+    const unsigned char* sk = stage0 + st * L.stage;
+    const unsigned char* sk2 = sk + L.kb;
+    const unsigned char* sv = V_IS_K ? sk : sk + L.kb + L.k2b;
+    const int vsd = V_IS_K ? L.ksd : L.vsd;
+    const __half* sca = reinterpret_cast<const __half*>(sk + L.kb + L.k2b + L.vb);
+    const __half* scb = reinterpret_cast<const __half*>(sk + L.kb + L.k2b + L.vb + L.sb);
+    const __half* ks_sc = sca;                // K's scales
+    const __half* k2_sc = scb;                // K2's (MLA)
+    const __half* v_sc = V_IS_K ? sca : scb;  // V's: K's in the MLA form
+    auto row_live = [&](int R) { return R / ps < cnt && R % ps < sm[1 + R / ps]; };
+
+    // scores of every live (head, row) pair of the stage, each in the first
+    // version's order, times the scale
+    if constexpr (ROW_WARP) {
+      // a warp takes PA_ROWS consecutive rows of one head at a time
+      const int groups = (RG + PA_ROWS - 1) / PA_ROWS;
+      for (int e = warp; e < G * groups; e += nw) {
+        const int g = e / groups, R0 = (e - g * groups) * PA_ROWS;
+        int rr[PA_ROWS];
+        bool ok[PA_ROWS];
+        float s[PA_ROWS], sk_[PA_ROWS], sk2_[PA_ROWS];
+#pragma unroll
+        for (int u = 0; u < PA_ROWS; ++u) {
+          ok[u] = R0 + u < RG && row_live(R0 + u);
+          rr[u] = ok[u] ? R0 + u : 0;  // row 0 is always live: read it, drop it
+          s[u] = 0.f;
+          sk_[u] = QUANT ? __half2float(ks_sc[rr[u]]) : 1.f;
+          sk2_[u] = QUANT ? __half2float(k2_sc[rr[u]]) : 1.f;
+        }
+        // lane l's columns d = l, l + 32, ... of each stream, in order;
+        // PA_UNROLL of them loaded ahead of their fmafs
+        auto stream = [&](const float* qg, int n, const unsigned char* kbase, int stride,
+                          const float (&sc)[PA_ROWS]) {
+          for (int d0 = lane; d0 < n; d0 += 32 * PA_UNROLL) {
+            float qx[PA_UNROLL], kx[PA_UNROLL][PA_ROWS];
+#pragma unroll
+            for (int j = 0; j < PA_UNROLL; ++j) {
+              const int d = min(d0 + 32 * j, n - 1);
+              qx[j] = qg[d];
+#pragma unroll
+              for (int u = 0; u < PA_ROWS; ++u) {
+                kx[j][u] = load_one<TP>(kbase + rr[u] * stride, d, sc[u]);
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < PA_UNROLL; ++j) {
+              if (d0 + 32 * j < n) {
+#pragma unroll
+                for (int u = 0; u < PA_ROWS; ++u) s[u] = fmaf(qx[j], kx[j][u], s[u]);
+              }
+            }
+          }
+        };
+        stream(qs + g * D, D, sk, L.ksd, sk_);
+        stream(q2s + g * D2, D2, sk2, L.k2sd, sk2_);
+#pragma unroll
+        for (int u = 0; u < PA_ROWS; ++u) s[u] = warp_sum(s[u]);
+        if (lane == 0) {
+#pragma unroll
+          for (int u = 0; u < PA_ROWS; ++u) {
+            if (ok[u]) ss[g * RG + rr[u]] = __fmul_rn(s[u], scale);
+          }
+        }
+      }
+    } else {
+      for (int e = tid; e < G * RG; e += nt) {
+        const int g = e / RG, R = e - g * RG;
+        if (!row_live(R)) continue;
+        float s = dot_chain<TP, NARROW>(qs + g * D, sk + R * L.ksd, D,
+                                        QUANT ? __half2float(ks_sc[R]) : 1.f, 0.f);
+        if (D2) {
+          s = dot_chain<TP, NARROW>(q2s + g * D2, sk2 + R * L.k2sd, D2,
+                                    QUANT ? __half2float(k2_sc[R]) : 1.f, s);
+        }
+        ss[g * RG + R] = __fmul_rn(s, scale);
+      }
+    }
+    __syncthreads();  // the stage's scores are in ss
+
+    // each item (head g, column slice) over the stage's pages in slot
+    // order: per page the online softmax of g over its live rows, then P V
+    // on the slice's columns.  The pages' maxima, probabilities and sums
+    // do not depend on one another past the running max, so they are
+    // taken for all of the stage's pages at once (each in the first
+    // version's order: lane l holds rows l, l + 32, ... of a page, then
+    // warp_max and warp_sum), their reductions interleaved and free of
+    // branches (a slot past the stage's pages holds max -1e30 and sum 0,
+    // so its rescale is exactly 1); only m, l and the accumulators chain
+    // from page to page.  Every warp holding a slice of head g runs g's
+    // softmax, to the same bits.
+#pragma unroll
+    for (int it = 0; it < PA_ITEMS; ++it) {
+      const int item = warp + it * nw;
+      if (item >= items) continue;  // uniform in the warp
+      const int g = item / nsl, c0 = (item - g * nsl) * SW + lane * CV;
+      // a lane past Dv reads other columns, unused; NARROW: a lane across Dv
+      // reads its CV columns whole, those past Dv from the row's padding
+      const int cr = NARROW ? (c0 < Dv ? c0 : 0) : min(c0, Dv - CV);
+      const float* sg = ss + g * RG;
+      // slot j of a lane: row 32 kk + lane of page k, (k, kk) = (j, 0) for
+      // pages of up to 32 rows, else (0, j) (a stage of one page)
+      float v[PA_PAGES], pm[PA_PAGES], psum[PA_PAGES], mk[PA_PAGES];
+      bool live[PA_PAGES];
+#pragma unroll
+      for (int j = 0; j < PA_PAGES; ++j) {
+        const int k = ppr == 1 ? j : 0, r = ppr == 1 ? lane : 32 * j + lane;
+        live[j] = k < cnt && r < sm[1 + k];
+        v[j] = live[j] ? sg[k * ps + r] : NEG;
+        pm[j] = fmaxf(NEG, v[j]);
+      }
+      if (ppr > 1) {  // one page: its lane partial over the slots, in row order
+#pragma unroll
+        for (int j = 1; j < PA_PAGES; ++j) pm[0] = fmaxf(pm[0], pm[j]), pm[j] = NEG;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int k = 0; k < PA_PAGES; ++k) pm[k] = fmaxf(pm[k], __shfl_xor_sync(FULL, pm[k], off));
+      }
+      float m = m_run[it];
+#pragma unroll
+      for (int k = 0; k < PA_PAGES; ++k) mk[k] = m = fmaxf(m, pm[k]);
+#pragma unroll
+      for (int j = 0; j < PA_PAGES; ++j) {
+        const float e = expf(v[j] - (ppr == 1 ? mk[j] : mk[0]));
+        if (live[j]) pw[(ppr == 1 ? j * ps : 32 * j) + lane] = e;
+        psum[j] = 0.f + (live[j] ? e : 0.f);
+      }
+      if (ppr > 1) {
+#pragma unroll
+        for (int j = 1; j < PA_PAGES; ++j) psum[0] += psum[j], psum[j] = 0.f;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int k = 0; k < PA_PAGES; ++k) psum[k] += __shfl_xor_sync(FULL, psum[k], off);
+      }
+      float m_old = m_run[it], l = l_run[it];
+#pragma unroll
+      for (int k = 0; k < PA_PAGES; ++k) {
+        const float c = expf(m_old - mk[k]);
+        l = fmaf(c, l, psum[k]);  // the first version's c * l + sum, contracted
+        m_old = mk[k];
+        if (lane == k) pw[RG + k] = c;
+      }
+      m_run[it] = m_old, l_run[it] = l;
+      __syncwarp();  // the warp's probabilities and rescales are in pw
+      for (int k = 0; k < cnt; ++k) {
+        const float c = pw[RG + k];
+#pragma unroll
+        for (int t = 0; t < CV; ++t) acc[it][t] = __fmul_rn(c, acc[it][t]);
+        const int R1 = k * ps + sm[1 + k];
+        for (int r = k * ps; r < R1; r += 4) {  // 4 rows loaded ahead of their fmafs
+          float p[4], x[4][CV];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int ru = min(r + u, R1 - 1);
+            p[u] = pw[ru];
+            load_vals<TP, CV>(sv + ru * vsd + cr * IT, QUANT ? __half2float(v_sc[ru]) : 1.f, x[u]);
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (r + u < R1) {
+#pragma unroll
+              for (int t = 0; t < CV; ++t) acc[it][t] = fmaf(p[u], x[u][t], acc[it][t]);
+            }
+          }
+        }
+      }
+      __syncwarp();  // every lane is done with pw before the next item refills it
+    }
+    if (stages == 1) __syncthreads();  // every warp is done with the stage
+  }
+
+#pragma unroll
+  for (int it = 0; it < PA_ITEMS; ++it) {
+    const int item = warp + it * nw;
+    if (item >= items) continue;
+    const int g = item / nsl, j = item - g * nsl, c0 = j * SW + lane * CV;
+    const size_t row = head + g;
+#pragma unroll
+    for (int t = 0; t < CV; ++t) {
+      if (c0 + t >= Dv) continue;
+      if constexpr (STATS) {
+        out[row * Dv + c0 + t] = acc[it][t];
+      } else {
+        out[row * Dv + c0 + t] = from_f<TQ>(acc[it][t] / fmaxf(l_run[it], 1e-30f));
+      }
+    }
+    if (STATS && j == 0 && lane == 0) {
+      m_out[row] = m_run[it];
+      l_out[row] = l_run[it];
+    }
+  }
+}
+
 template <typename TQ, typename TP, bool V_IS_K, bool STATS>
 int launch(const void* q, const void* q2, const void* k, const void* k2,
            const void* v, const void* ksc, const void* k2sc, const void* vsc,
            const void* tables, const void* lengths, void* out, void* m_out,
            void* l_out, int B, int Hkv, int G, int D, int D2, int Dv, int P, int ps,
-           int n_slots, float scale, cudaStream_t s) {
-  // split a KV head's query heads across blocks (halving while G stays
-  // even) until the grid has 64 blocks or a block has 2 heads: every block
-  // re-reads the pages (from L2), but 4 lanes of 16 MLA heads fill 32 SMs
-  int gb = G;
-  while (gb > 2 && gb % 2 == 0 && B * Hkv * (G / gb) < 64) gb /= 2;
-  const int smem = (int)sizeof(float) * smem_floats(gb, D, D2, Dv, ps, V_IS_K);
-  auto kernel = D + D2 >= WARP_ROW_MIN ? paged_attn_kernel<TQ, TP, V_IS_K, true, STATS>
-                                      : paged_attn_kernel<TQ, TP, V_IS_K, false, STATS>;
+           int n_slots, float scale, int gb, int threads, int pg, int stages,
+           cudaStream_t s) {
+  constexpr bool QUANT = std::is_same<TP, int8_t>::value;
+  constexpr int item = (int)sizeof(TP), SW = 32 * (V_IS_K ? 4 : 2);
+  const int vk = copy_bytes(k, D * item, 1), vk2 = D2 ? copy_bytes(k2, D2 * item, 1) : 16;
+  const int vv = V_IS_K ? 16 : copy_bytes(v, Dv * item, 1);
+  int vs = 16;
+  if (QUANT) {
+    const int a = copy_bytes(ksc, ps * 2, 2), c = copy_bytes(V_IS_K ? k2sc : vsc, ps * 2, 2);
+    vs = a < c ? a : c;
+  }
+  const int smem = AttnSmem(gb, threads / 32, D, D2, Dv, ps, item, QUANT, V_IS_K, pg,
+                            stages).total;
+  if (gb < 1 || G % gb || threads < 32 || threads > PA_THREADS_MAX || threads % 32
+      || gb * ((Dv + SW - 1) / SW) > threads / 32 * PA_ITEMS || pg < 1 || stages < 1
+      || stages > PA_STAGES_MAX || ps > 32 * PA_PAGES || (ps > 32 ? pg > 1 : pg > PA_PAGES)
+      || smem > SMEM_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool narrow = vk < 4 || vk2 < 4 || vv < 4 || vs < 4 || Dv % (SW / 32);
+  auto kernel = D + D2 >= WARP_ROW_MIN
+                    ? (narrow ? paged_attn_kernel<TQ, TP, V_IS_K, true, STATS, true>
+                              : paged_attn_kernel<TQ, TP, V_IS_K, true, STATS, false>)
+                    : (narrow ? paged_attn_kernel<TQ, TP, V_IS_K, false, STATS, true>
+                              : paged_attn_kernel<TQ, TP, V_IS_K, false, STATS, false>);
   if (smem > 48 * 1024) {  // past the default: opt in, or fail the launch
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<dim3(B, Hkv, G / gb), THREADS, smem, s>>>(
+  kernel<<<dim3(B, Hkv, G / gb), threads, smem, s>>>(
       static_cast<const TQ*>(q), static_cast<const TQ*>(q2),
       static_cast<const TP*>(k), static_cast<const TP*>(k2),
       static_cast<const TP*>(v), static_cast<const __half*>(ksc),
@@ -642,7 +1026,7 @@ int launch(const void* q, const void* q2, const void* k, const void* k2,
       static_cast<const int*>(tables), static_cast<const int*>(lengths),
       static_cast<std::conditional_t<STATS, float, TQ>*>(out),
       static_cast<float*>(m_out), static_cast<float*>(l_out), Hkv, G, gb, D, D2,
-      Dv, P, ps, n_slots, scale);
+      Dv, P, ps, n_slots, pg, stages, vk, vk2, vv, vs, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -652,10 +1036,11 @@ int launch_types(int q_dtype, int page_dtype, const void* q, const void* q2,
                  const void* k2sc, const void* vsc, const void* tables,
                  const void* lengths, void* out, void* m_out, void* l_out,
                  int B, int Hkv, int G, int D, int D2, int Dv, int P, int ps,
-                 int n_slots, float scale, void* stream) {
+                 int n_slots, float scale, int gb, int threads, int pg, int stages,
+                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PA_ARGS q, q2, k, k2, v, ksc, k2sc, vsc, tables, lengths, out, m_out, l_out, \
-                B, Hkv, G, D, D2, Dv, P, ps, n_slots, scale, s
+                B, Hkv, G, D, D2, Dv, P, ps, n_slots, scale, gb, threads, pg, stages, s
   if (page_dtype == 2) {
     return q_dtype == 0 ? launch<float, int8_t, V_IS_K, STATS>(PA_ARGS)
                         : launch<__nv_bfloat16, int8_t, V_IS_K, STATS>(PA_ARGS);
@@ -665,15 +1050,6 @@ int launch_types(int q_dtype, int page_dtype, const void* q, const void* q2,
   if (page_dtype == 0) return launch<__nv_bfloat16, float, V_IS_K, STATS>(PA_ARGS);
   return launch<__nv_bfloat16, __nv_bfloat16, V_IS_K, STATS>(PA_ARGS);
 #undef PA_ARGS
-}
-
-// The largest of 16, 8 and 4 bytes that divides `bytes` and the address
-// `p` (every row then starts aligned to it), or 0.
-int copy_bytes(const void* p, int bytes) {
-  for (int v = 16; v >= 4; v >>= 1) {
-    if (bytes % v == 0 && reinterpret_cast<uintptr_t>(p) % v == 0) return v;
-  }
-  return 0;
 }
 
 // One launch of the walk with flush NORM into (out, m_out, l_out).
@@ -750,12 +1126,6 @@ int launch_win(const void* q, const void* k, const void* v, const void* ksc,
 
 }  // namespace
 
-// Shared memory the GQA/MLA kernel needs, in bytes (the wrapper refuses
-// more than paged_attn_smem_max()).  D2 = 0 and v_is_k = 0 for the GQA form.
-extern "C" int paged_attn_smem_bytes(int G, int D, int D2, int Dv, int ps, int v_is_k) {
-  return (int)sizeof(float) * smem_floats(G, D, D2, Dv, ps, v_is_k != 0);
-}
-
 // Shared memory the window kernel needs at `splits` blocks a lane, in bytes.
 extern "C" int paged_attn_win_smem_bytes(int D, int Dv, int ps, int n_slots, int splits,
                                          int page_dtype) {
@@ -769,19 +1139,23 @@ extern "C" int paged_attn_smem_max() { return SMEM_MAX; }
 // (then the f16 scale planes k_scale and v_scale, or k_scale and k2_scale,
 // are given; otherwise they are null).  m_out and l_out null: the
 // normalized flush into out (q's type); both given: the stats flush (K3),
-// f32 acc into out.  Each returns the error of the shared-memory opt-in,
-// else cudaGetLastError() after its launches.  The wrapper
+// f32 acc into out.  The GQA and MLA entries take their launch plan (gb
+// heads a block, threads a block, pg pages a stage, stages; kernels/
+// paged_attn.py:attn_plan) and return cudaErrorInvalidValue for a plan the
+// kernel does not take (its shared memory past SMEM_MAX included).  Each
+// returns the error of the shared-memory opt-in, else
+// cudaGetLastError() after its launches.  The wrapper
 // (kernels/paged_attn.py) checks shapes, types and contiguity.
 extern "C" int paged_attn_launch(const void* q, const void* k, const void* v,
                                  const void* k_scale, const void* v_scale,
                                  const void* tables, const void* lengths,
                                  void* out, void* m_out, void* l_out, int B,
                                  int Hkv, int G, int D, int Dv, int P, int ps,
-                                 int n_slots, float scale, int q_dtype, int page_dtype,
-                                 void* stream) {
+                                 int n_slots, int gb, int threads, int pg, int stages,
+                                 float scale, int q_dtype, int page_dtype, void* stream) {
 #define PA_GQA_ARGS q_dtype, page_dtype, q, nullptr, k, nullptr, v, k_scale, nullptr, \
                     v_scale, tables, lengths, out, m_out, l_out, B, Hkv, G, D, 0, Dv, \
-                    P, ps, n_slots, scale, stream
+                    P, ps, n_slots, scale, gb, threads, pg, stages, stream
   return m_out != nullptr ? launch_types<false, true>(PA_GQA_ARGS)
                           : launch_types<false, false>(PA_GQA_ARGS);
 #undef PA_GQA_ARGS
@@ -823,11 +1197,12 @@ extern "C" int paged_attn_mla_launch(const void* q, const void* q2,
                                      const void* tables, const void* lengths,
                                      void* out, void* m_out, void* l_out, int B,
                                      int Hkv, int G, int D, int D2, int P,
-                                     int ps, int n_slots, float scale,
-                                     int q_dtype, int page_dtype, void* stream) {
+                                     int ps, int n_slots, int gb, int threads, int pg,
+                                     int stages, float scale, int q_dtype, int page_dtype,
+                                     void* stream) {
 #define PA_MLA_ARGS q_dtype, page_dtype, q, q2, k, k2, nullptr, k_scale, k2_scale, \
                     nullptr, tables, lengths, out, m_out, l_out, B, Hkv, G, D, D2, D, \
-                    P, ps, n_slots, scale, stream
+                    P, ps, n_slots, scale, gb, threads, pg, stages, stream
   return m_out != nullptr ? launch_types<true, true>(PA_MLA_ARGS)
                           : launch_types<true, false>(PA_MLA_ARGS);
 #undef PA_MLA_ARGS

@@ -38,6 +38,11 @@ On the card :func:`paged_attn` launches ``csrc/paged_attn.cu`` (whose
 header says what bounds it and how the design answers that); on the CPU it
 runs :func:`paged_attn_stats_plain`, the gathered math of the reference's
 ``_gathered_stats``, and :func:`paged_attn_plain` normalizes that.  The
+GQA and MLA forms walk each lane's pages in order through a ring of
+``cp.async`` stages in the first version's arithmetic, so they write its
+bytes (``kernels/paged_attn_check.py`` holds the digests); their launch
+plan (query heads, threads and pages a block's stage, stages) comes from
+:func:`attn_plan`, from the shapes and the SM count alone.  The
 window form splits each lane's table slots over ``S`` blocks
 (:func:`window_splits`, from the shapes and the card's SM count alone: no
 host sync), each block streaming its pages through a double-buffered
@@ -52,7 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -62,15 +67,42 @@ _NEG = -1e30  # finite -inf stand-in: keeps dead lanes exp()-safe
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_DTYPES = {**_DTYPES, torch.int8: 2}
 _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # scale, types, stream
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + _TAIL
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + _TAIL
 _ARGTYPES_WIN = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + _TAIL
-_ARGTYPES_MLA = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + _TAIL
+_ARGTYPES_MLA = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + _TAIL
+# a block's shared memory on the H100 (csrc/paged_attn.cu: SMEM_MAX)
+SMEM_MAX = 232448
+# the limits of the GQA/MLA kernel's plan (csrc/paged_attn.cu: PA_*, which
+# its launch checks): a warp owns up to ATTN_ITEMS (head, column slice)
+# items of 32 * 4 columns (MLA) or 32 * 2 (GQA), a warp scores ATTN_ROWS
+# (head, row) pairs at once where a warp scores a row (D + D2 >=
+# ATTN_WARP_ROW_MIN), at most ATTN_MAX_THREADS threads a block, rings of 2
+# to ATTN_MAX_STAGES stages
+ATTN_ITEMS, ATTN_ROWS, ATTN_WARP_ROW_MIN = 4, 4, 256
+# the fewest warps a block, where a thread (False) or a warp (True) scores a row
+ATTN_MIN_WARPS = {False: 4, True: 8}
+ATTN_MAX_THREADS, ATTN_MAX_STAGES = 512, 4
+# pages a stage at most (of up to 32 rows; a page of more rows is a stage
+# alone, a lane holding one of each 32 of its rows in ATTN_MAX_PAGES
+# registers: ps <= ATTN_MAX_PS), and the pages the ring should hold
+ATTN_MAX_PAGES, ATTN_RING_PAGES = 8, 4
+ATTN_MAX_PS = 32 * ATTN_MAX_PAGES
 # the window kernel: blocks of 32 * ceil(G / 2) threads, 8 columns a lane
 # (csrc/paged_attn.cu)
 WINDOW_MAX_G, WINDOW_MAX_D, WINDOW_VEC = 32, 256, 8
 # the fewest table slots a block of the split window walk takes
 WINDOW_MIN_SLOTS = 4
 Stats = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+class AttnPlan(NamedTuple):
+    """The GQA/MLA kernel's launch plan: query ``heads`` a block,
+    ``threads`` a block, ``pages`` a stage, ``stages`` in the ring."""
+
+    heads: int
+    threads: int
+    pages: int
+    stages: int
 
 
 def paged_attn(
@@ -168,13 +200,13 @@ def _launch(q, k_pages, v_pages, tables, lengths, *, scale, window, win_slots, q
         smem = dispatch.kernel_fn("paged_attn", "paged_attn_win_smem_bytes",
                                   [ctypes.c_int] * 6)(d, dv, ps, n_slots, splits,
                                                       _PAGE_DTYPES[k_pages.dtype])
-    else:
-        smem = dispatch.kernel_fn("paged_attn", "paged_attn_smem_bytes",
-                                  [ctypes.c_int] * 6)(g, d, d2, dv, ps, int(mla))
-    limit = dispatch.kernel_fn("paged_attn", "paged_attn_smem_max", [])()
-    if smem > limit:
-        raise ValueError(f"G={g}, D={d}, D2={d2}, Dv={dv}, ps={ps} need {smem} B of "
-                         f"shared memory, over the block's {limit}")
+        limit = dispatch.kernel_fn("paged_attn", "paged_attn_smem_max", [])()
+        if smem > limit:
+            raise ValueError(f"G={g}, D={d}, Dv={dv}, ps={ps} need {smem} B of shared "
+                             f"memory, over the block's {limit}")
+    else:  # the plan fits SMEM_MAX; the launch refuses one that does not
+        plan = attn_plan(b, hkv, g, d, d2, dv, ps, k_pages.element_size(), bool(scales), mla,
+                         sm_count(q.device))
     f32 = dict(dtype=torch.float32, device=q.device)
     out = torch.empty((b, hkv, g, dv), **f32) if emit_stats else torch.empty(
         (b, hkv, g, dv), dtype=q.dtype, device=q.device)
@@ -188,7 +220,7 @@ def _launch(q, k_pages, v_pages, tables, lengths, *, scale, window, win_slots, q
         fn = dispatch.kernel_fn("paged_attn", "paged_attn_mla_launch", _ARGTYPES_MLA)
         rc = fn(q.data_ptr(), q2.data_ptr(), k_pages.data_ptr(), k2_pages.data_ptr(),
                 _ptr(k_scale), _ptr(k2_scale), tables.data_ptr(), lengths.data_ptr(),
-                *outs, b, hkv, g, d, d2, n_pages, ps, n_slots, float(scale), *types)
+                *outs, b, hkv, g, d, d2, n_pages, ps, n_slots, *plan, float(scale), *types)
     elif window:
         # the splits' partials: acc (S, B, Hkv, G, Dv), then m and l (S, B, Hkv, G)
         work = torch.empty(splits * b * hkv * g * (dv + 2), **f32) if splits > 1 else None
@@ -201,7 +233,7 @@ def _launch(q, k_pages, v_pages, tables, lengths, *, scale, window, win_slots, q
         fn = dispatch.kernel_fn("paged_attn", "paged_attn_launch", _ARGTYPES)
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), _ptr(k_scale),
                 _ptr(v_scale), tables.data_ptr(), lengths.data_ptr(), *outs,
-                b, hkv, g, d, dv, n_pages, ps, n_slots, float(scale), *types)
+                b, hkv, g, d, dv, n_pages, ps, n_slots, *plan, float(scale), *types)
     name = entry(mla=mla, window=window, stats=emit_stats, quant=bool(scales))
     dispatch.check_launch(name, rc)
     if window:
@@ -219,6 +251,84 @@ def window_splits(b: int, hkv: int, n_slots: int, sms: int) -> int:
     hkv`` fills the ``sms`` SMs.  The kernel's blocks of ``ceil(n_slots /
     S)`` slots then cover the table in exactly ``S`` blocks, none empty."""
     return -(-n_slots // max(WINDOW_MIN_SLOTS, -(-n_slots * b * hkv // sms)))
+
+
+def attn_smem_bytes(heads: int, threads: int, d: int, d2: int, dv: int, ps: int,
+                    itemsize: int, quant: bool, mla: bool, pages: int, stages: int) -> int:
+    """Bytes of shared memory the GQA/MLA kernel takes (``csrc/paged_attn.cu``:
+    ``AttnSmem``): f32 queries, a stage's scores, its page records and
+    each warp's probabilities and rescales, then ``stages`` stages of
+    ``pages`` pages' raw rows, each row padded to an odd number of 16-byte
+    units, and for int8 pages two f16 scale planes.  The plan is chosen
+    with this count; the launch lays the same memory out and refuses a
+    plan past ``SMEM_MAX``, so a count that fell short would fail the
+    launch, never overflow the block."""
+    def a16(n):
+        return -(-n // 16) * 16
+
+    def stride(nbytes):
+        return 0 if nbytes == 0 else a16(nbytes) + (16 if a16(nbytes) // 16 % 2 == 0 else 0)
+
+    rows = pages * ps
+    stage = rows * (stride(d * itemsize) + stride(d2 * itemsize)
+                    + (0 if mla else stride(dv * itemsize))) + (2 * a16(rows * 2) if quant else 0)
+    head = a16(4 * (heads * (d + d2) + heads * rows + stages * (pages + 1)
+                    + threads // 32 * (rows + ATTN_MAX_PAGES)))
+    return head + stages * stage
+
+
+def attn_plan(b: int, hkv: int, g: int, d: int, d2: int, dv: int, ps: int, itemsize: int,
+              quant: bool, mla: bool, sms: int) -> AttnPlan:
+    """The GQA/MLA kernel's launch plan, from the shapes and the card's SM
+    count alone (never the lengths, which live on the card).
+
+    - ``heads``: the fewest query heads a block (a divisor of ``g``) that
+      keep the ``b * hkv * g / heads`` blocks within one wave of ``sms``
+      (the pages of a KV head are then re-read per block, from L2), and
+      at most what ``ATTN_MAX_THREADS / 32`` warps of ``ATTN_ITEMS``
+      items hold.
+    - ``threads``: enough warps for the items, at least 4 where a thread
+      scores a row and 8 where a warp does (more warps hide more of the
+      scores' latency).
+    - ``pages``: enough pages a stage that every thread (a warp's
+      ``ATTN_ROWS`` pairs where a warp scores a row) has a score to
+      compute, up to ``ATTN_MAX_PAGES``; one for pages of more than 32
+      rows.
+    - ``stages``: a ring of about ``ATTN_RING_PAGES`` pages, at least 2,
+      fewer stages (then fewer pages a stage, then one stage without a
+      ring, then fewer heads a block) until the shared memory fits
+      ``SMEM_MAX``.
+
+    Raises ``ValueError`` for shapes the kernel does not take: ps over
+    ``ATTN_MAX_PS``, a Dv wider than ``ATTN_MAX_THREADS / 32`` warps of
+    items, or a page of one head that overflows the shared memory."""
+    if ps > ATTN_MAX_PS:
+        raise ValueError(f"the paged_attn kernel takes pages of at most {ATTN_MAX_PS} rows, "
+                         f"got ps={ps}")
+    slices = -(-dv // (32 * (4 if mla else 2)))  # a lane holds 4 (MLA) or 2 columns
+    max_items = ATTN_MAX_THREADS // 32 * ATTN_ITEMS
+    fit = [h for h in range(1, g + 1) if g % h == 0 and h * slices <= max_items]
+    if not fit:
+        raise ValueError(f"Dv={dv} is wider than the kernel's {max_items} column slices")
+    first = next((h for h in fit if b * hkv * (g // h) <= sms), fit[-1])
+    warp_rows = d + d2 >= ATTN_WARP_ROW_MIN
+    for heads in [h for h in reversed(fit) if h <= first]:
+        warps = max(ATTN_MIN_WARPS[warp_rows], -(-heads * slices // ATTN_ITEMS))
+        pairs = warps * ATTN_ROWS if warp_rows else 32 * warps
+        pages = 1 if ps > 32 else min(ATTN_MAX_PAGES, max(1, pairs // (heads * ps)))
+        stages = min(ATTN_MAX_STAGES, max(2, -(-ATTN_RING_PAGES // pages)))
+        while attn_smem_bytes(heads, 32 * warps, d, d2, dv, ps, itemsize, quant, mla, pages,
+                              stages) > SMEM_MAX and stages:
+            if stages > 2:
+                stages -= 1
+            elif pages > 1:
+                pages -= 1
+            else:  # no ring (one stage filled, used and refilled), then no plan
+                stages -= 1
+        if stages:
+            return AttnPlan(heads, 32 * warps, pages, stages)
+    raise ValueError(f"G={g}, D={d}, D2={d2}, Dv={dv}, ps={ps} need more than a block's "
+                     f"{SMEM_MAX} B of shared memory")
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,6 +17,7 @@ from repro_torch.kernels.nm_spmm import (
     nm_spmm_batched_plain,
     nm_spmm_plain,
 )
+from repro_torch.kernels import paged_attn_check
 from repro_torch.kernels.paged_attn import (
     paged_attn,
     paged_attn_plain,
@@ -138,7 +139,10 @@ def test_nm_spmm_row_does_not_depend_on_its_batch(dev, batched, e, k, o):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hkv,g,d,ps", [(12, 1, 64, 16), (2, 3, 16, 4), (4, 4, 128, 8)])
+@pytest.mark.parametrize("hkv,g,d,ps", [(12, 1, 64, 16), (2, 3, 16, 4), (4, 4, 128, 8),
+                                        (1, 2, 256, 64),  # f32: one stage, no ring
+                                        (2, 1, 64, 256),  # pages of the kernel's 256 rows
+                                        (2, 2, 5, 5)])  # bf16 rows of 10 bytes, odd ps
 def test_paged_attn_kernel_matches_plain(dev, dtype, hkv, g, d, ps):
     lengths = [1, 2 * ps + 3, 5 * ps, 0, 3 * ps - 1]  # ragged, page-aligned, idle
     n_slots, num_pages = 6, 24
@@ -185,6 +189,8 @@ def test_nm_spmm_batched_kernel_matches_plain(dev, dtype, e, b, k, o, pad):
 @pytest.mark.parametrize("page_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,d,d2,ps,extra_lanes", [
     (4, 16, 8, 4, 0), (16, 512, 64, 16, 0),
+    (4, 16, 8, 256, 0),  # pages of the kernel's 256 rows
+    (3, 6, 3, 3, 0),  # a latent of 6 (no multiple of a lane's 4 columns), odd ps
     (16, 512, 64, 16, 11),  # 16 lanes: 4 heads a block, 55 KB of shared memory
     (16, 512, 64, 16, 59),  # 64 lanes: 16 heads a block, 105 KB
 ])
@@ -382,16 +388,30 @@ def test_paged_attn_stats_kernel_matches_plain(dev, form, int8, lanes):
 @pytest.mark.parametrize("lanes", [5, 140])
 @pytest.mark.parametrize("stats", [False, True])
 @pytest.mark.parametrize("int8", [False, True])
-def test_paged_attn_window_kernel_is_deterministic(dev, int8, stats, lanes):
-    """The same window call twice gives the same bytes, split over several
-    blocks a lane and merged (5 lanes) or walked by one block (140 lanes),
-    in all four variants: the combine sums the partials in a fixed order,
-    with no atomics."""
-    args, kw, _, _, _ = _form_case(dev, "window_wide", lanes, int8)
+@pytest.mark.parametrize("form", ["window_wide", "gqa", "mla"])
+def test_paged_attn_window_kernel_is_deterministic(dev, form, int8, stats, lanes):
+    """The same call twice gives the same bytes, in all four variants
+    (fp and int8 pages, either flush) of the window form, split over
+    several blocks a lane and merged (5 lanes) or walked by one block (140
+    lanes): the combine sums the partials in a fixed order, with no
+    atomics; and of the GQA and MLA forms, whose walk keeps one order."""
+    args, kw, _, _, _ = _form_case(dev, form, lanes, int8)
     first, second = (paged_attn(*args, emit_stats=stats, **kw) for _ in range(2))
     torch.cuda.synchronize()
     for a, b in zip(first, second) if stats else [(first, second)]:
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("key", paged_attn_check.keys())
+def test_paged_attn_bytes_equal_the_first_version(dev, key):
+    """The GQA and MLA body (K2, K2m, K2q, K3) writes the first version's
+    bytes: the SHA-256 of ``out`` (and ``m``, ``l`` under the stats flush)
+    on each seeded case of ``kernels/paged_attn_check.py`` equals the
+    digest taken from the first version's kernel, counted under the
+    case's launch entry."""
+    y, counted = _launched(lambda: paged_attn_check.run(paged_attn, key, dev))
+    assert counted == {paged_attn_check.launch_entry(key): 1}
+    assert paged_attn_check.digest(y) == paged_attn_check.DIGESTS[key]
 
 
 def test_kernel_refuses_what_it_does_not_take(dev):
