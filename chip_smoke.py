@@ -17,23 +17,34 @@ Phases, in order; any failure exits non-zero:
    one-call PyTorch yardstick, beside the least time the card could take
    (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s, counted
    from the shapes).  ``nm_spmm`` (K1) runs its decode kernel for B <= 8
-   rows (a ring of kept weight rows in flight per lane) and its first
-   version's body above, both summing every output in one fixed order:
-   every K1 call runs twice and must give the same bytes, and a prefill's
-   first rows the bytes of a decode call of those rows alone.  K1 is also
-   timed at RecurrentGemma-9B's MLP widths (4096->12288, 12288->4096, B =
-   4), with its rate in GB/s.
+   rows (a ring of kept weight rows in flight per lane) and, for more rows
+   of bf16 x, its tensor-core body (expanded tiles, ``mma.sync``), each
+   summing every output in one order fixed by the weight's shapes: every
+   K1 call runs twice and must give the same bytes, and 32 rows of a
+   prefill (its first, and from the middle of a 512-row call) the bytes of
+   a prefill call of those rows alone.  K1 is also
+   timed at RecurrentGemma-9B's MLP widths (4096->12288, 12288->4096) at B
+   = 4, with its rate in GB/s, and at B = 2048 (prefill), held against its
+   plain version and timed beside ``torch.matmul`` with its rate in
+   TFLOP/s.
 3. Serve full-width gpt2-paper (random weights from a seed, STEP 2:4
    export, compression) through ``DecodeEngine``: on the slab, then on an
    undersized paged pool that preempts.  Launch counts are zeroed before
    and read after; both kernels must have run.  Every request must finish
-   with its token budget, and where the two greedy streams differ the
-   top-2 logit margin must be a near-tie.  Then the same traffic on an
+   with its token budget.  Then the same traffic on an
    int8 pool (``kv_quant``) of no more device bytes than the fp pool
    (about twice its pages): ``paged_attn``'s int8 form must launch 12
    times per decode step and the fp form never, and the pool must preempt
-   fewer times than the fp pool.  Then a ``torch.profiler`` trace of a few
-   decode steps on a 28-page fp and int8 pool (device ms a step by kernel).
+   fewer times than the fp pool.  The stream gate: the same traffic served
+   by f32 twins of the tree (every float leaf in f32) on the slab, the
+   preempting pool and the int8 pool (the same preemptions); the slab and
+   paged twins' greedy streams must be equal except where the top-2
+   margin, read from an f32 forward, is under 0.1, and every token of
+   both must lie within 0.1 of that forward's greedy choice (the bf16
+   streams' differences are printed as readings, their margins read in
+   f32).  Then
+   a ``torch.profiler`` trace of a few decode steps on a 28-page fp and
+   int8 pool (device ms a step by kernel).
 4. Train full-width gpt2-paper with the STEP recipe through the Trainer
    that ``repro_torch.launch.train`` builds (2:4, batch 8, seq 128,
    b2 0.98, 60 steps, AutoSwitch clipped to (6, 30]), checkpointing to a
@@ -50,24 +61,26 @@ Phases, in order; any failure exits non-zero:
 6. Serve full-width DeepSeek-V2-Lite (all 27 layers: MLA, 64-expert MoE):
    random weights from seed 0, the STEP 2:4 export and compression leaf by
    leaf, then 8 greedy requests of 64 + 32 tokens over 4 lanes, K = 4, on
-   the slab, on a paged pool that never preempts (its streams must equal
-   the slab's except at near-ties: top-2 margin under 0.1) and on an
-   undersized pool that preempts, then on an int8 pool of the first
-   pool's 28 pages.  Launch counts are zeroed before and read after each
-   run: the batched ``nm_spmm`` must launch 3 x 26 times per decode step
+   the slab, on a paged pool that never preempts and on an undersized
+   pool that preempts, then on an int8 pool of the first pool's 28
+   pages.  Launch counts are zeroed before and read after each run: the
+   batched ``nm_spmm`` must launch 3 x 26 times per decode step
    and per prefill batch, and ``paged_attn``'s MLA form (its int8 form on
    the int8 pool) 27 times per paged decode step.  Then a
    ``torch.profiler`` trace of a few decode steps on the fp and the int8
-   pool.
+   pool.  The stream gate, once the bf16 runs' engines are freed: the f32
+   twin (about 40 GB) on the slab and the 28-page pool, streams equal
+   except at f32 top-2 margins under 0.1 (MoE capacity makes a forward's
+   dropped tokens depend on its length, so the tokens are not held to the
+   forward's choices one by one here).
 7. Serve full-width RecurrentGemma-9B (all 38 layers: 12 x (RG-LRU,
    RG-LRU, local MQA) + 2 RG-LRU): random weights from seed 0, the STEP
    2:4 export and compression leaf by leaf, then 4 greedy requests of
    2100, 2032, 1200 and 64 prompt tokens (prefilled at exact lengths) + 48
    generated over 4 lanes, K = 4, max_len 2176 (so the attention layers
    take the 2048-token window: a rolling slab, a modular page table), on
-   the slab, on a 520-page pool that never preempts (its streams must
-   equal the slab's except at near-ties: top-2 margin under 0.1; it must
-   hold only the window table and evict pages), on a 340-page pool that
+   the slab, on a 520-page pool that never preempts (it must hold only the
+   window table and evict pages), on a 340-page pool that
    preempts and on a 520-page int8 pool (which must evict as the fp one
    does).  ``nm_spmm`` must launch 254 times per decode step and per
    prefill batch, ``paged_attn``'s window form (its int8 form on the int8
@@ -76,7 +89,8 @@ Phases, in order; any failure exits non-zero:
    period and the tail (the bf16 difference at full depth is printed as a
    reading).  Then a ``torch.profiler`` trace of a few decode steps on the
    fp and the int8 pool, with the device ms a step of K2w's walk and
-   combine and of K1's decode kernel.
+   combine and of K1's decode kernel.  The stream gate: the f32 twin on
+   the slab and the 520-page pool, as in phase 6.
 
 Phase 2 also holds the kernels of phases 6 and 7 against their plain
 versions at their shapes: the batched ``nm_spmm`` at (64 experts, 8 rows,
@@ -110,14 +124,18 @@ with every lane at 0, 1, 2, 4 and 7 live pages.
    of the pool plus a sink page, and serve phase 3's traffic on its
    22-page fp pool and its 44-page int8 pool, decode attention through
    K3 over each rank's page range and the combine.  Every rank's streams,
-   host page tables and one forward's logits must be identical; the
-   streams must equal phase 3's single-rank runs except at near-ties
-   (top-2 margin under 0.1), with the same preemptions; per rank and
+   host page tables and one forward's logits must be identical, with
+   phase 3's preemptions; per rank and
    decode step K3's form of the pool must launch 12 times and no other
    attention kernel at all, K1 72 times per decode step and prefill
    batch, with 98 collectives a decode step.  Prints ms a step, tok/s,
    collectives and the host time inside them, and each rank's weight and
-   KV bytes.
+   KV bytes.  The stream gate: the ranks serve the f32 twin on both pools,
+   and each pool's streams must equal phase 3's single-rank f32 twin's
+   except at f32 top-2 margins under 0.1 (the fp pool's tokens also each
+   within 0.1 of the f32 forward's greedy choice).
+
+Each phase's seconds are logged, and the total beside them.
 
 Phase 2 also holds K3, the stats flush of ``paged_attn``, in all six
 forms (GQA, window, MLA; fp and int8 pages) at K2's, K2w's and K2m's
@@ -177,14 +195,15 @@ BODY_EARLIER_MS = {"paged_attn": 0.0360, "paged_attn_q": 0.0356, "paged_attn_sta
                    "paged_attn_stats_q": 0.0358, "paged_attn_mla": 0.1093,
                    "paged_attn_mla_q": 0.1294, "paged_attn_mla_stats": 0.1193,
                    "paged_attn_mla_stats_q": 0.1301}
+# K1's and K1b's prefill times at phase 2's shapes with the first version's
+# body, which the tensor-core body replaced, for the log only: PERF.md §6's
+# table (H100 80GB HBM3, 700 W), not measured by this script
+K1_PREFILL_EARLIER_MS = {"wq": 0.0470, "w_fc": 0.0965, "w_proj": 0.1680}
+K1B_PREFILL_EARLIER_MS = {2048: 0.7879, 1408: 0.7802}
 # the commit whose GQA/MLA kernel wrote the digests of kernels/paged_attn_check.py
 FIRST_BODY = "064ba4a"
 # live pages a lane at which phase 2 times the GQA and MLA body (log only)
 LIVE_PAGES = (0, 1, 2, 4, 7)
-# A greedy slab token may differ from its paged twin only at a near-tie:
-# bf16 logits (|logit| ~ 1) carry about 2^-8 of rounding per operation, and
-# 12 layers of it stay well inside 0.1.
-MARGIN = 0.1
 # kernel entry -> (its CUDA source, the TPU kernel it replaces)
 KERNEL_ROWS = {
     "nm_spmm": ("nm_spmm", "src/repro/kernels/nm_spmm.py:133"),
@@ -231,14 +250,6 @@ K3_FORMS = tuple(name for name in KERNEL_ROWS if "_stats" in name)
 # DeepSeek-V2-Lite's MoE layers (26: layer 0 has a dense MLP), each with 3
 # batched nm_spmm launches (gate, up, down), and its layers
 DS_MOE_LAYERS, DS_LAYERS = 26, 27
-# A DeepSeek slab token may differ from its paged twin only at a near-tie:
-# the slab expands K/V through bf16 matmuls, the paged route attends in f32
-# latent space, so the logits differ by bf16 rounding carried through the
-# layers (and MoE routing flips where it meets a router's near-tie).  A
-# fixed gate: every top-2 margin at a difference measured on an H100 lay
-# below 0.1 (largest 0.0977).  The routes' bf16 difference from one state
-# is printed beside it as a reading, not used as the gate.
-DS_MARGIN = MARGIN
 # In f32 the two decode routes differ only in summation order (absorbed
 # W_uk/W_uv against expanded K/V): about 1e-6 of a logit over 4 layers on
 # an H100.
@@ -255,9 +266,8 @@ RG_PROMPTS, RG_GEN, RG_MAX_LEN = (2100, 2032, 1200, 64), 48, 2176
 # 4 lanes x the 130-slot window table never preempts; 340 pages admit all
 # four prompts (338) and run short as the two shorter lanes grow
 RG_PAGES, RG_PAGES_PREEMPTING = 520, 340
-# A slab token may differ from its paged twin only at a near-tie, as in
-# phases 3 and 6; the f32 routes differ only in summation order.
-RG_MARGIN, RG_ROUTE_F32_TOL = MARGIN, 1e-3
+# the f32 routes from one state differ only in summation order
+RG_ROUTE_F32_TOL = 1e-3
 # the training run of phase 4; the switch is forced at t_max + 1 = 31 since
 # the AutoSwitch window (T_w = 50 at b2 = 0.98) is not yet full by then
 TRAIN_ARGS = ["--no-smoke", "--recipe", "step", "--nm", "2:4", "--batch", "8", "--seq", "128",
@@ -292,14 +302,6 @@ def host_cpu() -> str:
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def f32_ceiling(nbytes: float, flops: float) -> str:
-    """For K1's prefill (more than 8 rows): the least time of a design that
-    keeps the first version's order of summation, which leaves the tensor
-    cores out (f32 FMAs at the f32 peak), beside its bound."""
-    ms, by = bound_ms(nbytes, flops, F32_FLOPS)
-    return f"; an order-keeping f32 design's bound {ms:.4f} ms ({by})"
 
 
 def time_ms(torch, fn, reps: int = 50) -> float:
@@ -344,11 +346,14 @@ def same_bytes(torch, name: str, y, again) -> None:
 
 def check_nm_spmm(torch, comp: dict, dev) -> dict:
     """K1 at the six matmuls of one gpt2-paper layer (q/k/v/o 768->768,
-    fc 768->3072, proj 3072->768), in decode (B = 1, 4, 8) and prefill
-    (B = 4 x 64 rows), each call twice (the same bytes; the prefill's rows
-    0-3 also the bytes of a decode call of those rows alone); then at
-    RecurrentGemma-9B's MLP widths (4096->12288, 12288->4096, B = 4) with
-    its rate.  The record is one layer's six decode calls at B=4."""
+    fc 768->3072, proj 3072->768), in decode (B = 1, 4, 8: the decode
+    kernel) and prefill (B = 4 x 64 rows: the tensor-core body), each call
+    twice (the same bytes; the prefill's rows 0-31, and rows 70-101 and
+    300-331 of a B = 512 call, across warps and row tiles, also the bytes
+    of a prefill call of those rows alone); then at RecurrentGemma-9B's MLP
+    widths (4096->12288, 12288->4096) in decode (B = 4) and prefill (B =
+    2048), with their rates.  The record is one layer's six decode calls at
+    B=4, and under ``prefill`` the three distinct prefill shapes at B=256."""
     from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_plain
 
     layer = comp["body"]["sb_0"]
@@ -356,6 +361,7 @@ def check_nm_spmm(torch, comp: dict, dev) -> dict:
     leaves.update({k: layer["mlp"][k].layer(0) for k in ("w_fc", "w_proj")})
     gen = torch.Generator(device=dev).manual_seed(1)
     rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    prefill = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     for b in (1, 4, 8, 256):
         for name, w in leaves.items():
             k_dim = w.values.shape[0] * w.m // w.n
@@ -364,9 +370,11 @@ def check_nm_spmm(torch, comp: dict, dev) -> dict:
             label = f"nm_spmm {name} B={b} ({k_dim}->{w.out_features})"
             y = nm_spmm(*args)
             same_bytes(torch, label, y, nm_spmm(*args))
-            if b == 256:  # the prefill body gives rows 0-3 the decode kernel's bytes
-                same_bytes(torch, f"{label} rows 0-3 alone", y[:4],
-                           nm_spmm(x[:4].contiguous(), *args[1:]))
+            if b == 256:  # a row's bytes depend neither on the rows beside it
+                same_bytes(torch, f"{label} rows 0-31 alone", y[:32],  # nor on its place
+                           nm_spmm(x[:32].contiguous(), *args[1:]))
+                rows_alone(torch, f"nm_spmm {name} B=512", nm_spmm,
+                           torch.cat([x, x.flip(0)]), args[1:], (70, 300))
             err = check_close(label, y, nm_spmm_plain(*args))
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             # time every decode call at B=4, and prefill once per distinct shape
@@ -380,16 +388,18 @@ def check_nm_spmm(torch, comp: dict, dev) -> dict:
                       + b * w.out_features * 2)
             flops = 2.0 * b * w.values.shape[0] * w.out_features
             t["bound_ms"], by = bound_ms(nbytes, flops)
-            log(f"  time nm_spmm {name} B={b}: kernel {t['ms']:.4f} ms, plain "
-                f"{t['plain_ms']:.4f} ms, torch.matmul(dense) {t['library_ms']:.4f} ms, "
-                f"bound {t['bound_ms']:.4f} ms ({by})"
-                f"{f32_ceiling(nbytes, flops) if b > 8 else ''}")
-            if b == 4:
-                for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
-                    rec[key] += t[key]
-                rec["bound_by"] = by
+            log(f"  time nm_spmm {name} B={b}: kernel {t['ms']:.4f} ms"
+                f"{f' (the first version: {K1_PREFILL_EARLIER_MS[name]} ms)' if b > 8 else ''}, "
+                f"plain {t['plain_ms']:.4f} ms, torch.matmul(dense) {t['library_ms']:.4f} ms, "
+                f"bound {t['bound_ms']:.4f} ms ({by})")
+            into = rec if b == 4 else prefill
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                into[key] += t[key]
+            into["bound_by"] = by
     rec["at"] = "sum of one layer's six decode calls, x (4, K) bf16, 2:4"
-    for k_dim, o in ((4096, 12288), (12288, 4096)):  # RecurrentGemma-9B's MLP, decode
+    prefill["at"] = "sum of wq, w_fc and w_proj at x (256, K) bf16, 2:4"
+    rec["prefill"] = prefill
+    for k_dim, o in ((4096, 12288), (12288, 4096)):  # RecurrentGemma-9B's MLP
         vals, idx = random_stack(torch, 1, k_dim, o, gen, dev)
         x = torch.randn((4, k_dim), generator=gen, device=dev).to(torch.bfloat16)
         args = (x, vals[0], idx[0], 2, 4)
@@ -403,7 +413,54 @@ def check_nm_spmm(torch, comp: dict, dev) -> dict:
         log(f"  time nm_spmm B=4 {k_dim}->{o} (RecurrentGemma-9B MLP): kernel {ms:.4f} ms "
             f"({nbytes / ms / 1e6:.0f} GB/s), bound "
             f"{bound_ms(nbytes, 2.0 * 4 * vals.numel())[0]:.4f} ms")
+        rec["max_abs_err"] = max(rec["max_abs_err"], rg_prefill(torch, k_dim, o, gen, dev))
     return rec
+
+
+def rows_alone(torch, label: str, fn, x, args: tuple, starts: tuple, rows: int = 32) -> None:
+    """``rows`` rows of x from each start (on the row axis, -2) give in a
+    call of just those rows the bytes they gave in ``fn(x, *args)``."""
+    y = fn(x, *args)
+    for lo in starts:
+        part = x[..., lo:lo + rows, :].contiguous()
+        same_bytes(torch, f"{label} rows {lo}-{lo + rows - 1} alone", y[..., lo:lo + rows, :],
+                   fn(part, *args))
+
+
+def rg_prefill(torch, k_dim: int, o: int, gen, dev) -> float:
+    """K1's tensor-core body at one RecurrentGemma-9B MLP matmul in prefill
+    (B = 2048), against its plain version, twice (the same bytes), rows
+    0-31, 70-101 and 1000-1031 alone (their bytes), timed beside
+    ``torch.matmul``, its bound and
+    its rate.  The values are at the model's init scale (standard
+    deviation K^-1/2): with unit values, f32 sums of 2,048 products of
+    that size in two orders differ near 0 by more than the check's 1e-5
+    floor, in the first version's body as in this one (PERF.md §6).
+    Returns the largest error."""
+    from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_plain
+
+    b = 2048
+    vals, idx = random_stack(torch, 1, k_dim, o, gen, dev)
+    vals = (vals.float() * k_dim ** -0.5).to(torch.bfloat16)
+    x = torch.randn((b, k_dim), generator=gen, device=dev).to(torch.bfloat16)
+    args = (x, vals[0], idx[0], 2, 4)
+    label = f"nm_spmm B={b} ({k_dim}->{o})"
+    y = nm_spmm(*args)
+    same_bytes(torch, label, y, nm_spmm(*args))
+    rows_alone(torch, label, nm_spmm, x, args[1:], (0, 70, 1000))
+    err = check_close(label, y, nm_spmm_plain(*args))
+    dense = torch.zeros((k_dim // 4, 4, o), dtype=torch.bfloat16, device=dev)
+    dense.scatter_(1, idx[0].long().reshape(k_dim // 4, 2, o), vals[0].reshape(k_dim // 4, 2, o))
+    dense = dense.reshape(k_dim, o)
+    ms = time_ms(torch, lambda: nm_spmm(*args))
+    lib_ms = time_ms(torch, lambda: torch.matmul(x, dense))
+    nbytes = x.numel() * 2 + vals.numel() * 3 + b * o * 2
+    flops = 2.0 * b * vals.numel()
+    bound, by = bound_ms(nbytes, flops)
+    log(f"  time nm_spmm B={b} {k_dim}->{o} (RecurrentGemma-9B MLP, prefill): kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s of kept products), torch.matmul(dense) {lib_ms:.4f} ms, "
+        f"bound {bound:.4f} ms ({by})")
+    return err
 
 
 def int8_pages(torch, pages: tuple, int8: bool) -> tuple:
@@ -792,13 +849,17 @@ def random_stack(torch, e, k, o, gen, dev):
 def check_nm_spmm_batched(torch, dev) -> dict:
     """The batched K1 at DeepSeek-V2-Lite's expert stacks: 64 experts of
     2048->1408 (gate, up) and 1408->2048 (down), 2:4, bf16, with C = 8 rows
-    per expert (decode) and C = 32 (a 256-token prefill).  The record is one
-    MoE layer's three decode launches.  Each call runs twice: the same
-    bytes; C = 32's rows 0-7 also give a C = 8 call's bytes."""
+    per expert (decode: the decode kernel) and C = 32 (a 256-token prefill:
+    the tensor-core body).  The record is one MoE layer's three decode
+    launches, and under ``prefill`` its three prefill launches.  Each call
+    runs twice: the same bytes; C = 32's rows 0-15, and rows 20-51 of a C
+    = 64 call (across row tiles), also give the bytes of a call of just
+    those rows."""
     from repro_torch.kernels.nm_spmm import nm_spmm_batched, nm_spmm_batched_plain
 
     gen = torch.Generator(device=dev).manual_seed(4)
     rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    prefill = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     for k, o, count in ((2048, 1408, 2), (1408, 2048, 1)):
         vals, idx = random_stack(torch, 64, k, o, gen, dev)
         dense = torch.zeros((64, k // 4, 4, o), dtype=torch.bfloat16, device=dev)
@@ -810,9 +871,11 @@ def check_nm_spmm_batched(torch, dev) -> dict:
             label = f"nm_spmm_batched E=64 C={c} ({k}->{o})"
             y = nm_spmm_batched(*args)
             same_bytes(torch, label, y, nm_spmm_batched(*args))
-            if c == 32:  # the prefill body gives rows 0-7 the decode kernel's bytes
-                same_bytes(torch, f"{label} rows 0-7 alone", y[:, :8],
-                           nm_spmm_batched(x[:, :8].contiguous(), *args[1:]))
+            if c == 32:  # a row's bytes depend neither on the rows beside it
+                same_bytes(torch, f"{label} rows 0-15 alone", y[:, :16],  # nor on its place
+                           nm_spmm_batched(x[:, :16].contiguous(), *args[1:]))
+                rows_alone(torch, f"nm_spmm_batched E=64 C=64 ({k}->{o})", nm_spmm_batched,
+                           torch.cat([x, x.flip(1)], dim=1), args[1:], (20,))
             err = check_close(label, y, nm_spmm_batched_plain(*args))
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             t = dict(ms=time_ms(torch, lambda: nm_spmm_batched(*args)),
@@ -821,17 +884,19 @@ def check_nm_spmm_batched(torch, dev) -> dict:
             nbytes = x.numel() * 2 + vals.numel() * 2 + idx.numel() + 64 * c * o * 2
             flops = 2.0 * 64 * c * (k // 2) * o
             t["bound_ms"], by = bound_ms(nbytes, flops)
-            log(f"  time nm_spmm_batched E=64 C={c} {k}->{o}: kernel {t['ms']:.4f} ms "
+            earlier = f" (the first version: {K1B_PREFILL_EARLIER_MS[k]} ms)" if c > 8 else ""
+            log(f"  time nm_spmm_batched E=64 C={c} {k}->{o}: kernel {t['ms']:.4f} ms{earlier} "
                 f"({nbytes / t['ms'] / 1e6:.0f} GB/s), plain {t['plain_ms']:.4f} ms, "
-                f"torch.bmm(dense) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by})"
-                f"{f32_ceiling(nbytes, flops) if c > 8 else ''}")
-            if c == 8:
-                for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
-                    rec[key] += count * t[key]
-                rec["bound_by"] = by
+                f"torch.bmm(dense) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by})")
+            into = rec if c == 8 else prefill
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                into[key] += count * t[key]
+            into["bound_by"] = by
         del dense
     rec["at"] = ("one MoE layer's three decode launches: x (64, 8, K) bf16, "
                  "2 x (64, 1024, 1408) + (64, 704, 2048), 2:4")
+    prefill["at"] = "one MoE layer's three prefill launches at C = 32"
+    rec["prefill"] = prefill
     return rec
 
 
@@ -908,26 +973,54 @@ def serve(torch, cfg, comp, dev, *, paged: bool, n_requests=8, lanes=4, prompt_l
     return eng, prompts, [res[u].tokens for u in uids], wall
 
 
-def compare_streams(torch, cfg, comp, prompts, a, b, dev,
-                    margin=MARGIN) -> tuple[int, int, list]:
-    """(equal tokens before the first difference, tokens, margins at the
-    differences); raises if a difference is not a near-tie."""
-    from repro_torch.models.model import forward
+def f32_twin(torch, cfg, comp):
+    """``(cfg, tree)``: the compressed tree at full depth with every float
+    leaf in f32, what the stream gate serves each route with."""
+    from repro_torch.models.model import layer_plan
 
-    agree, total, margins = 0, 0, []
-    for p, x, y in zip(prompts, a, b):
-        total += len(x)
-        j = next((i for i, (u, v) in enumerate(zip(x, y)) if u != v), len(x))
-        agree += j
-        if j == len(x):
-            continue
-        logits, _ = forward(comp, cfg, torch.tensor([p + x[:j]], device=dev))
-        top2 = torch.topk(logits[0, -1].float(), 2).values
-        margins.append(float(top2[0] - top2[1]))
-        if margins[-1] >= margin:
-            raise AssertionError(f"slab and paged streams differ at token {j} with "
-                                 f"top-2 margin {margins[-1]:.4f} >= {margin}")
-    return agree, total, margins
+    return first_layers(torch, cfg, comp, layer_plan(cfg).n_body, "float32")
+
+
+def gate_streams(torch, what: str, cfg32, comp32, prompts, a, b, dev, greedy=True) -> None:
+    """The stream gate (``serving/streams.py``, at its ``MARGIN``) on two
+    f32 twins' streams: raises where they differ at an f32 top-2 margin of
+    ``MARGIN`` or more or, with ``greedy``, where a token of either lies
+    ``MARGIN`` or more below the f32 forward's greedy choice; logs
+    agree/total, the margins and the largest gap."""
+    from repro_torch.serving.streams import MARGIN, check_streams
+
+    agree, total, margins, gap = check_streams(cfg32, comp32, prompts, a, b, device=dev,
+                                               greedy=greedy)
+    gaps = f"; largest gap below the greedy choice {gap}" if greedy else ""
+    log(f"  {what}, f32 twins' greedy streams: {agree}/{total} tokens equal before each "
+        f"request's first difference; f32 top-2 margins at the differences {margins}"
+        f"{gaps} (all < {MARGIN})")
+
+
+def stream_readings(torch, what: str, cfg32, comp32, prompts, a, b, dev) -> None:
+    """bf16 streams of two routes as a reading: agree/total and the f32
+    top-2 margins at their first differences, no gate."""
+    from repro_torch.serving.streams import stream_differences
+
+    agree, total, margins = stream_differences(cfg32, comp32, prompts, a, b, dev)
+    log(f"  {what}, bf16 greedy streams (reading): {agree}/{total} tokens equal before each "
+        f"request's first difference; f32 top-2 margins at the differences {margins}")
+
+
+def twin_runs(torch, cfg32, comp32, dev, pools: dict, **kw) -> dict:
+    """The f32 twin served on each named pool (``None``: the slab; ``(pages,
+    int8)``) over the bf16 runs' traffic; returns each run's streams and
+    preemptions."""
+    out = {}
+    for name, pool in pools.items():
+        pages, int8 = pool or (None, False)
+        eng, _, streams, wall = serve(torch, cfg32, comp32, dev, paged=pool is not None,
+                                      num_pages=pages or 0, kv_quant=int8, **kw)
+        out[name] = dict(streams=streams, preemptions=eng.preemptions, wall=wall)
+        del eng
+    log("  f32 twins: " + json.dumps({k: {"preemptions": v["preemptions"], "run_wall_s": v["wall"]}
+                                      for k, v in out.items()}))
+    return out
 
 
 def serve_phase(torch, cfg, comp, dev, dispatch) -> tuple[dict, dict]:
@@ -948,11 +1041,6 @@ def serve_phase(torch, cfg, comp, dev, dispatch) -> tuple[dict, dict]:
         raise AssertionError("paged_attn kernel did not run on the paged serving run")
     if paged.preemptions == 0:
         raise AssertionError("the undersized pool did not preempt")
-    agree, total, margins = compare_streams(torch, cfg, comp, prompts, s_streams,
-                                            p_streams, dev)
-    log(f"  slab vs paged greedy streams: {agree}/{total} tokens equal before each "
-        f"request's first difference; top-2 margins at the differences {margins} "
-        f"(all < {MARGIN})")
     # int8 pages in the fp pool's device bytes: each page of each layer
     # holds K and V codes plus one f16 scale per slot for each
     fp_bytes = paged.kv_cache_bytes()
@@ -974,6 +1062,22 @@ def serve_phase(torch, cfg, comp, dev, dispatch) -> tuple[dict, dict]:
     log("  int8 vs fp pages (readings): " + json.dumps({
         **int8_readings(p_streams, q_streams),
         "one_step": route_difference(torch, cfg, comp, prompts[:4], dev)}))
+    # the gate: f32 twins of the slab and the preempting pool (and of the
+    # int8 pool, for phase 8), the same traffic, lanes, K and pools
+    cfg32, comp32 = f32_twin(torch, cfg, comp)
+    twins = twin_runs(torch, cfg32, comp32, dev, {
+        "slab": None, "fp": (paged.layout.num_pages, False), "int8": (q_pages, True)},
+        prompts=prompts)
+    if (twins["fp"]["preemptions"], twins["int8"]["preemptions"]) != (paged.preemptions,
+                                                                      quant.preemptions):
+        raise AssertionError(f"the f32 twins preempted {twins['fp']['preemptions']} / "
+                             f"{twins['int8']['preemptions']} times, the bf16 runs "
+                             f"{paged.preemptions} / {quant.preemptions}")
+    gate_streams(torch, "slab vs paged (preempting)", cfg32, comp32, prompts,
+                 twins["slab"]["streams"], twins["fp"]["streams"], dev)
+    stream_readings(torch, "slab vs paged (preempting)", cfg32, comp32, prompts, s_streams,
+                    p_streams, dev)
+    del comp32
     name = torch.cuda.get_device_name(0)
     for eng, wall in ((slab, s_wall), (paged, p_wall), (quant, q_wall)):
         st = eng.stats()
@@ -995,9 +1099,26 @@ def serve_phase(torch, cfg, comp, dev, dispatch) -> tuple[dict, dict]:
             + json.dumps(profile_decode(torch, cfg, comp, dev, kv_quant=kv_quant)))
     single = {"prompts": prompts,
               "fp": dict(pages=paged.layout.num_pages, streams=p_streams,
-                         preemptions=paged.preemptions),
-              "int8": dict(pages=q_pages, streams=q_streams, preemptions=quant.preemptions)}
+                         streams32=twins["fp"]["streams"], preemptions=paged.preemptions),
+              "int8": dict(pages=q_pages, streams=q_streams, streams32=twins["int8"]["streams"],
+                           preemptions=quant.preemptions)}
     return launches, single
+
+
+def mesh_streams(recs: list, pool: str, n_prompts: int) -> list:
+    """The ranks' greedy streams of one run, after checking that every
+    request finished its 32 tokens and that every rank holds the same
+    streams, host page tables and forward logits."""
+    streams = [[rec["results"][u].tokens for u in sorted(rec["results"])] for rec in recs]
+    for rec, st in zip(recs, streams):
+        bad = [(u, r.finish_reason, len(r.tokens)) for u, r in rec["results"].items()
+               if r.finish_reason != "length" or len(r.tokens) != 32]
+        if len(st) != n_prompts or bad:
+            raise AssertionError(f"{pool}: unfinished requests {bad}")
+    for key in ("tables_digest", "logits_digest"):
+        if len({rec[key] for rec in recs}) != 1 or any(s != streams[0] for s in streams):
+            raise AssertionError(f"{pool}: the ranks disagree on their streams or {key}")
+    return streams[0]
 
 
 def mesh_phase(torch, cfg, comp, dev, single: dict) -> dict:
@@ -1007,23 +1128,25 @@ def mesh_phase(torch, cfg, comp, dev, single: dict) -> dict:
     half the compressed weights and half the pool plus a sink page; its
     decode attention is K3 over its page range and the combine.  Gates:
     every request finishes its 32 tokens; streams, host page tables and one
-    forward's logits are identical on every rank; streams equal phase 3's
-    single-rank runs except at near-ties (top-2 margin under MARGIN); the
-    same preemptions; per rank, K3's form of the pool (``paged_attn_stats``
-    or ``_stats_q``) launches once a layer and decode step (12) and no other
-    attention kernel launches, K1 six times a layer (72) a decode step and a
-    prefill batch; 2 + 8 x 12 collectives a decode step.  Returns each K3
-    form's launches summed over both pools' runs and the ranks."""
+    forward's logits are identical on every rank; the same preemptions as
+    phase 3's single-rank runs; per rank, K3's form of the pool
+    (``paged_attn_stats`` or ``_stats_q``) launches once a layer and decode
+    step (12) and no other attention kernel launches, K1 six times a layer
+    (72) a decode step and a prefill batch; 2 + 8 x 12 collectives a decode
+    step.  Then the ranks serve the f32 twin on both pools: the stream gate
+    holds each pool's streams to phase 3's single-rank f32 twin's (bf16
+    streams against phase 3's are a reading).  Returns each K3 form's
+    launches summed over both pools' bf16 runs and the ranks."""
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.launch.serve import serve_rank
 
     prompts = single["prompts"]
     engine_kw = dict(max_batch=4, max_len=64 + 32 + 1, seed=0, page_size=16,
                      steps_per_dispatch=4)
+    pools = [dict(num_pages=single["fp"]["pages"]),
+             dict(num_pages=single["int8"]["pages"], kv_quant=True)]
     runs = [dict(num_pages=single["fp"]["pages"], prompts=prompts[:1],
-                 sampling=dict(max_new_tokens=4)),  # warm-up, uncounted
-            dict(num_pages=single["fp"]["pages"]),
-            dict(num_pages=single["int8"]["pages"], kv_quant=True)]
+                 sampling=dict(max_new_tokens=4)), *pools]  # a warm-up, uncounted
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1033,17 +1156,10 @@ def mesh_phase(torch, cfg, comp, dev, single: dict) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     totals = {name: sum(r[i]["launches"][name] for r in ranks for i in (1, 2))
               for name in K3_FORMS}
+    cfg32, comp32 = f32_twin(torch, cfg, comp)
     for i, pool in ((1, "fp"), (2, "int8")):
         recs = [r[i] for r in ranks]
-        streams = [[rec["results"][u].tokens for u in sorted(rec["results"])] for rec in recs]
-        for rec, st in zip(recs, streams):
-            bad = [(u, r.finish_reason, len(r.tokens)) for u, r in rec["results"].items()
-                   if r.finish_reason != "length" or len(r.tokens) != 32]
-            if len(st) != len(prompts) or bad:
-                raise AssertionError(f"{pool}: unfinished requests {bad}")
-        for key in ("tables_digest", "logits_digest"):
-            if len({rec[key] for rec in recs}) != 1 or any(s != streams[0] for s in streams):
-                raise AssertionError(f"{pool}: the ranks disagree on their streams or {key}")
+        streams = mesh_streams(recs, pool, len(prompts))
         k3 = "paged_attn_stats_q" if pool == "int8" else "paged_attn_stats"
         for r, rec in enumerate(recs):
             st, n = rec["stats"], rec["launches"]
@@ -1061,12 +1177,10 @@ def mesh_phase(torch, cfg, comp, dev, single: dict) -> dict:
         if st["preemptions"] != single[pool]["preemptions"]:
             raise AssertionError(f"{pool}: {st['preemptions']} preemptions against phase 3's "
                                  f"{single[pool]['preemptions']}")
-        agree, total, margins = compare_streams(torch, cfg, comp, prompts,
-                                                single[pool]["streams"], streams[0], dev)
         log(f"  {pool} pool of {single[pool]['pages']} pages on {MESH_RANKS} ranks: launches "
-            f"per rank {recs[0]['launches']}; single-rank vs mesh greedy streams: "
-            f"{agree}/{total} tokens equal before each request's first difference, top-2 "
-            f"margins at the differences {margins} (all < {MARGIN})")
+            f"per rank {recs[0]['launches']}")
+        stream_readings(torch, f"{pool} pool, single rank vs mesh", cfg32, comp32, prompts,
+                        single[pool]["streams"], streams, dev)
         log("  serve mesh " + json.dumps({
             "pool": pool, "num_pages": single[pool]["pages"], "mesh": st["mesh"],
             "tokens_per_s": st["tokens_per_s"], "ms_per_decode_step": st["ms_per_decode_step"],
@@ -1078,6 +1192,21 @@ def mesh_phase(torch, cfg, comp, dev, single: dict) -> dict:
             "per_rank_weight_bytes": [rec["stats"]["weight_bytes_per_step"] for rec in recs],
             "per_rank_kv_cache_bytes": [rec["stats"]["kv_cache_bytes"] for rec in recs],
             "device": torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"}))
+    # the gate: the ranks serve the f32 twin on both pools
+    t0 = time.perf_counter()
+    ranks32 = run_ranks(serve_rank, (cfg32, pools, prompts, dict(max_new_tokens=32), engine_kw),
+                        model=MESH_RANKS, device=dev.type, tree=comp32,
+                        log=lambda m: log("  " + m))
+    log(f"  {MESH_RANKS} ranks served the f32 twin on both pools in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for i, pool in enumerate(("fp", "int8")):
+        recs = [r[i] for r in ranks32]
+        streams = mesh_streams(recs, f"f32 {pool}", len(prompts))
+        if recs[0]["stats"]["preemptions"] != single[pool]["preemptions"]:
+            raise AssertionError(f"f32 {pool}: {recs[0]['stats']['preemptions']} preemptions "
+                                 f"against phase 3's {single[pool]['preemptions']}")
+        gate_streams(torch, f"{pool} pool, single rank vs mesh", cfg32, comp32, prompts,
+                     single[pool]["streams32"], streams, dev, greedy=pool == "fp")
     return totals
 
 
@@ -1132,7 +1261,8 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
             raise AssertionError(f"{name}: {eng.preemptions} preemptions")
         for k in totals:
             totals[k] += launches[k]
-        runs[name] = (eng, streams, wall)
+        runs[name] = (eng.stats(), streams, wall)
+        del eng
     log("  int8 vs fp pages, 28-page pools (readings): "
         + json.dumps(int8_readings(runs["paged"][1], runs["paged_int8"][1])))
     # the two decode routes from one state: f32 on the first 4 layers must
@@ -1148,14 +1278,8 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
     if routes["float32 4 layers"]["max_abs_diff"] > DS_ROUTE_F32_TOL:
         raise AssertionError(f"the slab and paged decode routes differ by more than "
                              f"{DS_ROUTE_F32_TOL} in f32: {routes['float32 4 layers']}")
-    agree, total, margins = compare_streams(torch, cfg, comp, prompts, runs["slab"][1],
-                                            runs["paged"][1], dev, margin=DS_MARGIN)
-    log(f"  slab vs non-preempting paged greedy streams: {agree}/{total} tokens equal before "
-        f"each request's first difference; top-2 margins at the differences {margins} "
-        f"(all < {DS_MARGIN})")
     peak = torch.cuda.max_memory_allocated()
-    for name, (eng, _, wall) in runs.items():
-        st = eng.stats()
+    for name, (st, _, wall) in runs.items():
         log("  serve deepseek " + json.dumps({
             "run": name, "tokens_per_s": st["tokens_per_s"],
             "ms_per_decode_step": st["ms_per_decode_step"],
@@ -1170,6 +1294,25 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
     for quant in (False, True):
         log(f"  profile deepseek {'int8 ' if quant else ''}paged decode "
             + json.dumps(profile_decode(torch, cfg, comp, dev, kv_quant=quant)))
+    # the gate: the f32 twin (about 40 GB beside the bf16 tree's 24) on the
+    # slab and the 28-page pool; the bf16 runs' engines are gone.  The MoE
+    # capacity follows a forward's token count, so a forward over a whole
+    # stream drops other (token, expert) pairs than the served prefills
+    # and steps did: the tokens are held to their first differences only
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg32, comp32 = f32_twin(torch, cfg, comp)
+    del comp
+    torch.cuda.synchronize()
+    log(f"  f32 twin: {torch.cuda.memory_allocated():,} B allocated, peak "
+        f"{torch.cuda.max_memory_allocated():,} B while it was made")
+    twins = twin_runs(torch, cfg32, comp32, dev, {"slab": None, "paged": (28, False)},
+                      prompts=prompts)
+    gate_streams(torch, "slab vs non-preempting paged", cfg32, comp32, prompts,
+                 twins["slab"]["streams"], twins["paged"]["streams"], dev, greedy=False)
+    stream_readings(torch, "slab vs non-preempting paged", cfg32, comp32, prompts,
+                    runs["slab"][1], runs["paged"][1], dev)
+    log(f"  peak memory with the f32 twin: {torch.cuda.max_memory_allocated():,} B")
     return totals
 
 
@@ -1240,8 +1383,9 @@ def int8_readings(fp_streams: list, q_streams: list) -> dict:
     gate): each request's first generated token (from prefill, which reads
     fresh fp K/V: it should be the fp run's), and how many greedy tokens
     agree before each request's first difference."""
-    agree = sum(next((i for i, (u, v) in enumerate(zip(a, b)) if u != v), len(a))
-                for a, b in zip(fp_streams, q_streams))
+    from repro_torch.serving.streams import first_difference
+
+    agree = sum(first_difference(a, b) for a, b in zip(fp_streams, q_streams))
     return {"first_token_equal": [a[0] == b[0] for a, b in zip(fp_streams, q_streams)],
             "greedy_tokens_equal_before_first_difference":
                 f"{agree}/{sum(len(a) for a in fp_streams)}"}
@@ -1406,19 +1550,16 @@ def recurrentgemma_phase(torch, dev, dispatch) -> dict:
             if tables != ["win"] or eng.pool.evicted_pages == 0:
                 raise AssertionError(f"{name}: tables {tables}, "
                                      f"{eng.pool.evicted_pages} evicted pages")
-        if int8 and eng.pool.evicted_pages != runs["paged"][0].pool.evicted_pages:
-            raise AssertionError(f"int8 run evicted {eng.pool.evicted_pages} pages, the fp "
-                                 f"run {runs['paged'][0].pool.evicted_pages}")
+        st = eng.stats()
+        if int8 and st.get("evicted_pages") != runs["paged"][0].get("evicted_pages"):
+            raise AssertionError(f"int8 run evicted {st.get('evicted_pages')} pages, the fp "
+                                 f"run {runs['paged'][0].get('evicted_pages')}")
         for k in totals:
             totals[k] += launches[k]
-        runs[name] = (eng, streams, wall)
+        runs[name] = (st, streams, wall)
+        del eng
     log("  int8 vs fp pages, 520-page pools (readings): "
         + json.dumps(int8_readings(runs["paged"][1], runs["paged_int8"][1])))
-    agree, total, margins = compare_streams(torch, cfg, comp, prompts, runs["slab"][1],
-                                            runs["paged"][1], dev, margin=RG_MARGIN)
-    log(f"  slab vs non-preempting paged greedy streams: {agree}/{total} tokens equal before "
-        f"each request's first difference; top-2 margins at the differences {margins} "
-        f"(all < {RG_MARGIN})")
     # the two decode routes from one state past the window: f32 on the
     # first period and the tail must agree to summation order; bf16 at
     # full depth shows the rounding the streams see
@@ -1436,8 +1577,7 @@ def recurrentgemma_phase(torch, dev, dispatch) -> dict:
         raise AssertionError(f"the slab and paged window routes differ by more than "
                              f"{RG_ROUTE_F32_TOL} in f32: {f32}")
     peak = torch.cuda.max_memory_allocated()
-    for name, (eng, _, wall) in runs.items():
-        st = eng.stats()
+    for name, (st, _, wall) in runs.items():
         log("  serve recurrentgemma " + json.dumps({
             "run": name, "tokens_per_s": st["tokens_per_s"],
             "ms_per_decode_step": st["ms_per_decode_step"],
@@ -1455,6 +1595,16 @@ def recurrentgemma_phase(torch, dev, dispatch) -> dict:
             + json.dumps(profile_decode(torch, cfg, comp, dev, max_len=RG_MAX_LEN,
                                         num_pages=RG_PAGES, prompt_lens=RG_PROMPTS,
                                         kv_quant=quant)))
+    # the gate: the f32 twin on the slab and the 520-page pool
+    cfg32, comp32 = f32_twin(torch, cfg, comp)
+    del comp
+    torch.cuda.empty_cache()
+    twins = twin_runs(torch, cfg32, comp32, dev, {"slab": None, "paged": (RG_PAGES, False)},
+                      prompts=prompts, **run)
+    gate_streams(torch, "slab vs non-preempting paged", cfg32, comp32, prompts,
+                 twins["slab"]["streams"], twins["paged"]["streams"], dev)
+    stream_readings(torch, "slab vs non-preempting paged", cfg32, comp32, prompts,
+                    runs["slab"][1], runs["paged"][1], dev)
     return totals
 
 
@@ -1600,6 +1750,14 @@ def serve_trained_phase(torch, cfg, dev, dispatch, ckpt_dir: str) -> dict:
     return launches
 
 
+def phase_done(seconds: dict, phase: str, t0: float) -> float:
+    """Log and keep a phase's seconds; returns the next phase's start."""
+    now = time.perf_counter()
+    seconds[phase] = round(now - t0, 1)
+    log(f"  phase {phase}: {seconds[phase]} s")
+    return now
+
+
 def main() -> int:
     import torch
 
@@ -1639,6 +1797,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    seconds = {"1": round(time.perf_counter() - t_start, 1)}
+    t_phase = time.perf_counter()
     log("phase 2: kernels against their plain versions (gpt2-paper shapes)")
     cfg = get_config("gpt2-paper")
     params = init_params(cfg, seed=0, device=dev)
@@ -1664,30 +1824,37 @@ def main() -> int:
             name = entry(mla=form == "mla", window=form == "window", stats=True, quant=int8)
             records[name] = check_paged_attn_stats(torch, dev, form, first, int8)
 
+    t_phase = phase_done(seconds, "2", t_phase)
     log("phase 3: serve full-width gpt2-paper: slab, undersized paged pool, int8 pool of "
-        "the same bytes")
+        "the same bytes; their f32 twins")
     launches, single = serve_phase(torch, cfg, comp, dev, dispatch)
+    t_phase = phase_done(seconds, "3", t_phase)
 
     with tempfile.TemporaryDirectory() as ckpt_dir:
         log("phase 4: train full-width gpt2-paper with STEP (2:4, batch 8, seq 128, 60 steps)")
         launches["nm_mask"] = train_phase(torch, dev, dispatch, ckpt_dir)["nm_mask"]
+        t_phase = phase_done(seconds, "4", t_phase)
         log("phase 5: serve the trained checkpoint, compressed")
         serve_trained_phase(torch, cfg, dev, dispatch, ckpt_dir)
+        t_phase = phase_done(seconds, "5", t_phase)
 
     log("phase 6: serve full-width DeepSeek-V2-Lite (27 layers): slab, paged, preempting, "
-        "int8 pool")
+        "int8 pool; f32 twins of the slab and the paged pool")
     launches.update(deepseek_phase(torch, dev, dispatch))
+    t_phase = phase_done(seconds, "6", t_phase)
 
     log("phase 7: serve full-width RecurrentGemma-9B (38 layers): slab, paged, preempting, "
-        "int8 pool")
+        "int8 pool; f32 twins of the slab and the paged pool")
     rg = recurrentgemma_phase(torch, dev, dispatch)
     launches["paged_attn_win"] = rg["paged_attn_win"]
     launches["paged_attn_win_q"] = rg["paged_attn_win_q"]
+    t_phase = phase_done(seconds, "7", t_phase)
 
     log(f"phase 8: serve full-width gpt2-paper tensor-parallel on {MESH_RANKS} ranks of the "
-        "one card: phase 3's fp and int8 pools")
+        "one card: phase 3's fp and int8 pools, then their f32 twins")
     launches.update(mesh_phase(torch, cfg, comp, dev, single))
     del comp
+    phase_done(seconds, "8", t_phase)
 
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -1697,10 +1864,10 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{source}.cu", "replaces": replaces,
             "launches": launches[name], **{k: rec[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at")},
-            **{k: rec[k] for k in ("sdpa_yardstick_ms", "splits", "first_version_bytes")
-               if k in rec},
+            **{k: rec[k] for k in ("sdpa_yardstick_ms", "splits", "first_version_bytes",
+                                   "prefill") if k in rec},
         })
-    log(f"  total {time.perf_counter() - t_start:.1f} s")
+    log(f"  total {time.perf_counter() - t_start:.1f} s; by phase {json.dumps(seconds)}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

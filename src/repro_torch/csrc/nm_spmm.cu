@@ -5,17 +5,24 @@
 // uint8 indices (K*n/m, O) row-major, where compressed row r belongs to
 // group r / n and expands to dense row (r / n) * m + indices[r, o]; y is
 // (B, o_true) with o_true <= O (the trailing O - o_true alignment columns
-// of a padded artifact are never read or written).  f32 accumulation,
-// output in x's type (bf16 or f32; values share it).
+// of a padded artifact are never written).  f32 accumulation, output in
+// x's type (bf16 or f32; values share it).
 //
-// The order of every sum.  An output (b, o) is the fold, in the order w =
-// 0, 1, ..., 7 from 0, of eight chains: chain w is the fma, in order, of
-// the kept rows of the groups whose place in their chunk of 256 / m groups
-// is w, w + 8, ... (chunk by chunk, each group's n rows in turn).  Both
-// kernels below sum in exactly this order, whatever B is, so a row of x
-// gives the same bytes in decode and in prefill, alone or beside others,
-// call after call; and they give the bytes the first version of this
-// kernel gave.  No split of a chain across blocks can keep that.
+// Three bodies, each summing every output in one order fixed by the
+// weight's shapes, never by B or by which rows share a call, so a row of x
+// gives the same bytes alone or beside others, call after call:
+//
+// - decode (B <= 8 rows), and every f32 call: the first version's order.
+//   An output (b, o) is the fold, in the order w = 0, 1, ..., 7 from 0, of
+//   eight chains: chain w is the fma, in order, of the kept rows of the
+//   groups whose place in their chunk of 256 / m groups is w, w + 8, ...
+//   (chunk by chunk, each group's n rows in turn).  nm_spmm_decode and the
+//   first version's body (nm_spmm_prefill) both sum so.
+// - bf16 prefill (B > 8): the tensor-core body nm_spmm_tc.  An output is
+//   the f32 sum, in k order from 0, of one term per 32 dense columns of K:
+//   two chained mma.sync m16n8k16 steps (bf16 products, the tensor core's
+//   f32 accumulation) over those columns.  Its order is its own, fixed by
+//   K and the MMA shape alone; its bytes differ from decode's.
 //
 // What bounds decode (B <= 8 rows): the weight stream.  A 2:4 bf16 weight
 // moves 3 bytes per kept element (2 of value, 1 of index) for B FMAs each,
@@ -39,11 +46,51 @@
 //   shared load (two for f32 at BM = 8) and does BM FMAs.
 //
 // The eight chains' sums meet in shared memory in the fold's order.  The
-// wrapper (kernels/nm_spmm.py:decode_cols) picks C from the shapes.
-// Where x does not fit the staging budget, and in prefill (B > 8), the
-// first version's body runs: the same eight warps over 32 columns and 32
-// rows of x, x staged in chunks of 256 dense columns; it re-reads the
-// weight once per 32-row tile, with no tensor cores (mma.sp / wgmma) yet.
+// wrapper (kernels/nm_spmm.py:decode_cols) picks C from the shapes.  Where
+// x does not fit the staging budget (decode of a long K), and for f32 x
+// of more than 8 rows, the first version's body runs: the same eight
+// warps over 32 columns and 32 rows of x, x staged in chunks of 256 dense
+// columns, the weight re-read once per 32-row tile.
+//
+// What bounds bf16 prefill: at B = 256 a gpt2 matmul does about 90
+// operations per byte it must move (bytes bound it, under the card's
+// 295), at B = 2048 RecurrentGemma's MLP about 700 (operations do).  The
+// first version's body reached neither: f32 FMAs on CUDA cores at about 6
+// TFLOP/s, the whole compressed weight re-read once per 32 rows.
+// nm_spmm_tc does what the TPU kernel does (decompress a tile in fast
+// memory, then one f32-accumulated dot) on the tensor cores:
+//
+// - a block owns a BM x BN output tile and walks K in steps of bk (a
+//   multiple of m and of 32), through a ring of two stages that 16-byte
+//   cp.async copies fill, the next step's while this one is used: the
+//   step's x tile (BM x bk bf16, rows padded by 16 bytes so ldmatrix reads
+//   without bank conflicts), its compressed values (bk n/m x BN) and uint8
+//   offsets (zeros past B, K and O; where a row is not 16-byte aligned,
+//   plain loads of 2 or 1 bytes fill it);
+// - each step expands its compressed tile into one dense bf16 bk x BN tile
+//   in shared memory, exactly: a thread takes a group's 4 adjacent columns
+//   and writes each of the group's m rows, the kept value whose offset it
+//   is or 0 (offsets within a group are distinct, as compression stores
+//   them);
+// - warps then run ldmatrix (x4, and .trans on the dense tile) and
+//   mma.sync.m16n8k16 in bf16 with f32 results.  wgmma would reach more of
+//   the card's rate, but asks for its operands in its own shared-memory
+//   layouts through descriptors, with async-proxy fences, where
+//   mma.sync's fragments can be checked against the PTX ISA by reading
+//   alone (the card offers no profiler or sanitizer).  Every 32 columns
+//   of K, the chained result is added to the output's f32 sum with an IEEE
+//   add: the tensor core's own accumulation over all of K drifted past one
+//   bf16 step of the plain version;
+// - the epilogue rounds each f32 sum to bf16 once, masking the B and o_true
+//   edges.
+//
+// What still bounds it (builds with a part removed, timed on an H100): at
+// B = 2048 the tiles' loads (x re-read per column tile, the weight per row
+// tile), the expansion (repeated per row tile) and the MMAs take
+// comparable time and overlap little.  The tiles: 64 x 64 over 8 warps
+// for one weight, 32 x 128 over 4 for expert stacks (few rows an
+// expert).  The wrapper (kernels/nm_spmm.py:prefill_plan) picks the tile
+// and bk from the weight's shapes, never from B.
 //
 // nm_spmm_batched_launch runs the same kernels over a stack of E
 // independent products (the compressed MoE expert stacks, which the TPU
@@ -362,7 +409,7 @@ int launch_decode(const T* x, const T* vals, const uint8_t* idx, T* y, int E, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- prefill (B > 8), and decode where x does not fit: the first version ----
+// ---- the first version's body: f32 prefill (B > 8), and decode where x does not fit ----
 
 constexpr int PBM = 32;    // rows of x a block owns
 constexpr int PCOLS = 32;  // output columns a block owns: one per lane
@@ -438,12 +485,345 @@ int launch_prefill(const T* x, const T* vals, const uint8_t* idx, T* y, int E, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16 prefill (B > 8): tensor cores on expanded tiles ----
+
+constexpr int TC_KCHUNK = 32;          // dense columns a chained pair of k16 MMAs sums
+constexpr int TC_SMEM_MAX = 232448;    // a block's shared memory on the H100
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src into shared dst, or zeros where bytes == 0
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
+                                          const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(smem_addr(p)));
+}
+
+// d = a b + c on one m16n8k16 tile: bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1, const float (&c)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// A thread's 16-byte chunks of a tile of rows of `per_row` chunks: the
+// first chunk's (row, column) and the step to the next, so a tile load
+// divides nothing.
+struct Chunks {
+  int r, k, dr, dk;
+  __device__ Chunks(int tid, int nt, int per_row, int v)
+      : r(tid / per_row), k(tid % per_row * v), dr(nt / per_row), dk(nt % per_row * v) {}
+};
+
+// A rows x cols tile of ES-byte elements at src (row stride ld elements)
+// into shared dst (row stride dld elements), zeros in rows from rows_ok
+// and columns from cols_ok on, in 16-byte chunks (the thread's own, `at`):
+// cp.async where vec (the rows 16-byte aligned and cols_ok a multiple of
+// a chunk), else plain 2- or 1-byte loads.  cols is a multiple of 16 / ES.
+template <int ES>
+__device__ __forceinline__ void load_tile(char* dst, int dld, const void* src, long long ld,
+                                          int rows, int cols, int rows_ok, int cols_ok,
+                                          bool vec, const Chunks& at) {
+  constexpr int V = 16 / ES;
+  for (int r = at.r, k = at.k; r < rows;) {
+    char* d = dst + ((size_t)r * dld + k) * ES;
+    const char* s = static_cast<const char*>(src) + ((size_t)r * ld + k) * ES;
+    if (vec) {
+      const bool ok = r < rows_ok && k < cols_ok;
+      cp_async16(d, ok ? s : src, ok ? 16 : 0);
+    } else {
+      uint32_t w[4] = {0, 0, 0, 0};
+      if (r < rows_ok) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          if (k + i < cols_ok) {
+            const uint32_t e = ES == 2 ? reinterpret_cast<const uint16_t*>(s)[i]
+                                       : reinterpret_cast<const uint8_t*>(s)[i];
+            w[i * ES / 4] |= e << (8 * ((i * ES) % 4));
+          }
+        }
+      }
+      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    r += at.dr;
+    k += at.dk;
+    if (k >= cols) {
+      k -= cols;
+      ++r;
+    }
+  }
+}
+
+// Where either of the two offsets in ix's low bytes is j, the matching
+// bf16 half of v replaces that half of acc.
+__device__ __forceinline__ uint32_t pick2(uint32_t acc, uint32_t v, uint32_t ix, int j) {
+  const uint32_t mask = ((ix & 0xffu) == (uint32_t)j ? 0x0000ffffu : 0u) |
+                        (((ix >> 8) & 0xffu) == (uint32_t)j ? 0xffff0000u : 0u);
+  return (acc & ~mask) | (v & mask);
+}
+
+// The dense bf16 (bk, BN) tile ws (row stride BN + 8) of a step's
+// compressed values vs and offsets is (bk n/m rows of BN): a thread takes
+// a group's 4 adjacent columns and writes each of its m rows.  M is m
+// where it is known at compile time (its rows then stay in registers while
+// the n kept rows are read once), else 0; N likewise n.
+template <int BN, int M, int N>
+__device__ __forceinline__ void expand(__nv_bfloat16* ws, const __nv_bfloat16* vs,
+                                       const uint8_t* is, int bk, int n, int m, int tid,
+                                       int nt) {
+  if constexpr (N > 0) n = N;
+  constexpr int WLD = BN + 8, Q = BN / 4;
+  for (int it = tid; it < bk / m * Q; it += nt) {
+    const int g = it / Q, c = (it - g * Q) * 4;
+    const __nv_bfloat16* vrow = vs + (size_t)g * n * BN + c;
+    const uint8_t* irow = is + (size_t)g * n * BN + c;
+    __nv_bfloat16* out = ws + (size_t)g * m * WLD + c;
+    if constexpr (M > 0) {
+      uint2 d[M];
+#pragma unroll
+      for (int j = 0; j < M; ++j) d[j] = make_uint2(0, 0);
+#pragma unroll
+      for (int r = 0; r < n; ++r) {
+        const uint2 v = *reinterpret_cast<const uint2*>(vrow + r * BN);
+        const uint32_t ix = *reinterpret_cast<const uint32_t*>(irow + r * BN);
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+          d[j].x = pick2(d[j].x, v.x, ix, j);
+          d[j].y = pick2(d[j].y, v.y, ix >> 16, j);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < M; ++j) *reinterpret_cast<uint2*>(out + j * WLD) = d[j];
+    } else {
+      for (int j = 0; j < m; ++j) {
+        uint2 d = make_uint2(0, 0);
+        for (int r = 0; r < n; ++r) {
+          const uint2 v = *reinterpret_cast<const uint2*>(vrow + r * BN);
+          const uint32_t ix = *reinterpret_cast<const uint32_t*>(irow + r * BN);
+          d.x = pick2(d.x, v.x, ix, j);
+          d.y = pick2(d.y, v.y, ix >> 16, j);
+        }
+        *reinterpret_cast<uint2*>(out + j * WLD) = d;
+      }
+    }
+  }
+}
+
+// Bytes of shared memory nm_spmm_tc takes: two stages of (x tile, values,
+// offsets), then the dense tile (kernels/nm_spmm.py: prefill_smem_bytes
+// counts the same).
+__host__ __device__ constexpr size_t tc_stage_bytes(int bm, int bn, int bk, int rc) {
+  return (size_t)bm * (bk + 8) * 2 + (size_t)rc * bn * 3;
+}
+__host__ __device__ constexpr size_t tc_smem_bytes(int bm, int bn, int bk, int rc) {
+  return 2 * tc_stage_bytes(bm, bn, bk, rc) + (size_t)bk * (bn + 8) * 2;
+}
+
+// acc += x tile (rows of the warp, bk columns, row stride xld) @ dense
+// tile (bk rows, the warp's columns, row stride BN + 8), a warp's MT x
+// NTL fragments: every 32 columns of K, two k16 MMAs chained from 0, then
+// one f32 add into acc.  (Chaining all of K in the tensor core put
+// outputs beyond one bf16 step of the plain version at DeepSeek's and
+// RecurrentGemma's widths; this order, none.)
+template <int BN, int MT, int NTL>
+__device__ __forceinline__ void mma_tile(float (&acc)[MT][NTL][4], const __nv_bfloat16* xw,
+                                         int xld, const __nv_bfloat16* ww, int bk) {
+  constexpr int WLD = BN + 8;
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < bk; k += TC_KCHUNK) {
+    uint32_t bf[NTL][4];  // per 8 columns: k16 step 0's (b0, b1), then step 1's
+#pragma unroll
+    for (int j = 0; j < NTL / 2; ++j) {
+      ldsm_x4_t(bf[2 * j][0], bf[2 * j][1], bf[2 * j + 1][0], bf[2 * j + 1][1],
+                ww + (size_t)k * WLD + j * 16);
+      ldsm_x4_t(bf[2 * j][2], bf[2 * j][3], bf[2 * j + 1][2], bf[2 * j + 1][3],
+                ww + (size_t)(k + 16) * WLD + j * 16);
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      uint32_t a0[4], a1[4];
+      ldsm_x4(a0, xw + (size_t)i * 16 * xld + k);
+      ldsm_x4(a1, xw + (size_t)i * 16 * xld + k + 16);
+#pragma unroll
+      for (int j = 0; j < NTL; ++j) {
+        float t[4];
+        mma_bf16(t, a0, bf[j][0], bf[j][1], zero);
+        mma_bf16(t, a1, bf[j][2], bf[j][3], t);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] += t[q];
+      }
+    }
+  }
+}
+
+// blockDim = 32 * WM * WN: warp (wm, wn) owns rows wm * BM / WM and columns
+// wn * BN / WN of the block's BM x BN tile; grid = (ceil(o_true / BN),
+// ceil(B / BM), E).  xvec / wvec: x's rows / the weight's rows (values
+// and offsets) take 16-byte copies.  A two-stage ring: step kt + 1's
+// copies fly while step kt is expanded, then multiplied.
+template <int BM, int BN, int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN) nm_spmm_tc(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ vals,
+    const uint8_t* __restrict__ idx, __nv_bfloat16* __restrict__ y,
+    int B, int K, int O, int o_true, int n, int m, int bk, int xvec, int wvec, Strides st) {
+  constexpr int NT = 32 * WM * WN, TM = BM / WM, TN = BN / WN, MT = TM / 16, NTL = TN / 8;
+  constexpr int WLD = BN + 8;
+  static_assert(TM % 16 == 0 && NTL % 2 == 0, "a warp takes 16-row, 16-column units");
+  extern __shared__ uint4 tc_smem[];
+  x += blockIdx.z * st.x;
+  vals += blockIdx.z * st.w;
+  idx += blockIdx.z * st.w;
+  y += blockIdx.z * st.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int b0 = blockIdx.y * BM, o0 = blockIdx.x * BN;
+  const int xld = bk + 8;      // the x tile's padded row stride
+  const int rc = bk / m * n;   // compressed rows of a step
+  const int kc = K / m * n;    // compressed rows of the weight
+  const size_t stage = tc_stage_bytes(BM, BN, bk, rc);
+  char* base = reinterpret_cast<char*>(tc_smem);
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(base + 2 * stage);
+  const int steps = (K + bk - 1) / bk;
+  const Chunks xat(tid, NT, bk / 8, 8), vat(tid, NT, BN / 8, 8), iat(tid, NT, BN / 16, 16);
+
+  auto load = [&](int kt) {
+    char* sb = base + (kt & 1) * stage;
+    const int k0 = kt * bk, r0 = kt * rc;
+    load_tile<2>(sb, xld, x + (size_t)b0 * K + k0, K, BM, bk, B - b0, K - k0, xvec, xat);
+    sb += (size_t)BM * xld * 2;
+    load_tile<2>(sb, BN, vals + (size_t)r0 * O + o0, O, rc, BN, kc - r0, O - o0, wvec, vat);
+    sb += (size_t)rc * BN * 2;
+    load_tile<1>(sb, BN, idx + (size_t)r0 * O + o0, O, rc, BN, kc - r0, O - o0, wvec, iat);
+    cp_async_commit();
+  };
+  // lanes 0-15 address rows 0-15 of a 16-row unit, lanes 16-31 the same
+  // rows 8 columns on: ldmatrix's four 8 x 8 matrices in fragment order
+  const int xoff = (wm * TM + (lane & 15)) * xld + (lane >> 4) * 8;
+  const int woff = (lane & 15) * WLD + wn * TN + (lane >> 4) * 8;
+
+  float acc[MT][NTL][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NTL; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+    }
+  }
+  load(0);
+  for (int kt = 0; kt < steps; ++kt) {
+    cp_async_wait_all();  // step kt's stage has landed
+    __syncthreads();     // ... for every thread; step kt - 1 is read
+    if (kt + 1 < steps) load(kt + 1);
+    const char* sb = base + (kt & 1) * stage;
+    const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(sb + (size_t)BM * xld * 2);
+    const uint8_t* is = reinterpret_cast<const uint8_t*>(sb + (size_t)BM * xld * 2 +
+                                                         (size_t)rc * BN * 2);
+    if (m == 4 && n == 2) {
+      expand<BN, 4, 2>(ws, vs, is, bk, n, m, tid, NT);
+    } else if (m == 4) {
+      expand<BN, 4, 0>(ws, vs, is, bk, n, m, tid, NT);
+    } else {
+      expand<BN, 0, 0>(ws, vs, is, bk, n, m, tid, NT);
+    }
+    __syncthreads();
+    mma_tile<BN, MT, NTL>(acc, reinterpret_cast<const __nv_bfloat16*>(sb) + xoff, xld,
+                          ws + woff, bk);
+  }
+  // fragment (i, j): rows +lane/4 and +lane/4 + 8, columns +2 (lane % 4) and +1
+  const bool pairs = (o_true & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NTL; ++j) {
+      const int col = o0 + wn * TN + j * 8 + (lane & 3) * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = b0 + wm * TM + i * 16 + (lane >> 2) + 8 * h;
+        if (row >= B || col >= o_true) continue;
+        __nv_bfloat16* dst = y + (size_t)row * o_true + col;
+        if (pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        } else {
+          dst[0] = __float2bfloat16(acc[i][j][2 * h]);
+          if (col + 1 < o_true) dst[1] = __float2bfloat16(acc[i][j][2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int BM, int BN, int WM, int WN>
+int launch_tc_tile(const __nv_bfloat16* x, const __nv_bfloat16* vals, const uint8_t* idx,
+                   __nv_bfloat16* y, int E, int B, int K, int O, int o_true, int n, int m,
+                   int bk, cudaStream_t s) {
+  const size_t smem = tc_smem_bytes(BM, BN, bk, bk / m * n);
+  if (smem > TC_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = nm_spmm_tc<BM, BN, WM, WN>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int xvec = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int wvec = O % 16 == 0 && reinterpret_cast<uintptr_t>(vals) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(idx) % 16 == 0;
+  const Strides st{(long long)B * K, (long long)K * n / m * O, (long long)B * o_true};
+  const dim3 grid((o_true + BN - 1) / BN, (B + BM - 1) / BM, E);
+  kernel<<<grid, 32 * WM * WN, smem, s>>>(x, vals, idx, y, B, K, O, o_true, n, m, bk, xvec,
+                                          wvec, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wrapper's plan: tile (bm, bn) and step bk.  The tiles
+// (kernels/nm_spmm.py: TC_SMALL, TC_EXPERTS): 64 x 64 over 8 warps of
+// 32 x 16, 32 x 128 over 4 warps of 32 x 32.
+int launch_tc(const __nv_bfloat16* x, const __nv_bfloat16* vals, const uint8_t* idx,
+              __nv_bfloat16* y, int E, int B, int K, int O, int o_true, int n, int m, int bm,
+              int bn, int bk, cudaStream_t s) {
+  if (bk <= 0 || bk % TC_KCHUNK || bk % m || bk > 256 || B > 65535 * 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#define TC_ARGS x, vals, idx, y, E, B, K, O, o_true, n, m, bk, s
+  if (bm == 64 && bn == 64) return launch_tc_tile<64, 64, 2, 4>(TC_ARGS);
+  if (bm == 32 && bn == 128) return launch_tc_tile<32, 128, 1, 4>(TC_ARGS);
+#undef TC_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T>
 int launch_type(const void* x, const void* vals, const void* idx, void* y, int E, int B,
-                int K, int O, int o_true, int n, int m, int cols, cudaStream_t s) {
+                int K, int O, int o_true, int n, int m, int cols, int bm, int bn, int bk,
+                cudaStream_t s) {
 #define NM_ARGS static_cast<const T*>(x), static_cast<const T*>(vals), \
     static_cast<const uint8_t*>(idx), static_cast<T*>(y), E, B, K, O, o_true, n, m, s
-  if (cols == 0) return launch_prefill<T>(NM_ARGS);
+  if (cols == 0 && bm == 0) return launch_prefill<T>(NM_ARGS);
+  if (cols == 0) {
+    if constexpr (sizeof(T) == 2) {
+      return launch_tc(static_cast<const __nv_bfloat16*>(x),
+                       static_cast<const __nv_bfloat16*>(vals), static_cast<const uint8_t*>(idx),
+                       static_cast<__nv_bfloat16*>(y), E, B, K, O, o_true, n, m, bm, bn, bk, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);  // the tensor-core body takes bf16
+  }
   if (B > 8 || (cols != 1 && cols != 4) || O % cols) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -453,27 +833,32 @@ int launch_type(const void* x, const void* vals, const void* idx, void* y, int E
 }
 
 int launch_any(const void* x, const void* vals, const void* idx, void* y, int E, int B,
-               int K, int O, int o_true, int n, int m, int cols, int dtype, void* stream) {
+               int K, int O, int o_true, int n, int m, int cols, int bm, int bn, int bk,
+               int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0
-             ? launch_type<float>(x, vals, idx, y, E, B, K, O, o_true, n, m, cols, s)
-             : launch_type<__nv_bfloat16>(x, vals, idx, y, E, B, K, O, o_true, n, m, cols, s);
+             ? launch_type<float>(x, vals, idx, y, E, B, K, O, o_true, n, m, cols, bm, bn, bk, s)
+             : launch_type<__nv_bfloat16>(x, vals, idx, y, E, B, K, O, o_true, n, m, cols, bm,
+                                          bn, bk, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  cols is the wrapper's plan
-// (kernels/nm_spmm.py:decode_cols): 0 runs the first version's body, 1 or
-// 4 the decode kernel with that many columns a lane (B <= 8, O % cols ==
-// 0, values and indices aligned to cols of their elements, x's staged K *
-// 4 to 16 bytes within the block's shared memory).  Returns the first
-// nonzero CUDA error of the shared-memory opt-in and the launch, else 0.
-// The wrapper also checks shapes, types and contiguity, including 1 <= n
-// <= m <= 256 and K % m == 0.
+// dtype: 0 = float32, 1 = bfloat16.  cols and (bm, bn, bk) are the
+// wrapper's plan (kernels/nm_spmm.py): cols 1 or 4 runs the decode kernel
+// with that many columns a lane (B <= 8, O % cols == 0, values and indices
+// aligned to cols of their elements, x's staged K * 4 to 16 bytes within
+// the block's shared memory); cols 0 runs the tensor-core body with the
+// tile (bm, bn) and step bk of prefill_plan (bf16 only), or with bm == 0
+// the first version's body.  Returns the first nonzero CUDA error
+// of the shared-memory opt-in and the launch, else 0.  The wrapper also
+// checks shapes, types and contiguity, including 1 <= n <= m <= 256 and
+// K % m == 0.
 extern "C" int nm_spmm_launch(const void* x, const void* vals, const void* idx,
                               void* y, int B, int K, int O, int o_true, int n,
-                              int m, int cols, int dtype, void* stream) {
-  return launch_any(x, vals, idx, y, 1, B, K, O, o_true, n, m, cols, dtype, stream);
+                              int m, int cols, int bm, int bn, int bk, int dtype,
+                              void* stream) {
+  return launch_any(x, vals, idx, y, 1, B, K, O, o_true, n, m, cols, bm, bn, bk, dtype, stream);
 }
 
 // E stacked products: x (E, B, K), values/indices (E, K*n/m, O), y (E, B,
@@ -481,6 +866,7 @@ extern "C" int nm_spmm_launch(const void* x, const void* vals, const void* idx,
 extern "C" int nm_spmm_batched_launch(const void* x, const void* vals,
                                       const void* idx, void* y, int E, int B,
                                       int K, int O, int o_true, int n, int m,
-                                      int cols, int dtype, void* stream) {
-  return launch_any(x, vals, idx, y, E, B, K, O, o_true, n, m, cols, dtype, stream);
+                                      int cols, int bm, int bn, int bk, int dtype,
+                                      void* stream) {
+  return launch_any(x, vals, idx, y, E, B, K, O, o_true, n, m, cols, bm, bn, bk, dtype, stream);
 }

@@ -36,6 +36,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# a block's shared memory on the H100 (the kernels' launches refuse more)
+SMEM_MAX = 232448
 # launches of each kernel since the last reset_launches(); the plain
 # versions never count
 launches = {name: 0 for name in KERNELS}

@@ -4,12 +4,17 @@ Replaces the TPU kernel ``src/repro/kernels/nm_spmm.py:_nm_spmm_kernel``
 (launched by ``nm_spmm_pallas``).  On the card :func:`nm_spmm` launches the
 hand-written CUDA kernels in ``csrc/nm_spmm.cu``: for ``B <= 8`` rows (and
 x that fits a block's shared memory) a decode kernel that keeps a ring of
-16 or 32 kept weight rows in flight per lane, else the first version's
-body.  Both sum every
-output in one fixed order, so a row of x gives the same bytes whatever
-other rows share its call (the source's header says what bounds each
-kernel and how the design answers it).  On the CPU it runs
-:func:`nm_spmm_plain`, the two regimes of the reference's ``nm_spmm_xla``.
+16 or 32 kept weight rows in flight per lane; for more rows of bf16 x a
+tensor-core body that expands each step's compressed tile in shared
+memory and runs ``mma.sync`` on it, with the tile :func:`prefill_plan`
+picks from the weight's shapes; else (f32 x of more than 8 rows, or a
+decode x past the staging budget) the first version's body.  Each sums
+every output in one order fixed by the weight's shapes, so a row of x
+gives the same bytes whatever other rows share its call; decode and f32
+keep the first version's order, bf16 prefill has its own (the source's
+header says what bounds each kernel and how the design answers it).  On
+the CPU it runs :func:`nm_spmm_plain`, the two regimes of the reference's
+``nm_spmm_xla``.
 
 Layout: ``values``/``indices`` are ``(K·n/m, O)`` row-major; compressed row
 ``r`` belongs to group ``r // n`` and expands to dense row
@@ -24,11 +29,13 @@ one launch where the reference vmaps the TPU kernel over the expert axis
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.dispatch import SMEM_MAX
 
 # at or below this many rows the plain version gathers activations instead
 # of decompressing (the reference's GATHER_ROWS)
@@ -37,9 +44,27 @@ GATHER_ROWS = 8
 # stages all of x in a block (at most X_SMEM_BYTES: two blocks an SM); its
 # lanes take 4 columns each where that still makes MIN_WIDE_BLOCKS blocks
 DECODE_ROWS, X_SMEM_BYTES, MIN_WIDE_BLOCKS = 8, 96 * 1024, 80
+# the tensor-core body (csrc/nm_spmm.cu: nm_spmm_tc): its output tiles
+# (rows, columns) for one weight and for expert stacks; the dense columns
+# a chained pair of k16 MMAs sums (a step is a multiple of them and of m)
+TC_SMALL, TC_EXPERTS = (64, 64), (32, 128)
+TC_KCHUNK = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_ARGTYPES_BATCHED = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_ARGTYPES_BATCHED = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+
+
+class PrefillPlan(NamedTuple):
+    """The tensor-core body's launch plan: a block's output tile of
+    ``rows`` x ``cols`` and the dense columns of K a step takes
+    (``depth``).  All zeros: the first version's body."""
+
+    rows: int
+    cols: int
+    depth: int
+
+
+FIRST_BODY = PrefillPlan(0, 0, 0)
 
 
 def nm_spmm(
@@ -94,17 +119,74 @@ def decode_cols(b: int, k: int, o: int, o_true: int, e: int, itemsize: int,
     return 4 if wide else 1
 
 
+def prefill_smem_bytes(plan: PrefillPlan, n: int, m: int) -> int:
+    """Bytes of shared memory the tensor-core body takes (``csrc/nm_spmm.cu``:
+    ``tc_smem_bytes``): two stages of an x tile (rows padded by 8 bf16),
+    compressed values and uint8 offsets, then the dense bf16 tile (rows
+    padded by 8).  The launch refuses a plan past ``SMEM_MAX``."""
+    kept = plan.depth // m * n
+    stage = plan.rows * (plan.depth + 8) * 2 + kept * plan.cols * 3
+    return 2 * stage + plan.depth * (plan.cols + 8) * 2
+
+
+def prefill_plan(k: int, o: int, e: int, n: int, m: int, itemsize: int) -> PrefillPlan:
+    """The tensor-core body's plan for bf16 x of more than
+    :data:`DECODE_ROWS` rows, from the weight's shapes, never from B (and
+    no plan moves a row's bytes: every tile and depth sums each output in
+    the one order of the source's header):
+
+    - the tile: :data:`TC_EXPERTS` for an expert stack (``e > 1``: few
+      rows an expert), else :data:`TC_SMALL`; :data:`TC_SMALL` where the
+      first does not fit :data:`SMEM_MAX`.  (``scripts/nm_spmm_tiles.py``
+      times the tiles at the rows the serving runs give each weight: no
+      tile changes a byte, and a 256 x 128 tile, faster only where B
+      fills many of its row tiles, lost at short prompts on every weight);
+    - ``depth``: the least multiple of ``m`` and :data:`TC_KCHUNK` that is
+      at least 64, where that is at most 256.
+
+    Raises ``ValueError`` for what the body does not take: f32 (its
+    instances keep the first version's body), 1 <= n <= m <= 256 broken,
+    an ``m`` whose steps would pass 256 columns, or no tile that fits."""
+    if itemsize != 2:
+        raise ValueError(f"the tensor-core body takes bf16, not {itemsize}-byte elements")
+    if not 1 <= n <= m <= 256:
+        raise ValueError(f"the tensor-core body takes 1 <= n <= m <= 256, got {n}:{m}")
+    unit = math.lcm(m, TC_KCHUNK)
+    depth = unit * max(1, 64 // unit)
+    if depth > 256:
+        raise ValueError(f"m={m}: the tensor-core body's steps would span {depth} > 256 columns")
+    first = TC_EXPERTS if e > 1 else TC_SMALL
+    for tile in dict.fromkeys((first, TC_SMALL)):
+        plan = PrefillPlan(*tile, depth)
+        if prefill_smem_bytes(plan, n, m) <= SMEM_MAX:
+            return plan
+    raise ValueError(f"{n}:{m} needs more than a block's {SMEM_MAX} B of shared memory")
+
+
+def launch_plan(b: int, k: int, o: int, o_true: int, e: int, n: int, m: int, itemsize: int,
+                aligned: bool) -> tuple[int, PrefillPlan]:
+    """What one launch runs: :func:`decode_cols`'s columns (0: not the
+    decode kernel) and, for bf16 x (``itemsize`` 2) of more than
+    :data:`DECODE_ROWS` rows, :func:`prefill_plan`'s tile; a decode x
+    past the staging budget, and f32 x of more rows, take the first
+    version's body (:data:`FIRST_BODY`)."""
+    cols = decode_cols(b, k, o, o_true, e, itemsize, aligned)
+    if b > DECODE_ROWS and itemsize == 2:
+        return cols, prefill_plan(k, o, e, n, m, itemsize)
+    return cols, FIRST_BODY
+
+
 def _run(name, symbol, argtypes, x, values, indices, y, e, n, m, o_true):
-    """One launch of entry ``name`` with :func:`decode_cols`'s columns."""
+    """One launch of entry ``name`` with :func:`launch_plan`'s plan."""
     b, k = x.shape[-2:]
     o = values.shape[-1]
     size = x.element_size()
-    cols = decode_cols(b, k, o, o_true, e, size, values.data_ptr() % (4 * size) == 0
-                       and indices.data_ptr() % 4 == 0)
+    cols, plan = launch_plan(b, k, o, o_true, e, n, m, size,
+                             values.data_ptr() % (4 * size) == 0 and indices.data_ptr() % 4 == 0)
     fn = dispatch.kernel_fn("nm_spmm", symbol, argtypes)
     lead = (e,) if symbol == "nm_spmm_batched_launch" else ()
     rc = fn(x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(), *lead, b, k, o,
-            o_true, n, m, cols, _DTYPES[x.dtype], dispatch.stream_ptr(x.device))
+            o_true, n, m, cols, *plan, _DTYPES[x.dtype], dispatch.stream_ptr(x.device))
     dispatch.check_launch(name, rc)
 
 

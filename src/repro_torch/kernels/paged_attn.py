@@ -62,6 +62,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.dispatch import SMEM_MAX
 
 _NEG = -1e30  # finite -inf stand-in: keeps dead lanes exp()-safe
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,8 +71,6 @@ _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # scale, 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + _TAIL
 _ARGTYPES_WIN = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + _TAIL
 _ARGTYPES_MLA = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + _TAIL
-# a block's shared memory on the H100 (csrc/paged_attn.cu: SMEM_MAX)
-SMEM_MAX = 232448
 # the limits of the GQA/MLA kernel's plan (csrc/paged_attn.cu: PA_*, which
 # its launch checks): a warp owns up to ATTN_ITEMS (head, column slice)
 # items of 32 * 4 columns (MLA) or 32 * 2 (GQA), a warp scores ATTN_ROWS

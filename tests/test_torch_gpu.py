@@ -98,6 +98,8 @@ def test_nm_spmm_kernel_matches_plain(dev, dtype, b, k, o, n, m, pad, stack):
 @pytest.mark.parametrize("batched,e,b,k,o", [
     (False, 1, 4, 12288, 4096), (False, 1, 8, 768, 768), (False, 1, 3, 256, 37),
     (True, 64, 8, 2048, 1408), (True, 4, 8, 512, 96),
+    # prefill: the tensor-core body
+    (False, 1, 40, 768, 768), (False, 1, 130, 4096, 4608), (True, 64, 32, 2048, 1408),
 ])
 def test_nm_spmm_kernel_is_deterministic(dev, batched, e, b, k, o):
     """The same call twice gives the same bytes: sums in a fixed order, no
@@ -114,28 +116,89 @@ def test_nm_spmm_kernel_is_deterministic(dev, batched, e, b, k, o):
     assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batched,e,k,o", [
     (False, 1, 768, 768), (False, 1, 3072, 768), (False, 1, 256, 37), (True, 8, 512, 96),
     (False, 1, 320, 64),
 ])
-def test_nm_spmm_row_does_not_depend_on_its_batch(dev, batched, e, k, o):
-    """A row of x gives the same bytes alone, in a decode batch (the decode
-    kernel) and in a prefill batch (the first version's body): both sum
-    every output in one order, fixed by the weight's shapes."""
+def test_nm_spmm_row_does_not_depend_on_its_batch(dev, dtype, batched, e, k, o):
+    """A row of x gives the same bytes whatever rows share its call and
+    wherever it sits in it: in decode (1, 4 and 7 rows against an 8-row
+    call: the decode kernel), in prefill (9, 17 and 40 rows against a
+    64-row call, and rows 70-101 and 300-331 of a 512-row call, across
+    warps and row tiles: the tensor-core body in bf16, the first version's
+    body in f32), each summing every output in one order fixed by the
+    weight's shapes; in f32 decode and prefill share that order (1, 4 and
+    7 rows against the 64-row call)."""
     m = 64 if k == 320 else 4
-    stacks = [_compressed(k, o, 2, m, 0, torch.bfloat16, dev, seed=s) for s in range(e)]
+    stacks = [_compressed(k, o, 2, m, 0, dtype, dev, seed=s) for s in range(e)]
     vals = torch.stack([v for v, _ in stacks])
     idx = torch.stack([i for _, i in stacks])
-    x = torch.randn((e, 40, k), generator=torch.Generator().manual_seed(4)).bfloat16().to(dev)
+    x = torch.randn((e, 512, k), generator=torch.Generator().manual_seed(4)).to(dtype).to(dev)
 
-    def call(rows):
-        xr = x[:, :rows].contiguous()
+    def call(lo, hi):
+        xr = x[:, lo:hi].contiguous()
         return (nm_spmm_batched(xr, vals, idx, 2, m) if batched
                 else nm_spmm(xr[0], vals[0], idx[0], 2, m)[None])
 
-    full = call(40)
-    for rows in (1, 4, 7, 8, 9):
-        assert torch.equal(call(rows).view(torch.uint8), full[:, :rows].view(torch.uint8))
+    cases = [(8, (1, 4, 7)), (64, (9, 17, 40))]
+    if dtype == torch.float32:
+        cases.append((64, (1, 4, 7)))
+    for whole, parts in cases:
+        full = call(0, whole)
+        for rows in parts:
+            assert torch.equal(call(0, rows).view(torch.uint8), full[:, :rows].view(torch.uint8))
+    full = call(0, 512)
+    for lo in (70, 300):
+        assert torch.equal(call(lo, lo + 32).view(torch.uint8),
+                           full[:, lo:lo + 32].view(torch.uint8))
+
+
+def _within_one_bf16_step(y, ref):
+    """Both round an f32 sum to bf16 once, summed in other orders: they may
+    land one bf16 step (at most 2^-7 of the value) apart, and 1e-5 covers
+    sums near 0."""
+    err = (y.float() - ref.float()).abs()
+    bad = err > 2.0 ** -7 * ref.float().abs() + 1e-5
+    assert not bool(bad.any()), f"{int(bad.sum())} of {bad.numel()} beyond one bf16 step"
+
+
+# (batched, e, b, k, o, n, m, pad): B no multiple of 16; o_true < O (pad);
+# K no multiple of the step (64 for m <= 64); rows of x (K % 8) or of the
+# weight (O % 16) that take plain loads; an odd o_true; each tile
+TC_SHAPES = [
+    (False, 1, 9, 64, 40, 2, 4, 24), (False, 1, 37, 96, 130, 2, 4, 0),
+    (False, 1, 130, 36, 77, 1, 4, 3), (False, 1, 200, 768, 3072, 2, 4, 0),
+    (False, 1, 33, 512, 96, 2, 8, 0), (False, 1, 65, 320, 64, 16, 64, 0),
+    (False, 1, 20, 384, 64, 1, 128, 0), (False, 1, 100, 1024, 4608, 2, 4, 0),
+    (False, 1, 47, 192, 48, 6, 12, 0),  # m of 12: steps of 96 columns
+    (True, 3, 17, 64, 40, 2, 4, 24), (True, 3, 45, 96, 130, 1, 4, 0),
+    (True, 3, 12, 512, 96, 2, 8, 0), (True, 64, 32, 2048, 1408, 2, 4, 0),
+]
+
+
+@pytest.mark.parametrize("batched,e,b,k,o,n,m,pad", TC_SHAPES)
+def test_nm_spmm_tensor_core_body_within_one_bf16_step(dev, batched, e, b, k, o, n, m, pad):
+    """K1's and K1b's prefill body (bf16, more than 8 rows) against the
+    plain version within one bf16 step, at ragged shapes; two calls give
+    the same bytes."""
+    stacks = [_compressed(k, o, n, m, pad, torch.bfloat16, dev, seed=s) for s in range(e)]
+    vals = torch.stack([v for v, _ in stacks])
+    idx = torch.stack([i for _, i in stacks])
+    x = torch.randn((e, b, k), generator=torch.Generator().manual_seed(5)).bfloat16().to(dev)
+    name = "nm_spmm_batched" if batched else "nm_spmm"
+    before = dispatch.launches[name]
+    if batched:
+        y, again = (nm_spmm_batched(x, vals, idx, n, m, o_true=o) for _ in range(2))
+        ref = nm_spmm_batched_plain(x, vals, idx, n, m, o_true=o)
+    else:
+        y, again = (nm_spmm(x[0], vals[0], idx[0], n, m, o_true=o) for _ in range(2))
+        ref = nm_spmm_plain(x[0], vals[0], idx[0], n, m, o_true=o)
+    torch.cuda.synchronize()
+    assert dispatch.launches[name] == before + 2
+    assert y.shape == ref.shape and y.dtype == torch.bfloat16
+    assert torch.equal(y.view(torch.uint8), again.view(torch.uint8))
+    _within_one_bf16_step(y, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -423,6 +486,9 @@ def test_kernel_refuses_what_it_does_not_take(dev):
         nm_spmm(x, vals.t().contiguous().t(), idx, 2, 4)  # not contiguous
     with pytest.raises(ValueError):
         nm_spmm(x, vals.cpu(), idx, 2, 4)  # mixed devices
+    v9, i9 = _compressed(72, 32, 2, 9, 0, torch.bfloat16, dev)
+    with pytest.raises(ValueError):  # bf16 prefill: steps of lcm(9, 32) columns
+        nm_spmm(torch.randn((16, 72), device=dev).bfloat16(), v9, i9, 2, 9)
 
 
 def _bits(x):

@@ -3,7 +3,8 @@ against the JAX Pallas kernel run in interpret mode, in both regimes of the
 plain version (B <= 8 gathers, B > 8 decompresses), with and without
 alignment padding; and its expert-batched form against the JAX ``vmap`` of
 the kernel that the reference's stacked matmul runs.  Also the CUDA
-launch's plan, a plain function of the shapes (``decode_cols``)."""
+launch's plan, a plain function of the shapes (``decode_cols``,
+``prefill_plan``, ``launch_plan``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,12 +16,21 @@ from repro.kernels.nm_spmm import nm_spmm_pallas
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.nm_spmm import (
     DECODE_ROWS,
+    FIRST_BODY,
     MIN_WIDE_BLOCKS,
+    SMEM_MAX,
+    TC_EXPERTS,
+    TC_KCHUNK,
+    TC_SMALL,
     X_SMEM_BYTES,
+    PrefillPlan,
     decode_cols,
+    launch_plan,
     nm_spmm,
     nm_spmm_batched,
     nm_spmm_plain,
+    prefill_plan,
+    prefill_smem_bytes,
 )
 from repro_torch.models.layers import matmul
 from repro_torch.sparse_infer import CompressedTensor
@@ -127,3 +137,56 @@ def test_decode_plan_edges():
     assert decode_cols(DECODE_ROWS, k, 64, 64, 1, 2, True) == 1
     assert decode_cols(DECODE_ROWS, k + 4, 64, 64, 1, 2, True) == 0
     assert decode_cols(DECODE_ROWS + 1, 64, 64, 64, 1, 2, True) == 0
+
+
+@pytest.mark.parametrize("k,o,e,n,m,plan", [
+    (768, 768, 1, 2, 4, (*TC_SMALL, 64)),  # gpt2-paper q/k/v/o, fc, proj
+    (768, 3072, 1, 2, 4, (*TC_SMALL, 64)), (3072, 768, 1, 2, 4, (*TC_SMALL, 64)),
+    (4096, 12288, 1, 2, 4, (*TC_SMALL, 64)),  # RecurrentGemma-9B's MLP and projections
+    (12288, 4096, 1, 2, 4, (*TC_SMALL, 64)), (4096, 4096, 1, 2, 4, (*TC_SMALL, 64)),
+    (2048, 10944, 1, 2, 4, (*TC_SMALL, 64)),  # DeepSeek-V2-Lite's dense first MLP
+    (2048, 1408, 64, 2, 4, (*TC_EXPERTS, 64)), (1408, 2048, 64, 2, 4, (*TC_EXPERTS, 64)),
+    (512, 96, 1, 1, 4, (*TC_SMALL, 64)), (512, 96, 3, 2, 8, (*TC_EXPERTS, 64)),
+    (320, 64, 1, 16, 64, (*TC_SMALL, 64)), (384, 64, 1, 1, 128, (*TC_SMALL, 128)),
+    (192, 48, 1, 6, 12, (*TC_SMALL, 96)),  # steps of lcm(12, 32) columns
+    (4096, 12288, 1, 256, 256, (*TC_SMALL, 256)),
+    (8192, 1408, 64, 256, 256, (*TC_SMALL, 256)),  # the experts' tile does not fit: 64 x 64
+])
+def test_prefill_plan_from_shapes(k, o, e, n, m, plan):
+    got = prefill_plan(k, o, e, n, m, 2)
+    assert got == PrefillPlan(*plan)
+    assert got.depth % m == 0 and got.depth % TC_KCHUNK == 0
+    assert prefill_smem_bytes(got, n, m) <= SMEM_MAX
+
+
+def test_prefill_plan_ignores_b():
+    """The rows of a call never reach the plan: one weight gets one plan
+    at every B past DECODE_ROWS (bf16), the decode kernel's columns at or
+    under it, and f32 keeps the first version's body at every B."""
+    for k, o, e in ((768, 3072, 1), (4096, 12288, 1), (2048, 1408, 64)):
+        plans = {launch_plan(b, k, o, o, e, 2, 4, 2, True)
+                 for b in range(DECODE_ROWS + 1, 2200, 37)}
+        assert plans == {(0, prefill_plan(k, o, e, 2, 4, 2))}
+        for b in range(1, DECODE_ROWS + 1):
+            assert launch_plan(b, k, o, o, e, 2, 4, 2, True) == (
+                decode_cols(b, k, o, o, e, 2, True), FIRST_BODY)
+        assert {launch_plan(b, k, o, o, e, 2, 4, 4, True)[1] for b in (9, 256, 2048)} == {
+            FIRST_BODY}
+
+
+@pytest.mark.parametrize("n,m,itemsize", [
+    (2, 4, 4),  # f32: the first version's body
+    (2, 9, 2), (1, 17, 2), (3, 100, 2),  # steps of lcm(m, 32) > 256 columns
+    (5, 4, 2), (0, 4, 2), (2, 512, 2),  # n:m outside 1 <= n <= m <= 256
+])
+def test_prefill_plan_refuses_what_the_body_does_not_take(n, m, itemsize):
+    with pytest.raises(ValueError):
+        prefill_plan(m * 64, 128, 1, n, m, itemsize)
+
+
+def test_every_prefill_plan_fits_shared_memory():
+    for m in (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256):
+        for n in sorted({1, min(2, m), max(1, m // 2), m}):
+            for k, o, e in ((m * 256, 12288, 1), (m * 4, 64, 1), (m * 8, 1408, 64)):
+                plan = prefill_plan(k, o, e, n, m, 2)
+                assert prefill_smem_bytes(plan, n, m) <= SMEM_MAX, (n, m, plan)
