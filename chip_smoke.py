@@ -278,10 +278,42 @@ MASK_LEAVES = {(12, 768, 768): 4, (12, 768, 3072): 1, (12, 3072, 768): 1}
 GPT2_K1_PER_LAYER = 6
 # phase 8's model axis: ranks that share the one card
 MESH_RANKS = 2
+# phase 9, the device scheduler: steps a dispatch; the exact gate's
+# budgets of 4 requests (phase 3's first 4 prompts) and its pools' pages
+DEV_K, EXACT_BUDGETS, EXACT_PAGES = 16, (32, 29, 24, 17), 28
+# RecurrentGemma's device run (phase 7): 8 steps a dispatch keep its
+# 38-layer capture short
+RG_DEV_K = 8
+# empty spin kernels that open every torch.profiler window (open_trace)
+LEAD_KERNELS = 2048
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def open_trace(torch) -> None:
+    """Start a ``torch.profiler`` window with ``LEAD_KERNELS`` empty spin
+    kernels.  CUPTI leaves the start timestamp of a window's first activity
+    records at 0, and kineto drops those records as outside the window:
+    more of them with each window a process opens, now and then many at
+    once (torch 2.11 on an H100), until they reach the traced work's own
+    kernels.  The spin kernels take their places; ``traced_kernels``
+    leaves them out of every reading."""
+    for _ in range(LEAD_KERNELS):
+        torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+
+
+def traced_kernels(prof) -> tuple[list, int]:
+    """The CUDA events of a window that ``open_trace`` opened, without its
+    spin kernels, and how many of the spin kernels' records kineto dropped
+    (all of them: the traced work may have lost records too)."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kept = sum(e.count for e in events if "spin_kernel" in e.key)
+    return [e for e in events if "spin_kernel" not in e.key], LEAD_KERNELS - kept
 
 
 def host_cpu() -> str:
@@ -946,9 +978,10 @@ def check_nm_mask(torch, dev) -> dict:
 
 
 def serve(torch, cfg, comp, dev, *, paged: bool, n_requests=8, lanes=4, prompt_len=64,
-          gen=32, k=4, num_pages=22, prompts=None, max_len=None, kv_quant=False):
+          gen=32, k=4, num_pages=22, prompts=None, max_len=None, kv_quant=False, **sched):
     """One greedy serving run of the port's engine (``kv_quant``: on int8
-    pages); returns (engine, prompts, streams, seconds)."""
+    pages; ``sched``: the device scheduler's arguments); returns (engine,
+    prompts, streams, seconds)."""
     import numpy as np
 
     from repro_torch.serving import DecodeEngine, SamplingParams
@@ -956,7 +989,7 @@ def serve(torch, cfg, comp, dev, *, paged: bool, n_requests=8, lanes=4, prompt_l
     max_len = max_len or prompt_len + gen + 1
     eng = DecodeEngine(cfg, comp, max_batch=lanes, max_len=max_len, seed=0,
                        num_pages=num_pages if paged else None, page_size=16,
-                       steps_per_dispatch=k, kv_quant=kv_quant, device=dev)
+                       steps_per_dispatch=k, kv_quant=kv_quant, device=dev, **sched)
     if prompts is None:
         prompts = [np.random.default_rng(1000 + r).integers(0, cfg.vocab, prompt_len).tolist()
                    for r in range(n_requests)]
@@ -1097,7 +1130,8 @@ def serve_phase(torch, cfg, comp, dev, dispatch) -> tuple[dict, dict]:
     for kv_quant in (False, True):  # 4 lanes of 64 + 32 tokens: 28 pages, no preemption
         log(f"  profile gpt2 {'int8 ' if kv_quant else ''}paged decode "
             + json.dumps(profile_decode(torch, cfg, comp, dev, kv_quant=kv_quant)))
-    single = {"prompts": prompts,
+    single = {"prompts": prompts, "slab_streams": s_streams,
+              "slab_streams32": twins["slab"]["streams"], "fp_streams": p_streams,
               "fp": dict(pages=paged.layout.num_pages, streams=p_streams,
                          streams32=twins["fp"]["streams"], preemptions=paged.preemptions),
               "int8": dict(pages=q_pages, streams=q_streams, streams32=twins["int8"]["streams"],
@@ -1265,6 +1299,25 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
         del eng
     log("  int8 vs fp pages, 28-page pools (readings): "
         + json.dumps(int8_readings(runs["paged"][1], runs["paged_int8"][1])))
+    # the device scheduler, two dispatches a cycle, against a sync run of the
+    # same first 4 prompts on the 28-page pool: token for token
+    gen4 = (32,) * 4
+    sync4 = serve_requests(torch, cfg, comp, dev, prompts[:4], gen4, pages=28)
+    dev4 = serve_requests(torch, cfg, comp, dev, prompts[:4], gen4, pages=28,
+                          max_steps_per_dispatch=DEV_K, async_stream=True)
+    log(f"  device scheduler ({DEV_K} steps, W = 2) vs sync, 4 prompts, 28-page pool: streams "
+        f"equal {dev4['streams'] == sync4['streams']}; ms a decode step "
+        f"{dev4['stats']['ms_per_decode_step']:.3f} vs {sync4['stats']['ms_per_decode_step']:.3f}"
+        f", host share {dev4['stats']['host_overhead_frac']:.4f} vs "
+        f"{sync4['stats']['host_overhead_frac']:.4f}; seconds {dev4['wall']:.2f} vs "
+        f"{sync4['wall']:.2f}")
+    if dev4["streams"] != sync4["streams"] or dev4["reasons"] != sync4["reasons"]:
+        raise AssertionError(f"deepseek device scheduler: {dev4['streams']} "
+                             f"{dev4['reasons']}, sync {sync4['streams']} {sync4['reasons']}")
+    loop_launch_gate("deepseek device W=2", dev4,
+                     {"nm_spmm_batched": 3 * DS_MOE_LAYERS, "paged_attn_mla": DS_LAYERS},
+                     {"nm_spmm_batched": 3 * DS_MOE_LAYERS})
+    del sync4, dev4
     # the two decode routes from one state: f32 on the first 4 layers must
     # agree to summation order; bf16 shows the rounding the streams see
     routes = {}
@@ -1392,53 +1445,67 @@ def int8_readings(fp_streams: list, q_streams: list) -> dict:
 
 
 def profile_decode(torch, cfg, comp, dev, n_dispatch: int = 2, max_len=97, num_pages=28,
-                   prompt_lens=(64, 64, 64, 64), kv_quant=False) -> dict:
+                   prompt_lens=(64, 64, 64, 64), kv_quant=False, gen=32, **sched) -> dict:
     """A ``torch.profiler`` trace of ``n_dispatch`` decode dispatches (K = 4
-    steps each) with 4 busy lanes on a pool (``kv_quant``: of int8 pages)
-    that does not preempt: wall and device-busy ms per decode step, the
-    idle share, kernels per step, the device ms a step of each of
-    ``paged_attn``'s and ``nm_spmm``'s CUDA kernels and the eight kernels
-    with the most device time."""
+    steps each; with ``sched``, the device scheduler's arguments, that many
+    cycles) with 4 busy lanes on a pool (``kv_quant``: of int8 pages; the
+    slab where ``num_pages`` is None) that does not preempt: wall and
+    device-busy ms per decode step, the idle share, kernels per step, the
+    device ms a step of each of ``paged_attn``'s and ``nm_spmm``'s CUDA
+    kernels, the eight kernels with the most device time, and (the launch
+    gate's inputs) each of those kernels' launches by name, the wrappers'
+    launch counts over the window and how many of its lead records
+    kineto dropped (``open_trace``)."""
     import numpy as np
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import dispatch
     from repro_torch.serving import DecodeEngine, SamplingParams
 
     eng = DecodeEngine(cfg, comp, max_batch=4, max_len=max_len, seed=0, num_pages=num_pages,
-                       page_size=16, steps_per_dispatch=4, kv_quant=kv_quant, device=dev)
+                       page_size=16, steps_per_dispatch=4, kv_quant=kv_quant, device=dev,
+                       **sched)
     for r, n in enumerate(prompt_lens):
         eng.submit(np.random.default_rng(2000 + r).integers(0, cfg.vocab, n).tolist(),
-                   SamplingParams(max_new_tokens=32))
-    eng.step()  # admission and the first dispatch, untraced
+                   SamplingParams(max_new_tokens=gen))
+    eng.step()  # admission and the first dispatch (or cycle, with its capture), untraced
     torch.cuda.synchronize()
+    steps0, launches0 = eng.decode_steps, dict(dispatch.launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        open_trace(torch)
         t0 = time.perf_counter()
         for _ in range(n_dispatch):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    n = n_dispatch * eng.steps_per_dispatch
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    n = eng.decode_steps - steps0
+    kernels, dropped = traced_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     # paged_attn's and nm_spmm's CUDA kernels by name (the window form's walk
     # and combine are paged_attn_win_kernel and paged_attn_win_combine; K1's
-    # are nm_spmm_decode and, in prefill, nm_spmm_prefill)
+    # are nm_spmm_decode and, in prefill, nm_spmm_tc)
     by_name = {"paged_attn": {}, "nm_spmm": {}}
+    counts = {}
     for e in kernels:
         found = re.search(r"((paged_attn|nm_spmm)\w*)<", e.key)
         if found:
             into = by_name[found[2]]
             into[found[1]] = into.get(found[1], 0.0) + e.self_device_time_total / 1e3 / n
+            counts[found[1]] = counts.get(found[1], 0) + e.count
     return {
         "ms_per_decode_step": wall_ms / n,
         "device_busy_ms_per_step": busy_ms / n if busy_ms > 0 else "not measured",
         "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured",
         "kernels_per_step": sum(e.count for e in kernels) / n,
+        "decode_steps_traced": n,
         **{f"{name}_device_ms_per_step": ms if busy_ms > 0 else "not measured"
            for name, ms in by_name.items()},
         "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / 1e3 / n for e in top},
+        "kernel_launches_by_name": counts,
+        "lead_records_dropped": dropped,
+        "wrapper_launches": {k: v - launches0[k] for k, v in dispatch.launches.items()
+                             if v != launches0[k]},
     }
 
 
@@ -1560,6 +1627,24 @@ def recurrentgemma_phase(torch, dev, dispatch) -> dict:
         del eng
     log("  int8 vs fp pages, 520-page pools (readings): "
         + json.dumps(int8_readings(runs["paged"][1], runs["paged_int8"][1])))
+    # the device scheduler, two dispatches a cycle, against the 520-page
+    # sync run: its last dispatch ends in gated iterations, which must leave
+    # the RG-LRU state as it is
+    d = serve_requests(torch, cfg, comp, dev, prompts, (RG_GEN,) * 4, pages=RG_PAGES,
+                       max_len=RG_MAX_LEN, max_steps_per_dispatch=RG_DEV_K, async_stream=True)
+    st = d["stats"]
+    log(f"  device scheduler ({RG_DEV_K} steps, W = 2) vs sync, 520-page pool: streams equal "
+        f"{d['streams'] == runs['paged'][1]}; ms a decode step {st['ms_per_decode_step']:.3f} "
+        f"vs {runs['paged'][0]['ms_per_decode_step']:.3f}, host share "
+        f"{st['host_overhead_frac']:.4f}; {st['gated_iterations']} gated iterations; seconds "
+        f"{d['wall']:.2f} vs {runs['paged'][2]:.2f}")
+    if d["streams"] != runs["paged"][1] or st["gated_iterations"] == 0:
+        raise AssertionError(f"recurrentgemma device scheduler: {d['streams']}, sync "
+                             f"{runs['paged'][1]}, {st['gated_iterations']} gated")
+    loop_launch_gate("recurrentgemma device W=2", d,
+                     {"nm_spmm": RG_K1_PER_PASS, "paged_attn_win": RG_ATTN_LAYERS},
+                     {"nm_spmm": RG_K1_PER_PASS})
+    del d
     # the two decode routes from one state past the window: f32 on the
     # first period and the tail must agree to summation order; bf16 at
     # full depth shows the rounding the streams see
@@ -1606,6 +1691,146 @@ def recurrentgemma_phase(torch, dev, dispatch) -> dict:
     stream_readings(torch, "slab vs non-preempting paged", cfg32, comp32, prompts,
                     runs["slab"][1], runs["paged"][1], dev)
     return totals
+
+
+def serve_requests(torch, cfg, comp, dev, prompts, budgets, *, eos=(0, -1), pages=None,
+                   int8=False, max_len=None, lanes=4, **sched) -> dict:
+    """One greedy run of ``prompts`` with per-request budgets (request
+    ``eos[0]`` stops at the id ``eos[1]``) on the slab or a pool of
+    ``pages`` (int8 pages with
+    ``int8``), by the sync scheduler (K = 4) or, with ``sched``, the device
+    scheduler; returns the engine's stats, the streams, the finish reasons,
+    the launches counted over the run and the run's seconds."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import DecodeEngine, SamplingParams
+
+    eng = DecodeEngine(cfg, comp, max_batch=lanes, max_len=max_len or 64 + max(budgets) + 1,
+                       seed=0, num_pages=pages, page_size=16, steps_per_dispatch=4,
+                       kv_quant=int8, device=dev, **sched)
+    uids = [eng.submit(p, SamplingParams(max_new_tokens=n, eos_id=eos[1] if r == eos[0] else -1))
+            for r, (p, n) in enumerate(zip(prompts, budgets))]
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(stats=eng.stats(), streams=[res[u].tokens for u in uids],
+               reasons=[res[u].finish_reason for u in uids],
+               launches={k: v for k, v in dispatch.launches.items() if v}, wall=wall)
+    if eng._loop is not None:
+        out["captured"] = {str(k): v for k, v in eng._loop.captured.items()}
+    del eng
+    return out
+
+
+def loop_launch_gate(what: str, run: dict, per_iteration: dict, per_prefill: dict) -> None:
+    """Raise unless each named kernel entry launched ``per_iteration`` times
+    for every iteration the device loop ran (replayed, gated ones included,
+    and the captures' warm-ups) and ``per_prefill`` times a prefill batch."""
+    st = run["stats"]
+    iters = st["loop_iterations"] + st["warmup_iterations"]
+    want = {k: n * iters + per_prefill.get(k, 0) * st["prefill_batches"]
+            for k, n in per_iteration.items()}
+    got = {k: run["launches"].get(k, 0) for k in want}
+    log(f"  {what}: launches {got}; {st['loop_iterations']} loop iterations replayed "
+        f"({st['decode_steps']} decode steps, {st['gated_iterations']} gated) + "
+        f"{st['warmup_iterations']} warm-up, {st['prefill_batches']} prefill batches: want "
+        f"{want}")
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def device_phase(torch, cfg, comp, dev, single: dict) -> None:
+    """Phase 9: full-width gpt2-paper served by the device scheduler
+    (``serving/device_loop.py``, replayed as CUDA graphs), held exactly
+    against the sync scheduler, then its refills against phase 3's f32
+    twins, its launches against the profiler, and readings of both."""
+    name = torch.cuda.get_device_name(0)
+    prompts = single["prompts"][:4]
+    # the exact gate: in each pool an EOS id from its sync run's own stream, a
+    # token that a request had not emitted before (past its 4th where one
+    # is), so that it fires inside a dispatch (random weights repeat tokens)
+    runs = {}
+    for pool, pages, int8 in (("slab", None, False), ("fp", EXACT_PAGES, False),
+                              ("int8", EXACT_PAGES, True)):
+        kw = dict(pages=pages, int8=int8)
+        first = serve_requests(torch, cfg, comp, dev, prompts, EXACT_BUDGETS, **kw)["streams"]
+        r, j = next((r, j) for lo in (4, 1) for r, st in enumerate(first)
+                    for j in range(lo, len(st)) if st[j] not in st[:j])
+        kw["eos"] = (r, first[r][j])
+        sync = serve_requests(torch, cfg, comp, dev, prompts, EXACT_BUDGETS, **kw)
+        log(f"  exact gate, {pool}: budgets {EXACT_BUDGETS}, request {r}'s EOS {first[r][j]} "
+            f"(its token {j}); sync finish reasons {sync['reasons']}")
+        if sync["reasons"][r] != "eos" or sync["stats"]["preemptions"]:
+            raise AssertionError(f"{pool}: sync run {sync['reasons']}, "
+                                 f"{sync['stats']['preemptions']} preemptions")
+        runs[(pool, "sync")] = sync
+        for w in (1, 2):
+            d = serve_requests(torch, cfg, comp, dev, prompts, EXACT_BUDGETS, **kw,
+                               max_steps_per_dispatch=DEV_K, async_stream=w == 2)
+            runs[(pool, f"device W={w}")] = d
+            same = d["streams"] == sync["streams"] and d["reasons"] == sync["reasons"]
+            log(f"  {pool} W={w}: streams and finish reasons equal to the sync run's: {same}; "
+                f"{d['stats']['cycles']} cycles, {d['stats']['dispatches']} dispatches, "
+                f"capture {d['stats']['capture_s']:.2f} s, captured {d['captured']}")
+            if not same:
+                raise AssertionError(f"{pool} W={w}: device {d['streams']} {d['reasons']}, "
+                                     f"sync {sync['streams']} {sync['reasons']}")
+            per_it = {"nm_spmm": GPT2_K1_PER_LAYER * cfg.n_layers,
+                      "paged_attn": cfg.n_layers if pages and not int8 else 0,
+                      "paged_attn_q": cfg.n_layers if int8 else 0}
+            loop_launch_gate(f"{pool} W={w}", d, per_it,
+                             {"nm_spmm": GPT2_K1_PER_LAYER * cfg.n_layers})
+    # the refill gate: phase 3's traffic, staged refills, two dispatches a cycle
+    refill = dict(max_steps_per_dispatch=DEV_K, staged_lanes=2, async_stream=True)
+    gen = (32,) * len(single["prompts"])
+    twins = {}
+    for pool, pages in (("slab", None), ("fp", single["fp"]["pages"])):
+        d = serve_requests(torch, cfg, comp, dev, single["prompts"], gen, pages=pages, **refill)
+        st = d["stats"]
+        log(f"  refill gate, {pool}: " + json.dumps({k: st[k] for k in (
+            "refills", "preemptions", "cycles", "dispatches", "decode_steps", "loop_iterations",
+            "gated_iterations", "ms_per_decode_step", "tokens_per_s")}))
+        if (st["refills"] == 0 or st["dispatches"] != 2 * st["cycles"]
+                or (pages is not None) != (st["preemptions"] > 0)
+                or d["reasons"] != ["length"] * len(gen)):
+            raise AssertionError(f"refill gate, {pool}: {st} {d['reasons']}")
+        runs[(pool, "refill")] = d
+    cfg32, comp32 = f32_twin(torch, cfg, comp)
+    for pool, pages, sync32 in (("slab", None, single["slab_streams32"]),
+                                ("fp", single["fp"]["pages"], single["fp"]["streams32"])):
+        d = serve_requests(torch, cfg32, comp32, dev, single["prompts"], gen, pages=pages,
+                           **refill)
+        gate_streams(torch, f"refill gate, {pool}, device (staged, async) vs sync", cfg32,
+                     comp32, single["prompts"], sync32, d["streams"], dev)
+        stream_readings(torch, f"refill gate, {pool}, device (staged, async) vs sync (phase 3)",
+                        cfg32, comp32, single["prompts"], single[f"{pool}_streams"],
+                        runs[(pool, "refill")]["streams"], dev)
+    del comp32
+    # readings, and the launch gate on the device pool's traced cycles
+    reads = {}
+    for pool, pages in (("slab", None), ("pool", 36)):
+        for sched, kw in (("sync", {}), ("device", dict(max_steps_per_dispatch=DEV_K))):
+            reads[(pool, sched)] = profile_decode(torch, cfg, comp, dev, max_len=129,
+                                                  num_pages=pages, gen=64, **kw)
+            log(f"  profile gpt2 {sched} scheduler, {pool} " + json.dumps(
+                {**reads[(pool, sched)], "device": name}))
+    rec = reads[("pool", "device")]
+    by, wr = rec["kernel_launches_by_name"], rec["wrapper_launches"]
+    pairs = {"nm_spmm_decode": wr.get("nm_spmm", 0), "paged_attn_kernel": wr.get("paged_attn", 0)}
+    lost = rec["lead_records_dropped"]
+    log(f"  launch gate over two traced cycles: profiler {by}, captured x replays {wr} "
+        f"(kineto dropped {lost} of the window's {LEAD_KERNELS} lead records)")
+    if any(by.get(k, 0) != v or v == 0 for k, v in pairs.items()) or lost == LEAD_KERNELS:
+        raise AssertionError(f"launch gate: the profiler counted {by}, the replays {wr}, "
+                             f"{lost} of {LEAD_KERNELS} lead records dropped")
+    for pool in ("slab", "fp"):
+        for sched in ("sync", "device W=1", "device W=2"):
+            st = runs[(pool, sched)]["stats"]
+            log(f"  serve gpt2 {sched}, {pool} " + json.dumps({
+                k: st[k] for k in ("ms_per_decode_step", "tokens_per_s", "host_overhead_frac",
+                                   "ms_per_decode_step_host", "decode_steps", "host_syncs")}
+                | {"run_wall_s": runs[(pool, sched)]["wall"], "device": name}))
 
 
 def _leaves(tree):
@@ -1691,21 +1916,22 @@ def train_phase(torch, dev, dispatch, ckpt_dir: str, argv=TRAIN_ARGS) -> dict:
 def profile_steps(torch, step_fn, state, batches) -> tuple[dict, object]:
     """A ``torch.profiler`` trace of ``step_fn`` over ``batches`` (after one
     untraced warm-up step): wall and device-busy ms per step, the idle
-    share, kernels launched per step, and the six kernels with the most
-    device time.  Returns the record and the advanced state."""
-    from torch.autograd import DeviceType
+    share, kernels launched per step, the six kernels with the most
+    device time, and how many of the window's lead records kineto dropped
+    (``open_trace``).  Returns the record and the advanced state."""
     from torch.profiler import ProfilerActivity, profile
 
     state, _ = step_fn(state, batches[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        open_trace(torch)
         t0 = time.perf_counter()
         for b in batches[1:]:
             state, _ = step_fn(state, b)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     n = len(batches) - 1
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels, dropped = traced_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     return {
@@ -1714,6 +1940,7 @@ def profile_steps(torch, step_fn, state, batches) -> tuple[dict, object]:
         "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured",
         "kernels_per_step": sum(e.count for e in kernels) / n,
         "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / 1e3 / n for e in top},
+        "lead_records_dropped": dropped,
     }, state
 
 
@@ -1853,8 +2080,14 @@ def main() -> int:
     log(f"phase 8: serve full-width gpt2-paper tensor-parallel on {MESH_RANKS} ranks of the "
         "one card: phase 3's fp and int8 pools, then their f32 twins")
     launches.update(mesh_phase(torch, cfg, comp, dev, single))
+    t_phase = phase_done(seconds, "8", t_phase)
+
+    log(f"phase 9: serve full-width gpt2-paper with the device scheduler (CUDA graphs, "
+        f"{DEV_K} steps a dispatch): exact against the sync scheduler, refills against the "
+        f"f32 twins, launches against the profiler")
+    device_phase(torch, cfg, comp, dev, single)
     del comp
-    phase_done(seconds, "8", t_phase)
+    phase_done(seconds, "9", t_phase)
 
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():

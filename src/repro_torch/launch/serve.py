@@ -3,10 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \\
         [--arch gpt2-paper|deepseek-v2-lite-16b|recurrentgemma-9b] \\
         [--paged --page-size 16 --num-pages 64 [--kv-int8]] [--steps-per-dispatch 4] \\
+        [--max-steps-per-dispatch 16 [--staged-lanes 2] [--async-stream]] \\
         [--ckpt-dir RUN] [--dense] [--temperature 0.8 --top-k 40] [--device cpu] \\
         [--mesh 1,2 [--kv-shard seq]]
 
-Counterpart of ``repro/launch/serve.py`` (sync scheduler only).  Loads or
+Counterpart of ``repro/launch/serve.py``.  Loads or
 initializes the parameters, applies the final STEP N:M mask (Π_T ⊙ w_T),
 compresses the maskable leaves and serves the compressed tree through
 ``DecodeEngine``: every matmul of prefill and decode runs the ``nm_spmm``
@@ -20,6 +21,12 @@ Export and compression go leaf by leaf (``export_compressed``), so a
 full-width DeepSeek-V2-Lite fits one 80 GB card.  ``--dense`` serves the masked-dense
 tree instead.  Prints two JSON lines: the compression report and the run
 summary, with the reference's keys.
+
+``--max-steps-per-dispatch K`` serves with the device scheduler
+(``serving.device_loop``: run-until-stop decode of up to K steps a
+dispatch, a captured CUDA graph on the card; ``--staged-lanes Q`` refills
+frozen lanes inside the dispatch from Q staged prompts, ``--async-stream``
+runs two dispatches a cycle); the summary gains its counters.
 
 ``--mesh data,model`` serves tensor-parallel (dense family, ``--paged``,
 data 1): the export happens once here, then ``data × model`` ranks start
@@ -97,6 +104,15 @@ def parse_args(argv=None):
                          "(default: powers of two)")
     ap.add_argument("--steps-per-dispatch", type=int, default=1,
                     help="decode steps per host sync")
+    ap.add_argument("--max-steps-per-dispatch", type=int, default=None,
+                    help="device-resident scheduler: run-until-stop decode of up to this "
+                         "many steps a dispatch, replayed as a CUDA graph on the card")
+    ap.add_argument("--staged-lanes", type=int, default=0,
+                    help="queued prompts staged each cycle so that frozen lanes refill "
+                         "inside the dispatch (needs --max-steps-per-dispatch)")
+    ap.add_argument("--async-stream", action="store_true",
+                    help="two dispatches a cycle: the host replays the first while the "
+                         "second runs (needs --max-steps-per-dispatch)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain versions)")
     ap.add_argument("--mesh", default=None,
@@ -112,6 +128,9 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.kv_int8 and not args.paged:
         raise SystemExit("--prefix-cache/--kv-int8 require --paged")  # the reference's words
+    if (args.staged_lanes or args.async_stream) and args.max_steps_per_dispatch is None:
+        raise SystemExit("--staged-lanes/--async-stream need the device scheduler: pass "
+                         "--max-steps-per-dispatch")
     mesh_shape = tuple(int(v) for v in args.mesh.split(",")) if args.mesh else None
     if mesh_shape is not None and (len(mesh_shape) != 2 or mesh_shape[0] != 1):
         raise SystemExit(f"--mesh {args.mesh}: give 'data,model' with data 1 (a data axis "
@@ -129,7 +148,9 @@ def main(argv=None) -> dict:
     engine_kw = dict(
         max_batch=args.batch, max_len=max_len, seed=0,
         num_pages=num_pages if args.paged else None, page_size=args.page_size,
-        steps_per_dispatch=args.steps_per_dispatch, kv_quant=args.kv_int8,
+        steps_per_dispatch=args.steps_per_dispatch,
+        max_steps_per_dispatch=args.max_steps_per_dispatch,
+        staged_lanes=args.staged_lanes, async_stream=args.async_stream, kv_quant=args.kv_int8,
         prefill_buckets=buckets, kv_shard=args.kv_shard,
     )
     sampling = dict(temperature=args.temperature, top_k=args.top_k, max_new_tokens=args.gen)
@@ -201,8 +222,8 @@ def serve_rank(mesh, tree: dict, cfg, runs: list, prompts: list, sampling: dict,
 
 def make_summary(cfg, rank: dict, rep: dict, args) -> dict:
     """The reference's summary keys from one :func:`serve_rank` record;
-    features not ported yet report their idle values (sync scheduler, no
-    chunking, no refills)."""
+    features not ported yet report their idle values (no chunking, no
+    prefix cache)."""
     st, results = rank["stats"], rank["results"]
     summary = {
         "arch": cfg.name,
@@ -217,9 +238,14 @@ def make_summary(cfg, rank: dict, rep: dict, args) -> dict:
         "decode_steps": st["decode_steps"],
         "dispatches": st["dispatches"],
         "steps_per_dispatch": st["steps_per_dispatch"],
-        "scheduler": "sync",
+        "scheduler": st["scheduler"],
         "host_syncs": st["host_syncs"],
-        "refills": 0,
+        "cycles": st["cycles"],
+        "block_fetches": st["block_fetches"],
+        "refills": st["refills"],
+        "max_steps_per_dispatch": st["max_steps_per_dispatch"],
+        "staged_lanes": st["staged_lanes"],
+        "async_stream": st["async_stream"],
         "itl_ms_p50": st["itl_ms_p50"],
         "itl_ms_p99": st["itl_ms_p99"],
         "prefill_batches": st["prefill_batches"],

@@ -111,19 +111,25 @@ class SlabLayout:
     def tables(self, batch: int, device):
         return None
 
-    def write(self, c: dict, entries: dict, pos, tables, window=None) -> None:
+    def write(self, c: dict, entries: dict, pos, tables, window=None, commit=None) -> None:
         """Write one token per lane at ``pos`` into one layer's ``c``
         (leaves ``(B, S, ...)``).  A rolling window slab (``window <= S``)
         first rolls the lanes at ``pos >= S`` back by one row and writes
         them at row ``S - 1``; otherwise lanes at ``pos >= S`` (frozen at
         capacity) keep their contents, as the reference's dropped scatter
-        does."""
+        does.  Lanes outside ``commit`` ((B,) bool, optional) at ``pos >=
+        S`` of a rolling slab neither roll nor write: that row is live."""
         bidx = torch.arange(pos.shape[0], device=pos.device)
         for name, x in entries.items():
             s = c[name].shape[1]
             slot = pos.clamp(max=s - 1)
             if window is not None and window <= s:
-                full = (pos >= s).reshape((-1,) + (1,) * (c[name].dim() - 1))
+                full = pos >= s
+                if commit is not None:
+                    full = full & commit
+                    keep = (~commit & (pos >= s)).reshape((-1,) + (1,) * (x.dim() - 1))
+                    x = torch.where(keep, c[name][bidx, slot], x.to(c[name].dtype))
+                full = full.reshape((-1,) + (1,) * (c[name].dim() - 1))
                 c[name].copy_(torch.where(full, torch.roll(c[name], -1, dims=1), c[name]))
                 c[name][bidx, slot] = x.to(c[name].dtype)
                 continue
@@ -240,11 +246,13 @@ class PagedLayout:
                 sc.view(sc.shape[:lead] + (-1,))[at] = s
             flat[at] = x.to(flat.dtype)
 
-    def write(self, c: dict, entries: dict, pos, tables, window=None) -> None:
+    def write(self, c: dict, entries: dict, pos, tables, window=None, commit=None) -> None:
         """Scatter one token per lane into its page of one layer's pool
         ``(P + 1, ps, ...)``, through the window table's slot ``(pos // ps)
         % pages_win`` for a windowed layer; unmapped slots and positions
-        past the full table land on the sink page."""
+        past the full table land on the sink page.  ``commit`` is accepted
+        for the slab's sake: a page write at ``pos`` is never read before
+        the lane's next write there."""
         ps, page = self.page_size, pos.long() // self.page_size
         if self._windowed(window):
             phys = tables["win"].gather(1, (page % self.pages_win)[:, None])[:, 0]

@@ -316,10 +316,11 @@ def _block_forward(x, p, kind: str, cfg: ArchConfig, positions, chunk: int):
     return x, aux, entry
 
 
-def _attn_decode(x, p, cfg: ArchConfig, c: dict, pos, layout, tables):
+def _attn_decode(x, p, cfg: ArchConfig, c: dict, pos, layout, tables, commit=None):
     b = x.shape[0]
     q, k, v = _qkv(x, p, cfg, pos[:, None])
-    layout.write(c, {"k": k[:, 0], "v": v[:, 0]}, pos, tables, window=cfg.local_window)
+    layout.write(c, {"k": k[:, 0], "v": v[:, 0]}, pos, tables, window=cfg.local_window,
+                 commit=commit)
     if layout.kind == "paged":
         g = cfg.n_heads // cfg.n_kv
         win = layout.view_window(cfg.local_window)
@@ -338,19 +339,23 @@ def _attn_decode(x, p, cfg: ArchConfig, c: dict, pos, layout, tables):
     return _out(attn, p, cfg)
 
 
-def _block_decode(x, p, kind: str, cfg: ArchConfig, c: dict, pos, layout, tables):
+def _block_decode(x, p, kind: str, cfg: ArchConfig, c: dict, pos, layout, tables,
+                  commit=None):
     h = _apply_norm(cfg, p["pre"], x)
     mixer = _block_mixer_mlp(kind, cfg)[0]
     if mixer == "rec":
         mix, state, conv = REC.rglru_decode_step(h, p["mixer"], cfg.rglru, c["state"],
                                                  c["conv"])
+        if commit is not None:  # lanes outside commit keep their state
+            state = torch.where(commit[:, None], state, c["state"])
+            conv = torch.where(commit[:, None, None], conv, c["conv"])
         c["state"].copy_(state)
         c["conv"].copy_(conv)
     elif mixer == "mla":
         mix = MLA.mla_decode(h, p["attn"], cfg.n_heads, cfg.mla, c, pos, cfg.rope_theta,
                              layout, tables)
     else:
-        mix = _attn_decode(h, p["attn"], cfg, c, pos, layout, tables)
+        mix = _attn_decode(h, p["attn"], cfg, c, pos, layout, tables, commit)
     return _mlp(x + mix, p, kind, cfg)[0]
 
 
@@ -522,12 +527,19 @@ def write_prefill(cache: dict, cfg: ArchConfig, produced: dict, lanes, lens,
 
 
 def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
-                cache: dict, layout=None):
+                cache: dict, layout=None, commit=None):
     """One serving step: tokens (B,) -> (logits (B, V), cache).
 
     Every lane writes its token at ``cache["len"]`` and attends over
     ``len + 1`` positions; ``cache["len"]`` then advances by one.  The cache
-    is updated in place and returned."""
+    is updated in place, ``cache["len"]`` too (a captured CUDA graph reads
+    and writes every cache tensor at one address), and returned.
+
+    ``commit`` ((B,) bool, optional) names the lanes whose step may change
+    what later steps read: outside it the RG-LRU state and conv tail keep
+    their values and a rolling window slab neither rolls nor overwrites
+    its newest row.  Other K/V writes land at the lane's ``len``, a slot
+    no step reads before the lane's next write there."""
     plan = layer_plan(cfg)
     layout = layout or SlabLayout()
     pos = cache["len"]
@@ -535,17 +547,35 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens)[:, None, :]
     for i, kind in enumerate(plan.head):
         x = _block_decode(x, params[f"head_{i}"], kind, cfg, cache[f"head_{i}"], pos,
-                          layout, tables)
+                          layout, tables, commit)
     for i in range(plan.n_body):
         for j, kind in enumerate(plan.period):
             sb = f"sb_{j}"
             x = _block_decode(x, _layer(params["body"][sb], i), kind, cfg,
-                              _layer(cache["body"][sb], i), pos, layout, tables)
+                              _layer(cache["body"][sb], i), pos, layout, tables, commit)
     for i, kind in enumerate(plan.tail):
         x = _block_decode(x, params[f"tail_{i}"], kind, cfg, cache[f"tail_{i}"], pos,
-                          layout, tables)
-    cache["len"] = pos + 1
+                          layout, tables, commit)
+    pos.add_(1)
     return _unembed(x, params, cfg)[:, 0], cache
+
+
+def reset_lanes(cfg: ArchConfig, cache: dict, mask: torch.Tensor) -> dict:
+    """Zero, in place, the RG-LRU ``state`` and ``conv`` rows of the lanes
+    in ``mask`` ((B,) bool), the zeros a fresh prompt starts from
+    (counterpart of ``repro/models/model.py:reset_lanes``).  The device
+    scheduler refills a lane inside its decode loop: attention entries need
+    no reset (stale K/V is dead under the lane's length once ``len`` is 0),
+    but recurrent state is read whatever the length.  Archs without
+    recurrent layers pass through."""
+    for path, kind, stack in _groups(layer_plan(cfg)):
+        if _block_mixer_mlp(kind, cfg)[0] != "rec":
+            continue
+        for x in _at(cache, path).values():  # (L, B, ...) stacked, else (B, ...)
+            lead = 1 if stack else 0
+            m = mask.reshape((1,) * lead + (-1,) + (1,) * (x.dim() - lead - 1))
+            x.masked_fill_(m, 0)
+    return cache
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, max_len: int):

@@ -33,6 +33,15 @@ def moe_capacity(tokens: int, cfg: MoEConfig) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8
 
 
+def expert_counts(fe: torch.Tensor, e: int) -> torch.Tensor:
+    """Pairs routed to each of ``e`` experts, int64 ``(e,)``: the integers of
+    ``torch.bincount(fe, minlength=e)``, counted where ``fe`` lies without
+    reading its maximum on the host (``bincount`` sizes its output from it,
+    a host sync that a captured CUDA graph cannot hold)."""
+    return torch.zeros(e, dtype=torch.int64, device=fe.device).scatter_add_(
+        0, fe, torch.ones_like(fe))
+
+
 def route(xt: torch.Tensor, router: torch.Tensor, top_k: int):
     """``(probs (T, E), top_i (T, k), top_g (T, k))``: the f32 router's
     probabilities, each token's k experts (most probable first, lower index
@@ -54,7 +63,7 @@ def moe_mlp(x: torch.Tensor, p: dict, cfg: MoEConfig) -> tuple[torch.Tensor, tor
 
     # load-balancing aux loss (Switch): E · Σ_e f_e · P_e
     fe = top_i.reshape(-1)  # (T·k,) expert of each pair
-    counts = torch.bincount(fe, minlength=e)
+    counts = expert_counts(fe, e)
     aux = e * (probs.mean(dim=0) * (counts.float() / (t * k))).sum()
 
     order = torch.sort(fe, stable=True).indices

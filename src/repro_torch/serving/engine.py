@@ -42,8 +42,24 @@ is ported; the slab under a model axis, ``data > 1`` and other families
 raise (ROADMAP.md §1 item 1).  A 1×1 mesh runs exactly the single-device
 engine.
 
-Chunked prefill, prefix caching, the device-resident scheduler and
-speculative decoding are not ported yet (ROADMAP.md).
+Device-resident scheduling (``max_steps_per_dispatch=K``, the reference's
+run-until-stop loop): a cycle is one host sync.  The host admits, reserves
+every lane's pages up to the write horizon ``K × W`` (``W`` = 2 dispatches
+a cycle with ``async_stream``, else 1), stages up to ``staged_lanes``
+queued prompts (``PagedKVPool.stage_alloc``) and writes the loop's state;
+then ``W`` dispatches of ``serving.device_loop`` run back to back, each
+decoding until some lane freezes with no refill to cover it, the K-step
+bound, or nothing live and nothing staged.  Inside a dispatch a frozen
+lane takes the next staged prompt, fed token by token through decode.
+The host fetches each dispatch's token block in launch order and replays
+it through the same stop rules (``_replay``), installing the refills
+where the loop made them.  On the card a dispatch is a captured CUDA
+graph, replayed; on the CPU the same iterations run eagerly.  Draws are
+keyed per (request, token index), so greedy and sampled streams equal the
+sync scheduler's however the dispatches were cut.
+
+Chunked prefill, prefix caching and speculative decoding are not ported
+yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -70,11 +86,12 @@ from repro_torch.models.model import (
     layer_plan,
     write_prefill,
 )
+from repro_torch.serving.device_loop import LANE_ROWS, RING_ROWS, DeviceLoop
 from repro_torch.serving.kv_pool import PagedKVPool
 from repro_torch.serving.sampling import (
     SamplingParams,
     advance_stops,
-    request_seed,
+    draw_keys,
     sample_tokens,
 )
 from repro_torch.sparse_infer.compress import CompressedTensor, tree_nbytes
@@ -101,15 +118,22 @@ class _Request:
 class _Slot:
     """Host bookkeeping of one busy lane."""
 
-    __slots__ = ("uid", "prompt", "sampling", "generated", "pos", "seq")
+    __slots__ = ("uid", "prompt", "sampling", "generated", "pos", "seq", "pending", "feed")
 
-    def __init__(self, req: _Request, pos: int, seq: int):
+    def __init__(self, req: _Request, pos: int, seq: int,
+                 pending: Optional[list[int]] = None, feed: bool = False):
         self.uid = req.uid
         self.prompt = req.prompt
         self.sampling = req.sampling
         self.generated: list[int] = list(req.prefix)
         self.pos = pos  # host mirror of cache["len"][lane]
         self.seq = seq  # admission order; preemption evicts the youngest
+        # prompt (+ resume prefix) tokens not yet in the cache; with feed
+        # they drain token by token inside the device loop (a refill);
+        # without, the host would absorb them (the reference's chunked
+        # prefill, not ported: every pending lane here feeds)
+        self.pending: list[int] = pending or []
+        self.feed = feed
 
 
 def _next_pow2(n: int) -> int:
@@ -127,17 +151,49 @@ class DecodeEngine:
     any timed work.  With ``mesh`` the engine runs on the mesh's device and
     takes the whole tree from anywhere (e.g. memory-mapped on the CPU),
     keeping only this rank's shard of it.
+
+    ``max_steps_per_dispatch`` selects the device scheduler (module
+    docstring), with ``staged_lanes`` and ``async_stream``; ``device_loop``
+    picks its loop: ``"graph"`` (the default on the card, a captured CUDA
+    graph) or ``"eager"`` (the CPU's; on the card only when asked for, to
+    hold the graph against it).
     """
 
     def __init__(
         self, cfg, params: dict, *, max_batch: int = 8, max_len: int = 128,
         seed: int = 0, num_pages: Optional[int] = None, page_size: int = 16,
-        steps_per_dispatch: int = 1, kv_quant: bool = False,
+        steps_per_dispatch: int = 1, max_steps_per_dispatch: Optional[int] = None,
+        staged_lanes: int = 0, async_stream: bool = False, kv_quant: bool = False,
         prefill_buckets: Optional[Sequence[int]] = None, device="cuda",
-        mesh=None, kv_shard: str = "seq",
+        mesh=None, kv_shard: str = "seq", device_loop: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         check_kv_shard(mesh, kv_shard)  # pools shard pages: "feature" only where trivial
+        self._device_sched = max_steps_per_dispatch is not None
+        if self._device_sched and max_steps_per_dispatch < 1:
+            raise ValueError(
+                f"max_steps_per_dispatch must be >= 1, got {max_steps_per_dispatch}")
+        if (staged_lanes or async_stream) and not self._device_sched:
+            raise ValueError("staged_lanes/async_stream need the device scheduler: "
+                             "pass max_steps_per_dispatch=")
+        if staged_lanes < 0:
+            raise ValueError(f"staged_lanes must be >= 0, got {staged_lanes}")
+        if self._device_sched and mesh is not None and mesh.model > 1:
+            raise NotImplementedError(
+                "the device scheduler over a model axis > 1 is not ported yet (ROADMAP.md "
+                "§1 item 7): its collectives run on the host over gloo; serve the mesh with "
+                "the sync scheduler")
+        if device_loop is not None and not self._device_sched:
+            raise ValueError("device_loop selects the device scheduler's loop: pass "
+                             "max_steps_per_dispatch=")
+        self.k_loop = max_steps_per_dispatch
+        self.staged_lanes = staged_lanes
+        self.async_stream = async_stream
+        self._w = 2 if async_stream else 1
+        # the write horizon: the most positions a lane can append between
+        # two host syncs (K steps, or k_loop steps a dispatch times W
+        # dispatches a cycle); page reservations and staging are sized by it
+        self._horizon = self.k_loop * self._w if self._device_sched else steps_per_dispatch
         if mesh is not None:
             if mesh.device.type != self.device.type:
                 raise ValueError(f"mesh on {mesh.device}, engine asked for {self.device}")
@@ -171,8 +227,8 @@ class DecodeEngine:
         if num_pages is not None:
             self.pool: Optional[PagedKVPool] = PagedKVPool(
                 cfg, max_batch=max_batch, max_len=max_len, num_pages=num_pages,
-                page_size=page_size, lookahead=steps_per_dispatch, quant=kv_quant,
-                device=self.device, mesh=mesh)
+                page_size=page_size, lookahead=max(steps_per_dispatch, self._horizon),
+                quant=kv_quant, device=self.device, mesh=mesh)
             self.layout = self.pool.layout
             self.cache = self.pool.cache
         else:
@@ -208,6 +264,21 @@ class DecodeEngine:
         self.prefill_batches = 0
         self.tokens_generated = 0
         self.decode_tokens = 0
+        self.cycles = 0  # device-scheduler cycles (one host sync each)
+        self.refills = 0  # lanes refilled inside the device loop
+        self.block_fetches = 0  # device-to-host token-block reads
+        # staged queue entries of this cycle: {"req", "rec" (the pool's
+        # stage_alloc record or None), "tokens", "len"}
+        self._staged: list[dict] = []
+        self._loop: Optional[DeviceLoop] = None
+        if self._device_sched:
+            mode = device_loop or ("graph" if self.device.type == "cuda" else "eager")
+            self._loop = DeviceLoop(cfg, self.params, self.cache, self.layout, lanes=max_batch,
+                                    max_len=max_len, staged=max(1, staged_lanes),
+                                    k_loop=self.k_loop, dispatches=self._w, seed=seed,
+                                    mode=mode, device=self.device)
+            # how a dispatch's outputs reach the host (a seam for tests)
+            self._fetch_block = self._loop.fetch
         self.decode_collectives = 0  # collectives over the mesh during decode
         self.decode_collective_s = 0.0  # host seconds inside them
         self.kv_bytes_sum = 0  # live KV bytes a decode step reads, summed per dispatch
@@ -327,9 +398,11 @@ class DecodeEngine:
         topks = torch.tensor([req.sampling.top_k for req, _, _ in items],
                              dtype=torch.int32, device=dev)
         need_sample = any(req.sampling.temperature > 0 for req, _, _ in items)
-        seeds = ([request_seed(self.seed, req.uid, len(req.prefix)) for req, _, _ in items]
-                 if need_sample else None)
-        first = sample_tokens(logits, temps, topks, seeds, need_sample=need_sample,
+        keys = None
+        if need_sample:  # each request's first token: index len(prefix)
+            keys = draw_keys(self.seed, *(torch.tensor(v, device=dev) for v in zip(
+                *[(req.uid, len(req.prefix)) for req, _, _ in items])))
+        first = sample_tokens(logits, temps, topks, keys, need_sample=need_sample,
                               need_topk=any(req.sampling.top_k > 0 for req, _, _ in items))
         self.tokens[lanes_t] = first
         self.prefill_batches += 1
@@ -339,8 +412,9 @@ class DecodeEngine:
             self._absorb(i, host_first[r], out)
 
     def _ensure_capacity(self) -> None:
-        """Back every decoding lane's next K writes, oldest first; preempt
-        the youngest lane on pressure."""
+        """Back every decoding lane's writes up to the horizon (K steps, or
+        the device scheduler's ``k_loop × W``), oldest first; preempt the
+        youngest lane on pressure."""
         if self.pool is None:
             return
         order = sorted((i for i, s in enumerate(self.slots) if s is not None),
@@ -349,10 +423,11 @@ class DecodeEngine:
             s = self.slots[i]
             if s is None:  # evicted as an earlier lane's victim
                 continue
-            # a lane whose budget ends inside the dispatch freezes there:
-            # reserve only the writes it can reach
-            k = max(1, min(self.steps_per_dispatch,
-                           max(1, s.sampling.max_new_tokens - len(s.generated)),
+            # a lane whose budget ends inside the horizon freezes there:
+            # reserve only the writes it can reach (a refilled lane also
+            # writes its prompt tokens still to feed)
+            k = max(1, min(self._horizon,
+                           len(s.pending) + max(1, s.sampling.max_new_tokens - len(s.generated)),
                            self.max_len - s.pos))
             while self.slots[i] is not None and not self.pool.ensure_steps(i, s.pos, k):
                 victim = max((j for j, t in enumerate(self.slots) if t is not None),
@@ -380,17 +455,22 @@ class DecodeEngine:
             dtype=torch.int32, device=dev)
         need_sample = any(s is not None and s.sampling.temperature > 0 for s in slots)
         need_topk = any(s is not None and s.sampling.top_k > 0 for s in slots)
+        if need_sample:
+            uids = torch.tensor([s.uid if s else 0 for s in slots], device=dev)
+            # a lane's draw index: its tokens so far, + 1 for each step it
+            # stays active (a frozen lane's draw is discarded by advance_stops)
+            counts = torch.tensor([len(s.generated) if s else 0 for s in slots], device=dev)
         tok, cache, block = self.tokens, self.cache, []
         for t in range(k):
-            len_prev = cache["len"]
+            len_prev = cache["len"].clone()
             logits, cache = decode_step(self.params, self.cfg, tok, cache, self.layout)
-            cache["len"] = torch.where(active, cache["len"],
-                                       torch.where(occupied, len_prev, 0))
-            # a lane still active at step t has sampled len(generated) + t
-            # tokens; a frozen lane's draw is discarded by advance_stops
-            seeds = ([request_seed(self.seed, s.uid, len(s.generated) + t) if s else 0
-                      for s in slots] if need_sample else None)
-            nxt = sample_tokens(logits, temps, topks, seeds,
+            cache["len"].copy_(torch.where(active, cache["len"],
+                                           torch.where(occupied, len_prev, 0)))
+            keys = None
+            if need_sample:
+                keys = draw_keys(self.seed, uids, counts)
+                counts = counts + active.long()
+            nxt = sample_tokens(logits, temps, topks, keys,
                                 need_sample=need_sample, need_topk=need_topk)
             tok, active, budget = advance_stops(nxt, active, budget, eos,
                                                 cache["len"], self.max_len)
@@ -406,10 +486,10 @@ class DecodeEngine:
         return sharded.mesh_context(self.mesh)
 
     def step(self) -> list[GenerationResult]:
-        """Admit, reserve, run one K-step decode dispatch; return the
-        requests that finished."""
+        """Admit, reserve, run one K-step decode dispatch (one device
+        scheduler cycle); return the requests that finished."""
         with self._mesh_ctx():
-            return self._step()
+            return self._step_device() if self._device_sched else self._step()
 
     def _step(self) -> list[GenerationResult]:
         out: list[GenerationResult] = []
@@ -433,6 +513,7 @@ class DecodeEngine:
         self.decode_wall_s += t1 - t0
         self.decode_steps += k
         self.dispatches += 1
+        self.block_fetches += 1
         for t in range(k):
             for i in live:
                 self.slots[i].pos += 1
@@ -441,6 +522,165 @@ class DecodeEngine:
                 if self.slots[i] is None:
                     live.remove(i)
         self.sched_host_s += (t0 - t_sched0) + (time.perf_counter() - t1)
+        return out
+
+    # -- device-resident scheduler -------------------------------------------
+
+    def _stage_fill(self) -> None:
+        """Stage up to ``staged_lanes`` queued prompts for refills inside the
+        loop, each with its pages for the write horizon reserved
+        (``PagedKVPool.stage_alloc``); staging stops at the first the pool
+        cannot back.  What the loop does not consume goes back to the queue
+        at the cycle's end (:meth:`_unstage`)."""
+        while len(self._staged) < self.staged_lanes and self.queue:
+            req = self.queue[0]
+            seq = req.prompt + req.prefix
+            rec = None
+            if self.pool is not None:
+                rec = self.pool.stage_alloc(len(seq), req.sampling.max_new_tokens
+                                            - len(req.prefix), self._horizon)
+                if rec is None:
+                    break
+            self.queue.popleft()
+            self._staged.append({"req": req, "rec": rec, "len": len(seq),
+                                 "tokens": np.pad(np.asarray(seq, np.int32),
+                                                  (0, self.max_len - len(seq)))})
+
+    def _unstage(self, skip: int = 0) -> None:
+        """Return the staged entries from ring row ``skip`` on to the queue's
+        front, their pages released."""
+        rest, self._staged = self._staged[skip:], []
+        for e in reversed(rest):
+            if e["rec"] is not None:
+                self.pool.release_staged(e["rec"])
+            self.queue.appendleft(e["req"])
+
+    def _build_dstate(self) -> None:
+        """The loop's inputs, rebuilt from host bookkeeping every cycle and
+        copied to the device (the host reads back only each dispatch's
+        token block and refill records)."""
+        b, q = self.max_batch, max(1, self.staged_lanes)
+        lanes = np.zeros((len(LANE_ROWS), b), np.int32)
+        row = {name: lanes[r] for r, name in enumerate(LANE_ROWS)}
+        row["eos"][:] = -1
+        temps = np.zeros((b,), np.float32)
+        feed_buf = np.zeros((b, self.max_len), np.int32)
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            row["occupied"][i] = row["live"][i] = 1
+            row["uids"][i], row["topks"][i] = s.uid, s.sampling.top_k
+            row["eos"][i], temps[i] = s.sampling.eos_id, s.sampling.temperature
+            row["counts"][i] = len(s.generated)
+            row["budget"][i] = max(0, s.sampling.max_new_tokens - len(s.generated))
+            if s.generated:
+                row["tok"][i] = s.generated[-1]
+            if s.pending and s.feed:  # a refill still feeding: its unfed tail goes on
+                feed_buf[i, :len(s.pending)] = s.pending
+                row["pend"][i] = len(s.pending)
+        ring = np.zeros((len(RING_ROWS), q), np.int32)
+        ring[RING_ROWS.index("eos")] = -1
+        s_temps = np.zeros((q,), np.float32)
+        s_tokens = np.zeros((q, self.max_len), np.int32)
+        for r, e in enumerate(self._staged):
+            sp = e["req"].sampling
+            ring[:, r] = (e["len"], e["req"].uid, len(e["req"].prefix), sp.top_k, sp.eos_id,
+                          max(1, sp.max_new_tokens - len(e["req"].prefix)))
+            s_temps[r], s_tokens[r] = sp.temperature, e["tokens"]
+        tables = {}
+        for key in self._loop.table_keys:
+            t = np.full((q, self.pool.cache["tables"][key].shape[1]), self.layout.sentinel,
+                        np.int32)
+            for r, e in enumerate(self._staged):
+                t[r] = e["rec"][f"{key}_row"]
+            tables[f"s_tbl_{key}"] = t
+        self._loop.load(lanes=lanes, temps=temps, feed_buf=feed_buf, ring=ring,
+                        s_temps=s_temps, s_tokens=s_tokens, scal=(0, len(self._staged), 1),
+                        **tables)
+
+    def _replay(self, hb: np.ndarray, steps: int, c_lane: np.ndarray, c_step: np.ndarray,
+                out: list) -> int:
+        """Mirror one dispatch on the host: advance positions, absorb the
+        sampled tokens through the stop rules the device applied, install
+        the refills at the iterations the device made them.  Returns the
+        ring rows this dispatch consumed."""
+        by_step: dict[int, list[int]] = {}
+        for r in range(c_lane.shape[0]):
+            if c_step[r] >= 0:
+                by_step.setdefault(int(c_step[r]), []).append(r)
+        for t in range(steps):
+            busy = [i for i, s in enumerate(self.slots) if s is not None]
+            feeders = [i for i in busy if self.slots[i].pending and self.slots[i].feed]
+            for i in busy:
+                self.slots[i].pos += 1  # mirror cache["len"] advancing
+            for i in feeders:
+                s = self.slots[i]
+                s.pending.pop(0)
+                if not s.pending:  # the drain step sampled the first token
+                    self._absorb(i, int(hb[t, i]), out)
+            for i in busy:
+                if i not in feeders:
+                    self._absorb(i, int(hb[t, i]), out, from_decode=True)
+            for r in by_step.get(t, ()):
+                # the loop put ring row r into a dead lane at the end of
+                # iteration t; it feeds from t + 1
+                lane, e = int(c_lane[r]), self._staged[r]
+                if self.slots[lane] is not None:
+                    raise RuntimeError(f"the device refilled lane {lane}, which the host "
+                                       "holds busy")
+                if e["rec"] is not None:
+                    self.pool.adopt_staged(lane, e["rec"])
+                req = e["req"]
+                self.slots[lane] = _Slot(req, pos=0, seq=self._admit_seq,
+                                         pending=req.prompt + req.prefix, feed=True)
+                self._admit_seq += 1
+                self.admitted += 1
+                self.refills += 1
+        return sum(len(v) for v in by_step.values())
+
+    def _step_device(self) -> list[GenerationResult]:
+        """One device-scheduler cycle: admission, reservation to the
+        horizon, staging and the loop's state (the cycle's one host sync),
+        then W dispatches launched back to back, fetched and replayed in
+        launch order."""
+        out: list[GenerationResult] = []
+        self._admit(out)
+        t_sched0 = time.perf_counter()
+        self._ensure_capacity()
+        self._stage_fill()
+        live = sum(s is not None for s in self.slots)
+        self.max_concurrency = max(self.max_concurrency, live)
+        if not live and not self._staged:
+            return out
+        self.kv_bytes_sum += self.live_kv_bytes()
+        if self.pool is not None:
+            self.pool.device_tables()
+        self._build_dstate()
+        sampling = [s.sampling for s in self.slots if s is not None]
+        sampling += [e["req"].sampling for e in self._staged]
+        sig = (self.k_loop, any(sp.temperature > 0 for sp in sampling),
+               any(sp.top_k > 0 for sp in sampling))
+        t_capture = time.perf_counter()
+        self._loop.prepare(sig)  # a new signature's capture: not decode, not scheduling
+        t0 = time.perf_counter()
+        for w in range(self._w):  # the state chains on the device
+            self._loop.dispatch(w, sig)
+        self.dispatches += self._w
+        t_launched = time.perf_counter()
+        consumed, fetch_s, host_s = 0, 0.0, 0.0
+        for w in range(self._w):
+            f0 = time.perf_counter()
+            hb, steps, c_lane, c_step = self._fetch_block(w)
+            f1 = time.perf_counter()
+            self.block_fetches += 1
+            self.decode_steps += steps
+            consumed += self._replay(hb, steps, c_lane, c_step, out)
+            host_s += time.perf_counter() - f1
+            fetch_s += f1 - f0
+        self.decode_wall_s += (t_launched - t0) + fetch_s
+        self._unstage(skip=consumed)
+        self.cycles += 1
+        self.sched_host_s += (t_capture - t_sched0) + host_s
         return out
 
     def run(self) -> dict[int, GenerationResult]:
@@ -505,12 +745,23 @@ class DecodeEngine:
         each request's first token comes from prefill and is excluded."""
         steps = self.decode_steps
         total_wall = self.decode_wall_s + self.sched_host_s
+        # a host sync is where scheduling happens: each dispatch of the sync
+        # scheduler, each cycle of the device scheduler (so is the KV read
+        # sampled)
+        syncs = self.cycles if self._device_sched else self.dispatches
         st = {
             "layout": self.layout.kind,
+            "scheduler": "device" if self._device_sched else "sync",
             "decode_steps": steps,
             "dispatches": self.dispatches,
             "steps_per_dispatch": self.steps_per_dispatch,
-            "host_syncs": self.dispatches,
+            "host_syncs": syncs,
+            "cycles": self.cycles,
+            "block_fetches": self.block_fetches,
+            "refills": self.refills,
+            "max_steps_per_dispatch": self.k_loop,
+            "staged_lanes": self.staged_lanes,
+            "async_stream": self.async_stream,
             "itl_ms_p50": float(np.percentile(self._itl_ms, 50)) if self._itl_ms else 0.0,
             "itl_ms_p99": float(np.percentile(self._itl_ms, 99)) if self._itl_ms else 0.0,
             "admitted": self.admitted,
@@ -522,8 +773,7 @@ class DecodeEngine:
             "decode_wall_s": self.decode_wall_s,
             "sched_host_s": self.sched_host_s,
             "kv_cache_bytes": self.kv_cache_bytes(),
-            "kv_bytes_per_step": (self.kv_bytes_sum / self.dispatches
-                                  if self.dispatches else 0.0),
+            "kv_bytes_per_step": self.kv_bytes_sum / syncs if syncs else 0.0,
             "weight_bytes_per_step": tree_nbytes(self.params),
             "ms_per_decode_step": self.decode_wall_s / steps * 1e3 if steps else 0.0,
             "ms_per_decode_step_host": self.sched_host_s / steps * 1e3 if steps else 0.0,
@@ -535,6 +785,14 @@ class DecodeEngine:
             "collective_ms_per_decode_step": (self.decode_collective_s / steps * 1e3
                                               if steps else 0.0),
         }
+        if self._loop is not None:
+            # iterations the loop ran on the device (a gated one commits
+            # nothing but runs its kernels), the captures' warm-ups and
+            # their host seconds
+            st.update(device_loop=self._loop.mode, loop_iterations=self._loop.iterations,
+                      gated_iterations=self._loop.iterations - steps,
+                      warmup_iterations=self._loop.warmup_iterations,
+                      capture_s=self._loop.capture_s)
         if self.pool is not None:
             st.update(
                 num_pages=self.pool.layout.num_pages,

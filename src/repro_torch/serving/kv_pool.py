@@ -26,7 +26,17 @@ engine's steps per dispatch, sizes the window table so those pages never
 take the slot of a page still in the window) and ``release`` on finish or
 preemption.  The device tables are updated in place, so unlike the
 reference there is no donated buffer to re-adopt.  Copy-on-write, prefix
-sharing, staged refills and rollback are not ported yet (ROADMAP.md).
+sharing and rollback are not ported yet (ROADMAP.md).
+
+Staged admissions (the device scheduler's on-device refill, the
+reference's ``stage_alloc``/``release_staged``/``adopt_staged``): the host
+reserves fresh pages for a queued request's first writes and builds its
+table rows without touching any lane; the decode loop copies a staged row
+over a dead lane's row when it refills it, and the host's replay of that
+refill adopts the row as the lane's (``adopt_staged``); a stage the loop
+did not consume goes back (``release_staged``).  Its exposure, the
+positions the refilled lane can write before the host next reconciles,
+is capped by the engine's write horizon, which ``lookahead`` covers.
 
 A pool on a mesh (``mesh=``, one ``launch.mesh.Mesh`` rank's view) splits
 its pages axis over the model axis (the reference's ``kv_shard="seq"``,
@@ -36,6 +46,8 @@ the host allocator runs identically on every rank, so every rank keeps
 the same tables.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -123,9 +135,13 @@ class PagedKVPool:
         if self._ref[pid] == 0:
             self._free.append(pid)
 
-    def _map(self, key: str, lane: int, pg: int) -> None:
+    def _take(self) -> int:
         pid = self._free.pop()
         self._ref[pid] = 1
+        return pid
+
+    def _map(self, key: str, lane: int, pg: int) -> None:
+        pid = self._take()
         self._pages[key][lane][pg] = pid
         slot = pg % self.layout.pages_win if key == "win" else pg
         self._pt[key][lane, slot] = pid
@@ -194,6 +210,64 @@ class PagedKVPool:
                 self._dirty.add(lane)
             pages[lane] = {}
             self._pt[key][lane, :] = self.layout.sentinel
+
+    # -- staged admissions (device-resident refill) --------------------------
+
+    def _stage_exposure(self, prompt_len: int, budget: int, horizon: int) -> int:
+        """Positions ``0..e-1`` a staged request's refill may write before
+        the host next reconciles: the write horizon, capped by the
+        request's own freeze point."""
+        cap = min(self.max_len, prompt_len + max(1, budget))
+        return min(max(1, horizon), cap)
+
+    def staged_pages(self, prompt_len: int, budget: int, horizon: int) -> int:
+        """Fresh pages one staged admission reserves."""
+        lo = self.layout
+        n = cdiv(self._stage_exposure(prompt_len, budget, horizon), lo.page_size)
+        return n * (int(lo.has_full) + int(bool(lo.win)))
+
+    def stage_alloc(self, prompt_len: int, budget: int, horizon: int) -> Optional[dict]:
+        """Reserve the pages of a staged request's exposure and build its
+        sentinel-padded table rows; None (nothing reserved) when the pool
+        is short.  The record is host bookkeeping only: no lane's row or
+        device table changes."""
+        lo, ps = self.layout, self.layout.page_size
+        if self.staged_pages(prompt_len, budget, horizon) > len(self._free):
+            return None
+        e = self._stage_exposure(prompt_len, budget, horizon)
+        rec = {"exposure": e}
+        for key, on, width in (("full", lo.has_full, lo.pages_full),
+                               ("win", bool(lo.win), lo.pages_win)):
+            rec[f"{key}_pages"], rec[f"{key}_row"] = {}, None
+            if not on:
+                continue
+            row = np.full(width, lo.sentinel, np.int32)
+            for pg in range(cdiv(e, ps)):
+                pid = self._take()
+                rec[f"{key}_pages"][pg] = pid
+                row[pg % lo.pages_win if key == "win" else pg] = pid
+            rec[f"{key}_row"] = row
+        return rec
+
+    def release_staged(self, rec: dict) -> None:
+        """Return an unconsumed stage's pages (its request goes back to the
+        queue)."""
+        for key in ("full", "win"):
+            for pid in rec[f"{key}_pages"].values():
+                self._decref(pid)
+
+    def adopt_staged(self, lane: int, rec: dict) -> None:
+        """Install a consumed stage as ``lane``'s mappings (the host's replay
+        of a refill inside the loop).  The device rows already hold these
+        ids; the lane is marked dirty, so the next sync rewrites the same
+        values."""
+        if any(self._pages[key][lane] for key in self._pages):
+            raise RuntimeError(f"adopt_staged into occupied lane {lane}")
+        for key in ("full", "win"):
+            self._pages[key][lane] = dict(rec[f"{key}_pages"])
+            if rec[f"{key}_row"] is not None:
+                self._pt[key][lane, :] = rec[f"{key}_row"]
+        self._dirty.add(lane)
 
     # -- device view ---------------------------------------------------------
 

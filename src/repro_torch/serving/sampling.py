@@ -3,9 +3,12 @@
 Each lane carries its own ``(temperature, top_k)``; ``temperature == 0`` is
 greedy and ``top_k == 0`` disables the filter.  A sampled draw is keyed by
 (engine seed, request uid, generated-token index), as the reference's
-``request_keys`` is, so a request's stream does not depend on its lane or
-on how dispatches were cut.  The draws use ``torch.Generator`` and do not
-reproduce JAX's bits.
+``request_keys`` is, so a request's stream does not depend on its lane,
+its batch-mates or how dispatches were cut.  The keys are computed on the
+device from ``(uids, counts)`` tensors (:func:`draw_keys`), and each row's
+uniforms from its key and the vocabulary index by a counter-based 32-bit
+hash (:func:`_uniforms`): no host work, so the draws run inside a captured
+CUDA graph of the decode loop.  They do not reproduce JAX's bits.
 
 :func:`advance_stops` is the device half of stop handling inside a K-step
 dispatch: finished lanes freeze until the host replays the same rules.
@@ -13,10 +16,12 @@ dispatch: finished lanes freeze until the host replays the same rules.
 from __future__ import annotations
 
 import dataclasses
-import hashlib
-from typing import Optional, Sequence
+from typing import Optional
 
 import torch
+
+_M32 = 0xFFFFFFFF
+_PHI32 = 0x9E3779B1  # 2^32 / golden ratio, odd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,23 +34,54 @@ class SamplingParams:
     eos_id: int = -1  # -1 = never stop on a token
 
 
-def request_seed(seed: int, uid: int, count: int) -> int:
-    """Generator seed of request ``uid``'s ``count``-th generated token."""
-    digest = hashlib.blake2b(f"{seed}:{uid}:{count}".encode(), digest_size=8).digest()
-    return int.from_bytes(digest, "little") >> 1
+def _mul32(x, c: int):
+    """``x * c`` modulo 2^32 for int64 ``x`` in [0, 2^32) and ``c`` < 2^32,
+    in two 16-bit halves so that no product passes 2^48."""
+    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(x):
+    """MurmurHash3's 32-bit finalizer, a bijection of [0, 2^32); ``x`` an
+    int64 tensor or a Python int."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def draw_keys(seed: int, uids: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Per-row 32-bit draw keys, int64 ``(B,)``: a hash of (engine seed,
+    request uid, generated-token index), computed where ``uids`` lie."""
+    s = _fmix32(_fmix32((seed >> 32) & _M32) ^ (seed & _M32))
+    k = _fmix32((uids.long() & _M32) ^ s)
+    return _fmix32(k ^ (counts.long() & _M32))
+
+
+def _uniforms(keys: torch.Tensor, v: int) -> torch.Tensor:
+    """``(B, V)`` f32 uniforms in (0, 1), one per (row key, vocabulary
+    index): two hash rounds of the index and the key, the top 24 bits
+    (exact in f32) centred in their bin."""
+    idx = torch.arange(v, device=keys.device, dtype=torch.int64)
+    k = keys[:, None]
+    h = _fmix32(_mul32(idx, _PHI32)[None, :] ^ k)
+    h = _fmix32((h + k) & _M32)
+    return ((h >> 8).float() + 0.5) * 2.0 ** -24
 
 
 def sample_tokens(
     logits: torch.Tensor,  # (B, V)
     temperature: torch.Tensor,  # (B,) f32; 0 = greedy
     top_k: torch.Tensor,  # (B,) int; 0 = disabled
-    seeds: Optional[Sequence[int]] = None,  # per-row request_seed, if sampling
+    keys: Optional[torch.Tensor] = None,  # (B,) draw_keys, if sampling
     *,
     need_sample: bool = True,  # False: every row is greedy
     need_topk: bool = True,  # False: no row filters by top-k
 ) -> torch.Tensor:
     """One token per row under per-row (temperature, top_k).  The ``need_*``
-    flags let an all-greedy batch skip the sort and the draws."""
+    flags let an all-greedy batch skip the sort and the draws.  A sampled
+    row takes the Gumbel-max of its filtered, scaled logits under the
+    uniforms of its key."""
     lf = logits.float()
     v = lf.shape[-1]
     if need_topk:
@@ -56,15 +92,9 @@ def sample_tokens(
     if not need_sample:
         return greedy
     scaled = lf / torch.where(temperature > 0, temperature, 1.0)[:, None]
-    sampled = torch.stack([_gumbel_argmax(row, s) for row, s in zip(scaled, seeds)])
+    gumbel = -torch.log(-torch.log(_uniforms(keys, v)))
+    sampled = (scaled + gumbel).argmax(dim=-1).to(torch.int32)
     return torch.where(temperature > 0, sampled, greedy)
-
-
-def _gumbel_argmax(row: torch.Tensor, seed: int) -> torch.Tensor:
-    """A categorical draw from ``softmax(row)`` by the Gumbel-max trick."""
-    gen = torch.Generator(device=row.device).manual_seed(seed)
-    u = torch.rand(row.shape, generator=gen, device=row.device)
-    return (row - torch.log(-torch.log(u))).argmax().to(torch.int32)
 
 
 def advance_stops(

@@ -549,3 +549,119 @@ def test_nm_mask_kernel_refuses_non_contiguous_and_wide_groups(dev):
         nm_mask(w, 2, 64)
     with pytest.raises(TypeError):
         nm_mask(w.half(), 2, 4)
+
+
+# ---------------------------------------------------------------------------
+# the device scheduler's decode loop: CUDA graph replay against the eager loop
+# ---------------------------------------------------------------------------
+
+
+def _serving_tree(arch, dev, **overrides):
+    """``(cfg, compressed tree)`` of the reduced ``arch``, on the card."""
+    from repro_torch import core
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import init_params
+    from repro_torch.sparse_infer import export_compressed
+
+    cfg = reduced(get_config(arch), **overrides)
+    recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(2, 4)))
+    return cfg, export_compressed(init_params(cfg, seed=0, device=dev), recipe)[0]
+
+
+def _loop_engine(cfg, comp, dev, mode, prompts):
+    """A device-scheduler engine (5 steps a dispatch, 2 staged lanes, two
+    dispatches a cycle) on a paged pool, its loop ``mode`` given, the
+    prompts submitted; every dispatch's outputs are kept as fetched."""
+    from repro_torch.serving import DecodeEngine, SamplingParams
+
+    eng = DecodeEngine(cfg, comp, max_batch=2, max_len=40, seed=0, num_pages=48, page_size=4,
+                       device=dev, max_steps_per_dispatch=5, staged_lanes=2,
+                       async_stream=True, device_loop=mode)
+    fetch, eng.fetched = eng._fetch_block, []
+
+    def keep(w):
+        hb, steps, c_lane, c_step = fetch(w)
+        eng.fetched.append((hb.copy(), steps, c_lane.copy(), c_step.copy()))
+        return hb, steps, c_lane, c_step
+
+    eng._fetch_block = keep
+    for r, p in enumerate(prompts):
+        eng.submit(p, SamplingParams(max_new_tokens=(9, 5, 12, 7, 6)[r % 5]))
+    return eng
+
+
+def _recurrent_leaves(cache):
+    return {path: t for path, t in _tree_items(cache) if path.endswith(("state", "conv"))}
+
+
+def _tree_items(tree, path=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _tree_items(v, f"{path}/{k}")
+        else:
+            yield f"{path}/{k}", v
+
+
+@pytest.mark.parametrize("arch,overrides", [("gpt2-paper", {}),
+                                            ("recurrentgemma-9b", {"n_layers": 8})])
+def test_device_loop_graph_replay_equals_the_eager_loop(dev, arch, overrides):
+    """The same traffic (refills from the staged ring, mid-loop freezes,
+    gated iterations) through the captured graph and through the eager
+    loop on the card, cycle by cycle: the same bytes of every dispatch's
+    token block, steps and refill records, of ``cache["len"]`` and of the
+    RG-LRU state, and the same streams; the replays count the eager
+    loop's launches (and the capture its warm-up's)."""
+    cfg, comp = _serving_tree(arch, dev, **overrides)
+    prompts = [np.random.default_rng(7 + r).integers(0, cfg.vocab, 12 + 3 * r).tolist()
+               for r in range(6)]
+    engines, launches, results = {}, {}, {}
+    for mode in ("graph", "eager"):
+        engines[mode] = _loop_engine(cfg, comp, dev, mode, prompts)
+        results[mode] = {}
+    g, e = engines["graph"], engines["eager"]
+    while g.queue or any(s is not None for s in g.slots):
+        warm = g._loop.warmup_iterations
+        for mode, eng in engines.items():
+            dispatch.reset_launches()
+            results[mode].update({r.uid: r.tokens for r in eng.step()})
+            launches[mode] = dict(dispatch.launches)
+        torch.cuda.synchronize()
+        assert torch.equal(g.cache["len"], e.cache["len"])
+        eager_rec = _recurrent_leaves(e.cache)
+        for path, t in _recurrent_leaves(g.cache).items():
+            assert torch.equal(t, eager_rec[path]), path
+        # the replays count the eager loop's launches, and a capture adds its
+        # warm-up iteration's
+        per_replay = next(iter(g._loop.captured.values()), {})
+        warmed = g._loop.warmup_iterations - warm
+        assert launches["graph"] == {k: n + per_replay.get(k, 0) // 5 * warmed
+                                     for k, n in launches["eager"].items()}
+    assert not e.queue and not any(s is not None for s in e.slots)
+    assert len(g.fetched) == len(e.fetched) == g.dispatches == 2 * g.cycles
+    for a, b in zip(g.fetched, e.fetched):
+        assert a[1] == b[1] and all(np.array_equal(x, y) for x, y in zip(a[::2], b[::2]))
+        assert np.array_equal(a[3], b[3])
+    assert results["graph"] == results["eager"]
+    assert g.refills > 0 and g.stats()["gated_iterations"] > 0
+    assert sum(g._loop.replays.values()) == g.dispatches
+    assert g.stats()["device_loop"] == "graph" and e.stats()["device_loop"] == "eager"
+
+
+def test_device_loop_capture_failure_raises(dev, monkeypatch):
+    """A host sync inside the loop breaks its capture: the engine raises,
+    and no eager loop runs in its place."""
+    from repro_torch.serving import device_loop
+
+    cfg, comp = _serving_tree("gpt2-paper", dev)
+    real = device_loop.sample_tokens
+
+    def syncing(logits, *args, **kw):
+        logits.sum().item()  # a host read: not allowed while the stream is captured
+        return real(logits, *args, **kw)
+
+    monkeypatch.setattr(device_loop, "sample_tokens", syncing)
+    eng = _loop_engine(cfg, comp, dev, "graph", [[1, 2, 3], [4, 5, 6, 7]])
+    with pytest.raises(RuntimeError, match="capture of the decode loop"):
+        eng.step()
+    torch.cuda.synchronize()
+    assert eng._loop.mode == "graph" and eng._loop.iterations == 0 and not eng.fetched
