@@ -72,7 +72,15 @@ Phases, in order; any failure exits non-zero:
    twin (about 40 GB) on the slab and the 28-page pool, streams equal
    except at f32 top-2 margins under 0.1 (MoE capacity makes a forward's
    dropped tokens depend on its length, so the tokens are not held to the
-   forward's choices one by one here).
+   forward's choices one by one here).  The eight prompts share their
+   first 48 tokens, and a fifth run serves them on the 28-page pool with
+   chunked prefill (chunks of 32) and the prefix cache: the batched
+   ``nm_spmm`` must launch 3 x 26 times per chunk dispatch too, the index
+   must hit, and no page or reference may be left after ``clear()``; its
+   f32 twin and a cold one, both with an MoE capacity of every token (so
+   that only the chunks and the hits part them), go through the stream
+   gate, and ``prefill_chunk`` on the first 4 layers in f32, chunk by
+   chunk, must give a forward's last logits within 1e-3.
 7. Serve full-width RecurrentGemma-9B (all 38 layers: 12 x (RG-LRU,
    RG-LRU, local MQA) + 2 RG-LRU): random weights from seed 0, the STEP
    2:4 export and compression leaf by leaf, then 4 greedy requests of
@@ -134,6 +142,26 @@ with every lane at 0, 1, 2, 4 and 7 live pages.
    and each pool's streams must equal phase 3's single-rank f32 twin's
    except at f32 top-2 margins under 0.1 (the fp pool's tokens also each
    within 0.1 of the f32 forward's greedy choice).
+
+10. Serve full-width gpt2-paper (phase 3's tree) with chunked prefill and
+   the prefix cache.  ``prefill_chunk`` in f32 at full depth, chunks of 64
+   of four prompts (320, 257, 200, 129), on the slab and a pool: each
+   lane's last chunk's logits within 1e-3 of one forward's; a profiler
+   trace of one chunk dispatch of 4 x 64 rows must show 72 K1 launches.
+   Six requests of 320, 257, 200, 129, 64 and 40 prompt tokens + 32 over
+   4 lanes, K = 4, chunks of 64, on the slab, an 80-page fp pool and an
+   int8 pool of no more bytes, each against the same engine without
+   chunking; then two waves of 4 requests sharing a 136-token head (tails
+   of 8-40 tokens) on the fp and int8 pools, with and without the prefix
+   cache, and once by the device scheduler (16 steps, 2 staged lanes, two
+   dispatches a cycle) with chunks of 64.  Every sync run's K1 launches
+   must be exactly 72 per forward (decode step, prefill batch, chunk
+   dispatch), the device run's per iteration and forward; each prefix
+   run must hit 4 times for at least 4 x 128 tokens and leave no page or
+   reference after ``clear()``.  The stream gate: the f32 twins of chunked
+   against monolithic (each pool), of prefix hits against cold (fp and
+   int8) and of the device run against the sync cold run; the bf16 streams
+   are readings.
 
 Each phase's seconds are logged, and the total beside them.
 
@@ -286,6 +314,18 @@ DEV_K, EXACT_BUDGETS, EXACT_PAGES = 16, (32, 29, 24, 17), 28
 RG_DEV_K = 8
 # empty spin kernels that open every torch.profiler window (open_trace)
 LEAD_KERNELS = 2048
+# phase 10, chunked prefill and the prefix cache on gpt2-paper: the chunk,
+# the chunked traffic's prompts (a last chunk of 1 token at 257, one chunk
+# exactly at 64, unchunked at 40), its pool (the four longest lanes need 67
+# 16-token pages: no preemption); the prefix traffic's shared head (8 whole
+# pages and 8 tokens of a ninth), its tails' range and its pool
+CHUNK, CHUNK_PROMPTS, CHUNK_PAGES = 64, (320, 257, 200, 129, 64, 40), 80
+PREFIX_HEAD, PREFIX_TAILS, PREFIX_PAGES = 136, (8, 40), 80
+# prefill_chunk's last logits against one forward's, f32 at full width: the
+# routes' summation orders differ by 1e-6 to 5e-6 of a logit
+CHUNK_F32_TOL = 1e-3
+# DeepSeek in phase 6: its chunk, and the head its prompts share
+DS_CHUNK, DS_HEAD = 32, 48
 
 
 def log(msg: str) -> None:
@@ -977,11 +1017,58 @@ def check_nm_mask(torch, dev) -> dict:
     return rec
 
 
+def watch_chunks(eng, records: list) -> list:
+    """Count the wrappers' launches inside each chunk dispatch ``eng``
+    makes: its ``_advance_chunks`` is wrapped to read ``dispatch.launches``
+    just before and after every call, and a call that dispatched a chunk
+    appends the entries that moved to ``records``.  Returns ``records``."""
+    from repro_torch.kernels import dispatch
+
+    inner = eng._advance_chunks
+
+    def advance(out):
+        n0, before = eng.prefill_chunks, dict(dispatch.launches)
+        inner(out)
+        if eng.prefill_chunks != n0:
+            records.append({k: v - before.get(k, 0) for k, v in dispatch.launches.items()
+                            if v != before.get(k, 0)})
+
+    eng._advance_chunks = advance
+    return records
+
+
+def add_launches(total: dict, more: dict) -> dict:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def check_chunk_launches(what: str, records: list, chunks: int, per_dispatch: dict) -> dict:
+    """Raise unless ``records`` (``watch_chunks``) hold one entry for each of
+    the run's ``chunks`` chunk dispatches, each with exactly
+    ``per_dispatch``'s launches of the named entries (a value of None: at
+    least one); returns the launches summed over the dispatches."""
+    total: dict = {}
+    for rec in records:
+        add_launches(total, rec)
+    bad = [rec for rec in records if any(
+        rec.get(k, 0) == 0 if n is None else rec.get(k, 0) != n for k, n in per_dispatch.items())]
+    log(f"  {what}: {len(records)} chunk dispatches measured ({chunks} counted by the engine), "
+        f"their launches {total}; want {per_dispatch} in each")
+    if len(records) != chunks or not chunks or bad:
+        raise AssertionError(f"{what}: {len(records)} chunk dispatches measured, {chunks} "
+                             f"counted; dispatches off {per_dispatch}: {bad[:3]}")
+    return total
+
+
 def serve(torch, cfg, comp, dev, *, paged: bool, n_requests=8, lanes=4, prompt_len=64,
-          gen=32, k=4, num_pages=22, prompts=None, max_len=None, kv_quant=False, **sched):
+          gen=32, k=4, num_pages=22, prompts=None, max_len=None, kv_quant=False,
+          chunk_records=None, **sched):
     """One greedy serving run of the port's engine (``kv_quant``: on int8
-    pages; ``sched``: the device scheduler's arguments); returns (engine,
-    prompts, streams, seconds)."""
+    pages; ``sched``: the device scheduler's and the chunk path's
+    arguments; ``chunk_records``: a list that gets each chunk dispatch's
+    launches, ``watch_chunks``); returns (engine, prompts, streams,
+    seconds)."""
     import numpy as np
 
     from repro_torch.serving import DecodeEngine, SamplingParams
@@ -990,6 +1077,8 @@ def serve(torch, cfg, comp, dev, *, paged: bool, n_requests=8, lanes=4, prompt_l
     eng = DecodeEngine(cfg, comp, max_batch=lanes, max_len=max_len, seed=0,
                        num_pages=num_pages if paged else None, page_size=16,
                        steps_per_dispatch=k, kv_quant=kv_quant, device=dev, **sched)
+    if chunk_records is not None:
+        watch_chunks(eng, chunk_records)
     if prompts is None:
         prompts = [np.random.default_rng(1000 + r).integers(0, cfg.vocab, prompt_len).tolist()
                    for r in range(n_requests)]
@@ -1246,9 +1335,14 @@ def mesh_phase(torch, cfg, comp, dev, single: dict) -> dict:
 
 def deepseek_phase(torch, dev, dispatch) -> dict:
     """Phase 6: full-width DeepSeek-V2-Lite, exported and compressed leaf by
-    leaf, served on the slab, a pool that never preempts and one that does;
-    returns the launches of the batched nm_spmm and of paged_attn's MLA
-    form over the three runs."""
+    leaf, served on the slab, a pool that never preempts and one that does,
+    an int8 pool, and the first pool with chunked prefill and the prefix
+    cache; returns the launches of the batched nm_spmm and of paged_attn's
+    MLA forms over the first four runs, and under
+    ``chunk_dispatch_launches`` each entry's launches measured inside the
+    last run's chunk dispatches."""
+    import numpy as np
+
     from repro_torch import core
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
@@ -1274,31 +1368,64 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
     torch.cuda.reset_peak_memory_stats()
     totals = {"nm_spmm_batched": 0, "paged_attn_mla": 0, "paged_attn_mla_q": 0}
     runs = {}
-    for name, pages in (("slab", None), ("paged", 28), ("paged_preempting", 22),
-                        ("paged_int8", 28)):
+    # phase 3's traffic, the prompts sharing their first DS_HEAD tokens (the
+    # prefix cache's run hits them; the other runs do not care)
+    prompts = [np.random.default_rng(1000 + r).integers(0, cfg.vocab, 64).tolist()
+               for r in range(8)]
+    prompts = [prompts[0][:DS_HEAD] + p[DS_HEAD:] for p in prompts]
+    chunked = dict(prefill_chunk=DS_CHUNK, prefix_cache=True)
+    for name, pages, kw in (("slab", None, {}), ("paged", 28, {}),
+                            ("paged_preempting", 22, {}), ("paged_int8", 28, {}),
+                            ("paged_chunk_prefix", 28, chunked)):
         int8 = name == "paged_int8"
         dispatch.reset_launches()
-        eng, prompts, streams, wall = serve(torch, cfg, comp, dev, paged=pages is not None,
-                                            num_pages=pages or 0, kv_quant=int8)
+        records: list = []
+        eng, _, streams, wall = serve(torch, cfg, comp, dev, paged=pages is not None,
+                                      num_pages=pages or 0, kv_quant=int8, prompts=prompts,
+                                      chunk_records=records, **kw)
         launches = dict(dispatch.launches)
-        steps, groups = eng.decode_steps, eng.prefill_batches
+        steps, groups, chunks = eng.decode_steps, eng.prefill_batches, eng.prefill_chunks
         mla = "paged_attn_mla_q" if int8 else "paged_attn_mla"
-        want = {"nm_spmm_batched": 3 * DS_MOE_LAYERS * (steps + groups),
+        want = {"nm_spmm_batched": 3 * DS_MOE_LAYERS * (steps + groups + chunks),
                 "paged_attn_mla": DS_LAYERS * steps if pages and not int8 else 0,
                 "paged_attn_mla_q": DS_LAYERS * steps if int8 else 0}
-        log(f"  {name}: launches {launches}; {steps} decode steps, {groups} prefill batches: "
-            f"batched nm_spmm wants 3 x {DS_MOE_LAYERS} x ({steps} + {groups}) = "
-            f"{want['nm_spmm_batched']}, {mla} {DS_LAYERS} x {steps if pages else 0}")
+        log(f"  {name}: launches {launches}; {steps} decode steps, {groups} prefill batches, "
+            f"{chunks} chunk dispatches: batched nm_spmm wants 3 x {DS_MOE_LAYERS} x ({steps} + "
+            f"{groups} + {chunks}) = {want['nm_spmm_batched']}, {mla} {DS_LAYERS} x "
+            f"{steps if pages else 0}")
         if any(launches[k] != v for k, v in want.items()) or launches["nm_spmm"] == 0:
             raise AssertionError(f"{name}: launches {launches}, want {want} and nm_spmm > 0")
         if (eng.preemptions > 0) != (name == "paged_preempting"):
             raise AssertionError(f"{name}: {eng.preemptions} preemptions")
-        for k in totals:
-            totals[k] += launches[k]
+        if kw:
+            st = eng.stats()
+            eng._prefix.clear()
+            clear = (eng.pool.free_pages, eng.pool.layout.num_pages, int(eng.pool._ref.sum()))
+            log(f"  {name}: " + json.dumps({k: st[k] for k in (
+                "prefill_chunks", "prefix_hits", "prefix_hit_tokens", "cow_copies",
+                "prefix_evictions", "shared_pages")}) + f"; after clear(): free pages, pages, "
+                f"references {clear}")
+            if not chunks or not st["prefix_hits"] or clear[0] != clear[1] or clear[2]:
+                raise AssertionError(f"{name}: {st}, after clear {clear}")
+            chunk_launches = check_chunk_launches(
+                f"{name}, each chunk dispatch", records, chunks,
+                {"nm_spmm_batched": 3 * DS_MOE_LAYERS, "nm_spmm": None})
+        else:
+            for k in totals:
+                totals[k] += launches[k]
         runs[name] = (eng.stats(), streams, wall)
         del eng
     log("  int8 vs fp pages, 28-page pools (readings): "
         + json.dumps(int8_readings(runs["paged"][1], runs["paged_int8"][1])))
+    # the chunk route from one state: f32, the first 4 layers, no MoE drops
+    sub_cfg, sub = first_layers(torch, cfg, comp, 3, "float32")
+    for paged in (False, True):
+        rec = chunk_logit_check(torch, no_drop(sub_cfg), sub, dev, prompts[:4], DS_CHUNK, paged)
+        log("  prefill_chunk vs forward, f32, 4 layers, MoE without drops: " + json.dumps(rec))
+        if not rec["max_abs_diff"] <= CHUNK_F32_TOL:
+            raise AssertionError(f"deepseek prefill_chunk's last logits differ from the "
+                                 f"forward's by {rec['max_abs_diff']} > {CHUNK_F32_TOL}")
+    del sub
     # the device scheduler, two dispatches a cycle, against a sync run of the
     # same first 4 prompts on the 28-page pool: token for token
     gen4 = (32,) * 4
@@ -1365,7 +1492,20 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
                  twins["slab"]["streams"], twins["paged"]["streams"], dev, greedy=False)
     stream_readings(torch, "slab vs non-preempting paged", cfg32, comp32, prompts,
                     runs["slab"][1], runs["paged"][1], dev)
+    # chunks and prefix hits against the cold pool: the MoE capacity follows
+    # a forward's token count, which chunking changes, so these twins drop
+    # no token (no_drop) and differ only by the chunks and the hits
+    nd = no_drop(cfg32)
+    pair = twin_runs(torch, nd, comp32, dev, {"cold": (28, False)}, prompts=prompts)
+    pair |= twin_runs(torch, nd, comp32, dev, {"chunk_prefix": (28, False)}, prompts=prompts,
+                      **chunked)
+    gate_streams(torch, "chunks and prefix hits vs cold, 28-page pool (twins without MoE "
+                 "drops)", nd, comp32, prompts, pair["chunk_prefix"]["streams"],
+                 pair["cold"]["streams"], dev, greedy=False)
+    stream_readings(torch, "chunks and prefix hits vs cold, 28-page pool", cfg32, comp32,
+                    prompts, runs["paged_chunk_prefix"][1], runs["paged"][1], dev)
     log(f"  peak memory with the f32 twin: {torch.cuda.max_memory_allocated():,} B")
+    totals["chunk_dispatch_launches"] = chunk_launches
     return totals
 
 
@@ -1726,16 +1866,18 @@ def serve_requests(torch, cfg, comp, dev, prompts, budgets, *, eos=(0, -1), page
 def loop_launch_gate(what: str, run: dict, per_iteration: dict, per_prefill: dict) -> None:
     """Raise unless each named kernel entry launched ``per_iteration`` times
     for every iteration the device loop ran (replayed, gated ones included,
-    and the captures' warm-ups) and ``per_prefill`` times a prefill batch."""
+    and the captures' warm-ups) and ``per_prefill`` times a prefill batch
+    or chunk dispatch."""
     st = run["stats"]
     iters = st["loop_iterations"] + st["warmup_iterations"]
-    want = {k: n * iters + per_prefill.get(k, 0) * st["prefill_batches"]
+    forwards = st["prefill_batches"] + st["prefill_chunks"]
+    want = {k: n * iters + per_prefill.get(k, 0) * forwards
             for k, n in per_iteration.items()}
     got = {k: run["launches"].get(k, 0) for k in want}
     log(f"  {what}: launches {got}; {st['loop_iterations']} loop iterations replayed "
         f"({st['decode_steps']} decode steps, {st['gated_iterations']} gated) + "
-        f"{st['warmup_iterations']} warm-up, {st['prefill_batches']} prefill batches: want "
-        f"{want}")
+        f"{st['warmup_iterations']} warm-up, {st['prefill_batches']} prefill batches, "
+        f"{st['prefill_chunks']} chunk dispatches: want {want}")
     if got != want:
         raise AssertionError(f"{what}: launches {got}, want {want}")
 
@@ -1831,6 +1973,284 @@ def device_phase(torch, cfg, comp, dev, single: dict) -> None:
                 k: st[k] for k in ("ms_per_decode_step", "tokens_per_s", "host_overhead_frac",
                                    "ms_per_decode_step_host", "decode_steps", "host_syncs")}
                 | {"run_wall_s": runs[(pool, sched)]["wall"], "device": name}))
+
+
+def no_drop(cfg):
+    """``cfg`` with an MoE capacity of every routed token (capacity factor
+    E / top_k): a forward's token count then drops nothing, so a chunked
+    and a monolithic prefill route every token alike."""
+    if cfg.moe is None:
+        return cfg
+    moe = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    return dataclasses.replace(cfg, moe=moe)
+
+
+def chunk_logit_check(torch, cfg, comp, dev, prompts, csz: int, paged: bool) -> dict:
+    """``models.model.prefill_chunk`` chunk by chunk (a row a lane, padded to
+    a power of two with the sentinel lane) on the slab or a pool, each
+    lane's last chunk's logits against one ``forward`` of its whole prompt:
+    the largest difference over the lanes, and the chunk dispatches."""
+    import numpy as np
+
+    from repro_torch.models.cache import SlabLayout, cdiv
+    from repro_torch.models.model import forward, init_cache, prefill_chunk
+    from repro_torch.serving.kv_pool import PagedKVPool
+
+    b, max_len = len(prompts), max(map(len, prompts)) + 1
+    if paged:
+        pool = PagedKVPool(cfg, max_batch=b, max_len=max_len, page_size=16, device=dev,
+                           num_pages=b * cdiv(max_len, 16))
+        for i, p in enumerate(prompts):
+            assert pool.alloc_prefill(i, len(p))
+        pool.device_tables()
+        cache, layout = pool.cache, pool.layout
+    else:
+        cache, layout = init_cache(cfg, b, max_len, device=dev), SlabLayout(max_len)
+    pos, last, dispatches = [0] * b, {}, 0
+    while any(q < len(p) for q, p in zip(pos, prompts)):
+        rows = [i for i, p in enumerate(prompts) if pos[i] < len(p)]
+        nb = 1 << (len(rows) - 1).bit_length()
+        toks = np.zeros((nb, csz), np.int64)
+        lanes = np.full((nb,), b, np.int64)
+        starts, lengths = np.zeros((nb,), np.int64), np.zeros((nb,), np.int64)
+        for r, i in enumerate(rows):
+            part = prompts[i][pos[i]:pos[i] + csz]
+            toks[r, :len(part)], lanes[r], starts[r], lengths[r] = part, i, pos[i], len(part)
+        rows_t = [torch.from_numpy(x).to(dev) for x in (lanes, starts, lengths)]
+        logits, _ = prefill_chunk(comp, cfg, torch.from_numpy(toks).to(dev), cache, *rows_t,
+                                  layout)
+        dispatches += 1
+        for r, i in enumerate(rows):
+            pos[i] += int(lengths[r])
+            if pos[i] == len(prompts[i]):
+                last[i] = logits[r].float()
+    worst = 0.0
+    for i, p in enumerate(prompts):
+        want = forward(comp, cfg, torch.tensor([p], device=dev))[0][0, -1].float()
+        worst = max(worst, (last[i] - want).abs().max().item())
+    return {"max_abs_diff": worst, "chunk_dispatches": dispatches,
+            "layout": "paged" if paged else "slab", "prompts": [len(p) for p in prompts]}
+
+
+def serve_waves(torch, cfg, comp, dev, waves, *, pages, int8=False, gen=32, max_len,
+                **kw) -> dict:
+    """Greedy serving of ``waves`` of prompts, each drained before the next
+    is submitted (so that a later wave can hit what an earlier one
+    cached), over 4 lanes on the slab or a pool of ``pages`` 16-token pages
+    (int8 with ``int8``), by the sync scheduler (K = 4) or, with ``kw``'s
+    device scheduler arguments, by it; ``kw`` also carries
+    ``prefill_chunk`` and ``prefix_cache``.  Every request must run to its
+    ``gen`` tokens.  Returns the stats, streams, launches, each chunk
+    dispatch's launches (``watch_chunks``) and seconds, and
+    where the prefix cache ran, the pool after the index is cleared: free
+    pages and the references left."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import DecodeEngine, SamplingParams
+
+    eng = DecodeEngine(cfg, comp, max_batch=4, max_len=max_len, seed=0, num_pages=pages,
+                       page_size=16, steps_per_dispatch=4, kv_quant=int8, device=dev, **kw)
+    records = watch_chunks(eng, [])
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    streams = []
+    for prompts in waves:
+        uids = [eng.submit(p, SamplingParams(max_new_tokens=gen)) for p in prompts]
+        res = eng.run()
+        for u in uids:
+            if len(res[u].tokens) != gen or res[u].finish_reason != "length":
+                raise AssertionError(f"request {u}: {len(res[u].tokens)} tokens, "
+                                     f"{res[u].finish_reason}")
+        streams += [res[u].tokens for u in uids]
+    torch.cuda.synchronize()
+    out = dict(stats=eng.stats(), streams=streams, wall=time.perf_counter() - t0,
+               launches={k: v for k, v in dispatch.launches.items() if v},
+               chunk_records=records)
+    if eng._prefix is not None:
+        eng._prefix.clear()
+        out["after_clear"] = {"free_pages": eng.pool.free_pages,
+                              "num_pages": eng.pool.layout.num_pages,
+                              "references": int(eng.pool._ref.sum())}
+    del eng
+    return out
+
+
+def sync_launch_gate(what: str, run: dict, per_forward: dict, per_step: dict) -> None:
+    """Raise unless each named kernel entry launched ``per_forward`` times a
+    forward (decode step, prefill batch or chunk dispatch) plus
+    ``per_step`` times a decode step, exactly, over a sync run."""
+    st = run["stats"]
+    forwards = st["decode_steps"] + st["prefill_batches"] + st["prefill_chunks"]
+    want = {k: n * forwards + per_step.get(k, 0) * st["decode_steps"]
+            for k, n in per_forward.items()}
+    want.update({k: n * st["decode_steps"] for k, n in per_step.items() if k not in want})
+    got = {k: run["launches"].get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want} ({st['decode_steps']} "
+                             f"decode steps, {st['prefill_batches']} prefill batches, "
+                             f"{st['prefill_chunks']} chunk dispatches)")
+
+
+def profile_chunk(torch, cfg, comp, dev, prompts) -> dict:
+    """A ``torch.profiler`` trace of one chunk dispatch of 4 lanes (4 x 64
+    rows, the second chunk of four prompts longer than 128) on a pool: its
+    wall ms, K1's kernels by name with their launches and device ms, and
+    the wrappers' launch counts over the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import DecodeEngine, SamplingParams
+
+    eng = DecodeEngine(cfg, comp, max_batch=4, max_len=max(map(len, prompts)) + 2, seed=0,
+                       num_pages=CHUNK_PAGES, page_size=16, prefill_chunk=CHUNK, device=dev)
+    for p in prompts:
+        eng.submit(p, SamplingParams(max_new_tokens=1))
+    out: list = []
+    eng._admit(out)
+    eng._advance_chunks(out)  # the first chunk, untraced
+    torch.cuda.synchronize()
+    launches0 = dict(dispatch.launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        open_trace(torch)
+        t0 = time.perf_counter()
+        eng._advance_chunks(out)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, dropped = traced_kernels(prof)
+    k1, k1_ms = {}, 0.0
+    for e in kernels:
+        found = re.search(r"(nm_spmm\w*)<", e.key)
+        if found:
+            k1[found[1]] = k1.get(found[1], 0) + e.count
+            k1_ms += e.self_device_time_total / 1e3
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"rows": 4 * CHUNK, "wall_ms": wall_ms, "k1_launches_by_name": k1,
+            "k1_device_ms": k1_ms if busy_ms > 0 else "not measured",
+            "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+            "lead_records_dropped": dropped,
+            "wrapper_launches": {k: v - launches0[k] for k, v in dispatch.launches.items()
+                                 if v != launches0[k]}}
+
+
+def chunk_phase(torch, cfg, comp, dev) -> dict:
+    """Phase 10: full-width gpt2-paper with chunked prefill and the prefix
+    cache (phase 3's compressed tree and its f32 twin).  Returns each
+    entry's launches measured inside its bf16 runs' chunk dispatches."""
+    import numpy as np
+
+    name = torch.cuda.get_device_name(0)
+    gen = 32
+    prompts = [np.random.default_rng(4000 + r).integers(0, cfg.vocab, n).tolist()
+               for r, n in enumerate(CHUNK_PROMPTS)]
+    max_len = max(CHUNK_PROMPTS) + gen + 1
+    cfg32, comp32 = f32_twin(torch, cfg, comp)
+    # the model-level check: each lane's last chunk against one forward, f32
+    for paged in (False, True):
+        rec = chunk_logit_check(torch, cfg32, comp32, dev, prompts[:4], CHUNK, paged)
+        log("  prefill_chunk vs forward, f32 full depth: " + json.dumps(rec))
+        if not rec["max_abs_diff"] <= CHUNK_F32_TOL:
+            raise AssertionError(f"prefill_chunk's last logits differ from the forward's by "
+                                 f"{rec['max_abs_diff']} > {CHUNK_F32_TOL}: {rec}")
+    rec = profile_chunk(torch, cfg, comp, dev, prompts[:4])
+    log("  profile of one chunk dispatch (bf16, 4 x 64 rows): "
+        + json.dumps({**rec, "device": name}))
+    want = GPT2_K1_PER_LAYER * cfg.n_layers
+    if (sum(rec["k1_launches_by_name"].values()) != want
+            or rec["wrapper_launches"].get("nm_spmm") != want
+            or rec["lead_records_dropped"] == LEAD_KERNELS):
+        raise AssertionError(f"one chunk dispatch: the profiler counted K1 "
+                             f"{rec['k1_launches_by_name']}, the wrapper "
+                             f"{rec['wrapper_launches']}; want {want} of each")
+    # the chunked traffic on the slab, an fp pool and an int8 pool of no more
+    # bytes, each against the same engine without chunking
+    fp_bytes = (CHUNK_PAGES + 1) * cfg.n_layers * 16 * 2 * cfg.n_kv * cfg.hd * 2
+    q_pages = fp_bytes // (cfg.n_layers * 16 * 2 * (cfg.n_kv * cfg.hd + 2)) - 1
+    in_chunks: dict = {}
+    for pool, pages, int8 in (("slab", None, False), ("fp", CHUNK_PAGES, False),
+                              ("int8", q_pages, True)):
+        runs = {}
+        for mode, kw in (("chunked", dict(prefill_chunk=CHUNK)), ("monolithic", {})):
+            runs[mode] = serve_waves(torch, cfg, comp, dev, [prompts], pages=pages, int8=int8,
+                                     max_len=max_len, **kw)
+            attn = "paged_attn_q" if int8 else "paged_attn"
+            sync_launch_gate(f"{pool} {mode}", runs[mode], {"nm_spmm": want},
+                             {attn: cfg.n_layers} if pages else {"paged_attn": 0,
+                                                                 "paged_attn_q": 0})
+            st = runs[mode]["stats"]
+            log(f"  chunked traffic, {pool}, {mode}: " + json.dumps({k: st[k] for k in (
+                "prefill_chunks", "prefill_batches", "decode_steps", "preemptions",
+                "ms_per_decode_step", "tokens_per_s", "kv_cache_bytes")} | {
+                "run_wall_s": runs[mode]["wall"], "nm_spmm_launches":
+                runs[mode]["launches"].get("nm_spmm", 0), "device": name}))
+        st = runs["chunked"]["stats"]
+        if st["prefill_chunks"] == 0 or st["preemptions"] or runs["monolithic"]["stats"][
+                "prefill_chunks"]:
+            raise AssertionError(f"{pool}: chunked run {st}")
+        add_launches(in_chunks, check_chunk_launches(
+            f"chunked traffic, {pool}", runs["chunked"]["chunk_records"], st["prefill_chunks"],
+            {"nm_spmm": want}))
+        stream_readings(torch, f"chunked vs monolithic, {pool}", cfg32, comp32, prompts,
+                        runs["chunked"]["streams"], runs["monolithic"]["streams"], dev)
+        twins = {mode: serve_waves(torch, cfg32, comp32, dev, [prompts], pages=pages,
+                                   int8=int8, max_len=max_len, **kw)["streams"]
+                 for mode, kw in (("chunked", dict(prefill_chunk=CHUNK)), ("monolithic", {}))}
+        gate_streams(torch, f"chunked vs monolithic, {pool}", cfg32, comp32, prompts,
+                     twins["chunked"], twins["monolithic"], dev, greedy=not int8)
+    # the prefix cache: two waves of 4 prompts sharing a 136-token head
+    rng = np.random.default_rng(5000)
+    head = rng.integers(0, cfg.vocab, PREFIX_HEAD).tolist()
+    tails = rng.integers(PREFIX_TAILS[0], PREFIX_TAILS[1] + 1, 8)
+    shared = [head + rng.integers(0, cfg.vocab, int(t)).tolist() for t in tails]
+    waves = [shared[:4], shared[4:]]
+    pmax_len = PREFIX_HEAD + PREFIX_TAILS[1] + gen + 1
+    q_pages = ((PREFIX_PAGES + 1) * cfg.n_layers * 16 * 2 * cfg.n_kv * cfg.hd * 2
+               // (cfg.n_layers * 16 * 2 * (cfg.n_kv * cfg.hd + 2)) - 1)
+    device_kw = dict(prefill_chunk=CHUNK, max_steps_per_dispatch=DEV_K, staged_lanes=2,
+                     async_stream=True)
+    variants = {("fp", "cold"): (PREFIX_PAGES, False, {}),
+                ("fp", "prefix"): (PREFIX_PAGES, False, dict(prefix_cache=True)),
+                ("int8", "cold"): (q_pages, True, {}),
+                ("int8", "prefix"): (q_pages, True, dict(prefix_cache=True)),
+                ("fp", "device"): (PREFIX_PAGES, False, dict(prefix_cache=True, **device_kw))}
+    bf16, f32 = {}, {}
+    for key, (pages, int8, kw) in variants.items():
+        run = serve_waves(torch, cfg, comp, dev, waves, pages=pages, int8=int8,
+                          max_len=pmax_len, **kw)
+        bf16[key] = run
+        st = run["stats"]
+        log(f"  prefix traffic, {key[0]} pool, {key[1]}: " + json.dumps({k: st.get(k) for k in (
+            "prefix_hits", "prefix_hit_tokens", "cow_copies", "shared_pages", "prefill_chunks",
+            "prefill_batches", "decode_steps", "preemptions", "ms_per_decode_step",
+            "tokens_per_s")} | {"after_clear": run.get("after_clear"), "run_wall_s": run["wall"],
+                                "device": name}))
+        if key[1] != "cold":
+            clear = run["after_clear"]
+            if (st["prefix_hits"] != 4 or st["prefix_hit_tokens"] < 4 * 128
+                    or clear["free_pages"] != clear["num_pages"] or clear["references"]):
+                raise AssertionError(f"prefix run {key}: {st}, after clear {clear}")
+        if key[1] == "device":
+            loop_launch_gate("prefix + chunks, device scheduler", run,
+                             {"nm_spmm": want, "paged_attn": cfg.n_layers}, {"nm_spmm": want})
+        else:
+            attn = "paged_attn_q" if int8 else "paged_attn"
+            sync_launch_gate(f"prefix traffic {key}", run, {"nm_spmm": want},
+                             {attn: cfg.n_layers})
+        if st["prefill_chunks"]:
+            add_launches(in_chunks, check_chunk_launches(
+                f"prefix traffic {key}", run["chunk_records"], st["prefill_chunks"],
+                {"nm_spmm": want}))
+        f32[key] = serve_waves(torch, cfg32, comp32, dev, waves, pages=pages, int8=int8,
+                               max_len=pmax_len, **kw)["streams"]
+    for pool in ("fp", "int8"):
+        stream_readings(torch, f"prefix hit vs cold, {pool}", cfg32, comp32, shared,
+                        bf16[(pool, "prefix")]["streams"], bf16[(pool, "cold")]["streams"], dev)
+        gate_streams(torch, f"prefix hit vs cold, {pool}", cfg32, comp32, shared,
+                     f32[(pool, "prefix")], f32[(pool, "cold")], dev, greedy=pool == "fp")
+    stream_readings(torch, "device (prefix, chunks) vs sync cold, fp", cfg32, comp32, shared,
+                    bf16[("fp", "device")]["streams"], bf16[("fp", "cold")]["streams"], dev)
+    gate_streams(torch, "device (prefix, chunks) vs sync cold, fp", cfg32, comp32, shared,
+                 f32[("fp", "device")], f32[("fp", "cold")], dev)
+    del comp32
+    return in_chunks
 
 
 def _leaves(tree):
@@ -2066,8 +2486,11 @@ def main() -> int:
         t_phase = phase_done(seconds, "5", t_phase)
 
     log("phase 6: serve full-width DeepSeek-V2-Lite (27 layers): slab, paged, preempting, "
-        "int8 pool; f32 twins of the slab and the paged pool")
-    launches.update(deepseek_phase(torch, dev, dispatch))
+        "int8 pool, chunked prefill with the prefix cache; f32 twins of the slab and the paged "
+        "pool, and of the cold and the chunked pool")
+    ds = deepseek_phase(torch, dev, dispatch)
+    ds_chunk_launches = ds.pop("chunk_dispatch_launches")
+    launches.update(ds)
     t_phase = phase_done(seconds, "6", t_phase)
 
     log("phase 7: serve full-width RecurrentGemma-9B (38 layers): slab, paged, preempting, "
@@ -2086,8 +2509,13 @@ def main() -> int:
         f"{DEV_K} steps a dispatch): exact against the sync scheduler, refills against the "
         f"f32 twins, launches against the profiler")
     device_phase(torch, cfg, comp, dev, single)
+    t_phase = phase_done(seconds, "9", t_phase)
+
+    log(f"phase 10: serve full-width gpt2-paper with chunked prefill (chunks of {CHUNK}) and "
+        f"the prefix cache: slab, fp and int8 pools, the device scheduler; their f32 twins")
+    chunk_launches = add_launches(chunk_phase(torch, cfg, comp, dev), ds_chunk_launches)
     del comp
-    phase_done(seconds, "9", t_phase)
+    phase_done(seconds, "10", t_phase)
 
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -2099,6 +2527,8 @@ def main() -> int:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at")},
             **{k: rec[k] for k in ("sdpa_yardstick_ms", "splits", "first_version_bytes",
                                    "prefill") if k in rec},
+            **({"chunk_dispatch_launches": chunk_launches[name]}
+               if name in chunk_launches else {}),
         })
     log(f"  total {time.perf_counter() - t_start:.1f} s; by phase {json.dumps(seconds)}")
     print(smi)

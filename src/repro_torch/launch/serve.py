@@ -4,6 +4,7 @@
         [--arch gpt2-paper|deepseek-v2-lite-16b|recurrentgemma-9b] \\
         [--paged --page-size 16 --num-pages 64 [--kv-int8]] [--steps-per-dispatch 4] \\
         [--max-steps-per-dispatch 16 [--staged-lanes 2] [--async-stream]] \\
+        [--prefill-chunk 64] [--prefix-cache [--shared-prefix 128]] \\
         [--ckpt-dir RUN] [--dense] [--temperature 0.8 --top-k 40] [--device cpu] \\
         [--mesh 1,2 [--kv-shard seq]]
 
@@ -27,6 +28,13 @@ summary, with the reference's keys.
 dispatch, a captured CUDA graph on the card; ``--staged-lanes Q`` refills
 frozen lanes inside the dispatch from Q staged prompts, ``--async-stream``
 runs two dispatches a cycle); the summary gains its counters.
+
+``--prefill-chunk C`` absorbs prompts longer than C in chunks of C
+interleaved with decode (attention-family archs; a windowed one on
+``--paged`` only); ``--prefix-cache`` (``--paged``) shares the KV pages
+of cached prompt prefixes between requests, and ``--shared-prefix N``
+gives every request the same first N prompt tokens to exercise it.  The
+summary gains ``prefill_chunks``, the prefix counters and ``cow_copies``.
 
 ``--mesh data,model`` serves tensor-parallel (dense family, ``--paged``,
 data 1): the export happens once here, then ``data × model`` ranks start
@@ -113,6 +121,15 @@ def parse_args(argv=None):
     ap.add_argument("--async-stream", action="store_true",
                     help="two dispatches a cycle: the host replays the first while the "
                          "second runs (needs --max-steps-per-dispatch)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="absorb prompts longer than this in chunks of this many tokens "
+                         "interleaved with decode (attention-family archs only)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share the KV pages of cached prompt prefixes across requests "
+                         "(paged, attention-family archs); hits prefill only their tail")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="give every request the same first N prompt tokens (exercises "
+                         "--prefix-cache; the tails stay random per request)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain versions)")
     ap.add_argument("--mesh", default=None,
@@ -126,8 +143,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.kv_int8 and not args.paged:
-        raise SystemExit("--prefix-cache/--kv-int8 require --paged")  # the reference's words
+    if (args.prefix_cache or args.kv_int8) and not args.paged:
+        raise SystemExit("--prefix-cache/--kv-int8 require --paged")
     if (args.staged_lanes or args.async_stream) and args.max_steps_per_dispatch is None:
         raise SystemExit("--staged-lanes/--async-stream need the device scheduler: pass "
                          "--max-steps-per-dispatch")
@@ -135,6 +152,10 @@ def main(argv=None) -> dict:
     if mesh_shape is not None and (len(mesh_shape) != 2 or mesh_shape[0] != 1):
         raise SystemExit(f"--mesh {args.mesh}: give 'data,model' with data 1 (a data axis "
                          "> 1 is not ported yet, ROADMAP.md §1 item 1)")
+    if (mesh_shape is not None and mesh_shape[1] > 1
+            and (args.prefill_chunk is not None or args.prefix_cache)):
+        raise NotImplementedError("--prefill-chunk and --prefix-cache over a model axis > 1 "
+                                  "are not ported yet (ROADMAP.md §1 item 7)")
     device = resolve_device(args.device)
     cfg, serving_tree, rep = build_serving_state(args, device)
     print(json.dumps({"compression": rep}))
@@ -151,12 +172,17 @@ def main(argv=None) -> dict:
         steps_per_dispatch=args.steps_per_dispatch,
         max_steps_per_dispatch=args.max_steps_per_dispatch,
         staged_lanes=args.staged_lanes, async_stream=args.async_stream, kv_quant=args.kv_int8,
-        prefill_buckets=buckets, kv_shard=args.kv_shard,
+        prefill_buckets=buckets, kv_shard=args.kv_shard, prefill_chunk=args.prefill_chunk,
+        prefix_cache=args.prefix_cache,
     )
     sampling = dict(temperature=args.temperature, top_k=args.top_k, max_new_tokens=args.gen)
     n_requests = args.batch if args.requests is None else args.requests
-    prompts = [np.random.default_rng(1000 + r).integers(0, cfg.vocab, args.prompt_len).tolist()
-               for r in range(n_requests)]
+    shared = []
+    if args.shared_prefix:
+        shared = np.random.default_rng(999).integers(
+            0, cfg.vocab, min(args.shared_prefix, args.prompt_len - 1)).tolist()
+    prompts = [shared + np.random.default_rng(1000 + r).integers(
+        0, cfg.vocab, args.prompt_len - len(shared)).tolist() for r in range(n_requests)]
     if mesh_shape is None or mesh_shape == (1, 1):
         mesh = make_local_mesh(1, 1, device=device) if mesh_shape else None
         ranks = serve_rank(mesh, serving_tree, cfg, [{}], prompts, sampling, engine_kw,
@@ -221,9 +247,7 @@ def serve_rank(mesh, tree: dict, cfg, runs: list, prompts: list, sampling: dict,
 
 
 def make_summary(cfg, rank: dict, rep: dict, args) -> dict:
-    """The reference's summary keys from one :func:`serve_rank` record;
-    features not ported yet report their idle values (no chunking, no
-    prefix cache)."""
+    """The reference's summary keys from one :func:`serve_rank` record."""
     st, results = rank["stats"], rank["results"]
     summary = {
         "arch": cfg.name,
@@ -249,7 +273,7 @@ def make_summary(cfg, rank: dict, rep: dict, args) -> dict:
         "itl_ms_p50": st["itl_ms_p50"],
         "itl_ms_p99": st["itl_ms_p99"],
         "prefill_batches": st["prefill_batches"],
-        "prefill_chunks": 0,
+        "prefill_chunks": st["prefill_chunks"],
         "max_concurrency": st["max_concurrency"],
         "preemptions": st["preemptions"],
         "kv_cache_bytes": st["kv_cache_bytes"],
@@ -263,8 +287,12 @@ def make_summary(cfg, rank: dict, rep: dict, args) -> dict:
         summary.update(
             evicted_pages=st["evicted_pages"], table_full_uploads=st["table_full_uploads"],
             table_row_syncs=st["table_row_syncs"], table_syncs=st["table_syncs"],
-            kv_quant=st["kv_quant"], shared_pages=0, cow_copies=0,
+            kv_quant=st["kv_quant"], shared_pages=st["shared_pages"],
+            cow_copies=st["cow_copies"],
         )
+        summary.update({k: st[k] for k in ("prefix_hits", "prefix_hit_tokens",
+                                           "prefix_hit_rate", "prefix_indexed_pages",
+                                           "prefix_evictions") if k in st})
     if args.temperature == 0.0:
         summary["greedy_streams"] = [[int(t) for t in results[u].tokens]
                                      for u in sorted(results)]

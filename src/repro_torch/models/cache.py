@@ -24,16 +24,21 @@ layers (``(L, ...)`` under ``body``; none for a ``head_*`` layer).  The
 layouts treat every leaf alike: ``alloc`` is the reference's
 ``attn_alloc``/``mla_alloc``, ``write`` (one token per lane into one
 layer's entry) its ``attn_write``/``mla_write``, ``write_rows`` (prefilled
-rows into a stacked entry) its ``attn_write_rows``/``mla_write_rows``.
-MLA's expanded decode runs on the slab only and reads the slab itself; on
-the pool MLA decodes through the kernel.
+rows into a stacked entry) its ``attn_write_rows``/``mla_write_rows``,
+``write_chunk`` (one prompt chunk per lane into one layer's entry) its
+``attn_write_chunk``/``mla_write_chunk``, and ``chunk_view`` (the whole
+logical view of some lanes) and ``chunk_view_win`` (a chunk's reach
+through the window table) its ``attn_chunk_view``/``mla_chunk_view`` and
+``attn_chunk_view_win``.  MLA's expanded decode runs on the slab only and
+reads the slab itself; on the pool MLA decodes through the kernel.
 
 The JAX package leans on out-of-range scatters being dropped: writes of idle
 lanes, pad rows and frozen lanes aim at the sentinel page ``P`` and vanish.
 PyTorch raises on such an index, so the paged pool carries one extra page at
-index ``P`` that absorbs those writes; it is never read (the kernel and the
-plain attention see only pages ``[0, P)``).  Slab writes past the slab's end
-are masked per lane instead.
+index ``P`` that absorbs those writes; decode never reads it (the kernel and
+the plain attention see only pages ``[0, P)``), and a chunk view reads it
+only at slots its causal mask hides.  Slab writes past the slab's end are
+masked per lane instead.
 
 Int8 pages (``PagedLayout.quant``, the reference's ``quant``): every pool
 leaf stores int8 codes beside a ``<leaf>_scale`` plane of ``lead + (P + 1,
@@ -152,6 +157,32 @@ class SlabLayout:
                 x = x[:, torch.arange(x.shape[1], device=lens.device)[:, None], idx]
             c[name][:, lanes, : min(s, lp)] = x.to(c[name].dtype)
 
+    def write_chunk(self, c: dict, rows: dict, lanes, starts, lengths, tables,
+                    window=None) -> None:
+        """Write one prompt chunk per row into one layer's ``c`` (leaves
+        ``(B, S, ...)``): row ``r``'s entries ``i < lengths[r]`` (``rows``
+        ``(R, C, ...)``) land at positions ``starts[r] + i`` of lane
+        ``lanes[r]``; a lane ``>= B`` marks a pad row.  Pad entries rewrite
+        the last row ``S - 1`` of their (clamped) lane with its own
+        contents: no chunk writes there, since a prompt is shorter than the
+        slab.  Only append-only slabs chunk (the engine keeps windowed
+        archs off the slab's chunked path)."""
+        b, s = next(iter(c.values())).shape[:2]
+        i = torch.arange(next(iter(rows.values())).shape[1], device=lanes.device)
+        lane = lanes.long().clamp(max=b - 1)[:, None]
+        valid = (i < lengths[:, None]) & (lanes < b)[:, None]  # (R, C)
+        slot = torch.where(valid, starts.long()[:, None] + i, s - 1)
+        for name, x in rows.items():
+            old = c[name][lane, slot]
+            keep = valid.reshape(valid.shape + (1,) * (x.dim() - 2))
+            c[name][lane, slot] = torch.where(keep, x.to(old.dtype), old)
+
+    def chunk_view(self, c: dict, lanes, tables) -> dict:
+        """Each leaf's ``(R, S, ...)`` rows of lanes ``lanes`` (a pad row's
+        lane clamped: garbage its caller discards)."""
+        take = lanes.long().clamp(max=next(iter(c.values())).shape[0] - 1)
+        return {name: x[take] for name, x in c.items()}
+
 
 @dataclasses.dataclass(frozen=True)
 class PagedLayout:
@@ -246,6 +277,13 @@ class PagedLayout:
                 sc.view(sc.shape[:lead] + (-1,))[at] = s
             flat[at] = x.to(flat.dtype)
 
+    def copy_pages(self, c: dict, src: torch.Tensor, dst: torch.Tensor, lead: int) -> None:
+        """Copy pages ``src`` over pages ``dst`` (global ids, one pair per
+        entry) in every pool of one layer's ``c``, codes and ``*_scale``
+        planes alike, in place: the tensors keep their addresses."""
+        for pool in c.values():
+            pool.index_copy_(lead, dst, pool.index_select(lead, src))
+
     def write(self, c: dict, entries: dict, pos, tables, window=None, commit=None) -> None:
         """Scatter one token per lane into its page of one layer's pool
         ``(P + 1, ps, ...)``, through the window table's slot ``(pos // ps)
@@ -278,6 +316,83 @@ class PagedLayout:
         widx = torch.where(valid, self._local(phys.long()) * ps + a % ps,
                            self.local_pages * ps).reshape(-1)
         self._scatter(c, {name: x.flatten(1, 2) for name, x in rows.items()}, widx, 1)
+
+    # -- chunked prefill: one prompt chunk per row, batched over lanes --------
+    #
+    # Append-only layers chunk through the full table, whose pages for the
+    # whole prompt were mapped at admission; windowed layers through the
+    # window table, whose pages the engine maps chunk by chunk
+    # (``ensure_steps(lane, start, csz)``, which also evicts the pages the
+    # window slid past), so a chunk needs only the ``win + csz - 1``
+    # positions :meth:`chunk_view_win` gathers.  Pad entries (``i >=
+    # lengths[r]``) and pad rows (a lane ``>= B``) land on the sink page.
+
+    def _table_rows(self, table: torch.Tensor, lanes) -> tuple[torch.Tensor, torch.Tensor]:
+        """Each row's table row (a pad row's lane clamped) and whether the
+        row is real."""
+        b = table.shape[0]
+        return table[lanes.long().clamp(max=b - 1)], lanes < b
+
+    def write_chunk(self, c: dict, rows: dict, lanes, starts, lengths, tables,
+                    window=None) -> None:
+        """Scatter one prompt chunk per row into one layer's pool: row
+        ``r``'s entries ``i < lengths[r]`` (``rows`` ``(R, C, ...)``) at
+        positions ``starts[r] + i`` of lane ``lanes[r]``; under ``quant``
+        quantized, with their scales at the same index."""
+        ps = self.page_size
+        csz = next(iter(rows.values())).shape[1]
+        i = torch.arange(csz, device=lanes.device)
+        pos = starts.long()[:, None] + i  # (R, C)
+        if self._windowed(window):
+            trow, real = self._table_rows(tables["win"], lanes)
+            slot = (pos // ps) % self.pages_win
+        else:
+            trow, real = self._table_rows(tables["full"], lanes)
+            slot = (pos // ps).clamp(max=self.pages_full - 1)
+        phys = trow.gather(1, slot).long()
+        valid = (i < lengths[:, None]) & real[:, None]
+        widx = torch.where(valid, self._local(phys) * ps + pos % ps, self.local_pages * ps)
+        self._scatter(c, {name: x.flatten(0, 1) for name, x in rows.items()},
+                      widx.reshape(-1), 0)
+
+    def _gather_leaves(self, c: dict, idx: torch.Tensor) -> dict:
+        """Each K/V leaf of one layer's pool at flat ``(page, slot)`` indices
+        ``idx`` ``(R, S)``, dequantized to f32 under ``quant``."""
+        out = {}
+        for name, pool in c.items():
+            if name.endswith("_scale"):
+                continue
+            v = pool.view((-1,) + pool.shape[2:])[idx]
+            if self.quant:
+                v = dequant(v, c[name + "_scale"].view(-1)[idx])
+            out[name] = v
+        return out
+
+    def chunk_view(self, c: dict, lanes, tables) -> dict:
+        """The ``(R, pages_full·ps, ...)`` logical view of each row's lane
+        through the full table: unmapped slots read the sink page, garbage
+        that the causal mask hides from every real query."""
+        ps = self.page_size
+        a = torch.arange(self.pages_full * ps, device=lanes.device)
+        trow, _ = self._table_rows(tables["full"], lanes)
+        phys = self._local(trow[:, a // ps].long())
+        return self._gather_leaves(c, phys * ps + a % ps)
+
+    def chunk_view_win(self, c: dict, lanes, starts, csz: int, window, tables) -> dict:
+        """The window table's view of each row's positions ``[starts - win +
+        1, starts + csz - 1]`` (``win + csz - 1`` slots): all that the
+        chunk's queries can reach under a ``win``-wide window.  Slots below
+        position 0 read the sink page; the caller masks them
+        (``chunked_attention``'s ``kv_valid_from``)."""
+        ps, win = self.page_size, self.view_window(window)
+        a = (starts.long() - win + 1)[:, None] + torch.arange(win + csz - 1,
+                                                               device=lanes.device)
+        an = a.clamp(min=0)
+        trow, real = self._table_rows(tables["win"], lanes)
+        phys = self._local(trow.gather(1, (an // ps) % self.pages_win).long())
+        valid = (a >= 0) & real[:, None]
+        return self._gather_leaves(c, torch.where(valid, phys * ps + an % ps,
+                                                  self.local_pages * ps))
 
 
 def paged_layout_for(cfg, max_len: int, *, page_size: int, num_pages: int,

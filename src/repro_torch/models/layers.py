@@ -86,19 +86,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def _per_row(x, device) -> torch.Tensor:
+    """A scalar or a ``(B,)`` tensor as ``(B|1, 1)``, for per-row offsets."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device).reshape(-1, 1)
+    return torch.full((1, 1), int(x), device=device)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      window: Optional[int] = None, chunk: int = 512) -> torch.Tensor:
+                      window: Optional[int] = None, q_offset=0, kv_valid_from=0,
+                      chunk: int = 512) -> torch.Tensor:
     """Causal attention with an online softmax over KV chunks of ``chunk``,
     so no more than a (Sq, chunk) score block exists per head.
     q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); GQA groups H // Hkv query heads
     per KV head.  ``window`` (sliding-window attention) keeps the keys at
     ``kv_pos > q_pos - window``: each query sees its last ``window``
-    positions."""
+    positions.  ``q_offset`` is the kv position of ``q[:, 0]`` and
+    ``kv_valid_from`` the first kv slot that may be attended, each a scalar
+    or one per row ``(B,)``: batched chunked prefill runs every lane's
+    chunk at its own position, and a windowed chunk view masks the slots
+    it gathered from below position 0."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     qg = q.reshape(b, sq, hkv, g, d).float()
-    q_pos = torch.arange(sq, device=q.device)
+    q_pos = _per_row(q_offset, q.device) + torch.arange(sq, device=q.device)  # (B|1, Sq)
+    valid_from = _per_row(kv_valid_from, q.device)[:, :, None]  # (B|1, 1, 1)
     m = torch.full((b, hkv, g, sq), _NEG, device=q.device)
     l = torch.zeros((b, hkv, g, sq), device=q.device)
     acc = torch.zeros((b, hkv, g, sq, d), device=q.device)
@@ -106,9 +119,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kb = k[:, c0:c0 + chunk].float()
         vb = v[:, c0:c0 + chunk].float()
         kv_pos = c0 + torch.arange(kb.shape[1], device=q.device)
-        mask = kv_pos[None, :] <= q_pos[:, None]  # (Sq, chunk)
+        mask = kv_pos <= q_pos[:, :, None]  # (B|1, Sq, chunk)
         if window is not None:
-            mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+            mask = mask & (kv_pos > q_pos[:, :, None] - window)
+        mask = (mask & (kv_pos >= valid_from))[:, None, None]
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb) * d ** -0.5
         s = torch.where(mask, s, _NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))

@@ -17,6 +17,10 @@ Decode takes one of two routes, by layout:
   kernel's output stay f32 over pages of the cache's type (int8 pages with
   their ``ckv_scale``/``krope_scale`` planes: K2q), and a compressed
   ``w_ukv`` is decompressed in the step (:func:`_absorbed_ukv`).
+
+Chunked prefill (:func:`mla_chunk`) takes the expanded route on both
+layouts, as the reference does: each chunk's latents written, the lane's
+whole latent view expanded by ``w_ukv`` through K1 and attended.
 """
 from __future__ import annotations
 
@@ -82,6 +86,25 @@ def mla_attention(x, p, n_heads: int, cfg: MLAConfig, positions,
     qf, kf, v = _expanded_attention(q_nope, q_rope, c_kv, k_rope, p, n_heads, cfg)
     out = L.chunked_attention(qf, kf, v, chunk=chunk)[..., : cfg.v_head_dim]
     return L.matmul(out.reshape(b, s, n_heads * cfg.v_head_dim), p["w_o"]), (c_kv, k_rope)
+
+
+def mla_chunk(x, p, n_heads: int, cfg: MLAConfig, cache: dict, lanes, starts, lengths,
+              rope_theta: float = 10000.0, layout=None, tables=None, chunk: int = 512):
+    """One batched chunked-prefill step of one layer (the reference's
+    ``mla_chunk``): row ``r`` of x ``(R, C, d)`` writes its latents at
+    positions ``starts[r] + i`` (``i < lengths[r]``) of lane ``lanes[r]``
+    in place, then its queries attend over that lane's whole latent view,
+    expanded to per-head K/V by ``w_ukv`` (K1 over ``R × S`` rows).  Pad
+    rows and entries give garbage the caller discards."""
+    b, csz, _ = x.shape
+    positions = starts.long()[:, None] + torch.arange(csz, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _qkv_rope(x, p, n_heads, cfg, positions, rope_theta)
+    layout.write_chunk(cache, {"ckv": c_kv, "krope": k_rope}, lanes, starts, lengths, tables)
+    view = layout.chunk_view(cache, lanes, tables)  # an int8 pool's dequantizes to f32
+    qf, kf, v = _expanded_attention(q_nope, q_rope, view["ckv"].to(x.dtype),
+                                    view["krope"].to(x.dtype), p, n_heads, cfg)
+    out = L.chunked_attention(qf, kf, v, q_offset=starts, chunk=chunk)[..., : cfg.v_head_dim]
+    return L.matmul(out.reshape(b, csz, n_heads * cfg.v_head_dim), p["w_o"])
 
 
 def mla_decode(x, p, n_heads: int, cfg: MLAConfig, cache: dict, pos,

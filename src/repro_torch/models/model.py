@@ -22,7 +22,9 @@ through the ``paged_attn`` kernel where the reference's kernel route does:
 the MHA/GQA form for attention (``model.py:794-815``; over the modular
 window table, K2w, for sliding-window layers), the MLA latent form (K2m)
 for MLA (``mla.py:202-237``); on an int8 pool (``PagedLayout.quant``) each
-with its scale planes (K2q).
+with its scale planes (K2q).  :func:`prefill_chunk` absorbs one prompt
+chunk of several lanes at once into that cache (chunked prefill and a
+prefix hit's uncached tail), every projection through ``layers.matmul``.
 
 Tensor-parallel serving (the engine's ``mesh``, dense family only): each
 rank holds its shard of the compressed matmul weights (``layers.matmul``
@@ -560,6 +562,91 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     return _unembed(x, params, cfg)[:, 0], cache
 
 
+def _attn_chunk(x, p, cfg: ArchConfig, c: dict, lanes, starts, lengths, layout, tables,
+                chunk: int):
+    """One prompt chunk per row: row ``r`` of x ``(R, C, d)`` writes K/V at
+    positions ``starts[r] + i`` of lane ``lanes[r]`` and its queries attend
+    over that lane's cached prefix: the full view, or on a pool's window
+    table the ``win + C - 1`` positions ending at the chunk's last (its
+    left edge below position 0 masked)."""
+    csz = x.shape[1]
+    positions = starts.long()[:, None] + torch.arange(csz, device=x.device)
+    q, k, v = _qkv(x, p, cfg, positions)
+    windowed = layout.kind == "paged" and layout._windowed(cfg.local_window)
+    window = cfg.local_window if windowed else None
+    layout.write_chunk(c, {"k": k, "v": v}, lanes, starts, lengths, tables, window=window)
+    if windowed:
+        win = layout.view_window(window)
+        view = layout.chunk_view_win(c, lanes, starts, csz, window, tables)
+        attn = L.chunked_attention(  # q[:, 0] sits at view slot win - 1
+            q, view["k"], view["v"], window=win, q_offset=win - 1,
+            kv_valid_from=(win - 1 - starts.long()).clamp(min=0), chunk=chunk)
+    else:
+        view = layout.chunk_view(c, lanes, tables)
+        attn = L.chunked_attention(q, view["k"], view["v"], q_offset=starts, chunk=chunk)
+    return _out(attn, p, cfg)
+
+
+def _block_chunk(x, p, kind: str, cfg: ArchConfig, c: dict, lanes, starts, lengths, layout,
+                 tables, chunk: int):
+    h = _apply_norm(cfg, p["pre"], x)
+    mixer = _block_mixer_mlp(kind, cfg)[0]
+    if mixer == "mla":
+        mix = MLA.mla_chunk(h, p["attn"], cfg.n_heads, cfg.mla, c, lanes, starts, lengths,
+                            cfg.rope_theta, layout, tables, chunk)
+    elif mixer == "attn":
+        mix = _attn_chunk(h, p["attn"], cfg, c, lanes, starts, lengths, layout, tables, chunk)
+    else:
+        raise NotImplementedError(
+            "chunked prefill needs attention-family mixers (recurrent state cannot resume "
+            "mid-prompt); the engine keeps such archs off it")
+    return _mlp(x + mix, p, kind, cfg)[0]
+
+
+def prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, lanes,
+                  starts, lengths, layout=None, *, chunk: int = 512,
+                  all_logits: bool = False):
+    """One prompt chunk of every chunking lane against the live serving
+    cache (the reference's ``prefill_chunk``): tokens ``(R, C)``, row ``r``
+    valid below ``lengths[r]`` and lying at positions ``starts[r]..`` of
+    lane ``lanes[r]`` (a lane ``>= B`` marks a pad row, which writes
+    nothing).  Every layer writes the rows' K/V (or MLA latents) into the
+    cache in place and attends through each lane's cached prefix; the
+    lanes' ``cache["len"]`` become ``starts + lengths``.  Returns
+    ``(logits (R, V) at each row's last valid position, cache)``: they
+    matter on a lane's final chunk, where they seed its first token.
+    Attention-family archs only.
+
+    ``all_logits=True`` (the speculative verify pass) unembeds every slot:
+    logits ``(R, C, V)``, slot ``j`` scoring position ``starts[r] + j``;
+    pad slots are garbage for the caller to mask."""
+    plan = layer_plan(cfg)
+    layout = layout or SlabLayout()
+    tables = cache.get("tables")
+    x = _embed(params, cfg, tokens)
+    for i, kind in enumerate(plan.head):
+        x = _block_chunk(x, params[f"head_{i}"], kind, cfg, cache[f"head_{i}"], lanes, starts,
+                         lengths, layout, tables, chunk)
+    for i in range(plan.n_body):
+        for j, kind in enumerate(plan.period):
+            sb = f"sb_{j}"
+            x = _block_chunk(x, _layer(params["body"][sb], i), kind, cfg,
+                             _layer(cache["body"][sb], i), lanes, starts, lengths, layout,
+                             tables, chunk)
+    for i, kind in enumerate(plan.tail):
+        x = _block_chunk(x, params[f"tail_{i}"], kind, cfg, cache[f"tail_{i}"], lanes, starts,
+                         lengths, layout, tables, chunk)
+    # each row's new length, into its lane (pad rows match no lane)
+    hit = torch.arange(cache["len"].shape[0], device=lanes.device)[:, None] == lanes[None, :]
+    new = (hit * (starts + lengths).to(cache["len"].dtype)[None, :]).sum(1)
+    cache["len"].copy_(torch.where(hit.any(1), new.to(cache["len"].dtype), cache["len"]))
+    if all_logits:
+        return _unembed(x, params, cfg), cache
+    last = (lengths.long() - 1).clamp(0, tokens.shape[1] - 1)
+    x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]
+    return _unembed(x_last, params, cfg)[:, 0], cache
+
+
 def reset_lanes(cfg: ArchConfig, cache: dict, mask: torch.Tensor) -> dict:
     """Zero, in place, the RG-LRU ``state`` and ``conv`` rows of the lanes
     in ``mask`` ((B,) bool), the zeros a fresh prompt starts from
@@ -575,6 +662,17 @@ def reset_lanes(cfg: ArchConfig, cache: dict, mask: torch.Tensor) -> dict:
             lead = 1 if stack else 0
             m = mask.reshape((1,) * lead + (-1,) + (1,) * (x.dim() - lead - 1))
             x.masked_fill_(m, 0)
+    return cache
+
+
+def copy_pages(cfg: ArchConfig, cache: dict, layout, src: torch.Tensor,
+               dst: torch.Tensor) -> dict:
+    """Copy the paged cache's pages ``src`` over ``dst``, in place, in
+    every attention and MLA layer (``PagedLayout.copy_pages``); RG-LRU
+    rows are per lane and have no pages."""
+    for path, kind, stack in _groups(layer_plan(cfg)):
+        if _block_mixer_mlp(kind, cfg)[0] != "rec":
+            layout.copy_pages(_at(cache, path), src, dst, 1 if stack else 0)
     return cache
 
 

@@ -58,14 +58,34 @@ graph, replayed; on the CPU the same iterations run eagerly.  Draws are
 keyed per (request, token index), so greedy and sampled streams equal the
 sync scheduler's however the dispatches were cut.
 
-Chunked prefill, prefix caching and speculative decoding are not ported
-yet (ROADMAP.md).
+Chunked prefill (``prefill_chunk=C``, the reference's): a prompt longer
+than ``C`` takes its lane and its pages at admission but is absorbed ``C``
+tokens a step, one chunk of every chunking lane in one batched forward
+(``models.model.prefill_chunk``, rows padded to a power of two with
+sentinel lanes), interleaved with the decode dispatches; its last chunk's
+logits seed its first token.  Archs with recurrent layers keep the
+monolithic prefill (their state cannot resume mid-prompt), and a windowed
+arch chunks only on the pool, whose window table each chunk maps just
+before it runs.  The device scheduler drains every chunking prompt before
+its cycle.
+
+The prefix cache (``prefix_cache=True``, the reference's): admission asks
+the radix index (``serving.prefix_cache``) for the prompt's longest cached
+prefix, maps those pages shared into the lane's table and absorbs only
+the uncached tail, through the chunk path; a prefilled prompt's pages go
+into the index.  A shared page about to be written is forked first
+(copy-on-write, ``kv_pool``), and the copies land in place before the next
+forward or dispatch.  It needs the pool's append-only table on an arch
+without a window or recurrent layers; elsewhere it is refused with a
+warning.  Refills inside the device loop bypass the index, as in the
+reference.  Speculative decoding is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import time
+import warnings
 from collections import deque
 from typing import Optional, Sequence
 
@@ -84,10 +104,12 @@ from repro_torch.models.model import (
     forward,
     init_cache,
     layer_plan,
+    prefill_chunk,
     write_prefill,
 )
 from repro_torch.serving.device_loop import LANE_ROWS, RING_ROWS, DeviceLoop
 from repro_torch.serving.kv_pool import PagedKVPool
+from repro_torch.serving.prefix_cache import PrefixIndex
 from repro_torch.serving.sampling import (
     SamplingParams,
     advance_stops,
@@ -129,9 +151,10 @@ class _Slot:
         self.pos = pos  # host mirror of cache["len"][lane]
         self.seq = seq  # admission order; preemption evicts the youngest
         # prompt (+ resume prefix) tokens not yet in the cache; with feed
-        # they drain token by token inside the device loop (a refill);
-        # without, the host would absorb them (the reference's chunked
-        # prefill, not ported: every pending lane here feeds)
+        # they drain token by token inside the device loop (a refill),
+        # without, the host absorbs them chunk by chunk (chunked prefill, a
+        # prefix hit's tail); such a lane holds its length and samples
+        # nothing until they are in
         self.pending: list[int] = pending or []
         self.feed = feed
 
@@ -156,7 +179,9 @@ class DecodeEngine:
     docstring), with ``staged_lanes`` and ``async_stream``; ``device_loop``
     picks its loop: ``"graph"`` (the default on the card, a captured CUDA
     graph) or ``"eager"`` (the CPU's; on the card only when asked for, to
-    hold the graph against it).
+    hold the graph against it).  ``prefill_chunk`` and ``prefix_cache``
+    turn on chunked prefill and the prefix cache (module docstring);
+    ``max_prefill_batch`` caps the requests one step admits.
     """
 
     def __init__(
@@ -166,6 +191,8 @@ class DecodeEngine:
         staged_lanes: int = 0, async_stream: bool = False, kv_quant: bool = False,
         prefill_buckets: Optional[Sequence[int]] = None, device="cuda",
         mesh=None, kv_shard: str = "seq", device_loop: Optional[str] = None,
+        prefill_chunk: Optional[int] = None, prefix_cache: bool = False,
+        max_prefill_batch: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         check_kv_shard(mesh, kv_shard)  # pools shard pages: "feature" only where trivial
@@ -183,6 +210,10 @@ class DecodeEngine:
                 "the device scheduler over a model axis > 1 is not ported yet (ROADMAP.md "
                 "§1 item 7): its collectives run on the host over gloo; serve the mesh with "
                 "the sync scheduler")
+        if (prefill_chunk is not None or prefix_cache) and mesh is not None and mesh.model > 1:
+            raise NotImplementedError(
+                "chunked prefill and the prefix cache over a model axis > 1 are not ported "
+                "yet (ROADMAP.md §1 item 7); serve the mesh without them")
         if device_loop is not None and not self._device_sched:
             raise ValueError("device_loop selects the device scheduler's loop: pass "
                              "max_steps_per_dispatch=")
@@ -224,10 +255,26 @@ class DecodeEngine:
         self.max_len = max_len
         self.seed = seed
         self.steps_per_dispatch = steps_per_dispatch
+        # each layer's (mixer, stacked layers), for the cache byte counts
+        self._mixers = [(_block_mixer_mlp(kind, cfg)[0], path, max(stack, 1))
+                        for path, kind, stack in _groups(layer_plan(cfg))]
+        # recurrent state cannot absorb pad tokens: group prompts by exact length
+        self._exact_prefill = any(m == "rec" for m, _, _ in self._mixers)
+        # chunking needs every mixer to resume mid-prompt from the cache
+        # (attention and MLA); a windowed arch also needs the pool, whose
+        # window table the chunk view reads
+        windowed_arch = cfg.local_window is not None
+        chunk_ok = (prefill_chunk is not None and not self._exact_prefill
+                    and (not windowed_arch or num_pages is not None))
         if num_pages is not None:
+            lookahead = max(steps_per_dispatch, self._horizon)
+            if chunk_ok and windowed_arch:
+                # a chunk walks prefill_chunk slots of the window table: a
+                # lookahead of as many keeps them off the slots its view reads
+                lookahead = max(lookahead, prefill_chunk)
             self.pool: Optional[PagedKVPool] = PagedKVPool(
                 cfg, max_batch=max_batch, max_len=max_len, num_pages=num_pages,
-                page_size=page_size, lookahead=max(steps_per_dispatch, self._horizon),
+                page_size=page_size, lookahead=lookahead,
                 quant=kv_quant, device=self.device, mesh=mesh)
             self.layout = self.pool.layout
             self.cache = self.pool.cache
@@ -235,6 +282,24 @@ class DecodeEngine:
             self.pool = None
             self.layout = SlabLayout(max_len)
             self.cache = init_cache(cfg, max_batch, max_len, device=self.device)
+        self.prefill_chunk = prefill_chunk if chunk_ok else None
+        # windowed chunks map their window pages chunk by chunk
+        self._win_chunk = self.prefill_chunk is not None and windowed_arch
+        # the prefix cache rides the chunk path (a hit is a lane that has
+        # absorbed its first chunks), with its arch gate, and needs an
+        # append-only table that nothing evicts
+        self._prefix: Optional[PrefixIndex] = None
+        if prefix_cache:
+            lay = self.pool.layout if self.pool is not None else None
+            if (lay is not None and lay.has_full and not lay.win and not self._exact_prefill
+                    and not windowed_arch):
+                self._prefix = PrefixIndex(self.pool, lay.page_size)
+            else:
+                warnings.warn("prefix_cache=True ignored: needs a paged append-only full "
+                              "table on an attention-family, non-windowed arch")
+        # a prefix hit's tail goes through the chunk path even without chunking
+        self._tail_chunk = self.prefill_chunk or min(64, max_len)
+        self.max_prefill_batch = max_prefill_batch or max_batch
         if prefill_buckets:
             buckets = sorted(int(b) for b in prefill_buckets if 0 < int(b) <= max_len)
         else:
@@ -245,11 +310,6 @@ class DecodeEngine:
         if not buckets or buckets[-1] < max_len:
             buckets.append(max_len)
         self.prefill_buckets = tuple(buckets)
-        # each layer's (mixer, stacked layers), for the cache byte counts
-        self._mixers = [(_block_mixer_mlp(kind, cfg)[0], path, max(stack, 1))
-                        for path, kind, stack in _groups(layer_plan(cfg))]
-        # recurrent state cannot absorb pad tokens: group prompts by exact length
-        self._exact_prefill = any(m == "rec" for m, _, _ in self._mixers)
 
         self.slots: list[Optional[_Slot]] = [None] * max_batch
         self.queue: deque[_Request] = deque()
@@ -262,6 +322,9 @@ class DecodeEngine:
         self.preemptions = 0
         self.max_concurrency = 0
         self.prefill_batches = 0
+        self.prefill_chunks = 0  # chunked-prefill forwards
+        self.prefix_hits = 0  # admissions that mapped cached prefix pages
+        self.prefix_hit_tokens = 0  # prompt tokens they did not prefill
         self.tokens_generated = 0
         self.decode_tokens = 0
         self.cycles = 0  # device-scheduler cycles (one host sync each)
@@ -357,16 +420,46 @@ class DecodeEngine:
         return next((b for b in self.prefill_buckets if b >= n), self.prefill_buckets[-1])
 
     def _admit(self, out: list) -> None:
+        """Move queued requests into free lanes, at most
+        ``max_prefill_batch`` a step; one batched prefill per bucket.  A
+        prompt longer than ``prefill_chunk`` takes its lane and pages now
+        and is absorbed chunk by chunk (:meth:`_advance_chunks`); so is the
+        uncached tail of a prefix hit, whose cached pages are mapped shared
+        (LRU index entries are evicted first under pool pressure)."""
         picked: list[tuple[_Request, int, int]] = []
-        while self.queue:
+        n_taken = 0
+        while self.queue and n_taken < self.max_prefill_batch:
             i = next((j for j, s in enumerate(self.slots) if s is None), None)
             if i is None:
                 break
             req = self.queue[0]
-            length = len(req.prompt) + len(req.prefix)
-            if self.pool is not None and not self.pool.alloc_prefill(i, length):
-                break  # retry next step, after frees/preemptions
+            seq = req.prompt + req.prefix
+            length = len(seq)
+            chunked = self.prefill_chunk is not None and length > self.prefill_chunk
+            defer = chunked and self._win_chunk  # its window pages map chunk by chunk
+            shared_len, shared = 0, ()
+            if self._prefix is not None:
+                shared_len, shared = self._prefix.match(seq)
+            if self.pool is not None:
+                ok = self.pool.alloc_prefill(i, length, shared_full=shared,
+                                             shared_len=shared_len, defer_win=defer)
+                # an eviction can drop a matched page: match again
+                while not ok and self._prefix is not None and self._prefix.evict(1):
+                    shared_len, shared = self._prefix.match(seq)
+                    ok = self.pool.alloc_prefill(i, length, shared_full=shared,
+                                                 shared_len=shared_len, defer_win=defer)
+                if not ok:
+                    break  # retry next step, after frees/preemptions
             self.queue.popleft()
+            n_taken += 1
+            if shared_len > 0 or chunked:
+                self.prefix_hits += shared_len > 0
+                self.prefix_hit_tokens += shared_len
+                self.slots[i] = _Slot(req, pos=shared_len, seq=self._admit_seq,
+                                      pending=seq[shared_len:])
+                self._admit_seq += 1
+                self.admitted += 1
+                continue
             self.slots[i] = _Slot(req, pos=length, seq=self._admit_seq)
             self._admit_seq += 1
             picked.append((req, i, length))
@@ -388,28 +481,107 @@ class DecodeEngine:
         lens_t = torch.from_numpy(lens).to(dev)
         lanes_t = torch.from_numpy(lanes).to(dev)
         if self.pool is not None:
+            self.pool.apply_pending()
             self.pool.device_tables()
         logits_all, produced = forward(self.params, self.cfg,
                                        torch.from_numpy(tokens).to(dev), want_cache=True)
         write_prefill(self.cache, self.cfg, produced, lanes_t, lens_t, self.layout)
         logits = logits_all[torch.arange(n_real, device=dev), lens_t.long() - 1]
-        temps = torch.tensor([req.sampling.temperature for req, _, _ in items],
-                             dtype=torch.float32, device=dev)
-        topks = torch.tensor([req.sampling.top_k for req, _, _ in items],
-                             dtype=torch.int32, device=dev)
-        need_sample = any(req.sampling.temperature > 0 for req, _, _ in items)
-        keys = None
-        if need_sample:  # each request's first token: index len(prefix)
-            keys = draw_keys(self.seed, *(torch.tensor(v, device=dev) for v in zip(
-                *[(req.uid, len(req.prefix)) for req, _, _ in items])))
-        first = sample_tokens(logits, temps, topks, keys, need_sample=need_sample,
-                              need_topk=any(req.sampling.top_k > 0 for req, _, _ in items))
-        self.tokens[lanes_t] = first
         self.prefill_batches += 1
-        host_first = first.cpu().tolist()
+        if self._prefix is not None:
+            for _, i, length in items:
+                self._index_prompt(i, length)
+        host_first = self._first_tokens([i for _, i, _ in items], logits)
         for r, (_, i, _) in enumerate(items):
             self.admitted += 1
             self._absorb(i, host_first[r], out)
+
+    def _index_prompt(self, lane: int, length: int) -> None:
+        """Index the lane's prompt (+ resume prefix), ``length`` tokens all
+        in the cache, while the lane still maps its pages."""
+        s = self.slots[lane]
+        full, tail = self.pool.prompt_pages(lane, length)
+        self._prefix.insert(s.prompt + s.generated, full, tail, length % self.layout.page_size)
+
+    def _first_tokens(self, lanes: list[int], logits: torch.Tensor) -> list[int]:
+        """Sample the first token of each of ``lanes`` from its row of
+        ``logits`` (draw index ``len(generated)``: a resumed request goes on
+        where it stopped), store it as the lane's next input and return
+        them on the host."""
+        slots = [self.slots[i] for i in lanes]
+        dev = self.device
+        temps = torch.tensor([s.sampling.temperature for s in slots], dtype=torch.float32,
+                             device=dev)
+        topks = torch.tensor([s.sampling.top_k for s in slots], dtype=torch.int32, device=dev)
+        need_sample = any(s.sampling.temperature > 0 for s in slots)
+        keys = None
+        if need_sample:
+            keys = draw_keys(self.seed, torch.tensor([s.uid for s in slots], device=dev),
+                             torch.tensor([len(s.generated) for s in slots], device=dev))
+        first = sample_tokens(logits, temps, topks, keys, need_sample=need_sample,
+                              need_topk=any(s.sampling.top_k > 0 for s in slots))
+        self.tokens[torch.tensor(lanes, device=dev)] = first
+        return first.cpu().tolist()
+
+    def _advance_chunks(self, out: list) -> None:
+        """One chunk of every lane still absorbing its prompt, in one
+        batched forward (rows padded to a power of two with sentinel lanes);
+        a lane whose last chunk this was samples its first token from it.
+        A windowed arch first maps each chunk's window pages, preempting the
+        youngest lane on pressure.  Refilled lanes feed on the device, never
+        here."""
+        csz = self.prefill_chunk or self._tail_chunk
+        chunking = [i for i, s in enumerate(self.slots)
+                    if s is not None and s.pending and not s.feed]
+        if not chunking:
+            return
+        if self._win_chunk and self.pool is not None:
+            for i in chunking:
+                s = self.slots[i]
+                while (self.slots[i] is not None
+                       and not self.pool.ensure_steps(i, s.pos, min(csz, len(s.pending)))):
+                    self._preempt(max((j for j, t in enumerate(self.slots) if t is not None),
+                                      key=lambda j: self.slots[j].seq))
+            chunking = [i for i in chunking if self.slots[i] is not None]
+            if not chunking:
+                return
+        nb = _next_pow2(len(chunking))
+        toks = np.zeros((nb, csz), np.int64)
+        lanes = np.full((nb,), self.max_batch, np.int64)  # the sentinel lane: a pad row
+        starts = np.zeros((nb,), np.int64)
+        lengths = np.zeros((nb,), np.int64)
+        for r, i in enumerate(chunking):
+            s = self.slots[i]
+            part = s.pending[:csz]
+            toks[r, :len(part)] = part
+            lanes[r], starts[r], lengths[r] = i, s.pos, len(part)
+        if self.pool is not None:
+            self.pool.apply_pending()
+            self.pool.device_tables()
+        dev = self.device
+        logits, _ = prefill_chunk(self.params, self.cfg, torch.from_numpy(toks).to(dev),
+                                  self.cache, torch.from_numpy(lanes).to(dev),
+                                  torch.from_numpy(starts).to(dev),
+                                  torch.from_numpy(lengths).to(dev), self.layout)
+        self.prefill_chunks += 1
+        finishing = []  # (row, lane)
+        for r, i in enumerate(chunking):
+            s = self.slots[i]
+            s.pos += int(lengths[r])
+            s.pending = s.pending[int(lengths[r]):]
+            if not s.pending:
+                finishing.append((r, i))
+        if not finishing:
+            return
+        if self._prefix is not None:
+            # the whole prompt (+ resume prefix) is cached: index it before
+            # _absorb can finish the lane
+            for _, i in finishing:
+                self._index_prompt(i, self.slots[i].pos)
+        rows = torch.tensor([r for r, _ in finishing], device=dev)
+        first = self._first_tokens([i for _, i in finishing], logits[rows])
+        for (_, i), tok in zip(finishing, first):
+            self._absorb(i, tok, out)
 
     def _ensure_capacity(self) -> None:
         """Back every decoding lane's writes up to the horizon (K steps, or
@@ -417,7 +589,8 @@ class DecodeEngine:
         youngest lane on pressure."""
         if self.pool is None:
             return
-        order = sorted((i for i, s in enumerate(self.slots) if s is not None),
+        order = sorted((i for i, s in enumerate(self.slots)
+                        if s is not None and (not s.pending or s.feed)),
                        key=lambda i: self.slots[i].seq)
         for i in order:
             s = self.slots[i]
@@ -430,6 +603,9 @@ class DecodeEngine:
                            len(s.pending) + max(1, s.sampling.max_new_tokens - len(s.generated)),
                            self.max_len - s.pos))
             while self.slots[i] is not None and not self.pool.ensure_steps(i, s.pos, k):
+                # idle cached prefix pages go before a live lane does
+                if self._prefix is not None and self._prefix.evict(1):
+                    continue
                 victim = max((j for j, t in enumerate(self.slots) if t is not None),
                              key=lambda j: self.slots[j].seq)
                 self._preempt(victim)
@@ -437,29 +613,30 @@ class DecodeEngine:
     def _decode(self, k: int) -> torch.Tensor:
         """K decode steps for every lane; returns the ``(K, B)`` token block.
 
-        Occupied lanes decode until they freeze, then keep their length;
-        free lanes stay pinned at length 0 (their writes land on the slab's
-        row 0 or the pool's sink page and are never read)."""
+        Decoding lanes decode until they freeze, then keep their length, as
+        lanes still absorbing their prompt do; free lanes stay pinned at
+        length 0 (their writes land on the slab's row 0 or the pool's sink
+        page and are never read)."""
         dev = self.device
-        slots = self.slots
-        occupied = torch.tensor([s is not None for s in slots], device=dev)
-        active = occupied
-        temps = torch.tensor([s.sampling.temperature if s else 0.0 for s in slots],
+        dec = [s if s is not None and not s.pending else None for s in self.slots]
+        occupied = torch.tensor([s is not None for s in self.slots], device=dev)
+        active = torch.tensor([s is not None for s in dec], device=dev)
+        temps = torch.tensor([s.sampling.temperature if s else 0.0 for s in dec],
                              dtype=torch.float32, device=dev)
-        topks = torch.tensor([s.sampling.top_k if s else 0 for s in slots],
+        topks = torch.tensor([s.sampling.top_k if s else 0 for s in dec],
                              dtype=torch.int32, device=dev)
-        eos = torch.tensor([s.sampling.eos_id if s else -1 for s in slots],
+        eos = torch.tensor([s.sampling.eos_id if s else -1 for s in dec],
                            dtype=torch.int32, device=dev)
         budget = torch.tensor(
-            [s.sampling.max_new_tokens - len(s.generated) if s else 0 for s in slots],
+            [s.sampling.max_new_tokens - len(s.generated) if s else 0 for s in dec],
             dtype=torch.int32, device=dev)
-        need_sample = any(s is not None and s.sampling.temperature > 0 for s in slots)
-        need_topk = any(s is not None and s.sampling.top_k > 0 for s in slots)
+        need_sample = any(s is not None and s.sampling.temperature > 0 for s in dec)
+        need_topk = any(s is not None and s.sampling.top_k > 0 for s in dec)
         if need_sample:
-            uids = torch.tensor([s.uid if s else 0 for s in slots], device=dev)
+            uids = torch.tensor([s.uid if s else 0 for s in self.slots], device=dev)
             # a lane's draw index: its tokens so far, + 1 for each step it
             # stays active (a frozen lane's draw is discarded by advance_stops)
-            counts = torch.tensor([len(s.generated) if s else 0 for s in slots], device=dev)
+            counts = torch.tensor([len(s.generated) if s else 0 for s in dec], device=dev)
         tok, cache, block = self.tokens, self.cache, []
         for t in range(k):
             len_prev = cache["len"].clone()
@@ -494,13 +671,16 @@ class DecodeEngine:
     def _step(self) -> list[GenerationResult]:
         out: list[GenerationResult] = []
         self._admit(out)
+        if self.prefill_chunk is not None or self._prefix is not None:
+            self._advance_chunks(out)
         t_sched0 = time.perf_counter()
         self._ensure_capacity()
-        live = [i for i, s in enumerate(self.slots) if s is not None]
+        live = [i for i, s in enumerate(self.slots) if s is not None and not s.pending]
         self.max_concurrency = max(self.max_concurrency, len(live))
         if not live:
             return out
         if self.pool is not None:
+            self.pool.apply_pending()
             self.pool.device_tables()
         self.kv_bytes_sum += self.live_kv_bytes()
         k = self.steps_per_dispatch
@@ -568,7 +748,9 @@ class DecodeEngine:
         for i, s in enumerate(self.slots):
             if s is None:
                 continue
-            row["occupied"][i] = row["live"][i] = 1
+            # a lane still absorbing chunks on the host is occupied, not
+            # live: its length holds
+            row["occupied"][i], row["live"][i] = 1, int(not s.pending or s.feed)
             row["uids"][i], row["topks"][i] = s.uid, s.sampling.top_k
             row["eos"][i], temps[i] = s.sampling.eos_id, s.sampling.temperature
             row["counts"][i] = len(s.generated)
@@ -609,7 +791,9 @@ class DecodeEngine:
             if c_step[r] >= 0:
                 by_step.setdefault(int(c_step[r]), []).append(r)
         for t in range(steps):
-            busy = [i for i, s in enumerate(self.slots) if s is not None]
+            # a lane chunking on the host held still on the device
+            busy = [i for i, s in enumerate(self.slots)
+                    if s is not None and (not s.pending or s.feed)]
             feeders = [i for i in busy if self.slots[i].pending and self.slots[i].feed]
             for i in busy:
                 self.slots[i].pos += 1  # mirror cache["len"] advancing
@@ -645,15 +829,27 @@ class DecodeEngine:
         launch order."""
         out: list[GenerationResult] = []
         self._admit(out)
+        if self.prefill_chunk is not None or self._prefix is not None:
+            # drain every prompt chunking on the host before the cycle: such
+            # a lane cannot join the loop, and a chunk a cycle would starve
+            # it; stop where a pass makes no progress (pool pressure)
+            todo = self._chunk_tokens()
+            while todo:
+                self._advance_chunks(out)
+                left = self._chunk_tokens()
+                if left >= todo:
+                    break
+                todo = left
         t_sched0 = time.perf_counter()
         self._ensure_capacity()
         self._stage_fill()
-        live = sum(s is not None for s in self.slots)
+        live = sum(s is not None and (not s.pending or s.feed) for s in self.slots)
         self.max_concurrency = max(self.max_concurrency, live)
         if not live and not self._staged:
             return out
         self.kv_bytes_sum += self.live_kv_bytes()
         if self.pool is not None:
+            self.pool.apply_pending()  # in place, before any replay reads the pages
             self.pool.device_tables()
         self._build_dstate()
         sampling = [s.sampling for s in self.slots if s is not None]
@@ -682,6 +878,11 @@ class DecodeEngine:
         self.cycles += 1
         self.sched_host_s += (t_capture - t_sched0) + host_s
         return out
+
+    def _chunk_tokens(self) -> int:
+        """Prompt tokens the host still has to absorb chunk by chunk."""
+        return sum(len(s.pending) for s in self.slots
+                   if s is not None and s.pending and not s.feed)
 
     def run(self) -> dict[int, GenerationResult]:
         """Drain the queue and every busy lane; results keyed by uid."""
@@ -768,6 +969,7 @@ class DecodeEngine:
             "preemptions": self.preemptions,
             "max_concurrency": self.max_concurrency,
             "prefill_batches": self.prefill_batches,
+            "prefill_chunks": self.prefill_chunks,
             "tokens_generated": self.tokens_generated,
             "decode_tokens": self.decode_tokens,
             "decode_wall_s": self.decode_wall_s,
@@ -803,5 +1005,16 @@ class DecodeEngine:
                 table_row_syncs=self.pool.table_row_syncs,
                 table_syncs=self.pool.table_syncs,
                 kv_quant=self.pool.layout.quant,
+                shared_pages=self.pool.shared_pages,
+                cow_copies=self.pool.cow_copies,
+            )
+        if self._prefix is not None:
+            st.update(
+                prefix_cache=True,
+                prefix_indexed_pages=self._prefix.pages,
+                prefix_evictions=self._prefix.evictions,
+                prefix_hits=self.prefix_hits,
+                prefix_hit_tokens=self.prefix_hit_tokens,
+                prefix_hit_rate=self.prefix_hits / self.admitted if self.admitted else 0.0,
             )
         return st

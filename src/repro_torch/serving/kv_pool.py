@@ -25,8 +25,21 @@ writes, so a dispatch never runs out of pages midway; ``lookahead``, the
 engine's steps per dispatch, sizes the window table so those pages never
 take the slot of a page still in the window) and ``release`` on finish or
 preemption.  The device tables are updated in place, so unlike the
-reference there is no donated buffer to re-adopt.  Copy-on-write, prefix
-sharing and rollback are not ported yet (ROADMAP.md).
+reference there is no donated buffer to re-adopt.  Rollback (speculative
+decoding's) is not ported yet (ROADMAP.md).
+
+Shared pages (prefix caching, the reference's): pages are refcounted.
+``_take`` hands a page out at 1, ``add_ref``/``decref`` move the count,
+and a page returns to the free list at 0, so ``release`` is a decref of
+the lane's pages and a page the prefix index (``serving.prefix_cache``)
+or another lane still holds stays resident.  ``alloc_prefill(...,
+shared_full=, shared_len=)`` maps cached prefix pages into a lane's full
+table.  No write lands in a page another holder can read: a write path
+about to touch a page of refcount > 1 (a shared partial page at
+admission, a decode write into a page the index pinned) first points the
+lane at a fresh page (``_cow_full``) and queues the ``(src, dst)`` pair
+in ``pending_copies``, the source pinned until ``apply_pending`` copies
+the rows, in place, before the next forward or dispatch.
 
 Staged admissions (the device scheduler's on-device refill, the
 reference's ``stage_alloc``/``release_staged``/``adopt_staged``): the host
@@ -53,7 +66,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.cache import PagedLayout, cdiv, paged_layout_for
-from repro_torch.models.model import init_cache
+from repro_torch.models.model import copy_pages, init_cache
 
 
 class PagedKVPool:
@@ -65,6 +78,7 @@ class PagedKVPool:
         self.layout: PagedLayout = paged_layout_for(
             cfg, max_len, page_size=page_size, num_pages=num_pages, lookahead=lookahead,
             quant=quant, shards=shards, shard=mesh.model_index if mesh is not None else 0)
+        self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len
         self.cache = init_cache(cfg, max_batch, max_len, layout=self.layout, device=device)
@@ -72,11 +86,16 @@ class PagedKVPool:
         self._pt = {"full": np.full((max_batch, lo.pages_full), lo.sentinel, np.int32),
                     "win": np.full((max_batch, lo.pages_win), lo.sentinel, np.int32)}
         self._free: list[int] = list(range(num_pages - 1, -1, -1))
-        self._ref = np.zeros(num_pages, np.int32)  # 0 = free, 1 = owned by a lane
+        # 0 = free, 1 = held once, > 1 = shared (lanes, the prefix index, a copy pin)
+        self._ref = np.zeros(num_pages, np.int32)
         # per lane and table: logical page number -> page id
         self._pages = {key: [dict() for _ in range(max_batch)] for key in self._pt}
         self._dirty: set[int] = set(range(max_batch))
         self._synced = False
+        # (src, dst) page pairs whose rows apply_pending has still to copy;
+        # each src holds one extra reference until then
+        self.pending_copies: list[tuple[int, int]] = []
+        self.cow_copies = 0  # copy-on-write forks
         self.evicted_pages = 0  # window pages freed as the window slid past them
         self.table_full_uploads = 0  # whole-table device uploads
         self.table_row_syncs = 0  # dirty rows copied incrementally
@@ -91,6 +110,11 @@ class PagedKVPool:
     @property
     def used_pages(self) -> int:
         return self.layout.num_pages - len(self._free)
+
+    @property
+    def shared_pages(self) -> int:
+        """Pages held by more than one reference."""
+        return int((self._ref > 1).sum())
 
     def lane_pages(self, lane: int) -> list[int]:
         """The page ids one lane holds: its full table's, then its window
@@ -125,10 +149,27 @@ class PagedKVPool:
 
     # -- allocation ----------------------------------------------------------
 
-    def can_admit(self, prompt_len: int) -> bool:
-        return self.prefill_pages(prompt_len) <= len(self._free)
+    def fresh_prefill_pages(self, prompt_len: int, shared_len: int = 0) -> int:
+        """Fresh pages an admission takes when its first ``shared_len``
+        tokens lie in cached pages: a boundary inside a page costs one more,
+        the copy-on-write fork of that shared partial page."""
+        if shared_len <= 0:
+            return self.prefill_pages(prompt_len)
+        ps = self.layout.page_size
+        return (self.prefill_pages(prompt_len) - cdiv(shared_len, ps)
+                + (1 if shared_len % ps else 0))
 
-    def _decref(self, pid: int) -> None:
+    def can_admit(self, prompt_len: int, shared_len: int = 0) -> bool:
+        return self.fresh_prefill_pages(prompt_len, shared_len) <= len(self._free)
+
+    def add_ref(self, pid: int) -> None:
+        """Pin a live page (the prefix index, a shared-prefix admission)."""
+        if self._ref[pid] <= 0:
+            raise RuntimeError(f"add_ref of free page {pid}")
+        self._ref[pid] += 1
+
+    def decref(self, pid: int) -> None:
+        """Drop one reference; the page is free at 0."""
         if self._ref[pid] <= 0:
             raise RuntimeError(f"decref of free page {pid}")
         self._ref[pid] -= 1
@@ -140,35 +181,74 @@ class PagedKVPool:
         self._ref[pid] = 1
         return pid
 
-    def _map(self, key: str, lane: int, pg: int) -> None:
-        pid = self._take()
+    def _put(self, key: str, lane: int, pg: int, pid: int) -> None:
         self._pages[key][lane][pg] = pid
-        slot = pg % self.layout.pages_win if key == "win" else pg
-        self._pt[key][lane, slot] = pid
+        self._pt[key][lane, pg % self.layout.pages_win if key == "win" else pg] = pid
         self._dirty.add(lane)
 
-    def alloc_prefill(self, lane: int, prompt_len: int) -> bool:
+    def _map(self, key: str, lane: int, pg: int) -> None:
+        self._put(key, lane, pg, self._take())
+
+    def _cow_full(self, lane: int, pg: int) -> None:
+        """Fork the shared full-table page ``pg`` the lane is about to
+        write: a fresh page takes its place and the copy is queued.  The
+        source keeps one extra reference until ``apply_pending`` lands the
+        copy, so nothing can take and overwrite it first."""
+        src = self._pages["full"][lane][pg]
+        dst = self._take()
+        self._ref[src] += 1  # the pending copy's pin
+        self.pending_copies.append((src, dst))
+        self.cow_copies += 1
+        self._put("full", lane, pg, dst)
+        self.decref(src)  # the lane's own claim moves to dst
+
+    def alloc_prefill(self, lane: int, prompt_len: int, shared_full: tuple = (),
+                      shared_len: int = 0, defer_win: bool = False) -> bool:
         """Map every page the prompt's cache entries land in (in the window
         table only its live window span) plus the page of the first decode
         write; False (nothing allocated) if the pool is short.  Nothing is
         evicted here: the prefill still writes into the oldest window page,
-        so eviction waits for the first ``ensure_steps``."""
-        if not self.can_admit(prompt_len):
+        so eviction waits for the first ``ensure_steps``.
+
+        ``shared_full`` (from the prefix index) are cached pages mapped at
+        full-table pages ``0..``, each gaining a reference, covering
+        ``shared_len`` tokens; a boundary inside a page forks that last
+        shared page (the lane writes its tail there).  Shared prefixes need
+        an append-only table without a window one.  ``defer_win`` (a
+        windowed chunked prefill) maps no window pages: each chunk's are
+        mapped just before it runs (``ensure_steps``)."""
+        if shared_full and (not self.layout.has_full or self.layout.win
+                            or shared_len >= prompt_len):
+            raise ValueError(f"a shared prefix of {shared_len} tokens needs an append-only "
+                             f"pool without a window table and a longer prompt ({prompt_len})")
+        if self.fresh_prefill_pages(prompt_len, shared_len) > len(self._free):
             return False
         lo, ps = self.layout, self.layout.page_size
         nxt = prompt_len // ps
-        spans = []
         if lo.has_full:
-            spans.append(("full", range(cdiv(prompt_len, ps))))
-        if lo.win:
-            spans.append(("win", range(max(0, prompt_len - lo.win) // ps,
-                                       (prompt_len - 1) // ps + 1)))
-        for key, pages in spans:
-            for pg in pages:
-                self._map(key, lane, pg)
-            if nxt not in self._pages[key][lane]:
-                self._map(key, lane, nxt)
+            for pg, pid in enumerate(shared_full):
+                self.add_ref(pid)
+                self._put("full", lane, pg, pid)
+            if shared_full and shared_len % ps:
+                self._cow_full(lane, len(shared_full) - 1)
+            for pg in list(range(cdiv(prompt_len, ps))) + [nxt]:
+                if pg not in self._pages["full"][lane]:
+                    self._map("full", lane, pg)
+        if lo.win and prompt_len > 0 and not defer_win:
+            for pg in range(max(0, prompt_len - lo.win) // ps, (prompt_len - 1) // ps + 1):
+                self._map("win", lane, pg)
+            if nxt not in self._pages["win"][lane]:
+                self._map("win", lane, nxt)
+        self._dirty.add(lane)
         return True
+
+    def prompt_pages(self, lane: int, length: int) -> tuple[list[int], Optional[int]]:
+        """The full-table pages holding a lane's first ``length`` tokens, for
+        the prefix index: ``(whole pages, the partial tail page or None)``,
+        the tail holding ``length % page_size`` tokens."""
+        ps, pages = self.layout.page_size, self._pages["full"][lane]
+        n = length // ps
+        return [pages[pg] for pg in range(n)], (pages.get(n) if length % ps else None)
 
     def ensure_steps(self, lane: int, pos: int, k: int = 1) -> bool:
         """Back the next ``k`` decode writes at ``pos..pos+k-1``; all or
@@ -182,8 +262,14 @@ class PagedKVPool:
         pages = range(pos // ps, (pos + k - 1) // ps + 1)
         need = [(key, pg) for key, on in (("full", lo.has_full), ("win", bool(lo.win)))
                 if on for pg in pages if pg not in self._pages[key][lane]]
-        if len(need) > len(self._free):
+        # mapped pages these writes touch that another holder can still
+        # read: each forks, for one fresh page
+        full = self._pages["full"][lane]
+        cow = [pg for pg in pages if pg in full and self._ref[full[pg]] > 1]
+        if len(need) + len(cow) > len(self._free):
             return False
+        for pg in cow:
+            self._cow_full(lane, pg)
         for key, pg in need:
             self._map(key, lane, pg)
         return True
@@ -194,7 +280,7 @@ class PagedKVPool:
         pages = self._pages["win"][lane]
         for pg in [pg for pg in pages if (pg + 1) * ps - 1 < start]:
             pid = pages.pop(pg)
-            self._decref(pid)
+            self.decref(pid)
             self.evicted_pages += 1
             if self._pt["win"][lane, pg % lo.pages_win] == pid:
                 self._pt["win"][lane, pg % lo.pages_win] = lo.sentinel
@@ -205,7 +291,7 @@ class PagedKVPool:
         preempted)."""
         for key, pages in self._pages.items():
             for pid in pages[lane].values():
-                self._decref(pid)
+                self.decref(pid)
             if pages[lane]:
                 self._dirty.add(lane)
             pages[lane] = {}
@@ -254,7 +340,7 @@ class PagedKVPool:
         queue)."""
         for key in ("full", "win"):
             for pid in rec[f"{key}_pages"].values():
-                self._decref(pid)
+                self.decref(pid)
 
     def adopt_staged(self, lane: int, rec: dict) -> None:
         """Install a consumed stage as ``lane``'s mappings (the host's replay
@@ -268,6 +354,31 @@ class PagedKVPool:
             if rec[f"{key}_row"] is not None:
                 self._pt[key][lane, :] = rec[f"{key}_row"]
         self._dirty.add(lane)
+
+    # -- copy-on-write -------------------------------------------------------
+
+    def apply_pending(self) -> dict:
+        """Copy the queued forks' rows ``src -> dst`` in place in every page
+        pool of the pool's cache (``models.model.copy_pages``): each K/V or
+        latent leaf and each ``*_scale`` plane, every layer, pairs chained
+        through a ``dst`` that is a later ``src`` one by one, in order.  The
+        tensors keep their addresses (a captured decode loop holds them).
+        The sources then drop their pin.  Returns the cache."""
+        if not self.pending_copies:
+            return self.cache
+        if self.layout.shards > 1:
+            raise NotImplementedError("copy-on-write over a pages-sharded pool is not ported "
+                                      "yet (ROADMAP.md §1 item 7)")
+        pairs, self.pending_copies = self.pending_copies, []
+        srcs, dsts = [s for s, _ in pairs], [d for _, d in pairs]
+        batches = [([s], [d]) for s, d in pairs] if set(srcs) & set(dsts) else [(srcs, dsts)]
+        dev = self.cache["len"].device
+        for s, d in batches:
+            copy_pages(self.cfg, self.cache, self.layout, torch.tensor(s, device=dev),
+                       torch.tensor(d, device=dev))
+        for s in srcs:
+            self.decref(s)
+        return self.cache
 
     # -- device view ---------------------------------------------------------
 

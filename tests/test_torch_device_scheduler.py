@@ -36,14 +36,12 @@ from repro.models.model import TransformerLM
 from repro.models.model import reset_lanes as jax_reset_lanes
 from repro.serving import DecodeEngine as JaxEngine
 from repro.serving import SamplingParams as JaxSampling
-from repro_torch import core as tcore
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import model as tmodel
 from repro_torch.models import moe as tmoe
 from repro_torch.serving import DecodeEngine, SamplingParams
 from repro_torch.serving.sampling import draw_keys, sample_tokens
-from repro_torch.sparse_infer import export_compressed
-from torch_parity import assert_streams_agree, configs, prompts, trees
+from torch_parity import assert_streams_agree, configs, port_tree, prompts, trees
 
 DEVICE_VARIANTS = [
     dict(max_steps_per_dispatch=5),
@@ -66,14 +64,6 @@ def one_thread():
 @pytest.fixture(scope="module")
 def setup():
     return trees()
-
-
-def _port_tree(arch, **overrides):
-    """``(cfg, compressed tree)`` of the reduced ``arch`` in f32, made by
-    the port alone (what a test of the port against itself needs)."""
-    tcfg = configs(arch, **overrides)[1]
-    recipe = tcore.make_recipe("step", tcore.SparsityConfig(default=tcore.NMSparsity(2, 4)))
-    return tcfg, export_compressed(tmodel.init_params(tcfg, seed=0, device="cpu"), recipe)[0]
 
 
 def _mixed_load(vocab, n=6, gen=8, eos_id=-1):
@@ -315,7 +305,7 @@ def test_recurrent_arch_on_the_rolling_slab_and_the_window_pool():
     window, so the slab rolls and the pool's window table wraps; the gated
     iterations must neither roll the slab nor advance the RG-LRU state,
     and refills zero it.  Streams equal the sync scheduler's."""
-    tcfg, tp = _port_tree("recurrentgemma-9b", n_layers=8)
+    tcfg, tp = port_tree("recurrentgemma-9b", n_layers=8)
     ps = [np.random.default_rng(7 + r).integers(0, tcfg.vocab, 12 + 3 * r).tolist()
           for r in range(5)]
     sps = [SamplingParams(max_new_tokens=n) for n in (12, 7, 10, 9, 6)]
@@ -398,7 +388,7 @@ def test_expert_counts_replace_bincount_bit_for_bit(monkeypatch):
     ``bincount``."""
     fe = torch.from_numpy(np.random.default_rng(3).integers(0, 7, 300))
     assert torch.equal(tmoe.expert_counts(fe, 9), torch.bincount(fe, minlength=9))
-    tcfg, tp = _port_tree("deepseek-v2-lite-16b")
+    tcfg, tp = port_tree("deepseek-v2-lite-16b")
 
     def decode():
         cache = tmodel.init_cache(tcfg, 2, 16, device="cpu")

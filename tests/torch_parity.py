@@ -14,9 +14,11 @@ from repro.configs.base import reduced as jax_reduced
 from repro.models.model import TransformerLM
 from repro.sparse_infer import CompressedTensor as JaxCompressed
 from repro.sparse_infer import compress_params as jax_compress_params
+from repro_torch import core as tcore
 from repro_torch.checkpoint import carry_over
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import model as tmodel
+from repro_torch.sparse_infer import export_compressed
 
 # Cross-framework checks run in f32 on both sides: the two frameworks round
 # bf16 at different places, so bf16 parity would test rounding, not the port.
@@ -59,6 +61,14 @@ def trees(seed=0, align=None, arch="gpt2-paper", **overrides):
         "dense": (sparse, carry_over(to_numpy(sparse), device="cpu")),
         "compressed": (comp, carry_over(to_numpy(comp), device="cpu")),
     }
+
+
+def port_tree(arch, **overrides):
+    """``(port cfg, compressed tree)`` of the reduced ``arch`` in f32, made by
+    the port alone (what a test of the port against itself needs)."""
+    tcfg = configs(arch, **overrides)[1]
+    recipe = tcore.make_recipe("step", tcore.SparsityConfig(default=tcore.NMSparsity(2, 4)))
+    return tcfg, export_compressed(tmodel.init_params(tcfg, seed=0, device="cpu"), recipe)[0]
 
 
 def full_tables(lengths, ps, n_slots, num_pages):
