@@ -163,6 +163,39 @@ with every lane at 0, 1, 2, 4 and 7 live pages.
    int8) and of the device run against the sync cold run; the bf16 streams
    are readings.
 
+11. Serve with self-speculative decoding (``spec_gamma``): the drafter a
+   compressed tree, the verifier its masked-dense tree (or a denser N:M
+   artifact), a round = up to gamma decode steps of the drafter and one
+   chunked verify pass.  Full-width gpt2-paper, phase 3's first 4 prompts
+   + 32 tokens: (a) the 2:4 drafter against its masked-dense verifier,
+   gamma 4, on the slab, a 28-page fp pool and a 28-page int8 pool; (b)
+   a seed-1 2:4 drafter, gamma 3, on the fp pool, which must reject; (c)
+   the seed-0 4:8 compressed verifier against the 2:4 drafter, gamma 4
+   ((b) and (c) with budgets of 20 tokens, about a token a round; (b)
+   must reject and its rollbacks must drop pages):
+   its verify chunk of 4 x 5 rows runs K1's tensor-core body, 72
+   ``nm_spmm_tc`` launches in its first verify pass, which runs under the
+   profiler, and K1 at that chunk's shapes (one layer's six 4:8 leaves,
+   20 bf16 rows) must agree with its plain version within one bf16 step;
+   (d) (a) with chunks of
+   64 and the prefix cache on phase 10's shared-head waves (80 pages);
+   (e) a sampled run (temperature 0.9, top-k 40) in which every request
+   ends on its budget.  Full-width DeepSeek-V2-Lite on its first 4
+   layers (phase 6's tree), gamma 3 on the 28-page pool.  Each round's
+   launches are read around its draft scan and its verify pass: K1 72 x
+   the drafted steps (max gi), K2 or K2q 12 x them on pools, K1 72 in a
+   compressed verifier's pass and none in a dense one's; DeepSeek's K1b 9
+   and K2m 4 a drafted step.  The gate: each run (a)-(d) and DeepSeek
+   again with f32 twins, its streams against the plain engine serving the
+   f32 verifier through the stream gate (the slab's against the fp
+   pool's plain run, the same f32 function; DeepSeek with an MoE capacity
+   of every token, since a verify chunk's token count is not a decode
+   step's), and after every round each live lane's committed K/V within
+   1e-4 of a verifier forward's over its tokens (slab and fp pools; on
+   int8 pages a reading); every pool run leaves no page or reference.
+   Readings: acceptance, tokens a round, ms a round and a token beside
+   the plain verifier's, the bf16 streams against its.
+
 Each phase's seconds are logged, and the total beside them.
 
 Phase 2 also holds K3, the stats flush of ``paged_attn``, in all six
@@ -326,6 +359,20 @@ PREFIX_HEAD, PREFIX_TAILS, PREFIX_PAGES = 136, (8, 40), 80
 CHUNK_F32_TOL = 1e-3
 # DeepSeek in phase 6: its chunk, and the head its prompts share
 DS_CHUNK, DS_HEAD = 32, 48
+# phase 11, self-speculative decoding: the draft lengths of runs (a), (c),
+# (d), (e) and of run (b) and DeepSeek's, the pool of phase 3's first 4
+# prompts (4 lanes x 7 pages of 16: no preemption), the sampled run's policy
+SPEC_GAMMA, SPEC_GAMMA_REJECT, DS_SPEC_GAMMA, SPEC_PAGES = 4, 3, 3, 28
+# the budget of runs (b) and (c), whose drafts are mostly rejected (a
+# token a round): 20 takes the lanes of 64-token prompts across a page
+# boundary, whose page each round maps and a rejection rolls back
+SPEC_GEN_REJECTED = 20
+SPEC_TEMPERATURE, SPEC_TOP_K = 0.9, 40
+# a lane's committed K/V against a verifier forward's, f32: the routes sum
+# in other orders
+SPEC_KV_F32_TOL = 1e-4
+# DeepSeek's spec run: its first 4 layers (the dense one and 3 MoE layers)
+DS_SPEC_BODY = 3
 
 
 def log(msg: str) -> None:
@@ -416,6 +463,14 @@ def same_bytes(torch, name: str, y, again) -> None:
         raise AssertionError(f"{name}: two calls gave different bytes")
 
 
+def layer_leaves(comp: dict) -> dict:
+    """The six compressed matmuls of a gpt2-paper tree's first layer."""
+    layer = comp["body"]["sb_0"]
+    leaves = {k: layer["attn"][k].layer(0) for k in ("wq", "wk", "wv", "wo")}
+    leaves.update({k: layer["mlp"][k].layer(0) for k in ("w_fc", "w_proj")})
+    return leaves
+
+
 def check_nm_spmm(torch, comp: dict, dev) -> dict:
     """K1 at the six matmuls of one gpt2-paper layer (q/k/v/o 768->768,
     fc 768->3072, proj 3072->768), in decode (B = 1, 4, 8: the decode
@@ -428,9 +483,7 @@ def check_nm_spmm(torch, comp: dict, dev) -> dict:
     B=4, and under ``prefill`` the three distinct prefill shapes at B=256."""
     from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_plain
 
-    layer = comp["body"]["sb_0"]
-    leaves = {k: layer["attn"][k].layer(0) for k in ("wq", "wk", "wv", "wo")}
-    leaves.update({k: layer["mlp"][k].layer(0) for k in ("w_fc", "w_proj")})
+    leaves = layer_leaves(comp)
     gen = torch.Generator(device=dev).manual_seed(1)
     rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     prefill = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
@@ -1474,6 +1527,10 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
     for quant in (False, True):
         log(f"  profile deepseek {'int8 ' if quant else ''}paged decode "
             + json.dumps(profile_decode(torch, cfg, comp, dev, kv_quant=quant)))
+    # phase 11's tree: the first 4 layers, copied out of the whole tree
+    sub_cfg, sub = first_layers(torch, cfg, comp, DS_SPEC_BODY, "bfloat16")
+    totals["spec_tree"] = (sub_cfg, clone_tree(sub), prompts[:4])
+    del sub
     # the gate: the f32 twin (about 40 GB beside the bf16 tree's 24) on the
     # slab and the 28-page pool; the bf16 runs' engines are gone.  The MoE
     # capacity follows a forward's token count, so a forward over a whole
@@ -1507,6 +1564,17 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
     log(f"  peak memory with the f32 twin: {torch.cuda.max_memory_allocated():,} B")
     totals["chunk_dispatch_launches"] = chunk_launches
     return totals
+
+
+def clone_tree(tree: dict) -> dict:
+    """A copy of ``tree`` that shares no storage with it (views of a larger
+    tree would keep the whole of it alive)."""
+    from repro_torch.sparse_infer import CompressedTensor
+    from repro_torch.utils.tree import tree_map_with_name
+
+    return tree_map_with_name(
+        lambda _, x: (dataclasses.replace(x, values=x.values.clone(), indices=x.indices.clone())
+                      if isinstance(x, CompressedTensor) else x.clone()), tree)
 
 
 def first_layers(torch, cfg, comp, n_body: int, dtype: str):
@@ -2131,6 +2199,18 @@ def profile_chunk(torch, cfg, comp, dev, prompts) -> dict:
                                  if v != launches0[k]}}
 
 
+def prefix_waves(cfg) -> list:
+    """Phase 10's prefix traffic: two waves of 4 prompts sharing a
+    ``PREFIX_HEAD``-token head, with tails of ``PREFIX_TAILS`` tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(5000)
+    head = rng.integers(0, cfg.vocab, PREFIX_HEAD).tolist()
+    tails = rng.integers(PREFIX_TAILS[0], PREFIX_TAILS[1] + 1, 8)
+    shared = [head + rng.integers(0, cfg.vocab, int(t)).tolist() for t in tails]
+    return [shared[:4], shared[4:]]
+
+
 def chunk_phase(torch, cfg, comp, dev) -> dict:
     """Phase 10: full-width gpt2-paper with chunked prefill and the prefix
     cache (phase 3's compressed tree and its f32 twin).  Returns each
@@ -2196,11 +2276,8 @@ def chunk_phase(torch, cfg, comp, dev) -> dict:
         gate_streams(torch, f"chunked vs monolithic, {pool}", cfg32, comp32, prompts,
                      twins["chunked"], twins["monolithic"], dev, greedy=not int8)
     # the prefix cache: two waves of 4 prompts sharing a 136-token head
-    rng = np.random.default_rng(5000)
-    head = rng.integers(0, cfg.vocab, PREFIX_HEAD).tolist()
-    tails = rng.integers(PREFIX_TAILS[0], PREFIX_TAILS[1] + 1, 8)
-    shared = [head + rng.integers(0, cfg.vocab, int(t)).tolist() for t in tails]
-    waves = [shared[:4], shared[4:]]
+    waves = prefix_waves(cfg)
+    shared = waves[0] + waves[1]
     pmax_len = PREFIX_HEAD + PREFIX_TAILS[1] + gen + 1
     q_pages = ((PREFIX_PAGES + 1) * cfg.n_layers * 16 * 2 * cfg.n_kv * cfg.hd * 2
                // (cfg.n_layers * 16 * 2 * (cfg.n_kv * cfg.hd + 2)) - 1)
@@ -2251,6 +2328,354 @@ def chunk_phase(torch, cfg, comp, dev) -> dict:
                  f32[("fp", "device")], f32[("fp", "cold")], dev)
     del comp32
     return in_chunks
+
+
+def watch_rounds(torch, eng, records: list, profile: bool = False) -> list:
+    """Count the wrappers' launches inside each speculative round's draft
+    scan and verify pass: the engine's ``_draft`` and ``_verify`` are
+    wrapped to read ``dispatch.launches`` just before and after each call;
+    a round appends ``{"steps": drafted steps, "draft": {...}, "verify":
+    {...}}`` to ``records``.  With ``profile``, the first verify pass runs
+    under ``torch.profiler`` and its record gains ``"verify_kernels"``: K1's
+    kernels by name with their launches.  Returns ``records``."""
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    from repro_torch.kernels import dispatch
+
+    draft, verify = eng._draft, eng._verify
+
+    def moved(before: dict) -> dict:
+        return {k: v - before.get(k, 0) for k, v in dispatch.launches.items()
+                if v != before.get(k, 0)}
+
+    def draft_scan(r):
+        before = dict(dispatch.launches)
+        out = draft(r)
+        records.append({"steps": r["steps"], "draft": moved(before)})
+        return out
+
+    def verify_pass(r, drafts, dprobs):
+        before = dict(dispatch.launches)
+        if not (profile and len(records) == 1):
+            out = verify(r, drafts, dprobs)
+        else:
+            torch.cuda.synchronize()
+            with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                open_trace(torch)
+                out = verify(r, drafts, dprobs)
+                torch.cuda.synchronize()
+            kernels, dropped = traced_kernels(prof)
+            k1 = {}
+            for e in kernels:
+                found = re.search(r"(nm_spmm\w*)<", e.key)
+                if found:
+                    k1[found[1]] = k1.get(found[1], 0) + e.count
+            records[-1]["verify_kernels"] = k1
+            records[-1]["lead_records_dropped"] = dropped
+        records[-1]["verify"] = moved(before)
+        return out
+
+    eng._draft, eng._verify = draft_scan, verify_pass
+    return records
+
+
+def check_round_launches(what: str, records: list, per_step: dict, per_verify: dict) -> dict:
+    """Raise unless every round's draft scan launched exactly ``per_step``'s
+    entries times its drafted steps (a value of None: one count per step
+    that all rounds share, more than 0) and nothing else, and every verify
+    pass exactly ``per_verify``; returns the launches summed over the
+    rounds."""
+    per_step = dict(per_step)
+    for k, n in per_step.items():
+        if n is None:
+            rec = next((r for r in records if r["steps"]), None)
+            per_step[k] = rec["draft"].get(k, 0) // rec["steps"] if rec else 0
+            if not per_step[k]:
+                raise AssertionError(f"{what}: no {k} launches in a draft scan")
+    total, bad = {}, []
+    for rec in records:
+        want = {k: n * rec["steps"] for k, n in per_step.items() if n * rec["steps"]}
+        if rec["draft"] != want or rec["verify"] != per_verify:
+            bad.append(rec)
+        add_launches(total, rec["draft"])
+        add_launches(total, rec["verify"])
+    steps = [r["steps"] for r in records]
+    log(f"  {what}: {len(records)} rounds, drafted steps {steps}; launches {total}; want "
+        f"{per_step} a drafted step and {per_verify} a verify pass")
+    if not records or bad:
+        raise AssertionError(f"{what}: rounds off {per_step} / {per_verify}: {bad[:3]}")
+    return total
+
+
+def serve_spec(torch, cfg, drafter, verifier, dev, waves, *, gamma=None, pages=None,
+               int8=False, gen=32, kv_check=False, sampling=None, profile=False,
+               **kw) -> dict:
+    """``waves`` of prompts (each drained before the next is submitted) over
+    4 lanes on the slab or a pool of ``pages`` 16-token pages (int8 with
+    ``int8``): with ``gamma``, ``drafter`` drafting and ``verifier``
+    verifying; without, the plain engine serving ``verifier`` (K = 4).
+    Every request must end on its ``gen`` tokens.  With ``kv_check``, after
+    every round each live lane's committed K/V against a ``verifier``
+    forward's (``streams.committed_kv_gaps``: the largest gap and
+    magnitude).  A pool must end with every page free and no reference
+    (after the prefix index is cleared).  Returns stats, streams, the
+    launches of each round (``watch_rounds``), the pages rollbacks dropped
+    and seconds."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import DecodeEngine, SamplingParams
+    from repro_torch.serving.streams import committed_kv_gaps
+
+    max_len = max(len(p) for w in waves for p in w) + gen + 1
+    spec = dict(spec_gamma=gamma, verify_params=verifier) if gamma else {}
+    eng = DecodeEngine(cfg, drafter if gamma else verifier, max_batch=4, max_len=max_len,
+                       seed=0, num_pages=pages, page_size=16, steps_per_dispatch=1 if gamma else 4,
+                       kv_quant=int8, device=dev, **spec, **kw)
+    rounds = watch_rounds(torch, eng, [], profile) if gamma else []
+    dropped = [0]
+    if eng.pool is not None and gamma:
+        rollback = eng.pool.rollback
+
+        def counted(lane, new_len):
+            used = eng.pool.used_pages
+            rollback(lane, new_len)
+            dropped[0] += used - eng.pool.used_pages
+
+        eng.pool.rollback = counted
+    sp = SamplingParams(max_new_tokens=gen, **(sampling or {}))
+    kv = {"max_abs": 0.0, "max_ref": 0.0, "checks": 0}
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    streams = []
+    for prompts in waves:
+        uids = [eng.submit(p, sp) for p in prompts]
+        res = {}
+        while eng.queue or any(s is not None for s in eng.slots):
+            for r in eng.step():
+                res[r.uid] = r
+            if kv_check:
+                toks = {i: (s.prompt + s.generated)[:s.pos] for i, s in enumerate(eng.slots)
+                        if s is not None and not s.pending}
+                for rec in committed_kv_gaps(cfg, verifier, eng.cache, eng.layout, toks,
+                                             dev).values():
+                    kv["max_abs"] = max(kv["max_abs"], rec["max_abs"])
+                    kv["max_ref"] = max(kv["max_ref"], rec["max_ref"])
+                    kv["checks"] += 1
+        for u in uids:
+            if len(res[u].tokens) != gen or res[u].finish_reason != "length":
+                raise AssertionError(f"request {u}: {len(res[u].tokens)} tokens, "
+                                     f"{res[u].finish_reason}")
+        streams += [res[u].tokens for u in uids]
+    torch.cuda.synchronize()
+    out = dict(stats=eng.stats(), streams=streams, wall=time.perf_counter() - t0,
+               rounds=rounds, rollback_pages=dropped[0], kv=kv)
+    if eng.pool is not None:
+        if eng._prefix is not None:
+            eng._prefix.clear()
+        left = (eng.pool.free_pages, eng.pool.layout.num_pages, int(eng.pool._ref.sum()))
+        if left[0] != left[1] or left[2]:
+            raise AssertionError(f"pages left after the run: free, pages, references {left}")
+    del eng
+    return out
+
+
+def spec_readings(what: str, run: dict, plain: dict) -> None:
+    """Log a spec run's acceptance, ms a round and a token beside the plain
+    verifier's (ms a token: decode wall over the tokens decode emitted,
+    every lane's)."""
+    st, pst = run["stats"], plain["stats"]
+    log(f"  {what}: " + json.dumps({
+        **{k: st[k] for k in ("spec_gamma", "spec_rounds", "acceptance_rate",
+                              "accepted_per_verify", "draft_tokens", "accepted_draft_tokens",
+                              "prefill_chunks", "preemptions")},
+        "rollback_pages": run["rollback_pages"],
+        "ms_per_round": st["decode_wall_s"] / st["spec_rounds"] * 1e3,
+        "ms_per_emitted_token": st["decode_wall_s"] / st["spec_emitted_tokens"] * 1e3,
+        "plain_ms_per_emitted_token": pst["decode_wall_s"] / pst["decode_tokens"] * 1e3,
+        "plain_ms_per_decode_step": pst["ms_per_decode_step"],
+        "run_wall_s": run["wall"], "plain_run_wall_s": plain["wall"]}))
+
+
+def spec_phase(torch, cfg, comp, dev, single: dict, ds_spec: tuple) -> dict:
+    """Phase 11: self-speculative decoding on full-width gpt2-paper (phase
+    3's tree, its masked-dense tree, a seed-1 drafter, a 4:8 verifier) and
+    on DeepSeek-V2-Lite's first 4 layers (``ds_spec``: phase 6's).  Returns
+    each entry's launches summed over the bf16 runs' rounds, the profiled
+    verify pass's K1 kernels and the largest error of K1 at run (c)'s
+    verify chunk against its plain version."""
+    from repro_torch import core
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.streams import MARGIN
+    from repro_torch.sparse_infer import decompress_params, export_compressed
+
+    k1 = GPT2_K1_PER_LAYER * cfg.n_layers
+
+    def export(seed, n, m):
+        recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(n, m)))
+        return export_compressed(init_params(cfg, seed=seed, device=dev), recipe)[0]
+
+    # the traffic: phase 3's first 4 prompts with 32 tokens each (fewer
+    # where the drafts are mostly rejected), phase 10's waves
+    traffic = {"phase 3": ([single["prompts"][:4]], 32),
+               "phase 3, short": ([single["prompts"][:4]], SPEC_GEN_REJECTED),
+               "prefix": (prefix_waves(cfg), 32)}
+    prefix = dict(prefill_chunk=CHUNK, prefix_cache=True)
+    # name -> (drafter, verifier, gamma, traffic, pages, int8, engine keywords)
+    runs = {"a slab": ("comp", "ver", SPEC_GAMMA, "phase 3", None, False, {}),
+            "a fp": ("comp", "ver", SPEC_GAMMA, "phase 3", SPEC_PAGES, False, {}),
+            "a int8": ("comp", "ver", SPEC_GAMMA, "phase 3", SPEC_PAGES, True, {}),
+            "b fp": ("comp1", "ver", SPEC_GAMMA_REJECT, "phase 3, short", SPEC_PAGES, False, {}),
+            "c fp": ("comp", "comp48", SPEC_GAMMA, "phase 3, short", SPEC_PAGES, False, {}),
+            "d fp": ("comp", "ver", SPEC_GAMMA, "prefix", PREFIX_PAGES, False, prefix)}
+    t0 = time.perf_counter()
+    trees = {"comp": comp, "ver": decompress_params(comp), "comp1": export(1, 2, 4),
+             "comp48": export(0, 4, 8)}
+    # run (c)'s verify chunk on K1's tensor-core body at 4:8, against the
+    # plain version (no serving run gives it these inputs)
+    verify_err = check_nm_spmm_verify(torch, trees["comp48"], dev, 4 * (SPEC_GAMMA + 1))
+    twins = {}
+    for k in ("comp", "comp1", "comp48"):
+        cfg32, twins[k] = f32_twin(torch, cfg, trees[k])
+    log(f"  trees, their f32 twins and the 4:8 check: {time.perf_counter() - t0:.1f} s")
+    totals: dict = {}
+    verify_profile = None
+    bf16, plains = {}, {}
+    for name, (d, v, gamma, t, pages, int8, kw) in runs.items():
+        waves, gen = traffic[t]
+        t0 = time.perf_counter()
+        run = serve_spec(torch, cfg, trees[d], trees[v], dev, waves, gamma=gamma, pages=pages,
+                         int8=int8, gen=gen, profile=name == "c fp", **kw)
+        if (v, t, pages, int8) not in plains:
+            plains[(v, t, pages, int8)] = serve_spec(torch, cfg, None, trees[v], dev, waves,
+                                                     pages=pages, int8=int8, gen=gen)
+        bf16[name] = run
+        spec_readings(f"{name} (bf16)", run, plains[(v, t, pages, int8)])
+        attn = {} if pages is None else {"paged_attn_q" if int8 else "paged_attn": cfg.n_layers}
+        add_launches(totals, check_round_launches(
+            f"{name}, each round", run["rounds"], {"nm_spmm": k1, **attn},
+            {"nm_spmm": k1} if v == "comp48" else {}))
+        st = run["stats"]
+        if name == "c fp":
+            # its first verify pass ran under the profiler (in its wall)
+            rec = run["rounds"][0]
+            verify_profile = rec["verify_kernels"]
+            log(f"  c fp, the profiled verify pass ({4 * (gamma + 1)} rows): K1 kernels "
+                f"{verify_profile}, the wrapper's {rec['verify']} (kineto dropped "
+                f"{rec['lead_records_dropped']} of {LEAD_KERNELS} lead records)")
+            if (verify_profile.get("nm_spmm_tc") != k1 or sum(verify_profile.values()) != k1
+                    or rec["lead_records_dropped"] == LEAD_KERNELS):
+                raise AssertionError(f"c: the profiled verify pass ran K1 {verify_profile}, "
+                                     f"want {k1} nm_spmm_tc")
+        if name == "b fp" and not (st["acceptance_rate"] < 1.0 and st["draft_tokens"]
+                                   and run["rollback_pages"]):
+            raise AssertionError(f"b: the seed-1 drafter's acceptance {st['acceptance_rate']}, "
+                                 f"{run['rollback_pages']} pages rolled back")
+        if name == "d fp" and (st["prefix_hits"] != 4 or not st["prefill_chunks"]):
+            raise AssertionError(f"d: {st['prefix_hits']} prefix hits, {st['prefill_chunks']} "
+                                 "chunk dispatches")
+        log(f"  {name} (bf16), spec and plain runs: {time.perf_counter() - t0:.1f} s")
+    # (e) sampled: every request ends on its budget
+    sampled = serve_spec(torch, cfg, comp, trees["ver"], dev, traffic["phase 3"][0],
+                         gamma=SPEC_GAMMA, pages=SPEC_PAGES,
+                         sampling=dict(temperature=SPEC_TEMPERATURE, top_k=SPEC_TOP_K))
+    spec_readings(f"e fp sampled (temperature {SPEC_TEMPERATURE}, top-k {SPEC_TOP_K})", sampled,
+                  plains[("ver", "phase 3", SPEC_PAGES, False)])
+    add_launches(totals, check_round_launches("e fp sampled, each round", sampled["rounds"],
+                                              {"nm_spmm": k1, "paged_attn": cfg.n_layers}, {}))
+    # the gate: f32 twins of every tree, spec against the plain f32 verifier,
+    # and the committed K/V after every round; the bf16 streams as readings
+    del trees
+    trees = {**twins, "ver": decompress_params(twins["comp"])}
+    del twins
+    plains32: dict = {}
+    for name, (d, v, gamma, t, pages, int8, kw) in runs.items():
+        waves, gen = traffic[t]
+        t0 = time.perf_counter()
+        run = serve_spec(torch, cfg32, trees[d], trees[v], dev, waves, gamma=gamma, pages=pages,
+                         int8=int8, gen=gen, kv_check=True, **kw)
+        # the plain f32 verifier on the slab and the fp pool is one function
+        # (sums in other orders): the slab's run is gated against the pool's
+        key = (v, t, SPEC_PAGES if pages is None else pages, int8)
+        if key not in plains32:
+            plains32[key] = serve_spec(torch, cfg32, None, trees[v], dev, waves, pages=key[2],
+                                       int8=int8, gen=gen)
+        prompts = [p for w in waves for p in w]
+        stream_readings(torch, f"{name}, spec vs plain verifier", cfg32, trees[v], prompts,
+                        bf16[name]["streams"], plains[(v, t, pages, int8)]["streams"], dev)
+        gate_streams(torch, f"{name}, spec vs plain verifier", cfg32, trees[v], prompts,
+                     run["streams"], plains32[key]["streams"], dev, greedy=not int8)
+        kv = run["kv"]
+        log(f"  {name}, f32: acceptance {run['stats']['acceptance_rate']:.4f}; committed K/V "
+            f"against a verifier forward after every round: largest gap {kv['max_abs']:.3e} "
+            f"(entries up to {kv['max_ref']:.3f}), {kv['checks']} lane checks"
+            + (" (a reading on int8 pages)" if int8 else f" (limit {SPEC_KV_F32_TOL})"))
+        if not kv["checks"] or (not int8 and not kv["max_abs"] <= SPEC_KV_F32_TOL):
+            raise AssertionError(f"{name}: committed K/V {kv}")
+        log(f"  {name} (f32 twins), the gated runs: {time.perf_counter() - t0:.1f} s")
+    del trees
+    t0 = time.perf_counter()
+    add_launches(totals, spec_deepseek(torch, dev, *ds_spec))
+    log(f"  deepseek: {time.perf_counter() - t0:.1f} s")
+    log(f"  spec launches over the bf16 rounds {totals}; stream gate margin {MARGIN}")
+    return {"launches": totals, "verify_profile": verify_profile, "verify_err": verify_err}
+
+
+def check_nm_spmm_verify(torch, comp: dict, dev, rows: int) -> float:
+    """K1 at a verify chunk of ``rows`` bf16 rows (a partial 64-row tile of
+    the tensor-core body) on the six matmuls of ``comp``'s first layer,
+    against the plain version within one bf16 step; two calls give the same
+    bytes.  Returns the largest error."""
+    from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_plain
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    err = 0.0
+    for name, w in layer_leaves(comp).items():
+        k_dim = w.values.shape[0] * w.m // w.n
+        x = torch.randn((rows, k_dim), generator=gen, device=dev).to(torch.bfloat16)
+        args = (x, w.values, w.indices, w.n, w.m, w.out_features)
+        label = f"nm_spmm {name} {w.n}:{w.m} B={rows} ({k_dim}->{w.out_features})"
+        y = nm_spmm(*args)
+        same_bytes(torch, label, y, nm_spmm(*args))
+        err = max(err, check_close(label, y, nm_spmm_plain(*args)))
+    return err
+
+
+def spec_deepseek(torch, dev, cfg, comp, prompts) -> dict:
+    """Phase 11's DeepSeek part: its first 4 layers (the compressed tree
+    drafting, its masked-dense tree verifying) on the 28-page pool, gamma
+    ``DS_SPEC_GAMMA``, against the plain verifier; then the no-drop f32
+    twins through the stream gate and the committed-K/V check.  Returns the
+    launches summed over the bf16 rounds."""
+    from repro_torch.sparse_infer import decompress_params
+
+    ver = decompress_params(comp)
+    run = serve_spec(torch, cfg, comp, ver, dev, [prompts], gamma=DS_SPEC_GAMMA,
+                     pages=SPEC_PAGES)
+    plain = serve_spec(torch, cfg, None, ver, dev, [prompts], pages=SPEC_PAGES)
+    del ver
+    spec_readings(f"deepseek {cfg.n_layers} layers fp (bf16)", run, plain)
+    totals = check_round_launches(
+        "deepseek, each round", run["rounds"],
+        {"nm_spmm_batched": 3 * DS_SPEC_BODY, "paged_attn_mla": cfg.n_layers, "nm_spmm": None},
+        {})
+    # the gate: no-drop f32 twins (a verify chunk of 4 x 4 tokens meets
+    # other MoE capacities than a decode step's 4)
+    cfg32, comp32 = f32_twin(torch, cfg, comp)
+    nd, ver32 = no_drop(cfg32), decompress_params(comp32)
+    run32 = serve_spec(torch, nd, comp32, ver32, dev, [prompts], gamma=DS_SPEC_GAMMA,
+                       pages=SPEC_PAGES, kv_check=True)
+    plain32 = serve_spec(torch, nd, None, ver32, dev, [prompts], pages=SPEC_PAGES)
+    stream_readings(torch, "deepseek, spec vs plain verifier", nd, ver32, prompts,
+                    run["streams"], plain["streams"], dev)
+    gate_streams(torch, "deepseek, spec vs plain verifier (twins without MoE drops)", nd, ver32,
+                 prompts, run32["streams"], plain32["streams"], dev, greedy=False)
+    kv = run32["kv"]
+    log(f"  deepseek, f32: acceptance {run32['stats']['acceptance_rate']:.4f}; committed K/V "
+        f"against a verifier forward after every round: largest gap {kv['max_abs']:.3e} "
+        f"(entries up to {kv['max_ref']:.3f}), {kv['checks']} lane checks (limit "
+        f"{SPEC_KV_F32_TOL})")
+    if not kv["checks"] or not kv["max_abs"] <= SPEC_KV_F32_TOL:
+        raise AssertionError(f"deepseek: committed K/V {kv}")
+    return totals
 
 
 def _leaves(tree):
@@ -2490,6 +2915,7 @@ def main() -> int:
         "pool, and of the cold and the chunked pool")
     ds = deepseek_phase(torch, dev, dispatch)
     ds_chunk_launches = ds.pop("chunk_dispatch_launches")
+    ds_spec = ds.pop("spec_tree")
     launches.update(ds)
     t_phase = phase_done(seconds, "6", t_phase)
 
@@ -2514,8 +2940,15 @@ def main() -> int:
     log(f"phase 10: serve full-width gpt2-paper with chunked prefill (chunks of {CHUNK}) and "
         f"the prefix cache: slab, fp and int8 pools, the device scheduler; their f32 twins")
     chunk_launches = add_launches(chunk_phase(torch, cfg, comp, dev), ds_chunk_launches)
-    del comp
-    phase_done(seconds, "10", t_phase)
+    t_phase = phase_done(seconds, "10", t_phase)
+
+    log(f"phase 11: self-speculative decoding: full-width gpt2-paper (2:4 drafter, masked-dense "
+        f"and 4:8 verifiers, gamma {SPEC_GAMMA} and {SPEC_GAMMA_REJECT}) and DeepSeek-V2-Lite's "
+        f"first {1 + DS_SPEC_BODY} layers (gamma {DS_SPEC_GAMMA}); their f32 twins")
+    spec = spec_phase(torch, cfg, comp, dev, single, ds_spec)
+    records["nm_spmm"]["max_abs_err"] = max(records["nm_spmm"]["max_abs_err"], spec["verify_err"])
+    del comp, ds_spec
+    phase_done(seconds, "11", t_phase)
 
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -2529,6 +2962,9 @@ def main() -> int:
                                    "prefill") if k in rec},
             **({"chunk_dispatch_launches": chunk_launches[name]}
                if name in chunk_launches else {}),
+            **({"spec_round_launches": spec["launches"][name]}
+               if name in spec["launches"] else {}),
+            **({"spec_verify_profile": spec["verify_profile"]} if name == "nm_spmm" else {}),
         })
     log(f"  total {time.perf_counter() - t_start:.1f} s; by phase {json.dumps(seconds)}")
     print(smi)

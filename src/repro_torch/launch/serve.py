@@ -6,7 +6,7 @@
         [--max-steps-per-dispatch 16 [--staged-lanes 2] [--async-stream]] \\
         [--prefill-chunk 64] [--prefix-cache [--shared-prefix 128]] \\
         [--ckpt-dir RUN] [--dense] [--temperature 0.8 --top-k 40] [--device cpu] \\
-        [--mesh 1,2 [--kv-shard seq]]
+        [--mesh 1,2 [--kv-shard seq]] [--spec-gamma 4|auto]
 
 Counterpart of ``repro/launch/serve.py``.  Loads or
 initializes the parameters, applies the final STEP N:M mask (Π_T ⊙ w_T),
@@ -36,6 +36,15 @@ of cached prompt prefixes between requests, and ``--shared-prefix N``
 gives every request the same first N prompt tokens to exercise it.  The
 summary gains ``prefill_chunks``, the prefix counters and ``cow_copies``.
 
+``--spec-gamma N|auto`` serves with self-speculative decoding: the served
+tree (compressed, or masked-dense under ``--dense``) drafts N tokens a
+lane a round and the masked-dense tree of the same export verifies them
+in one chunked pass (``auto`` picks N from the two trees' bytes).  The
+verifier is rebuilt from the compressed tree (``decompress_params``), so
+the unmasked tree never sits beside the two.  The summary gains the
+acceptance counters.  Attention-family archs without a window, the sync
+scheduler, no model axis > 1.
+
 ``--mesh data,model`` serves tensor-parallel (dense family, ``--paged``,
 data 1): the export happens once here, then ``data × model`` ranks start
 (``launch.mesh.run_ranks``: ``gloo`` where ranks share a card or run on the
@@ -61,12 +70,14 @@ from repro_torch.kernels import dispatch
 from repro_torch.launch.mesh import make_local_mesh, run_ranks
 from repro_torch.models.model import forward, init_params
 from repro_torch.serving import DecodeEngine, SamplingParams
-from repro_torch.sparse_infer import export_compressed
+from repro_torch.sparse_infer import decompress_params, export_compressed
 from repro_torch.utils.device import resolve_device
 
 
 def build_serving_state(args, device) -> tuple:
-    """``(cfg, serving_tree, compression_report)`` from the CLI args."""
+    """``(cfg, serving_tree, compression_report, verifier)`` from the CLI
+    args; ``verifier`` (the masked-dense Π_T ⊙ w_T tree, the speculative
+    verifier) is None without ``--spec-gamma``."""
     cfg = get_config(args.arch, smoke=args.smoke)
     params = init_params(cfg, seed=0, device=device)
     if args.ckpt_dir:
@@ -79,7 +90,12 @@ def build_serving_state(args, device) -> tuple:
     recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(n, m)))
     # Π_T ⊙ w_T, compressed unless --dense; consumes params leaf by leaf
     served, rep = export_compressed(params, recipe, compress=not args.dense)
-    return cfg, served, rep
+    verifier = None
+    if args.spec_gamma is not None:
+        # the masked-dense tree of the same export; under --dense the drafter
+        # is the verifier (acceptance 1 by construction)
+        verifier = served if args.dense else decompress_params(served)
+    return cfg, served, rep, verifier
 
 
 def parse_args(argv=None):
@@ -138,7 +154,15 @@ def parse_args(argv=None):
                          "pool's pages shard over the model axis")
     ap.add_argument("--kv-shard", default="seq", choices=("seq", "feature"),
                     help="model-axis dim of the KV pool under --mesh")
-    return ap.parse_args(argv)
+    ap.add_argument("--spec-gamma", default=None,
+                    help="self-speculative decoding: draft this many tokens a lane with the "
+                         "served tree, verify them in one chunked pass through the masked-dense "
+                         "tree ('auto' picks it from the trees' bytes; attention-family archs "
+                         "without a window, sync scheduler only)")
+    args = ap.parse_args(argv)
+    if args.spec_gamma not in (None, "auto"):
+        args.spec_gamma = int(args.spec_gamma)
+    return args
 
 
 def main(argv=None) -> dict:
@@ -153,11 +177,12 @@ def main(argv=None) -> dict:
         raise SystemExit(f"--mesh {args.mesh}: give 'data,model' with data 1 (a data axis "
                          "> 1 is not ported yet, ROADMAP.md §1 item 1)")
     if (mesh_shape is not None and mesh_shape[1] > 1
-            and (args.prefill_chunk is not None or args.prefix_cache)):
-        raise NotImplementedError("--prefill-chunk and --prefix-cache over a model axis > 1 "
-                                  "are not ported yet (ROADMAP.md §1 item 7)")
+            and (args.prefill_chunk is not None or args.prefix_cache
+                 or args.spec_gamma is not None)):
+        raise NotImplementedError("--prefill-chunk, --prefix-cache and --spec-gamma over a "
+                                  "model axis > 1 are not ported yet (ROADMAP.md §1 item 7)")
     device = resolve_device(args.device)
-    cfg, serving_tree, rep = build_serving_state(args, device)
+    cfg, serving_tree, rep, verifier = build_serving_state(args, device)
     print(json.dumps({"compression": rep}))
 
     max_len = args.prompt_len + args.gen + 1
@@ -173,7 +198,7 @@ def main(argv=None) -> dict:
         max_steps_per_dispatch=args.max_steps_per_dispatch,
         staged_lanes=args.staged_lanes, async_stream=args.async_stream, kv_quant=args.kv_int8,
         prefill_buckets=buckets, kv_shard=args.kv_shard, prefill_chunk=args.prefill_chunk,
-        prefix_cache=args.prefix_cache,
+        prefix_cache=args.prefix_cache, spec_gamma=args.spec_gamma, verify_params=verifier,
     )
     sampling = dict(temperature=args.temperature, top_k=args.top_k, max_new_tokens=args.gen)
     n_requests = args.batch if args.requests is None else args.requests
@@ -293,6 +318,11 @@ def make_summary(cfg, rank: dict, rep: dict, args) -> dict:
         summary.update({k: st[k] for k in ("prefix_hits", "prefix_hit_tokens",
                                            "prefix_hit_rate", "prefix_indexed_pages",
                                            "prefix_evictions") if k in st})
+    if args.spec_gamma is not None:
+        summary.update({k: st[k] for k in (
+            "spec_gamma", "spec_rounds", "draft_tokens", "verify_tokens",
+            "accepted_draft_tokens", "acceptance_rate", "accepted_per_verify",
+            "bytes_per_accepted_token")})
     if args.temperature == 0.0:
         summary["greedy_streams"] = [[int(t) for t in results[u].tokens]
                                      for u in sorted(results)]

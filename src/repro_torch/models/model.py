@@ -647,6 +647,29 @@ def prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor, cache: di
     return _unembed(x_last, params, cfg)[:, 0], cache
 
 
+def read_cache(cfg: ArchConfig, cache: dict, lanes: torch.Tensor, layout=None) -> dict:
+    """Every attention and MLA layer's cached entries of ``lanes`` ((R,)),
+    in f32 (int8 pages dequantized), in the structure of
+    ``forward(want_cache=True)``'s caches: ``{"head_0": (ckv, krope), "body":
+    {"sb_0": (k, v)}, ...}``, body entries stacked ``(L, R, S, ...)``, ``S``
+    the layout's logical positions (the slab's rows, the pool's full
+    table).  Append-only layers only: a rolling window slab or a window
+    table is not in position order."""
+    layout = layout or SlabLayout()
+    tables = cache.get("tables")
+    out: dict = {}
+    for path, kind, stack in _groups(layer_plan(cfg)):
+        if _block_mixer_mlp(kind, cfg)[0] not in ("attn", "mla"):
+            continue
+        c = _at(cache, path)
+        views = [layout.chunk_view(_layer(c, i) if stack else c, lanes, tables)
+                 for i in range(max(stack, 1))]
+        _put(out, path, tuple(
+            torch.stack([v[name].float() for v in views]) if stack else views[0][name].float()
+            for name in _cache_entries(kind, cfg)))
+    return out
+
+
 def reset_lanes(cfg: ArchConfig, cache: dict, mask: torch.Tensor) -> dict:
     """Zero, in place, the RG-LRU ``state`` and ``conv`` rows of the lanes
     in ``mask`` ((B,) bool), the zeros a fresh prompt starts from

@@ -78,7 +78,28 @@ into the index.  A shared page about to be written is forked first
 forward or dispatch.  It needs the pool's append-only table on an arch
 without a window or recurrent layers; elsewhere it is refused with a
 warning.  Refills inside the device loop bypass the index, as in the
-reference.  Speculative decoding is not ported yet (ROADMAP.md).
+reference.
+
+Self-speculative decoding (``spec_gamma=G``, ``verify_params=``, the
+reference's): ``params`` becomes the drafter (the compressed N:M artifact)
+and ``verify_params`` (the masked-dense tree, or a denser N:M artifact)
+the verifier, which from then on is ``self.params``: prefill and chunks
+run it, so every committed K/V entry is the verifier's.  A step is one
+round: up to ``G`` decode steps of the drafter propose tokens per lane
+(lane ``i`` drafts ``gi = min(G, room, budget - 1)``; the scan runs
+``max(gi)`` steps, and ``len`` returns to the round's start), then one
+chunked verify pass (``prefill_chunk(all_logits=True)``) of every lane's
+``[last token, drafts]`` at its committed length rescores all ``gi + 1``
+positions and rewrites their K/V; ``sampling.spec_accept`` keeps the
+longest valid draft prefix (greedy: argmax match; sampled: the rejection
+rule) plus one verifier token, and ``len`` rewinds on the device to the
+accepted length.  The host reads the round's ``(tokens, n_acc)`` once,
+absorbs them through the stop rules and rolls each live lane's pages
+back to its length (``PagedKVPool.rollback``).  Greedy streams equal
+plain decoding under the verifier, whatever the drafter proposes; sampled
+streams follow the verifier's distribution.  The round runs eagerly on
+the sync scheduler; windowed and recurrent archs, the device scheduler
+and a model axis > 1 are refused.
 """
 from __future__ import annotations
 
@@ -114,11 +135,18 @@ from repro_torch.serving.sampling import (
     SamplingParams,
     advance_stops,
     draw_keys,
+    filtered_probs,
     sample_tokens,
+    spec_accept,
 )
 from repro_torch.sparse_infer.compress import CompressedTensor, tree_nbytes
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_items
+
+# pick_spec_gamma's acceptance (a typical magnitude-pruned drafter's
+# agreement with its dense parent, the reference's default) and longest draft
+SPEC_ALPHA = 0.75
+SPEC_G_MAX = 16
 
 
 @dataclasses.dataclass
@@ -182,6 +210,10 @@ class DecodeEngine:
     hold the graph against it).  ``prefill_chunk`` and ``prefix_cache``
     turn on chunked prefill and the prefix cache (module docstring);
     ``max_prefill_batch`` caps the requests one step admits.
+    ``spec_gamma`` (an int >= 1, or ``"auto"``: :meth:`pick_spec_gamma`)
+    with ``verify_params`` turns on self-speculative decoding (module
+    docstring): ``params`` drafts, ``verify_params`` verifies and is
+    served as ``self.params``.
     """
 
     def __init__(
@@ -192,7 +224,7 @@ class DecodeEngine:
         prefill_buckets: Optional[Sequence[int]] = None, device="cuda",
         mesh=None, kv_shard: str = "seq", device_loop: Optional[str] = None,
         prefill_chunk: Optional[int] = None, prefix_cache: bool = False,
-        max_prefill_batch: Optional[int] = None,
+        max_prefill_batch: Optional[int] = None, spec_gamma=None, verify_params: Optional[dict] = None,
     ):
         self.device = resolve_device(device)
         check_kv_shard(mesh, kv_shard)  # pools shard pages: "feature" only where trivial
@@ -225,6 +257,49 @@ class DecodeEngine:
         # two host syncs (K steps, or k_loop steps a dispatch times W
         # dispatches a cycle); page reservations and staging are sized by it
         self._horizon = self.k_loop * self._w if self._device_sched else steps_per_dispatch
+        # each layer's (mixer, stacked layers), for the cache byte counts
+        self._mixers = [(_block_mixer_mlp(kind, cfg)[0], path, max(stack, 1))
+                        for path, kind, stack in _groups(layer_plan(cfg))]
+        # recurrent state cannot absorb pad tokens: group prompts by exact length
+        self._exact_prefill = any(m == "rec" for m, _, _ in self._mixers)
+        windowed_arch = cfg.local_window is not None
+        # speculative decoding: params drafts, verify_params verifies
+        self._spec = spec_gamma is not None
+        self._draft_params: Optional[dict] = None
+        self.spec_gamma = 0
+        if self._spec:
+            if verify_params is None:
+                raise ValueError("spec_gamma needs verify_params=: the masked-dense (or denser "
+                                 "N:M) tree the drafts are verified against")
+            if windowed_arch:
+                raise ValueError("spec_gamma is not supported on sliding-window archs: a "
+                                 "rejected draft cannot be rolled back out of the window table "
+                                 "(pages the window slid past are already evicted)")
+            if self._exact_prefill:
+                raise ValueError("spec_gamma is not supported on SSM/RG-LRU archs: recurrent "
+                                 "state advanced by a rejected draft cannot be rolled back")
+            if self._device_sched:
+                raise ValueError("spec_gamma needs the sync scheduler: drop "
+                                 "max_steps_per_dispatch/staged_lanes/async_stream")
+            if mesh is not None and mesh.model > 1:
+                raise NotImplementedError(
+                    "speculative decoding over a model axis > 1 is not ported yet (ROADMAP.md "
+                    "§1 item 7); serve the mesh without spec_gamma")
+            self._spec_draft_bytes = tree_nbytes(params)
+            self._spec_verify_bytes = tree_nbytes(verify_params)
+            if spec_gamma == "auto":
+                spec_gamma = self.pick_spec_gamma(self._spec_draft_bytes,
+                                                  self._spec_verify_bytes)
+            spec_gamma = int(spec_gamma)
+            if spec_gamma < 1:
+                raise ValueError(f"spec_gamma must be >= 1 or 'auto', got {spec_gamma}")
+            if spec_gamma >= max_len:
+                raise ValueError(f"spec_gamma {spec_gamma} >= max_len {max_len}")
+            self.spec_gamma = spec_gamma
+            # a round writes gamma + 1 positions past the committed length
+            # (the drafts and the verify pass's bonus slot)
+            self._horizon = max(self._horizon, spec_gamma + 1)
+            self._draft_params, params = params, verify_params
         if mesh is not None:
             if mesh.device.type != self.device.type:
                 raise ValueError(f"mesh on {mesh.device}, engine asked for {self.device}")
@@ -237,10 +312,13 @@ class DecodeEngine:
                                           "(ROADMAP.md §1 item 1); pass num_pages")
             self.device = mesh.device
             params = shard_serving_params(params, mesh, cfg=cfg)
-        for name, leaf in tree_items(params):
-            t = leaf.values if isinstance(leaf, CompressedTensor) else leaf
-            if t.device.type != self.device.type:
-                raise ValueError(f"param {name} is on {t.device}, engine on {self.device}")
+            if self._spec:
+                self._draft_params = shard_serving_params(self._draft_params, mesh, cfg=cfg)
+        for tree in (params, self._draft_params or {}):
+            for name, leaf in tree_items(tree):
+                t = leaf.values if isinstance(leaf, CompressedTensor) else leaf
+                if t.device.type != self.device.type:
+                    raise ValueError(f"param {name} is on {t.device}, engine on {self.device}")
         if steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
         if kv_quant and num_pages is None:
@@ -255,15 +333,9 @@ class DecodeEngine:
         self.max_len = max_len
         self.seed = seed
         self.steps_per_dispatch = steps_per_dispatch
-        # each layer's (mixer, stacked layers), for the cache byte counts
-        self._mixers = [(_block_mixer_mlp(kind, cfg)[0], path, max(stack, 1))
-                        for path, kind, stack in _groups(layer_plan(cfg))]
-        # recurrent state cannot absorb pad tokens: group prompts by exact length
-        self._exact_prefill = any(m == "rec" for m, _, _ in self._mixers)
         # chunking needs every mixer to resume mid-prompt from the cache
         # (attention and MLA); a windowed arch also needs the pool, whose
         # window table the chunk view reads
-        windowed_arch = cfg.local_window is not None
         chunk_ok = (prefill_chunk is not None and not self._exact_prefill
                     and (not windowed_arch or num_pages is not None))
         if num_pages is not None:
@@ -349,6 +421,12 @@ class DecodeEngine:
         self.sched_host_s = 0.0  # host scheduling time around dispatches
         self._itl_ms: list[float] = []
         self._last_emit: dict[int, float] = {}
+        self.spec_rounds = 0  # speculative rounds (draft scan + verify pass)
+        self.draft_tokens = 0  # drafts proposed
+        self.verify_tokens = 0  # positions the verify passes scored
+        self.accepted_draft_tokens = 0
+        self.spec_emitted_tokens = 0  # tokens absorbed from rounds
+        self._spec_req: dict[int, list[int]] = {}  # uid -> [drafted, accepted]
 
     # -- request intake ------------------------------------------------------
 
@@ -610,6 +688,30 @@ class DecodeEngine:
                              key=lambda j: self.slots[j].seq)
                 self._preempt(victim)
 
+    def _lane_inputs(self, live: list[int]) -> dict:
+        """The per-lane tensors a decode dispatch or a speculative round
+        reads, on the device: ``occupied`` (a busy lane) and ``active`` (a
+        lane in ``live``, decoding), the active lanes' ``temps`` and
+        ``topks``, and the host flags ``need_sample`` and ``need_topk``;
+        with ``need_sample``, also every busy lane's ``uids`` and the active
+        lanes' draw index ``counts`` (their tokens so far)."""
+        dev, slots = self.device, self.slots
+        dec = [slots[i] if i in live else None for i in range(self.max_batch)]
+        r = {
+            "occupied": torch.tensor([s is not None for s in slots], device=dev),
+            "active": torch.tensor([s is not None for s in dec], device=dev),
+            "temps": torch.tensor([s.sampling.temperature if s else 0.0 for s in dec],
+                                  dtype=torch.float32, device=dev),
+            "topks": torch.tensor([s.sampling.top_k if s else 0 for s in dec],
+                                  dtype=torch.int32, device=dev),
+            "need_sample": any(s is not None and s.sampling.temperature > 0 for s in dec),
+            "need_topk": any(s is not None and s.sampling.top_k > 0 for s in dec),
+        }
+        if r["need_sample"]:
+            r["uids"] = torch.tensor([s.uid if s else 0 for s in slots], device=dev)
+            r["counts"] = torch.tensor([len(s.generated) if s else 0 for s in dec], device=dev)
+        return r
+
     def _decode(self, k: int) -> torch.Tensor:
         """K decode steps for every lane; returns the ``(K, B)`` token block.
 
@@ -618,25 +720,18 @@ class DecodeEngine:
         length 0 (their writes land on the slab's row 0 or the pool's sink
         page and are never read)."""
         dev = self.device
-        dec = [s if s is not None and not s.pending else None for s in self.slots]
-        occupied = torch.tensor([s is not None for s in self.slots], device=dev)
-        active = torch.tensor([s is not None for s in dec], device=dev)
-        temps = torch.tensor([s.sampling.temperature if s else 0.0 for s in dec],
-                             dtype=torch.float32, device=dev)
-        topks = torch.tensor([s.sampling.top_k if s else 0 for s in dec],
-                             dtype=torch.int32, device=dev)
+        live = [i for i, s in enumerate(self.slots) if s is not None and not s.pending]
+        r = self._lane_inputs(live)
+        dec = [self.slots[i] if i in live else None for i in range(self.max_batch)]
         eos = torch.tensor([s.sampling.eos_id if s else -1 for s in dec],
                            dtype=torch.int32, device=dev)
         budget = torch.tensor(
             [s.sampling.max_new_tokens - len(s.generated) if s else 0 for s in dec],
             dtype=torch.int32, device=dev)
-        need_sample = any(s is not None and s.sampling.temperature > 0 for s in dec)
-        need_topk = any(s is not None and s.sampling.top_k > 0 for s in dec)
-        if need_sample:
-            uids = torch.tensor([s.uid if s else 0 for s in self.slots], device=dev)
-            # a lane's draw index: its tokens so far, + 1 for each step it
-            # stays active (a frozen lane's draw is discarded by advance_stops)
-            counts = torch.tensor([len(s.generated) if s else 0 for s in dec], device=dev)
+        occupied, active, need_sample = r["occupied"], r["active"], r["need_sample"]
+        # a lane's draw index: its tokens so far, + 1 for each step it stays
+        # active (a frozen lane's draw is discarded by advance_stops)
+        counts = r.get("counts")
         tok, cache, block = self.tokens, self.cache, []
         for t in range(k):
             len_prev = cache["len"].clone()
@@ -645,10 +740,10 @@ class DecodeEngine:
                                            torch.where(occupied, len_prev, 0)))
             keys = None
             if need_sample:
-                keys = draw_keys(self.seed, uids, counts)
+                keys = draw_keys(self.seed, r["uids"], counts)
                 counts = counts + active.long()
-            nxt = sample_tokens(logits, temps, topks, keys,
-                                need_sample=need_sample, need_topk=need_topk)
+            nxt = sample_tokens(logits, r["temps"], r["topks"], keys,
+                                need_sample=need_sample, need_topk=r["need_topk"])
             tok, active, budget = advance_stops(nxt, active, budget, eos,
                                                 cache["len"], self.max_len)
             block.append(tok)
@@ -666,10 +761,15 @@ class DecodeEngine:
         """Admit, reserve, run one K-step decode dispatch (one device
         scheduler cycle); return the requests that finished."""
         with self._mesh_ctx():
+            if self._spec:
+                return self._step_spec()
             return self._step_device() if self._device_sched else self._step()
 
-    def _step(self) -> list[GenerationResult]:
-        out: list[GenerationResult] = []
+    def _prepare_dispatch(self, out: list) -> Optional[tuple[list[int], float]]:
+        """A sync dispatch's prologue, a decode dispatch's and a speculative
+        round's: admission and chunks, pages for the horizon's writes, the
+        pending copies and the page tables; returns ``(the live lanes, the
+        scheduler's start time)``, or None when no lane decodes."""
         self._admit(out)
         if self.prefill_chunk is not None or self._prefix is not None:
             self._advance_chunks(out)
@@ -678,11 +778,38 @@ class DecodeEngine:
         live = [i for i, s in enumerate(self.slots) if s is not None and not s.pending]
         self.max_concurrency = max(self.max_concurrency, len(live))
         if not live:
-            return out
+            return None
         if self.pool is not None:
             self.pool.apply_pending()
             self.pool.device_tables()
         self.kv_bytes_sum += self.live_kv_bytes()
+        return live, t_sched0
+
+    def _absorb_block(self, live: list[int], block: np.ndarray, out: list,
+                      lengths: Optional[np.ndarray] = None) -> int:
+        """Absorb a dispatch's ``(T, B)`` host block step by step: lane ``i``
+        of ``live`` takes its first ``lengths[i]`` tokens (all ``T`` without
+        ``lengths``), its ``pos`` mirroring ``cache["len"]``; a stop
+        mid-block drops the lane's rest.  Returns the tokens absorbed."""
+        live, n = list(live), 0
+        for t in range(block.shape[0]):
+            for i in list(live):
+                if lengths is not None and t >= lengths[i]:
+                    live.remove(i)
+                    continue
+                self.slots[i].pos += 1
+                self._absorb(i, int(block[t, i]), out, from_decode=True)
+                n += 1
+                if self.slots[i] is None:
+                    live.remove(i)
+        return n
+
+    def _step(self) -> list[GenerationResult]:
+        out: list[GenerationResult] = []
+        ready = self._prepare_dispatch(out)
+        if ready is None:
+            return out
+        live, t_sched0 = ready
         k = self.steps_per_dispatch
         t0 = time.perf_counter()
         c0, s0 = sharded.collectives, sharded.collective_s
@@ -694,13 +821,137 @@ class DecodeEngine:
         self.decode_steps += k
         self.dispatches += 1
         self.block_fetches += 1
-        for t in range(k):
-            for i in live:
-                self.slots[i].pos += 1
-            for i in list(live):
-                self._absorb(i, int(host_block[t, i]), out, from_decode=True)
-                if self.slots[i] is None:
-                    live.remove(i)
+        self._absorb_block(live, host_block, out)
+        self.sched_host_s += (t0 - t_sched0) + (time.perf_counter() - t1)
+        return out
+
+    # -- speculative decoding ------------------------------------------------
+
+    @staticmethod
+    def pick_spec_gamma(draft_bytes: int, verify_bytes: int) -> int:
+        """The draft length for ``spec_gamma="auto"`` (the reference's
+        roofline): a round moves ``g`` drafter sweeps and one verifier sweep
+        and commits ``(1 - a^(g+1)) / (1 - a)`` tokens at an i.i.d.
+        acceptance ``a`` = ``SPEC_ALPHA``; the ``g`` in ``1..SPEC_G_MAX``
+        with the fewest bytes per committed token."""
+        a = SPEC_ALPHA
+        best_g, best_cost = 1, float("inf")
+        for g in range(1, SPEC_G_MAX + 1):
+            cost = (g * draft_bytes + verify_bytes) / ((1.0 - a ** (g + 1)) / (1.0 - a))
+            if cost < best_cost:
+                best_g, best_cost = g, cost
+        return best_g
+
+    def _draft(self, r: dict) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The draft scan over a round's inputs ``r`` (:meth:`_lane_inputs`
+        with ``gi``, ``steps`` = max(gi) and ``len0``, the lanes' lengths at
+        the round's start): ``steps`` decode steps under the drafter, lane
+        ``i`` proposing in its first ``gi[i]`` of them; returns ``(drafts
+        (B, G), the drafter's filtered probs (B, G, V) or None when every
+        lane is greedy)``, zero past each lane's ``gi``.  ``len`` returns to
+        the round's start: the verify pass rewrites every drafted slot."""
+        b, g, cache = self.max_batch, self.spec_gamma, self.cache
+        gi, occupied, need_sample = r["gi"], r["occupied"], r["need_sample"]
+        drafts = torch.zeros((b, g), dtype=torch.int32, device=self.device)
+        dprobs = (torch.zeros((b, g, self.cfg.vocab), device=self.device) if need_sample
+                  else None)
+        tok, counts = self.tokens, r.get("counts")
+        for t in range(r["steps"]):
+            drafting = t < gi
+            len_prev = cache["len"].clone()
+            logits, cache = decode_step(self._draft_params, self.cfg, tok, cache, self.layout)
+            cache["len"].copy_(torch.where(drafting, cache["len"],
+                                           torch.where(occupied, len_prev, 0)))
+            keys = None
+            if need_sample:
+                keys = draw_keys(self.seed, r["uids"], counts, tag=1)
+                counts = counts + drafting.long()
+            nxt = sample_tokens(logits, r["temps"], r["topks"], keys, need_sample=need_sample,
+                                need_topk=r["need_topk"])
+            nxt = torch.where(drafting, nxt, 0)
+            if need_sample:
+                probs = filtered_probs(logits, r["temps"], r["topks"], need_topk=r["need_topk"])
+                dprobs[:, t] = torch.where(drafting[:, None], probs, 0.0)
+            tok = torch.where(drafting, nxt, tok)
+            drafts[:, t] = nxt
+        cache["len"].copy_(torch.where(occupied, r["len0"], 0))
+        return drafts, dprobs
+
+    def _verify(self, r: dict, drafts: torch.Tensor,
+                dprobs: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+        """The verify pass: one chunk of every live lane's ``[last token,
+        drafts]`` through the verifier at its committed length (inactive
+        lanes are pad rows), the accept rule, and the rewind of ``len`` to
+        the accepted prefix plus the trailing token's input slot; returns
+        ``(tokens (B, G+1), n_acc (B,))`` and leaves each lane's next input
+        in ``self.tokens``."""
+        b, g, dev = self.max_batch, self.spec_gamma, self.device
+        active, gi = r["active"], r["gi"]
+        rows = torch.cat([self.tokens[:, None], drafts], dim=1).long()
+        lanes = torch.where(active, torch.arange(b, device=dev), b)
+        lengths = torch.where(active, gi + 1, 0)
+        logits, _ = prefill_chunk(self.params, self.cfg, rows, self.cache, lanes,
+                                  r["len0"].long(), lengths, self.layout, all_logits=True)
+        temps = r["temps"][:, None].expand(b, g + 1)
+        topks = r["topks"][:, None].expand(b, g + 1)
+        p_ver = filtered_probs(logits, temps, topks, need_topk=r["need_topk"])
+        akeys = rkeys = None
+        if r["need_sample"]:
+            akeys = draw_keys(self.seed, r["uids"], r["counts"], tag=2)
+            rkeys = draw_keys(self.seed, r["uids"], r["counts"], tag=3)
+        block, n_acc = spec_accept(drafts, dprobs, p_ver, gi, akeys, rkeys,
+                                   need_sample=r["need_sample"])
+        block = torch.where(active[:, None], block, 0)
+        n_acc = torch.where(active, n_acc, 0)
+        # committed: the accepted drafts and the input they followed; the
+        # trailing token's K/V is written next round
+        self.cache["len"].copy_(torch.where(active, r["len0"] + n_acc + 1, self.cache["len"]))
+        last = block.gather(1, n_acc.long()[:, None])[:, 0]
+        self.tokens = torch.where(active, last, self.tokens)
+        return block, n_acc
+
+    def _step_spec(self) -> list[GenerationResult]:
+        """One speculative round (module docstring): admission and chunks,
+        pages for the round's ``gamma + 1`` writes, the draft scan and the
+        verify pass, one host read of the accepted block, the stop rules,
+        then each live lane's pages rolled back to its length."""
+        out: list[GenerationResult] = []
+        ready = self._prepare_dispatch(out)  # the horizon covers the round's writes
+        if ready is None:
+            return out
+        live, t_sched0 = ready
+        gi = np.zeros((self.max_batch,), np.int64)
+        for i in live:
+            s = self.slots[i]
+            # a lane with one token of budget or room left drafts nothing and
+            # still finishes through the verify pass's token
+            gi[i] = max(0, min(self.spec_gamma, self.max_len - 1 - s.pos,
+                               s.sampling.max_new_tokens - len(s.generated) - 1))
+        t0 = time.perf_counter()
+        r = self._lane_inputs(live)
+        r.update(gi=torch.from_numpy(gi).to(self.device), steps=int(gi.max()),
+                 len0=self.cache["len"].clone())
+        block, n_acc = self._verify(r, *self._draft(r))
+        host = torch.cat([block, n_acc[:, None]], dim=1).cpu().numpy()  # the round's one sync
+        t1 = time.perf_counter()
+        self.decode_wall_s += t1 - t0
+        self.decode_steps += r["steps"] + 1
+        self.dispatches += 2  # the draft scan and the verify pass
+        self.spec_rounds += 1
+        self.block_fetches += 1
+        for i in live:
+            n, gii = int(host[i, -1]), int(gi[i])
+            self.draft_tokens += gii
+            self.verify_tokens += gii + 1
+            self.accepted_draft_tokens += n
+            rec = self._spec_req.setdefault(self.slots[i].uid, [0, 0])
+            rec[0] += gii
+            rec[1] += n
+        self.spec_emitted_tokens += self._absorb_block(live, host[:, :-1].T, out, host[:, -1] + 1)
+        if self.pool is not None:
+            for i in live:  # finished lanes were released whole
+                if self.slots[i] is not None:
+                    self.pool.rollback(i, self.slots[i].pos)
         self.sched_host_s += (t0 - t_sched0) + (time.perf_counter() - t1)
         return out
 
@@ -949,7 +1200,8 @@ class DecodeEngine:
         # a host sync is where scheduling happens: each dispatch of the sync
         # scheduler, each cycle of the device scheduler (so is the KV read
         # sampled)
-        syncs = self.cycles if self._device_sched else self.dispatches
+        syncs = (self.cycles if self._device_sched
+                 else self.spec_rounds if self._spec else self.dispatches)
         st = {
             "layout": self.layout.kind,
             "scheduler": "device" if self._device_sched else "sync",
@@ -1007,6 +1259,29 @@ class DecodeEngine:
                 kv_quant=self.pool.layout.quant,
                 shared_pages=self.pool.shared_pages,
                 cow_copies=self.pool.cow_copies,
+            )
+        if self._spec:
+            w_d, w_v = self._spec_draft_bytes, self._spec_verify_bytes
+            st.update(
+                spec_gamma=self.spec_gamma,
+                spec_rounds=self.spec_rounds,
+                draft_tokens=self.draft_tokens,
+                verify_tokens=self.verify_tokens,
+                accepted_draft_tokens=self.accepted_draft_tokens,
+                spec_emitted_tokens=self.spec_emitted_tokens,
+                acceptance_rate=(self.accepted_draft_tokens / self.draft_tokens
+                                 if self.draft_tokens else 0.0),
+                accepted_per_verify=(self.spec_emitted_tokens / self.spec_rounds
+                                     if self.spec_rounds else 0.0),
+                draft_weight_bytes_per_step=w_d,
+                verify_weight_bytes_per_step=w_v,
+                # each round streams gamma drafter sweeps and one verifier sweep
+                bytes_per_accepted_token=(self.spec_rounds * (self.spec_gamma * w_d + w_v)
+                                          / self.spec_emitted_tokens
+                                          if self.spec_emitted_tokens else 0.0),
+                spec_per_request={uid: {"drafted": d, "accepted": a,
+                                        "acceptance_rate": a / d if d else 0.0}
+                                  for uid, (d, a) in sorted(self._spec_req.items())},
             )
         if self._prefix is not None:
             st.update(

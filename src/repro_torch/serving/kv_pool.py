@@ -24,9 +24,9 @@ The engine asks ``can_admit``/``alloc_prefill`` at admission,
 writes, so a dispatch never runs out of pages midway; ``lookahead``, the
 engine's steps per dispatch, sizes the window table so those pages never
 take the slot of a page still in the window) and ``release`` on finish or
-preemption.  The device tables are updated in place, so unlike the
-reference there is no donated buffer to re-adopt.  Rollback (speculative
-decoding's) is not ported yet (ROADMAP.md).
+preemption; after a speculative round, ``rollback`` drops the lane's
+pages past its committed length.  The device tables are updated in place,
+so unlike the reference there is no donated buffer to re-adopt.
 
 Shared pages (prefix caching, the reference's): pages are refcounted.
 ``_take`` hands a page out at 1, ``add_ref``/``decref`` move the count,
@@ -284,6 +284,33 @@ class PagedKVPool:
             self.evicted_pages += 1
             if self._pt["win"][lane, pg % lo.pages_win] == pid:
                 self._pt["win"][lane, pg % lo.pages_win] = lo.sentinel
+            self._dirty.add(lane)
+
+    def rollback(self, lane: int, new_len: int) -> None:
+        """Truncate a lane to ``new_len`` committed tokens after a
+        speculative round: full-table pages past logical page ``new_len //
+        page_size`` (the page of the next write, which stays mapped) are
+        dereferenced, not freed, so a shared prefix page or a fork another
+        holder still reads stays resident.  A page with a pending copy into
+        it is skipped (the engine lands copies before every round, so none
+        should be there).  The device half is the round's rewind of
+        ``cache["len"]``: K/V past it is dead under the length masks.
+        Window tables are left alone (speculation is refused on windowed
+        archs)."""
+        lo, ps = self.layout, self.layout.page_size
+        if not lo.has_full:
+            return
+        keep = new_len // ps
+        pend_dst = {d for _, d in self.pending_copies}
+        pages = self._pages["full"][lane]
+        for pg in [p for p in pages if p > keep]:
+            pid = pages[pg]
+            if pid in pend_dst:
+                continue
+            del pages[pg]
+            self.decref(pid)
+            if self._pt["full"][lane, pg] == pid:
+                self._pt["full"][lane, pg] = lo.sentinel
             self._dirty.add(lane)
 
     def release(self, lane: int) -> None:

@@ -22,6 +22,13 @@ kernel's order of summation reach neither the streams nor the yardstick.
 A route on int8 pages moves its logits by its rounding of K and V, which
 the forward does not share: its streams are held to the first
 differences alone (``greedy=False``), against a twin on the same pages.
+
+:func:`committed_kv_gaps` is the check the stream gate is blind to: a
+lane's committed cache entries (after speculative rounds, chunks, a
+prefix hit) against those one forward of the verifier over the lane's
+tokens produces, position for position.  A rewind off by one or a
+drafter's K/V left in a committed slot moves an entry far past f32
+rounding while the streams may still agree.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.models.model import forward
+from repro_torch.models.model import forward, read_cache
 
 # A greedy token may differ from its twin, or from the forward's choice,
 # only where the logits lie within this margin.
@@ -111,3 +118,43 @@ def check_streams(cfg, params: dict, prompts: Sequence[Sequence[int]],
                         f"{margin} or more below the forward's greedy choice")
                 worst = max([worst, *gaps])
     return agree, total, margins, worst
+
+
+def committed_kv_gaps(cfg, params: dict, cache: dict, layout, tokens: dict,
+                      device="cpu") -> dict:
+    """For each lane of ``tokens`` (lane -> its committed tokens: the prompt
+    and the stream but for its last token, ``len`` entries), the largest
+    absolute difference over every attention and MLA layer and position
+    below ``len`` between the cached entries (``read_cache``) and those of
+    one ``forward(params, want_cache=True)`` over the lanes' tokens (one
+    batch, padded at the end: a position's entries see only the tokens
+    before it), beside the largest magnitude of the latter: lane ->
+    ``{"max_abs", "max_ref"}``.  On int8 pages the served entries of later
+    layers were computed from int8 codes of the earlier positions, so they
+    differ from the forward's by more than a code step: there the gap is a
+    reading."""
+    if not tokens:
+        return {}
+    lanes = list(tokens)
+    width = max(len(t) for t in tokens.values())
+    batch = torch.tensor([list(tokens[i]) + [0] * (width - len(tokens[i])) for i in lanes],
+                         device=device)
+    with torch.inference_mode():
+        _, want = forward(params, cfg, batch, want_cache=True)
+        got = read_cache(cfg, cache, torch.tensor(lanes, device=device), layout)
+    # (the sequence axis, the forward's entries, the cached ones) of each
+    # layer group: body entries are stacked (L, B, S, ...), the others (B, S, ...)
+    groups = [(2, want["body"][k], g) for k, g in got.get("body", {}).items()]
+    groups += [(1, want[k], g) for k, g in got.items() if k != "body"]
+    out = {}
+    for r, lane in enumerate(lanes):
+        n = len(tokens[lane])
+        rec = {"max_abs": 0.0, "max_ref": 0.0}
+        for ax, w_leaves, g_leaves in groups:
+            for w, g in zip(w_leaves, g_leaves, strict=True):
+                w = w.float().narrow(ax - 1, r, 1).narrow(ax, 0, n)
+                g = g.narrow(ax - 1, r, 1).narrow(ax, 0, n)
+                rec["max_ref"] = max(rec["max_ref"], w.abs().max().item())
+                rec["max_abs"] = max(rec["max_abs"], (g - w).abs().max().item())
+        out[lane] = rec
+    return out

@@ -160,11 +160,28 @@ def export_compressed(params: dict, recipe, *, compress: bool = True) -> tuple[d
 
 
 def decompress_params(params: dict) -> dict:
-    """Rehydrate a compressed tree to dense (parity tests only; serving never
-    calls this)."""
-    return tree_map_with_name(
-        lambda _, x: x.dense() if isinstance(x, CompressedTensor) else x, params
-    )
+    """Rehydrate a compressed tree to dense: exactly the masked-dense tree it
+    was compressed from (the speculative verifier of ``launch/serve.py``;
+    decode never calls this).  A stacked leaf is expanded one slice of its
+    leading axis at a time into its preallocated result, so the
+    temporaries stay one slice's (a full-width DeepSeek-V2-Lite's expert
+    stacks are 9.6 GB a leaf dense)."""
+
+    def leaf(_, x):
+        if not isinstance(x, CompressedTensor):
+            return x
+        if x.values.dim() < 3 or x.group_axis % x.values.dim() == 0:
+            return x.dense()
+        out = None
+        for i in range(x.values.shape[0]):
+            d = x.layer(i).dense()
+            if out is None:
+                out = torch.empty((x.values.shape[0],) + tuple(d.shape), dtype=d.dtype,
+                                  device=d.device)
+            out[i] = d
+        return out
+
+    return tree_map_with_name(leaf, params)
 
 
 def tree_nbytes(tree: dict) -> int:

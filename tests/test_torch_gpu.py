@@ -172,6 +172,8 @@ TC_SHAPES = [
     (False, 1, 33, 512, 96, 2, 8, 0), (False, 1, 65, 320, 64, 16, 64, 0),
     (False, 1, 20, 384, 64, 1, 128, 0), (False, 1, 100, 1024, 4608, 2, 4, 0),
     (False, 1, 47, 192, 48, 6, 12, 0),  # m of 12: steps of 96 columns
+    (False, 1, 20, 768, 3072, 4, 8, 0),  # a 4:8 verify chunk of 4 lanes x 5 rows
+    (False, 1, 20, 3072, 768, 4, 8, 0),
     (True, 3, 17, 64, 40, 2, 4, 24), (True, 3, 45, 96, 130, 1, 4, 0),
     (True, 3, 12, 512, 96, 2, 8, 0), (True, 64, 32, 2048, 1408, 2, 4, 0),
 ]
