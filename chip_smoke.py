@@ -69,7 +69,8 @@ Phases, in order; any failure exits non-zero:
    the int8 pool) 27 times per paged decode step.  Then a
    ``torch.profiler`` trace of a few decode steps on the fp and the int8
    pool.  The stream gate, once the bf16 runs' engines are freed: the f32
-   twin (about 40 GB) on the slab and the 28-page pool, streams equal
+   twin of the first 4 layers (the dense one and 3 MoE layers) on the slab
+   and the 28-page pool, streams equal
    except at f32 top-2 margins under 0.1 (MoE capacity makes a forward's
    dropped tokens depend on its length, so the tokens are not held to the
    forward's choices one by one here).  The eight prompts share their
@@ -97,8 +98,9 @@ Phases, in order; any failure exits non-zero:
    period and the tail (the bf16 difference at full depth is printed as a
    reading).  Then a ``torch.profiler`` trace of a few decode steps on the
    fp and the int8 pool, with the device ms a step of K2w's walk and
-   combine and of K1's decode kernel.  The stream gate: the f32 twin on
-   the slab and the 520-page pool, as in phase 6.
+   combine and of K1's decode kernel.  The stream gate: the f32 twin of
+   the first period and the tail (5 layers) on the slab and the 520-page
+   pool, as in phase 6.
 
 Phase 2 also holds the kernels of phases 6 and 7 against their plain
 versions at their shapes: the batched ``nm_spmm`` at (64 experts, 8 rows,
@@ -196,7 +198,37 @@ with every lane at 0, 1, 2, 4 and 7 live pages.
    Readings: acceptance, tokens a round, ms a round and a token beside
    the plain verifier's, the bf16 streams against its.
 
+12. Serve the reference's other token archs at full width (random weights
+   from seed 0, the STEP 2:4 export and compression leaf by leaf).
+   starcoder2-3b (30 layers, GQA 24 over 2 KV heads of 128, q/k/v/o
+   biases): phase 3's traffic on the slab, a 28-page fp pool and a
+   28-page int8 pool; K1 exactly 180 launches per decode step and prefill
+   batch, K2 30 per paged decode step on the fp pool, K2q 30 on the int8
+   pool (where K2 never runs), nothing else.  minitron-4b's first 4 of 32
+   layers (GQA 24 over 8): the same traffic on the fp pool, K1 24 and K2 4.
+   Each arch's f32 twins on the slab and the fp pool through the stream
+   gate.  mamba2-2.7b (64 layers): 4 requests of 200, 128, 100 and 64
+   prompt tokens + 32, prefilled at exact lengths, on the slab and on the
+   pool without tables (no page, no attention kernel), then by the device
+   scheduler over 3 lanes (16 steps a dispatch, the fourth request staged:
+   it refills a lane inside the loop); K1 exactly 128 launches per decode
+   step, prefill batch and loop iteration.  In f32, a prefill then 8
+   decode steps against one forward within 1e-3; the f32 twins of the
+   slab and the device run through the stream gate.  Each arch logs which
+   K1 body its calls take (decode kernel, tensor-core tile or the first
+   version's body), and K1 runs at starcoder2's MLP widths (its 12,288-deep
+   ``w_proj`` at 4 bf16 rows fills the decode kernel's 96 KB staging
+   exactly) and mamba2's ``w_in`` (10,576 columns: tensor-core tail tiles)
+   and ``w_out``, against its plain version.  Readings: ms a decode step,
+   mamba2's prefill seconds by prompt length, its state bytes a lane, peak
+   memory.
+
 Each phase's seconds are logged, and the total beside them.
+
+Phase 2 also holds K2 and K2q (GQA, fp and int8 pages) at phase 12's head
+shape, D = 128 with G = 12 and G = 3, in both flushes, against their plain
+versions, timed beside their bound and SDPA (the ``d128`` entry of their
+rows in the kernels line).
 
 Phase 2 also holds K3, the stats flush of ``paged_attn``, in all six
 forms (GQA, window, MLA; fp and int8 pages) at K2's, K2w's and K2m's
@@ -329,6 +361,8 @@ RG_PROMPTS, RG_GEN, RG_MAX_LEN = (2100, 2032, 1200, 64), 48, 2176
 RG_PAGES, RG_PAGES_PREEMPTING = 520, 340
 # the f32 routes from one state differ only in summation order
 RG_ROUTE_F32_TOL = 1e-3
+# phase 7's f32 twins: the first period (rec, rec, attn) and the tail
+RG_TWIN_BODY = 1
 # the training run of phase 4; the switch is forced at t_max + 1 = 31 since
 # the AutoSwitch window (T_w = 50 at b2 = 0.98) is not yet full by then
 TRAIN_ARGS = ["--no-smoke", "--recipe", "step", "--nm", "2:4", "--batch", "8", "--seq", "128",
@@ -373,6 +407,23 @@ SPEC_TEMPERATURE, SPEC_TOP_K = 0.9, 40
 SPEC_KV_F32_TOL = 1e-4
 # DeepSeek's spec run: its first 4 layers (the dense one and 3 MoE layers)
 DS_SPEC_BODY = 3
+# phase 6's f32 twins: the same first 4 layers
+DS_TWIN_BODY = 3
+# phase 12, the reference's other token archs at full width: starcoder2-3b
+# (30 layers, GQA 24 over 2 KV heads of 128) and minitron-4b's first 4 of
+# 32 layers (GQA 24 over 8; its 256,000-token vocabulary makes its whole
+# depth too costly for the script's time limit): K1 runs q/k/v/o and the
+# GeLU MLP's two matmuls in each layer, K2 (K2q on int8 pages) once a layer
+# and paged decode step; phase 3's traffic on pools of 4 lanes x 7 pages
+# of 16 (no preemption)
+ARCH_K1_PER_LAYER, MT_LAYERS, ARCH_PAGES = 6, 4, 28
+# mamba2-2.7b (64 layers): K1 runs w_in and w_out in each; its prompts,
+# prefilled at exact lengths (one SSD chunk each), their budget, and the
+# device run's lanes (the fourth request waits staged and refills a lane)
+MAMBA_K1_PER_LAYER, MAMBA_PROMPTS, MAMBA_GEN, MAMBA_DEV_LANES = 2, (200, 128, 100, 64), 32, 3
+# the f32 SSM decode route from a prefilled state against one forward: the
+# recurrence and SSD sum in other orders
+MAMBA_ROUTE_F32_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -647,37 +698,40 @@ class AttnCase:
     sdpa_label: str
 
 
-def gqa_case(torch, dev, int8: bool) -> AttnCase:
-    """K2's GQA form at B=4, H=12, D=64, ps=16: ragged lanes, sentinel
-    slots, one dead lane; bf16 queries over bf16 pages (``int8``: the port's
-    int8 codes and scales of the same pages)."""
+def gqa_case(torch, dev, int8: bool, h: int = 12, g: int = 1, d: int = 64) -> AttnCase:
+    """K2's GQA form at B=4, ps=16, ``h`` KV heads of ``d`` with ``g`` query
+    heads each (phase 2's gpt2-paper shape by default: 12 heads of 64,
+    G = 1): ragged lanes, sentinel slots, one dead lane; bf16 queries over
+    bf16 pages (``int8``: the port's int8 codes and scales of the same
+    pages)."""
     import torch.nn.functional as F
 
-    b, h, d, ps, n_slots, num_pages = 4, 12, 64, 16, 7, 40
+    b, ps, n_slots, num_pages = 4, 16, 7, 40
     lengths = [97, 33, 0, 70]
     gen = torch.Generator(device="cpu").manual_seed(2)
     tables = _tables(torch, lengths, ps, n_slots, num_pages, gen)
     q, kp, vp = (torch.randn(s, generator=gen).to(torch.bfloat16).to(dev) for s in (
-        (b, h, 1, d), (num_pages, ps, h, d), (num_pages, ps, h, d)))
+        (b, h, g, d), (num_pages, ps, h, d), (num_pages, ps, h, d)))
     (kp, vp), (ks, vs), (kv, vv) = int8_pages(torch, (kp, vp), int8)
     tables, lens = tables.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev)
     kw = dict(scale=d ** -0.5, k_scale=ks, v_scale=vs)
-    # yardstick: SDPA on the pre-gathered contiguous (B, H, S, D) view
-    # (pre-dequantized to bf16 for int8 pages)
+    # yardstick: SDPA on the pre-gathered contiguous (B, H·G, S, D) view
+    # (pre-dequantized to bf16 for int8 pages, each KV head repeated G times)
     phys = tables.long().clamp(max=num_pages - 1)
-    kg = kv[phys].reshape(b, n_slots * ps, h, d).transpose(1, 2).contiguous()
-    vg = vv[phys].reshape(b, n_slots * ps, h, d).transpose(1, 2).contiguous()
+    kg, vg = (x[phys].reshape(b, n_slots * ps, h, d).transpose(1, 2)
+              .repeat_interleave(g, dim=1).contiguous() for x in (kv, vv))
     mask = (torch.arange(n_slots * ps, device=dev)[None, :] < lens[:, None])[:, None, None]
-    qs = q.reshape(b, h, 1, d)
+    qs = q.reshape(b, h * g, 1, d)
     live = sum(lengths)
+    label = "B=4 H=12 D=64 ps=16" if g == 1 else f"B=4 Hkv={h} G={g} D={d} ps=16"
     return AttnCase(
-        name="paged_attn" + ("_q" if int8 else ""), label="B=4 H=12 D=64 ps=16",
-        at=f"q (4, 12, 1, 64) bf16, {'int8 pages + f16 scales' if int8 else 'bf16 pages'}, "
-           f"ps=16, lengths {lengths}",
+        name="paged_attn" + ("_q" if int8 else ""), label=label,
+        at=f"q ({b}, {h}, {g}, {d}) bf16, "
+           f"{'int8 pages + f16 scales' if int8 else 'bf16 pages'}, ps=16, lengths {lengths}",
         q=q, pages=(kp, vp), tables=tables, lens=lens, kw=kw, dead=2, rtol=BF16_RTOL,
         in_bytes=(q.numel() * 2 + 2 * live * row_bytes(h * d, 2, int8) + tables.numel() * 4
                   + b * 4),
-        out=b * h * d, heads=b * h, flops=4.0 * live * h * d, peak=BF16_FLOPS,
+        out=b * h * g * d, heads=b * h * g, flops=4.0 * live * h * g * d, peak=BF16_FLOPS,
         sdpa=lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask,
                                                     scale=kw["scale"]),
         sdpa_label=f"SDPA on gathered {'bf16 ' if int8 else ''}view")
@@ -960,6 +1014,53 @@ def check_paged_attn_stats(torch, dev, form: str, first_bytes: dict,
         f"yardstick only: not the same function), bound {rec['bound_ms']:.5f} ms "
         f"({rec['bound_by']})")
     return rec
+
+
+def check_gqa_d128(torch, dev) -> dict:
+    """K2 and K2q at phase 12's head shape, D = Dv = 128: G = 12
+    (starcoder2-3b, 24 query heads over 2 KV heads) and G = 3 (minitron-4b,
+    24 over 8), B = 4, ps = 16, ragged lanes and a dead one.  Both flushes
+    against their plain versions: the normalized output within one bf16
+    step (the dead lane exactly zero), the stats ``(acc / l, m, l)`` within
+    1e-4·|ref| + 1e-5; each timed beside its plain version, SDPA on the
+    pre-gathered view (for int8 pages a yardstick only) and its bound.
+    Logs ``attn_plan``'s plan of each.  Returns the records of K2 and K2q
+    under ``paged_attn`` and ``paged_attn_q``, keyed by ``G=<g>``."""
+    from repro_torch.kernels.paged_attn import (attn_plan, paged_attn, paged_attn_plain,
+                                                paged_attn_stats_plain, sm_count)
+
+    out = {"paged_attn": {}, "paged_attn_q": {}}
+    for g, h in ((12, 2), (3, 8)):
+        for int8 in (False, True):
+            c = gqa_case(torch, dev, int8, h=h, g=g, d=128)
+            args = (c.q, *c.pages, c.tables, c.lens)
+            what = f"{c.name.replace('_q', ' int8')} {c.label}"
+            plan = attn_plan(4, h, g, 128, 0, 128, 16, c.pages[0].element_size(), int8, False,
+                             sm_count(dev))
+            y = paged_attn(*args, **c.kw)
+            err = check_close(what, y, paged_attn_plain(*args, **c.kw))
+            if float(y[c.dead].abs().max()) != 0.0:
+                raise AssertionError(f"{what}: the dead lane is not exactly zero")
+            acc, m, l = paged_attn(*args, emit_stats=True, **c.kw)
+            racc, rm, rl = paged_attn_stats_plain(*args, **c.kw)
+            for part, a, ref in (("acc / l", acc / l.clamp_min(1e-30)[..., None],
+                                  racc / rl.clamp_min(1e-30)[..., None]), ("m", m, rm),
+                                 ("l", l, rl)):
+                check_close(f"{what} stats {part}", a, ref, rtol=F32_RTOL)
+            rec = dict(max_abs_err=err, plan=plan._asdict(), at=c.at,
+                       ms=time_ms(torch, lambda: paged_attn(*args, **c.kw)),
+                       stats_ms=time_ms(torch, lambda: paged_attn(*args, emit_stats=True,
+                                                                  **c.kw)),
+                       plain_ms=time_ms(torch, lambda: paged_attn_plain(*args, **c.kw)),
+                       sdpa_ms=time_ms(torch, c.sdpa))
+            rec["bound_ms"], rec["bound_by"] = bound_ms(c.in_bytes + c.out * 2, c.flops, c.peak)
+            log(f"  time {what}: plan {plan._asdict()}; kernel {rec['ms']:.4f} ms (stats "
+                f"flush {rec['stats_ms']:.4f}), plain {rec['plain_ms']:.4f} ms, "
+                f"{c.sdpa_label} {rec['sdpa_ms']:.4f} ms"
+                f"{' (a yardstick only: not the same function)' if int8 else ''}, bound "
+                f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+            out[c.name][f"G={g}"] = rec
+    return out
 
 
 def random_stack(torch, e, k, o, gen, dev):
@@ -1396,27 +1497,7 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
     last run's chunk dispatches."""
     import numpy as np
 
-    from repro_torch import core
-    from repro_torch.configs import get_config
-    from repro_torch.models.model import init_params
-    from repro_torch.sparse_infer import export_compressed
-
-    cfg = get_config("deepseek-v2-lite-16b")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    n_params = sum(p.numel() for p in _leaves(params))
-    recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(2, 4)))
-    comp, rep = export_compressed(params, recipe)
-    del params
-    torch.cuda.synchronize()
-    log(f"  {cfg.n_layers} layers, {n_params:,} parameters: init {t1 - t0:.1f} s, "
-        f"export + compress leaf by leaf {time.perf_counter() - t1:.1f} s, {json.dumps(rep)}; "
-        f"peak memory {torch.cuda.max_memory_allocated():,} B, compressed tree "
-        f"{torch.cuda.memory_allocated():,} B")
+    cfg, comp = arch_tree(torch, dev, "deepseek-v2-lite-16b")
     serve(torch, cfg, comp, dev, paged=True, n_requests=1, gen=4, num_pages=28)  # warm-up
     torch.cuda.reset_peak_memory_stats()
     totals = {"nm_spmm_batched": 0, "paged_attn_mla": 0, "paged_attn_mla_q": 0}
@@ -1531,24 +1612,26 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
     sub_cfg, sub = first_layers(torch, cfg, comp, DS_SPEC_BODY, "bfloat16")
     totals["spec_tree"] = (sub_cfg, clone_tree(sub), prompts[:4])
     del sub
-    # the gate: the f32 twin (about 40 GB beside the bf16 tree's 24) on the
-    # slab and the 28-page pool; the bf16 runs' engines are gone.  The MoE
-    # capacity follows a forward's token count, so a forward over a whole
-    # stream drops other (token, expert) pairs than the served prefills
-    # and steps did: the tokens are held to their first differences only
+    # the gate: the f32 twin of the first 4 layers (the dense one and 3 MoE
+    # layers: the whole depth's twin, about 40 GB, took much of the
+    # script's time limit) on the slab and the 28-page pool; the bf16 runs'
+    # engines are gone.  The MoE capacity follows a forward's token count,
+    # so a forward over a whole stream drops other (token, expert) pairs
+    # than the served prefills and steps did: the tokens are held to their
+    # first differences only
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg32, comp32 = f32_twin(torch, cfg, comp)
+    cfg32, comp32 = first_layers(torch, cfg, comp, DS_TWIN_BODY, "float32")
     del comp
     torch.cuda.synchronize()
-    log(f"  f32 twin: {torch.cuda.memory_allocated():,} B allocated, peak "
-        f"{torch.cuda.max_memory_allocated():,} B while it was made")
+    log(f"  f32 twin ({cfg32.n_layers} layers): {torch.cuda.memory_allocated():,} B allocated, "
+        f"peak {torch.cuda.max_memory_allocated():,} B while it was made")
     twins = twin_runs(torch, cfg32, comp32, dev, {"slab": None, "paged": (28, False)},
                       prompts=prompts)
     gate_streams(torch, "slab vs non-preempting paged", cfg32, comp32, prompts,
                  twins["slab"]["streams"], twins["paged"]["streams"], dev, greedy=False)
-    stream_readings(torch, "slab vs non-preempting paged", cfg32, comp32, prompts,
-                    runs["slab"][1], runs["paged"][1], dev)
+    log("  slab vs non-preempting paged, bf16 greedy streams at full depth (reading): "
+        + agree_reading(runs["slab"][1], runs["paged"][1]))
     # chunks and prefix hits against the cold pool: the MoE capacity follows
     # a forward's token count, which chunking changes, so these twins drop
     # no token (no_drop) and differ only by the chunks and the hits
@@ -1559,11 +1642,20 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
     gate_streams(torch, "chunks and prefix hits vs cold, 28-page pool (twins without MoE "
                  "drops)", nd, comp32, prompts, pair["chunk_prefix"]["streams"],
                  pair["cold"]["streams"], dev, greedy=False)
-    stream_readings(torch, "chunks and prefix hits vs cold, 28-page pool", cfg32, comp32,
-                    prompts, runs["paged_chunk_prefix"][1], runs["paged"][1], dev)
+    log("  chunks and prefix hits vs cold, 28-page pool, bf16 greedy streams at full depth "
+        "(reading): " + agree_reading(runs["paged_chunk_prefix"][1], runs["paged"][1]))
     log(f"  peak memory with the f32 twin: {torch.cuda.max_memory_allocated():,} B")
     totals["chunk_dispatch_launches"] = chunk_launches
     return totals
+
+
+def agree_reading(a: list, b: list) -> str:
+    """Two routes' greedy streams as a reading: the tokens equal before
+    each request's first difference, over all tokens."""
+    from repro_torch.serving.streams import first_difference
+
+    agree = sum(first_difference(x, y) for x, y in zip(a, b))
+    return f"{agree}/{sum(len(x) for x in a)} tokens equal before each first difference"
 
 
 def clone_tree(tree: dict) -> dict:
@@ -1767,27 +1859,7 @@ def recurrentgemma_phase(torch, dev, dispatch) -> dict:
     does; returns the launches of K1 and K2w over the three runs."""
     import numpy as np
 
-    from repro_torch import core
-    from repro_torch.configs import get_config
-    from repro_torch.models.model import init_params
-    from repro_torch.sparse_infer import export_compressed
-
-    cfg = get_config("recurrentgemma-9b")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    n_params = sum(p.numel() for p in _leaves(params))
-    recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(2, 4)))
-    comp, rep = export_compressed(params, recipe)
-    del params
-    torch.cuda.synchronize()
-    log(f"  {cfg.n_layers} layers, {n_params:,} parameters: init {t1 - t0:.1f} s, "
-        f"export + compress leaf by leaf {time.perf_counter() - t1:.1f} s, {json.dumps(rep)}; "
-        f"peak memory {torch.cuda.max_memory_allocated():,} B, compressed tree "
-        f"{torch.cuda.memory_allocated():,} B")
+    cfg, comp = arch_tree(torch, dev, "recurrentgemma-9b")
     prompts = [np.random.default_rng(4000 + r).integers(0, cfg.vocab, n).tolist()
                for r, n in enumerate(RG_PROMPTS)]
     run = dict(lanes=4, gen=RG_GEN, k=4, max_len=RG_MAX_LEN)
@@ -1888,16 +1960,19 @@ def recurrentgemma_phase(torch, dev, dispatch) -> dict:
             + json.dumps(profile_decode(torch, cfg, comp, dev, max_len=RG_MAX_LEN,
                                         num_pages=RG_PAGES, prompt_lens=RG_PROMPTS,
                                         kv_quant=quant)))
-    # the gate: the f32 twin on the slab and the 520-page pool
-    cfg32, comp32 = f32_twin(torch, cfg, comp)
+    # the gate: the f32 twin of the first period and the tail (5 layers,
+    # one of them windowed attention, as the route check above; the whole
+    # depth's twin took about 25 s of the script's time limit) on the slab
+    # and the 520-page pool
+    cfg32, comp32 = first_layers(torch, cfg, comp, RG_TWIN_BODY, "float32")
     del comp
     torch.cuda.empty_cache()
     twins = twin_runs(torch, cfg32, comp32, dev, {"slab": None, "paged": (RG_PAGES, False)},
                       prompts=prompts, **run)
-    gate_streams(torch, "slab vs non-preempting paged", cfg32, comp32, prompts,
-                 twins["slab"]["streams"], twins["paged"]["streams"], dev)
-    stream_readings(torch, "slab vs non-preempting paged", cfg32, comp32, prompts,
-                    runs["slab"][1], runs["paged"][1], dev)
+    gate_streams(torch, f"slab vs non-preempting paged ({cfg32.n_layers} layers)", cfg32,
+                 comp32, prompts, twins["slab"]["streams"], twins["paged"]["streams"], dev)
+    log("  slab vs non-preempting paged, bf16 greedy streams at full depth (reading): "
+        + agree_reading(runs["slab"][1], runs["paged"][1]))
     return totals
 
 
@@ -2678,6 +2753,312 @@ def spec_deepseek(torch, dev, cfg, comp, prompts) -> dict:
     return totals
 
 
+def k1_bodies(cfg, comp, rows: dict) -> dict:
+    """Which K1 body each compressed matmul of the first layer takes at each
+    of ``rows`` (label -> (B, element bytes)), from ``launch_plan``: the
+    decode kernel (4 or 1 columns a lane), the tensor-core body's tile, or
+    the first version's body (f32 past 8 rows, or a decode x past the
+    96 KB staging budget)."""
+    from repro_torch.kernels.nm_spmm import FIRST_BODY, launch_plan
+    from repro_torch.sparse_infer import CompressedTensor
+    from repro_torch.utils.tree import tree_items
+
+    out = {}
+    for name, w in tree_items(comp):
+        if not (isinstance(w, CompressedTensor) and name.startswith("body/sb_0/")):
+            continue
+        w = w.layer(0)
+        k, o = w.values.shape[0] * w.m // w.n, w.values.shape[1]
+        bodies = {}
+        for label, (b, size) in rows.items():
+            cols, plan = launch_plan(b, k, o, w.out_features, 1, w.n, w.m, size, True)
+            bodies[label] = (f"decode, {cols} columns a lane" if b <= 8 and cols else
+                             f"tensor-core {plan.rows}x{plan.cols}" if plan != FIRST_BODY
+                             else "first version")
+        out[f"{name.split('/')[-1]} ({k}->{w.out_features})"] = bodies
+    return out
+
+
+def check_k1_widths(torch, comp, dev, leaves: dict) -> float:
+    """K1 on one layer's compressed ``leaves`` (name -> row counts) against
+    its plain version: bf16 x within one bf16 step, f32 x (rows given as
+    ``-b``) within 1e-4·|ref| + 1e-5, each call twice (the same bytes).
+    Returns the largest error."""
+    from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_plain
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    err = 0.0
+    for name, rows in leaves.items():
+        group, leaf = name.rsplit("/", 1)
+        w = comp["body"]["sb_0"][group][leaf].layer(0)
+        k_dim = w.values.shape[0] * w.m // w.n
+        for b in rows:
+            f32 = b < 0
+            x = torch.randn((abs(b), k_dim), generator=gen, device=dev)
+            x = x * 0.1 if f32 else x.to(torch.bfloat16)
+            vals = w.values.float() if f32 else w.values
+            args = (x, vals, w.indices, w.n, w.m, w.out_features)
+            label = (f"nm_spmm {leaf} {'f32' if f32 else 'bf16'} B={abs(b)} "
+                     f"({k_dim}->{w.out_features})")
+            y = nm_spmm(*args)
+            same_bytes(torch, label, y, nm_spmm(*args))
+            err = max(err, check_close(label, y, nm_spmm_plain(*args),
+                                       rtol=F32_RTOL if f32 else BF16_RTOL))
+    return err
+
+
+def arch_tree(torch, dev, name: str, n_layers=None):
+    """``(cfg, compressed tree)`` of an arch at full width (its first
+    ``n_layers`` where given): random weights from seed 0, the STEP 2:4
+    export and compression leaf by leaf."""
+    from repro_torch import core
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.sparse_infer import export_compressed
+
+    cfg = get_config(name)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n_params = sum(p.numel() for p in _leaves(params))
+    recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(2, 4)))
+    comp, rep = export_compressed(params, recipe)
+    del params
+    torch.cuda.synchronize()
+    log(f"  {name}: {cfg.n_layers} layers, {n_params:,} parameters: init {t1 - t0:.1f} s, "
+        f"export + compress leaf by leaf {time.perf_counter() - t1:.1f} s, {json.dumps(rep)}; "
+        f"peak memory {torch.cuda.max_memory_allocated():,} B, compressed tree "
+        f"{torch.cuda.memory_allocated():,} B")
+    return cfg, comp
+
+
+def attn_arch_phase(torch, dev, dispatch, name: str, pools: tuple, n_layers=None,
+                    k1_rows=None) -> tuple[dict, float]:
+    """Phase 12's dense GQA archs: phase 3's traffic (8 requests of 64 + 32
+    tokens over 4 lanes, K = 4) on each of ``pools`` (``slab``, ``fp``,
+    ``int8``: 28-page pools that never preempt), with exact launch counts
+    (K1 6 a layer per forward, K2 or K2q once a layer a paged decode step,
+    nothing else); K1 at ``k1_rows`` of the first layer's leaves against
+    its plain version; then the stream gate on the f32 twins of the slab
+    and the fp pool.  Returns the launches summed over the bf16 runs and
+    K1's largest error."""
+    cfg, comp = arch_tree(torch, dev, name, n_layers)
+    log(f"  {name}: K1 bodies " + json.dumps(k1_bodies(cfg, comp, {
+        "bf16 B=4": (4, 2), "bf16 B=8": (8, 2), "f32 B=4": (4, 4), "bf16 B=256": (256, 2),
+        "f32 B=256": (256, 4)})))
+    err = check_k1_widths(torch, comp, dev, k1_rows) if k1_rows else 0.0
+    serve(torch, cfg, comp, dev, paged=True, n_requests=1, gen=4, num_pages=ARCH_PAGES)
+    torch.cuda.reset_peak_memory_stats()
+    totals, runs, prompts = {"nm_spmm": 0, "paged_attn": 0, "paged_attn_q": 0}, {}, None
+    for pool in pools:
+        pages, int8 = {"slab": (None, False), "fp": (ARCH_PAGES, False),
+                       "int8": (ARCH_PAGES, True)}[pool]
+        dispatch.reset_launches()
+        eng, prompts, streams, wall = serve(torch, cfg, comp, dev, paged=pages is not None,
+                                            num_pages=pages or 0, kv_quant=int8)
+        launches = dict(dispatch.launches)
+        steps, groups = eng.decode_steps, eng.prefill_batches
+        want = {k: 0 for k in launches}
+        want["nm_spmm"] = ARCH_K1_PER_LAYER * cfg.n_layers * (steps + groups)
+        if pages:
+            want["paged_attn_q" if int8 else "paged_attn"] = cfg.n_layers * steps
+        log(f"  {name} {pool}: launches {({k: v for k, v in launches.items() if v})}; "
+            f"{steps} decode steps, {groups} prefill batches: want nm_spmm "
+            f"{ARCH_K1_PER_LAYER * cfg.n_layers} x ({steps} + {groups}), "
+            f"{'paged_attn_q' if int8 else 'paged_attn'} {cfg.n_layers if pages else 0} x {steps}")
+        if launches != want or eng.preemptions:
+            raise AssertionError(f"{name} {pool}: launches {launches}, want {want}; "
+                                 f"{eng.preemptions} preemptions")
+        for k in totals:
+            totals[k] += launches[k]
+        runs[pool] = (eng.stats(), streams, wall)
+        del eng
+    peak = torch.cuda.max_memory_allocated()
+    for pool, (st, _, wall) in runs.items():
+        log(f"  serve {name} " + json.dumps({
+            "run": pool, "tokens_per_s": st["tokens_per_s"],
+            "ms_per_decode_step": st["ms_per_decode_step"],
+            "ms_per_decode_step_host": st["ms_per_decode_step_host"],
+            "decode_steps": st["decode_steps"], "prefill_batches": st["prefill_batches"],
+            "run_wall_s": wall, "kv_cache_bytes": st["kv_cache_bytes"],
+            "weight_bytes_per_step": st["weight_bytes_per_step"],
+            "weight_stream_bound_ms": st["weight_bytes_per_step"] / HBM_BYTES_PER_S * 1e3,
+            "peak_memory_bytes": peak, "device": torch.cuda.get_device_name(0)}))
+    if "int8" in runs:
+        log(f"  {name} int8 vs fp pages (readings): "
+            + json.dumps(int8_readings(runs["fp"][1], runs["int8"][1])))
+    cfg32, comp32 = f32_twin(torch, cfg, comp)
+    del comp
+    torch.cuda.empty_cache()
+    twins = twin_runs(torch, cfg32, comp32, dev, {"slab": None, "fp": (ARCH_PAGES, False)},
+                      prompts=prompts)
+    gate_streams(torch, f"{name} slab vs fp pool", cfg32, comp32, prompts,
+                 twins["slab"]["streams"], twins["fp"]["streams"], dev)
+    if "slab" in runs:
+        stream_readings(torch, f"{name} slab vs fp pool", cfg32, comp32, prompts,
+                        runs["slab"][1], runs["fp"][1], dev)
+    return totals, err
+
+
+def ssm_route_difference(torch, cfg, comp, prompt, dev, steps: int = 8) -> dict:
+    """The SSM decode route from a prefilled state: ``prompt`` prefilled
+    (SSD, chunked), then ``steps`` greedy decode steps (the recurrence);
+    every step's logits against one forward over the prompt and the tokens
+    (SSD over the whole): the largest difference beside the logits'
+    spread."""
+    from repro_torch.models.model import decode_step, forward, prefill
+
+    toks = torch.tensor([prompt], device=dev)
+    logits, cache = prefill(comp, cfg, toks, len(prompt) + steps + 1)
+    outs, seq = [logits], list(prompt)
+    for _ in range(steps):
+        tok = outs[-1].argmax(-1)
+        seq.append(int(tok))
+        outs.append(decode_step(comp, cfg, tok.int(), cache)[0])
+    ref = forward(comp, cfg, torch.tensor([seq], device=dev))[0][0, len(prompt) - 1:].float()
+    got = torch.cat(outs).float()
+    return {"max_abs_diff": (got - ref).abs().max().item(), "logit_std": ref.std().item(),
+            "positions": steps + 1, "same_argmax": bool((got.argmax(-1) == ref.argmax(-1)).all())}
+
+
+def mamba_phase(torch, dev, dispatch) -> tuple[dict, float]:
+    """Phase 12's mamba2-2.7b at full width (64 layers): 4 requests of 200,
+    128, 100 and 64 prompt tokens + 32, prefilled at exact lengths (one SSD
+    chunk each), over 4 lanes on the slab and on the table-less paged pool,
+    then by the device scheduler over 3 lanes (16 steps a dispatch, the
+    fourth request staged: it refills a lane inside the loop); K1 exactly
+    128 a forward (``w_in`` and ``w_out`` of each layer), no attention
+    kernel.  K1 at ``w_in``'s 10,576 columns and ``w_out`` against its
+    plain version.  In f32 the decode route from a prefilled state against
+    one forward within 1e-3; the stream gate on the f32 twins of the slab
+    and the device run.  Returns the launches and K1's largest error."""
+    import numpy as np
+
+    from repro_torch.models.model import forward
+
+    cfg, comp = arch_tree(torch, dev, "mamba2-2.7b")
+    log("  mamba2-2.7b: K1 bodies " + json.dumps(k1_bodies(cfg, comp, {
+        "bf16 B=4": (4, 2), "f32 B=4": (4, 4), "bf16 B=200": (200, 2),
+        "f32 B=200": (200, 4)})))
+    err = check_k1_widths(torch, comp, dev, {"mixer/w_in": (4, 200, -4, -200),
+                                             "mixer/w_out": (4, 200)})
+    prompts = [np.random.default_rng(5000 + r).integers(0, cfg.vocab, n).tolist()
+               for r, n in enumerate(MAMBA_PROMPTS)]
+    max_len = max(MAMBA_PROMPTS) + MAMBA_GEN + 1
+    budgets = (MAMBA_GEN,) * len(prompts)
+    run = dict(lanes=4, gen=MAMBA_GEN, k=4, max_len=max_len, prompts=prompts)
+    serve(torch, cfg, comp, dev, paged=False, prompts=[prompts[3][:32]], gen=4,
+          max_len=max_len)  # warm-up, uncounted
+    secs = {}
+    for n, p in zip(MAMBA_PROMPTS, prompts):  # one forward a prompt: SSD's seconds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(comp, cfg, torch.tensor([p], device=dev), want_cache=True)
+        torch.cuda.synchronize()
+        secs[n] = round(time.perf_counter() - t0, 4)
+    log(f"  mamba2-2.7b prefill seconds by prompt length (one forward each, bf16): {secs}")
+    torch.cuda.reset_peak_memory_stats()
+    per = MAMBA_K1_PER_LAYER * cfg.n_layers
+    totals, runs = {"nm_spmm": 0}, {}
+    for pool in ("slab", "pool"):
+        dispatch.reset_launches()
+        eng, _, streams, wall = serve(torch, cfg, comp, dev, paged=pool == "pool",
+                                      num_pages=4, **run)
+        launches = dict(dispatch.launches)
+        steps, groups = eng.decode_steps, eng.prefill_batches
+        want = {k: 0 for k in launches}
+        want["nm_spmm"] = per * (steps + groups)
+        log(f"  mamba2-2.7b {pool}: launches {({k: v for k, v in launches.items() if v})}; "
+            f"{steps} decode steps, {groups} prefill batches: want nm_spmm {per} x ({steps} + "
+            f"{groups}) and no attention kernel")
+        if launches != want or groups != len(prompts):
+            raise AssertionError(f"mamba2 {pool}: launches {launches}, want {want}, "
+                                 f"{groups} prefill batches")
+        if pool == "pool" and (eng.cache["tables"] or eng.pool.used_pages
+                               or eng.kernel_route() != "none"):
+            raise AssertionError(f"mamba2 pool: tables {eng.cache['tables']}, "
+                                 f"{eng.pool.used_pages} pages used, {eng.kernel_route()}")
+        totals["nm_spmm"] += launches["nm_spmm"]
+        runs[pool] = (eng.stats(), streams, wall)
+        del eng
+    peak = torch.cuda.max_memory_allocated()
+    d = serve_requests(torch, cfg, comp, dev, prompts, budgets, pages=4, max_len=max_len,
+                       lanes=MAMBA_DEV_LANES, max_steps_per_dispatch=DEV_K, staged_lanes=1)
+    st = d["stats"]
+    log(f"  mamba2-2.7b device scheduler ({DEV_K} steps, {MAMBA_DEV_LANES} lanes, 1 staged): "
+        + json.dumps({k: st[k] for k in ("refills", "cycles", "dispatches", "decode_steps",
+                                         "loop_iterations", "gated_iterations",
+                                         "ms_per_decode_step", "host_overhead_frac")})
+        + f"; finish reasons {d['reasons']}; seconds {d['wall']:.2f}")
+    if st["refills"] < 1 or d["reasons"] != ["length"] * len(prompts):
+        raise AssertionError(f"mamba2 device scheduler: {st['refills']} refills, "
+                             f"{d['reasons']}")
+    if set(d["launches"]) != {"nm_spmm"}:
+        raise AssertionError(f"mamba2 device scheduler launched {d['launches']}")
+    loop_launch_gate("mamba2 device", d, {"nm_spmm": per}, {"nm_spmm": per})
+    totals["nm_spmm"] += d["launches"]["nm_spmm"]
+    name = torch.cuda.get_device_name(0)
+    for pool, (st, _, wall) in runs.items():
+        log("  serve mamba2-2.7b " + json.dumps({
+            "run": pool, "tokens_per_s": st["tokens_per_s"],
+            "ms_per_decode_step": st["ms_per_decode_step"],
+            "ms_per_decode_step_host": st["ms_per_decode_step_host"],
+            "decode_steps": st["decode_steps"], "prefill_batches": st["prefill_batches"],
+            "run_wall_s": wall, "state_bytes_per_lane": st["kv_cache_bytes"] // 4,
+            "weight_bytes_per_step": st["weight_bytes_per_step"],
+            "weight_stream_bound_ms": st["weight_bytes_per_step"] / HBM_BYTES_PER_S * 1e3,
+            "peak_memory_bytes": peak, "device": name}))
+    cfg32, comp32 = f32_twin(torch, cfg, comp)
+    del comp
+    torch.cuda.empty_cache()
+    route = ssm_route_difference(torch, cfg32, comp32, prompts[2], dev)
+    log("  mamba2-2.7b f32: prefill + 8 decode steps vs one forward: " + json.dumps(route))
+    if not route["max_abs_diff"] <= MAMBA_ROUTE_F32_TOL:
+        raise AssertionError(f"mamba2: the f32 decode route differs from a forward by "
+                             f"{route['max_abs_diff']} > {MAMBA_ROUTE_F32_TOL}")
+    slab32 = serve(torch, cfg32, comp32, dev, paged=False, **run)[2]
+    dev32 = serve_requests(torch, cfg32, comp32, dev, prompts, budgets, pages=4,
+                           max_len=max_len, lanes=MAMBA_DEV_LANES,
+                           max_steps_per_dispatch=DEV_K, staged_lanes=1)
+    if dev32["stats"]["refills"] < 1:
+        raise AssertionError(f"mamba2 f32 device run: {dev32['stats']['refills']} refills")
+    gate_streams(torch, "mamba2-2.7b slab vs device scheduler (refill)", cfg32, comp32,
+                 prompts, slab32, dev32["streams"], dev)
+    stream_readings(torch, "mamba2-2.7b slab vs device scheduler (refill)", cfg32, comp32,
+                    prompts, runs["slab"][1], d["streams"], dev)
+    return totals, err
+
+
+def archs_phase(torch, dev, dispatch) -> dict:
+    """Phase 12: starcoder2-3b (slab, fp and int8 pools), minitron-4b's
+    first 4 layers (fp pool) and mamba2-2.7b at full width.  Returns the
+    launches of K1, K2 and K2q summed over the bf16 runs, each part's
+    seconds and K1's largest error at the new widths."""
+    out = {"nm_spmm": 0, "paged_attn": 0, "paged_attn_q": 0}
+    seconds, err = {}, 0.0
+    parts = (("starcoder2-3b", lambda: attn_arch_phase(
+                 torch, dev, dispatch, "starcoder2-3b", ("slab", "fp", "int8"),
+                 k1_rows={"mlp/w_proj": (4, 8, -4, 256), "mlp/w_fc": (4, 256)})),
+             ("minitron-4b", lambda: attn_arch_phase(
+                 torch, dev, dispatch, "minitron-4b", ("fp",), n_layers=MT_LAYERS)),
+             ("mamba2-2.7b", lambda: mamba_phase(torch, dev, dispatch)))
+    for name, part in parts:
+        t0 = time.perf_counter()
+        launches, e = part()
+        err = max(err, e)
+        for k, v in launches.items():
+            out[k] += v
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+        log(f"  {name}: {seconds[name]} s, launches {launches}")
+    return {"launches": out, "seconds": seconds, "k1_err": err}
+
+
 def _leaves(tree):
     from repro_torch.utils.tree import tree_items
 
@@ -2889,6 +3270,9 @@ def main() -> int:
     records["paged_attn_q"] = check_paged_attn(torch, dev, "gqa", first, int8=True)
     records["paged_attn_mla_q"] = check_paged_attn(torch, dev, "mla", first, int8=True)
     records["paged_attn_win_q"] = check_paged_attn(torch, dev, "window", first, int8=True)
+    log("phase 2: paged_attn's GQA form and its int8 form (K2, K2q) at D = 128, G = 12 and 3 "
+        "(starcoder2-3b's and minitron-4b's heads), both flushes")
+    d128 = check_gqa_d128(torch, dev)
     log("phase 2: paged_attn's stats form (K3) in its six forms, and split over 2 and 4 page "
         "ranges against K2")
     for form in ("gqa", "window", "mla"):
@@ -2948,7 +3332,16 @@ def main() -> int:
     spec = spec_phase(torch, cfg, comp, dev, single, ds_spec)
     records["nm_spmm"]["max_abs_err"] = max(records["nm_spmm"]["max_abs_err"], spec["verify_err"])
     del comp, ds_spec
-    phase_done(seconds, "11", t_phase)
+    t_phase = phase_done(seconds, "11", t_phase)
+
+    log("phase 12: the reference's other token archs at full width: starcoder2-3b (slab, fp and "
+        f"int8 pools), minitron-4b's first {MT_LAYERS} layers (fp pool), mamba2-2.7b (slab, "
+        "table-less pool, the device scheduler); their f32 twins")
+    archs = archs_phase(torch, dev, dispatch)
+    records["nm_spmm"]["max_abs_err"] = max(records["nm_spmm"]["max_abs_err"], archs["k1_err"])
+    for name, n in archs["launches"].items():
+        launches[name] += n
+    phase_done(seconds, "12", t_phase)
 
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -2965,6 +3358,9 @@ def main() -> int:
             **({"spec_round_launches": spec["launches"][name]}
                if name in spec["launches"] else {}),
             **({"spec_verify_profile": spec["verify_profile"]} if name == "nm_spmm" else {}),
+            **({"phase12_launches": archs["launches"][name]} if name in archs["launches"]
+               else {}),
+            **({"d128": d128[name]} if name in d128 else {}),
         })
     log(f"  total {time.perf_counter() - t_start:.1f} s; by phase {json.dumps(seconds)}")
     print(smi)

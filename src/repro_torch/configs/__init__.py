@@ -1,17 +1,30 @@
 """Architecture registry: ``get_config(name)`` / ``list_archs()``.
 
-``gpt2-paper``, ``deepseek-v2-lite-16b`` and ``recurrentgemma-9b`` are
-ported; the reference's other archs are listed in ROADMAP.md as still to
-port.
+Nine of the reference's eleven archs are ported: the paper's gpt2-paper,
+the dense starcoder2-3b, minitron-4b, command-r-plus-104b and
+qwen1.5-110b, the MoE deepseek-v2-lite-16b (MLA) and dbrx-132b, the
+attention-free mamba2-2.7b (Mamba-2 SSD) and the hybrid recurrentgemma-9b.
+The two archs with stub frontends (qwen2-vl-2b with M-RoPE, musicgen-large)
+are listed in ROADMAP.md as still to port.  ``get_config(name,
+smoke=True)`` gives the reduced same-family variant.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig, reduced
+from repro_torch.configs.command_r_plus_104b import CONFIG as _command_r
+from repro_torch.configs.dbrx_132b import CONFIG as _dbrx
 from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as _deepseek
 from repro_torch.configs.gpt2_paper import CONFIG as _gpt2
+from repro_torch.configs.mamba2_27b import CONFIG as _mamba2
+from repro_torch.configs.minitron_4b import CONFIG as _minitron
+from repro_torch.configs.qwen15_110b import CONFIG as _qwen15
 from repro_torch.configs.recurrentgemma_9b import CONFIG as _rgemma
+from repro_torch.configs.starcoder2_3b import CONFIG as _starcoder2
 
-_REGISTRY: dict[str, ArchConfig] = {c.name: c for c in (_gpt2, _deepseek, _rgemma)}
+_REGISTRY: dict[str, ArchConfig] = {
+    c.name: c for c in (_starcoder2, _qwen15, _minitron, _command_r, _deepseek, _dbrx,
+                        _mamba2, _rgemma, _gpt2)
+}
 
 
 def list_archs() -> list[str]:

@@ -2,14 +2,17 @@
 
 Plain dataclasses of the reference's fields that the port reads.  The
 reference module imports ``repro.models.*`` (and so JAX) for its MoE, MLA,
-SSM and RG-LRU sub-configs; the port keeps its own copies of the three it
-serves, :class:`MoEConfig` (``repro/models/moe.py:33``),
-:class:`MLAConfig` (``repro/models/mla.py:26``) and :class:`RGLRUConfig`
-(``repro/models/recurrent.py:23``).  Fields of what is not ported (SSM,
-frontends) are left out, so no config can ask for them;
-``models.model.layer_plan`` raises for the SSM family, hybrid patterns
-with other kinds than ``rec``/``attn``, M-RoPE and windows on MLA, and
-``configs.get_config`` for every arch not in the registry (ROADMAP.md).
+SSM and RG-LRU sub-configs; the port keeps its own copies,
+:class:`MoEConfig` (``repro/models/moe.py:33``), :class:`MLAConfig`
+(``repro/models/mla.py:26``), :class:`SSMConfig`
+(``repro/models/ssm.py:24``) and :class:`RGLRUConfig`
+(``repro/models/recurrent.py:23``).  Fields the port does not read are
+left out: ``frontend`` (the stub audio and vision frontends are not
+ported, so no config can ask for one) and ``sub_quadratic`` (the
+reference's long-context cell).  ``models.model.layer_plan`` raises for
+hybrid patterns with other kinds than ``rec``/``attn``, M-RoPE and
+windows on MLA, and ``configs.get_config`` for every arch not in the
+registry (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -36,6 +39,16 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    n_groups: int = 1
+    conv_width: int = 4
+    chunk: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
 class RGLRUConfig:
     lru_width: int  # recurrence width (RecurrentGemma: == d_model)
     conv_width: int = 4
@@ -45,7 +58,7 @@ class RGLRUConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # dense | moe | hybrid are ported
+    family: str  # dense | moe | ssm | hybrid are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -63,8 +76,10 @@ class ArchConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     # hybrid layer pattern, e.g. ("rec", "rec", "attn"); None = all-attn
+    # (or all-ssm when family == "ssm")
     layer_pattern: Optional[Sequence[str]] = None
     param_dtype: str = "bfloat16"
     source: str = ""  # provenance note
@@ -75,9 +90,9 @@ class ArchConfig:
 
     def block_kinds(self) -> list[str]:
         """Per-layer block kinds, length ``n_layers``: the pattern repeated
-        (and cut short), or all ``attn``."""
+        (and cut short), or all ``ssm`` (the SSM family) or ``attn``."""
         if self.layer_pattern is None:
-            return ["attn"] * self.n_layers
+            return ["ssm" if self.family == "ssm" else "attn"] * self.n_layers
         pat = list(self.layer_pattern)
         return [pat[i % len(pat)] for i in range(self.n_layers)]
 
@@ -104,6 +119,9 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     if cfg.mla is not None:
         base["mla"] = MLAConfig(kv_lora=32, rope_head_dim=8, nope_head_dim=16, v_head_dim=16)
         base["head_dim"] = None
+    if cfg.ssm is not None:
+        base["ssm"] = SSMConfig(d_state=16, head_dim=8, expand=2, n_groups=1, conv_width=4,
+                                chunk=8)
     if cfg.rglru is not None:
         base["rglru"] = RGLRUConfig(lru_width=64, conv_width=4)
     if cfg.local_window is not None:

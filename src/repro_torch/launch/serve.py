@@ -1,19 +1,22 @@
 """Serving launcher: compressed-native continuous-batching decode on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \\
-        [--arch gpt2-paper|deepseek-v2-lite-16b|recurrentgemma-9b] \\
+        [--arch gpt2-paper|starcoder2-3b|minitron-4b|mamba2-2.7b|...] \\
         [--paged --page-size 16 --num-pages 64 [--kv-int8]] [--steps-per-dispatch 4] \\
         [--max-steps-per-dispatch 16 [--staged-lanes 2] [--async-stream]] \\
         [--prefill-chunk 64] [--prefix-cache [--shared-prefix 128]] \\
         [--ckpt-dir RUN] [--dense] [--temperature 0.8 --top-k 40] [--device cpu] \\
         [--mesh 1,2 [--kv-shard seq]] [--spec-gamma 4|auto]
 
-Counterpart of ``repro/launch/serve.py``.  Loads or
+Counterpart of ``repro/launch/serve.py``; ``--arch`` takes every arch of
+``configs.list_archs()`` (the reference's token-input archs: the two with
+stub frontends are not ported).  Loads or
 initializes the parameters, applies the final STEP N:M mask (Π_T ⊙ w_T),
 compresses the maskable leaves and serves the compressed tree through
 ``DecodeEngine``: every matmul of prefill and decode runs the ``nm_spmm``
 kernel (MoE expert stacks its batched form, RG-LRU blocks all five
-projections), and ``--paged`` decode attention the ``paged_attn`` kernel
+projections, Mamba-2 blocks ``w_in`` and ``w_out``), and ``--paged``
+decode attention the ``paged_attn`` kernel
 (MLA its latent form; sliding-window layers its window form over the
 modular window table, once ``prompt_len + gen + 1`` reaches the window;
 ``--kv-int8`` stores the pages as int8 with per-(page, slot) scales and
@@ -43,7 +46,10 @@ in one chunked pass (``auto`` picks N from the two trees' bytes).  The
 verifier is rebuilt from the compressed tree (``decompress_params``), so
 the unmasked tree never sits beside the two.  The summary gains the
 acceptance counters.  Attention-family archs without a window, the sync
-scheduler, no model axis > 1.
+scheduler, no model axis > 1.  On an attention-free arch (mamba2-2.7b)
+``--paged`` serves a pool without tables or pages, its states per lane,
+and chunked prefill and the prefix cache are refused with a warning, as
+on RG-LRU archs.
 
 ``--mesh data,model`` serves tensor-parallel (dense family, ``--paged``,
 data 1): the export happens once here, then ``data × model`` ranks start

@@ -9,9 +9,10 @@ with auto-resume (``--ckpt-dir``), then the final N:M export and its loss.
 Every mask, per step and at export, runs the ``nm_mask`` kernel on the
 card.  Prints a JSON line per logged step and a summary line with the
 reference's keys.  ``repro_torch.launch.serve --ckpt-dir RUN`` serves the
-result.  The reference's stub-frontend branch has no counterpart: the
-port's configs carry no frontend, and ``layer_plan`` raises for every
-family not ported yet.  ``--compress-phase2`` raises until
+result.  ``--arch`` takes every arch of ``configs.list_archs()``.  The
+reference's stub-frontend branch has no counterpart yet: the port's
+configs carry no frontend (qwen2-vl-2b and musicgen-large are not in its
+registry, ROADMAP.md).  ``--compress-phase2`` raises until
 ``optim/compression.py`` is ported (ROADMAP.md).
 """
 from __future__ import annotations

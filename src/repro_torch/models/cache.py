@@ -60,8 +60,9 @@ shard_local_tables`` gives every page the rank does not hold.  Tables keep
 global ids and are replicated; a write whose page lives on another rank
 lands on the local sink.
 
-Writes update the cache tensors in place.  RG-LRU states are per lane
-under both layouts and do not pass through here (``models.model``).
+Writes update the cache tensors in place.  RG-LRU and SSM states are per
+lane under both layouts and do not pass through here (``models.model``);
+an arch without attention or MLA layers gets a layout with no table.
 """
 from __future__ import annotations
 

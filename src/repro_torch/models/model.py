@@ -14,10 +14,11 @@ weight).
 
 The cache is a dict ``{"len": (B,) int32, "head_0": {...}, "body": {"sb_0":
 {...}, ...}, "tail_0": {...}, "tables": {...}}`` (tables only on the paged
-layout) whose entries are ``{"k", "v"}`` for attention, ``{"ckv",
-"krope"}`` for MLA and ``{"state", "conv"}`` for RG-LRU, updated in place.
-Attention and MLA entries live in the layout (slab or pages); RG-LRU
-states are per lane under both.  On the paged layout decode attention goes
+layout; empty for an arch without attention) whose entries are ``{"k",
+"v"}`` for attention, ``{"ckv", "krope"}`` for MLA and ``{"state",
+"conv"}`` for RG-LRU and SSM layers, updated in place.  Attention and MLA
+entries live in the layout (slab or pages); recurrent states are per lane
+under both.  On the paged layout decode attention goes
 through the ``paged_attn`` kernel where the reference's kernel route does:
 the MHA/GQA form for attention (``model.py:794-815``; over the modular
 window table, K2w, for sliding-window layers), the MLA latent form (K2m)
@@ -37,10 +38,12 @@ the pool, on which decode attention runs the stats form of the kernel
 lengths are replicated, so every rank computes the same tokens.
 
 Ported: the dense family (MHA/GQA attention with RoPE, optional q/k/v/o
-biases and a sliding window), the MoE family with MLA (DeepSeek-V2) and
-the hybrid family of RG-LRU and local-attention blocks (RecurrentGemma);
-SwiGLU and GeLU MLPs, RMSNorm and LayerNorm, tied and untied embeddings.
-SSM mixers, M-RoPE, frontends and windows on MLA raise (ROADMAP.md).
+biases and a sliding window), the MoE family with MLA (DeepSeek-V2) or
+GQA attention (DBRX), the SSM family of Mamba-2 blocks (a mixer and no
+MLP; ``models.ssm``) and the hybrid family of RG-LRU and local-attention
+blocks (RecurrentGemma); SwiGLU and GeLU MLPs, RMSNorm and LayerNorm, tied
+and untied embeddings.  M-RoPE, frontends, hybrid patterns with SSM
+blocks and windows on MLA raise (ROADMAP.md).
 :func:`loss_fn` is the training loss; it differentiates through the
 forward with autograd, which keeps every layer's activations (the
 reference rematerializes them per layer).
@@ -58,6 +61,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import recurrent as REC
+from repro_torch.models import ssm as SSM
 from repro_torch.models.cache import SlabLayout
 from repro_torch.sparse_infer.compress import CompressedTensor
 from repro_torch.utils.device import resolve_device
@@ -77,9 +81,12 @@ def layer_plan(cfg: ArchConfig) -> LayerPlan:
     times under ``body/sb_j`` (one kind without a pattern); the layers
     left over as ``tail_*``.  Raises for what is not ported."""
     pattern = set(cfg.layer_pattern or ())
+    ssm = cfg.family == "ssm"
     unported = {
-        "family": cfg.family not in ("dense", "moe", "hybrid"),
-        "rope": cfg.rope != "rope",
+        "family": cfg.family not in ("dense", "moe", "ssm", "hybrid"),
+        "rope": cfg.rope != ("none" if ssm else "rope"),
+        "ssm family without an ssm config, or with a layer_pattern": ssm and (
+            cfg.ssm is None or bool(pattern)),
         "layer_pattern": not pattern <= {"rec", "attn"},
         "hybrid family without a rec/attn layer_pattern": (
             cfg.family == "hybrid" and not pattern),
@@ -135,9 +142,12 @@ def check_mesh(cfg: ArchConfig, mesh) -> None:
 
 
 def _block_mixer_mlp(kind: str, cfg: ArchConfig) -> tuple[str, str]:
-    """A layer kind -> ``(mixer, mlp)``: ``attn | mla | rec`` and ``dense |
-    moe``."""
-    if kind.split(":")[0] == "rec":
+    """A layer kind -> ``(mixer, mlp)``: ``attn | mla | ssm | rec`` and
+    ``dense | moe | none`` (an SSM block is its mixer alone)."""
+    base = kind.split(":")[0]
+    if base == "ssm":
+        return "ssm", "none"
+    if base == "rec":
         return "rec", "dense"
     mixer = "mla" if cfg.mla is not None else "attn"
     moe = cfg.moe is not None and not kind.endswith(":dense")
@@ -215,18 +225,32 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
                 "w_a_gate": dense(lead, d, w), "w_i_gate": dense(lead, d, w),
                 "a_log_lambda": lam.expand(lead + (w,)).contiguous()}
 
+    def ssm(lead):
+        dims = SSM.ssm_dims(d, cfg.ssm)
+        a_log = torch.log(torch.linspace(1.0, 16.0, dims["n_heads"], device=dev))
+        return {"w_in": dense(lead, d, dims["d_in_proj"]),
+                "w_out": dense(lead, dims["d_inner"], d),
+                "conv_w": normal(lead + (cfg.ssm.conv_width, dims["conv_dim"]), 0.1),
+                "a_log": a_log.expand(lead + a_log.shape).contiguous(),
+                "d_skip": torch.ones(lead + a_log.shape, device=dev),
+                "dt_bias": torch.zeros(lead + a_log.shape, device=dev)}
+
     def block(kind, lead):
         mixer, mlp = _block_mixer_mlp(kind, cfg)
-        p = {"pre": norm(*lead), "post": norm(*lead)}
+        p = {"pre": norm(*lead)}
+        if mlp != "none":
+            p["post"] = norm(*lead)
         if mixer == "rec":
             p["mixer"] = rglru(lead)
+        elif mixer == "ssm":
+            p["mixer"] = ssm(lead)
         else:
             p["attn"] = attn(lead)
         if mlp == "moe":
             p["moe"] = moe(lead)
-        elif cfg.mlp == "swiglu":
+        elif mlp == "dense" and cfg.mlp == "swiglu":
             p["mlp"] = swiglu(lead, cfg.d_ff)
-        else:
+        elif mlp == "dense":
             p["mlp"] = {"w_fc": dense(lead, d, cfg.d_ff), "w_proj": dense(lead, cfg.d_ff, d)}
         return p
 
@@ -289,9 +313,13 @@ def _out(attn, p, cfg: ArchConfig):
 
 
 def _mlp(x, p, kind: str, cfg: ArchConfig):
-    """The residual MLP half of a block: ``(x + mlp(norm(x)), aux loss)``."""
+    """The residual MLP half of a block: ``(x + mlp(norm(x)), aux loss)``;
+    ``(x, 0)`` for a block without one (SSM)."""
+    mlp_kind = _block_mixer_mlp(kind, cfg)[1]
+    if mlp_kind == "none":
+        return x, 0.0
     h = _apply_norm(cfg, p["post"], x)
-    if _block_mixer_mlp(kind, cfg)[1] == "moe":
+    if mlp_kind == "moe":
         out, aux = MOE.moe_mlp(h, p["moe"], cfg.moe)
         return x + out, aux
     mlp = L.swiglu_mlp if cfg.mlp == "swiglu" else L.gelu_mlp
@@ -300,13 +328,16 @@ def _mlp(x, p, kind: str, cfg: ArchConfig):
 
 def _block_forward(x, p, kind: str, cfg: ArchConfig, positions, chunk: int):
     """Full-sequence block: ``(x, aux loss, cache entry)``, the entry
-    ``(k, v)`` for attention (after RoPE), ``(c_kv, k_rope)`` for MLA and
-    ``(lru_state, conv_tail)`` for RG-LRU."""
+    ``(k, v)`` for attention (after RoPE), ``(c_kv, k_rope)`` for MLA,
+    ``(lru_state, conv_tail)`` for RG-LRU and ``(ssm_state, conv_tail)``
+    for SSM."""
     h = _apply_norm(cfg, p["pre"], x)
     mixer = _block_mixer_mlp(kind, cfg)[0]
     if mixer == "rec":
         mix, state, conv = REC.rglru_block(h, p["mixer"], cfg.rglru)
         entry = (state, conv)
+    elif mixer == "ssm":
+        mix, entry = SSM.ssm_block(h, p["mixer"], cfg.d_model, cfg.ssm)
     elif mixer == "mla":
         mix, entry = MLA.mla_attention(h, p["attn"], cfg.n_heads, cfg.mla, positions,
                                        cfg.rope_theta, chunk)
@@ -345,14 +376,18 @@ def _block_decode(x, p, kind: str, cfg: ArchConfig, c: dict, pos, layout, tables
                   commit=None):
     h = _apply_norm(cfg, p["pre"], x)
     mixer = _block_mixer_mlp(kind, cfg)[0]
-    if mixer == "rec":
-        mix, state, conv = REC.rglru_decode_step(h, p["mixer"], cfg.rglru, c["state"],
-                                                 c["conv"])
-        if commit is not None:  # lanes outside commit keep their state
-            state = torch.where(commit[:, None], state, c["state"])
-            conv = torch.where(commit[:, None, None], conv, c["conv"])
-        c["state"].copy_(state)
-        c["conv"].copy_(conv)
+    if mixer in ("rec", "ssm"):
+        if mixer == "rec":
+            mix, state, conv = REC.rglru_decode_step(h, p["mixer"], cfg.rglru, c["state"],
+                                                     c["conv"])
+        else:
+            mix, state, conv = SSM.ssm_decode_step(h, p["mixer"], cfg.d_model, cfg.ssm,
+                                                   c["state"], c["conv"])
+        for name, new in (("state", state), ("conv", conv)):
+            if commit is not None:  # lanes outside commit keep their state
+                new = torch.where(commit.reshape((-1,) + (1,) * (new.dim() - 1)), new,
+                                  c[name])
+            c[name].copy_(new)
     elif mixer == "mla":
         mix = MLA.mla_decode(h, p["attn"], cfg.n_heads, cfg.mla, c, pos, cfg.rope_theta,
                              layout, tables)
@@ -466,7 +501,8 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
                layout=None, device="cuda") -> dict:
     """Allocate the decode cache; ``layout`` defaults to a slab.  RG-LRU
     layers get ``{"state": (B, W) f32, "conv": (B, conv_width - 1, W)}``
-    under either layout."""
+    and SSM layers ``{"state": (B, H, P, N) f32, "conv": (B, conv_width -
+    1, conv_dim)}`` under either layout, the conv in ``dtype``."""
     plan = layer_plan(cfg)
     dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.param_dtype)
@@ -474,7 +510,7 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
 
     def alloc(kind, stack):
         lead, entries = (stack,) if stack else (), _cache_entries(kind, cfg)
-        if _block_mixer_mlp(kind, cfg)[0] == "rec":
+        if _block_mixer_mlp(kind, cfg)[0] in ("rec", "ssm"):
             return {name: torch.zeros(lead + (batch_size,) + shp, device=dev,
                                       dtype=torch.float32 if name == "state" else dtype)
                     for name, shp in entries.items()}
@@ -490,12 +526,17 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
 
 
 def _cache_entries(kind: str, cfg: ArchConfig) -> dict:
-    """A layer's cache leaves -> per-token (per-lane for RG-LRU) shape, in
-    the order of the entry ``forward(want_cache=True)`` produces."""
+    """A layer's cache leaves -> per-token (per-lane for RG-LRU and SSM)
+    shape, in the order of the entry ``forward(want_cache=True)``
+    produces."""
     mixer = _block_mixer_mlp(kind, cfg)[0]
     if mixer == "rec":
         w = cfg.rglru.lru_width
         return {"state": (w,), "conv": (cfg.rglru.conv_width - 1, w)}
+    if mixer == "ssm":
+        dims = SSM.ssm_dims(cfg.d_model, cfg.ssm)
+        return {"state": (dims["n_heads"], cfg.ssm.head_dim, cfg.ssm.d_state),
+                "conv": (cfg.ssm.conv_width - 1, dims["conv_dim"])}
     if mixer == "mla":
         return {"ckv": (cfg.mla.kv_lora,), "krope": (cfg.mla.rope_head_dim,)}
     return {"k": (cfg.n_kv, cfg.hd), "v": (cfg.n_kv, cfg.hd)}
@@ -508,8 +549,10 @@ def write_prefill(cache: dict, cfg: ArchConfig, produced: dict, lanes, lens,
     lane ``lanes[r]`` (lanes distinct); rows past ``len(lanes)`` are the
     batch's pad rows and are dropped, leaf by leaf.  Attention and MLA
     rows go through the layout (a windowed layer keeps the last ``window``
-    positions); RG-LRU states scatter into their lanes, so their rows must
-    be of exact length."""
+    positions); RG-LRU and SSM states scatter into their lanes, so their
+    rows must be of exact length.  An SSM conv tail of a prompt shorter
+    than ``conv_width - 1`` is left-padded with zeros, what the causal conv
+    saw before position 0 (the reference's ``model.py:953-963``)."""
     plan = layer_plan(cfg)
     layout = layout or SlabLayout()
     tables, n = cache.get("tables"), lanes.shape[0]
@@ -519,8 +562,11 @@ def write_prefill(cache: dict, cfg: ArchConfig, produced: dict, lanes, lens,
         if not stack:  # an unstacked layer written as a stack of one (views: in place)
             c, rows = {k: v[None] for k, v in c.items()}, {k: v[None] for k, v in rows.items()}
         rows = {k: v[:, :n] for k, v in rows.items()}
-        if _block_mixer_mlp(kind, cfg)[0] == "rec":
+        if _block_mixer_mlp(kind, cfg)[0] in ("rec", "ssm"):
             for name, x in rows.items():
+                short = c[name].shape[2] - x.shape[2] if name == "conv" else 0
+                if short:  # a tail (L, N, s < W - 1, C): zeros before it
+                    x = torch.cat([x.new_zeros(x.shape[:2] + (short,) + x.shape[3:]), x], 2)
                 c[name][:, lanes] = x.to(c[name].dtype)
         else:
             layout.write_rows(c, rows, lanes, lens, tables, window=cfg.local_window)
@@ -671,15 +717,15 @@ def read_cache(cfg: ArchConfig, cache: dict, lanes: torch.Tensor, layout=None) -
 
 
 def reset_lanes(cfg: ArchConfig, cache: dict, mask: torch.Tensor) -> dict:
-    """Zero, in place, the RG-LRU ``state`` and ``conv`` rows of the lanes
-    in ``mask`` ((B,) bool), the zeros a fresh prompt starts from
+    """Zero, in place, the RG-LRU and SSM ``state`` and ``conv`` rows of the
+    lanes in ``mask`` ((B,) bool), the zeros a fresh prompt starts from
     (counterpart of ``repro/models/model.py:reset_lanes``).  The device
     scheduler refills a lane inside its decode loop: attention entries need
     no reset (stale K/V is dead under the lane's length once ``len`` is 0),
     but recurrent state is read whatever the length.  Archs without
     recurrent layers pass through."""
     for path, kind, stack in _groups(layer_plan(cfg)):
-        if _block_mixer_mlp(kind, cfg)[0] != "rec":
+        if _block_mixer_mlp(kind, cfg)[0] not in ("rec", "ssm"):
             continue
         for x in _at(cache, path).values():  # (L, B, ...) stacked, else (B, ...)
             lead = 1 if stack else 0
@@ -692,9 +738,9 @@ def copy_pages(cfg: ArchConfig, cache: dict, layout, src: torch.Tensor,
                dst: torch.Tensor) -> dict:
     """Copy the paged cache's pages ``src`` over ``dst``, in place, in
     every attention and MLA layer (``PagedLayout.copy_pages``); RG-LRU
-    rows are per lane and have no pages."""
+    and SSM rows are per lane and have no pages."""
     for path, kind, stack in _groups(layer_plan(cfg)):
-        if _block_mixer_mlp(kind, cfg)[0] != "rec":
+        if _block_mixer_mlp(kind, cfg)[0] in ("attn", "mla"):
             layout.copy_pages(_at(cache, path), src, dst, 1 if stack else 0)
     return cache
 

@@ -5,7 +5,7 @@ One iteration is one decode step of every lane: a feeding lane (a request
 refilled inside the loop) consumes its prompt token by token from its feed
 buffer, a drained lane samples; the stop rules (``advance_stops``) freeze
 lanes; then at most one dead lane is refilled from the staged ring (its
-table rows installed, its RG-LRU rows zeroed by ``reset_lanes``, its
+table rows installed, its RG-LRU or SSM rows zeroed by ``reset_lanes``, its
 ``len`` set to 0).  The loop runs while some lane is live or a staged
 request waits, up to ``k_loop`` iterations, and stops at a freeze that no
 refill covered (``stall``: the host has to schedule).
@@ -25,7 +25,7 @@ the host replays the first.
 gated by a device flag ``running``, the while-loop's condition (the
 dispatch enabled, no stall, some lane live or a request staged; once
 false it stays false).  A gated iteration still launches its kernels,
-but commits nothing: ``len``, the RG-LRU state, the rolling window slab,
+but commits nothing: ``len``, the RG-LRU or SSM state, the rolling window slab,
 the lane vectors, the ring cursor, the block and the refill records keep
 their values (``decode_step``'s ``commit``).  Its K/V writes land at each
 lane's ``len``, a slot the lane's next real step overwrites before

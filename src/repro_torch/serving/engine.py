@@ -14,8 +14,8 @@ One scheduling step (:meth:`step`):
    length (powers of two up to ``max_len`` by default) and each bucket group
    is prefilled in one batched forward; a group is padded to a power of two
    rows with sentinel rows that write nothing.  Archs with recurrent
-   (RG-LRU) layers group prompts by exact length instead, since pad tokens
-   would run into the recurrent state and the conv tail.  Each row's first
+   (RG-LRU or SSM) layers group prompts by exact length instead, since pad
+   tokens would run into the recurrent state and the conv tail.  Each row's first
    token is sampled from its last prompt position.
 2. **Capacity.**  On the paged layout every decoding lane reserves the pages
    of its next K writes (``ensure_steps``), oldest lane first; when the
@@ -261,7 +261,7 @@ class DecodeEngine:
         self._mixers = [(_block_mixer_mlp(kind, cfg)[0], path, max(stack, 1))
                         for path, kind, stack in _groups(layer_plan(cfg))]
         # recurrent state cannot absorb pad tokens: group prompts by exact length
-        self._exact_prefill = any(m == "rec" for m, _, _ in self._mixers)
+        self._exact_prefill = any(m in ("rec", "ssm") for m, _, _ in self._mixers)
         windowed_arch = cfg.local_window is not None
         # speculative decoding: params drafts, verify_params verifies
         self._spec = spec_gamma is not None
@@ -1146,10 +1146,12 @@ class DecodeEngine:
     # -- reporting -----------------------------------------------------------
 
     def kv_cache_bytes(self) -> int:
-        """Device bytes of the attention and MLA cache storage (slab, or
-        pool with its sink page), summed over their layers' leaves."""
+        """Device bytes of the serving cache, summed over every layer's
+        leaves: the attention and MLA storage (slab, or pool with its sink
+        page) and the RG-LRU and SSM states of every lane (an attention-free
+        arch's whole cache)."""
         return sum(t.numel() * t.element_size()
-                   for mixer, path, _ in self._mixers if mixer in ("attn", "mla")
+                   for _, path, _ in self._mixers
                    for _, t in tree_items(_at(self.cache, path)))
 
     def _kv_row_bytes(self) -> tuple[int, int]:
@@ -1183,12 +1185,14 @@ class DecodeEngine:
                    for s in self.slots if s is not None)
 
     def kernel_route(self) -> str:
-        """Which paged-attention implementation decode runs: ``"slab"`` when
-        none, else ``"cuda"`` (the kernel) or ``"plain"`` (CPU tensors),
+        """Which paged-attention implementation decode runs: ``"slab"`` on
+        the slab, ``"none"`` on the pool of an arch without attention, else ``"cuda"`` (the kernel) or ``"plain"`` (CPU tensors),
         prefixed ``"shard_map/"`` (the reference's name of the route) where
         a pages-sharded pool runs the stats form and the combine."""
         if self.pool is None:
             return "slab"
+        if not self.cache["tables"]:  # an attention-free arch's pool
+            return "none"
         inner = "cuda" if self.device.type == "cuda" else "plain"
         return f"shard_map/{inner}" if self.layout.shards > 1 else inner
 

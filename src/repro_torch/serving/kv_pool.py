@@ -3,10 +3,12 @@
 ``PagedKVPool`` owns the device cache (one ``(..., P + 1, ps, ...)`` pool per
 cache leaf of each attention or MLA layer stack, see
 ``models.cache.PagedLayout``; every layer reads the same page tables, and
-RG-LRU states stay per lane; with ``quant`` int8 pools and their
+RG-LRU and SSM states stay per lane; with ``quant`` int8 pools and their
 ``<leaf>_scale`` planes), the free-page list with per-page refcounts,
 and the per-lane page tables.  Two tables exist, as the architecture
-needs:
+needs (none for an arch without attention, such as Mamba-2: its pool holds
+no page, every request needs none, and its cache is the per-lane states,
+the reference's "ssm-only paged archs have no table'd layers"):
 
 - ``full``: append-only, ``ceil(max_len / ps)`` slots per lane, for
   attention without a window and for MLA;

@@ -24,6 +24,7 @@ from repro.serving import DecodeEngine as JaxEngine
 from repro.serving import SamplingParams as JaxSampling
 from repro_torch.kernels.paged_attn import paged_attn
 from repro_torch.launch import serve as launch_serve
+from repro_torch.models import model as tmodel
 from repro_torch.models.cache import dequant, quant
 from repro_torch.serving import DecodeEngine, SamplingParams
 from repro_torch.utils.tree import tree_items
@@ -250,7 +251,13 @@ def test_int8_pool_bytes(setups, arch):
     layers = sum(x.shape[0] if n.startswith("body/") else 1 for n, x in tree_items(eng.cache)
                  if n.split("/")[-1] == ("ckv" if tcfg.mla else "k"))
     rows = (eng.layout.num_pages + 1) * eng.layout.page_size  # the sink page included
-    assert eng.kv_cache_bytes() == layers * rows * (sum(widths) + 2 * len(widths))
+    # the cache bytes count the RG-LRU layers' per-lane f32 states (W) and
+    # conv tails (conv_width - 1 rows of W) too
+    rec_layers = sum(max(stack, 1) for _, kind, stack in tmodel._groups(tmodel.layer_plan(tcfg))
+                     if kind == "rec")
+    states = (rec_layers * eng.max_batch * tcfg.rglru.conv_width * tcfg.rglru.lru_width * 4
+              if tcfg.rglru else 0)
+    assert eng.kv_cache_bytes() == layers * rows * (sum(widths) + 2 * len(widths)) + states
     assert eng.stats()["kv_quant"] is True
 
 

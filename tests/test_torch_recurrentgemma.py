@@ -219,7 +219,10 @@ def test_live_kv_bytes_split_full_and_window(setup):
     eng.step()
     assert eng.live_kv_bytes() == row * 16
     assert eng.stats()["kv_bytes_per_step"] == row * 16
-    assert eng.kv_cache_bytes() == 2 * 2 * 2 * 16 * tcfg.hd * 4  # k/v x layers x lanes x rows
+    # k/v x layers x lanes x rows, then the 6 RG-LRU layers' f32 state (W)
+    # and conv tail (3 x W) of each of the 2 lanes
+    assert eng.kv_cache_bytes() == (2 * 2 * 2 * 16 * tcfg.hd * 4
+                                    + 6 * 2 * (1 + 3) * tcfg.rglru.lru_width * 4)
 
 
 @pytest.mark.parametrize("compress", [True, False])
