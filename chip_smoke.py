@@ -223,6 +223,39 @@ with every lane at 0, 1, 2, 4 and 7 live pages.
    mamba2's prefill seconds by prompt length, its state bytes a lane, peak
    memory.
 
+13. The stub-frontend archs at full width (random weights from seed 0,
+   the STEP 2:4 export and compression leaf by leaf).  First K2 and K2q
+   at their heads, G = 6 over 2 KV heads of 128 and MHA at 32 heads of 64,
+   both flushes, against their plain versions and timed beside SDPA and
+   their bound (the ``phase13_heads`` entries of their rows).
+   qwen2-vl-2b (28 layers, GQA 12 over 2 heads of 128, M-RoPE, tied
+   151,936-row embedding): K1 at ``frontend_proj`` (1176 -> 1536: a K
+   that ends 24 columns into its last 64-column step) at 9, 256 and 200
+   bf16 rows and 4 f32 rows against its plain version, timed at 256 rows
+   beside ``torch.matmul`` on the decompressed weight (``frontend_proj``
+   in K1's row); a forward over stub embeddings (2 x 128 rows) through
+   the compressed tree with exactly 1 + 7 x 28 K1 launches, its bf16
+   logits against the masked-dense tree's as a reading, and the f32 twins
+   of the first 4 layers, compressed against masked-dense, within 1e-3;
+   then phase 3's traffic on the slab and 28-page fp and int8 pools (K1
+   196 per decode step and prefill batch, K2 or K2q 28 per paged step,
+   nothing else) and the f32 twins of the slab and the fp pool through
+   the stream gate.  musicgen-large (48 layers, MHA 32 x 64, GeLU,
+   untied): the same with ``frontend_proj`` 512 -> 2048, K1 6 a layer and
+   K2 48 a paged step, on the slab and the fp pool.  qwen2-vl-2b trained
+   through the train CLI's stub branch (10 STEP steps, batch 2 x 128
+   rows of bf16 embeddings drawn on the card): the loss finite and
+   falling, t0 inside AutoSwitch's clip, ``nm_mask`` exactly 8 per masked
+   step and 8 at export, the export exactly 2:4.  DominoSearch (m = 8,
+   kept share 0.5) on qwen2-vl-2b's tree on the card, timed, its
+   histogram of n logged; the n:8 export (``nm_mask`` once a leaf slice
+   below 8:8) with every leaf at its assigned n; K1 at the first layer's
+   n:8 leaves (4 and 64 rows) and ``nm_mask`` at each assigned n against
+   their plain versions; 4 prompts of 64 + 16 tokens served on the slab
+   (K1 exactly 196 per forward), and the f32 twins of the n:8 tree and
+   its masked-dense tree: a forward within 1e-3 and the served streams
+   through the stream gate.  Each part's seconds are logged.
+
 Each phase's seconds are logged, and the total beside them.
 
 Phase 2 also holds K2 and K2q (GQA, fp and int8 pages) at phase 12's head
@@ -337,7 +370,8 @@ KERNEL_ROWS = {
 }
 # K3's forms: phase 8 reads each one's launches from its ranks.  The
 # window and MLA forms run on no path yet (tensor-parallel serving of
-# RecurrentGemma and DeepSeek is later work, ROADMAP.md §1 item 1), so
+# RecurrentGemma and DeepSeek is part of the rest of tensor parallelism,
+# ROADMAP.md), so
 # their counts read 0
 K3_FORMS = tuple(name for name in KERNEL_ROWS if "_stats" in name)
 # DeepSeek-V2-Lite's MoE layers (26: layer 0 has a dense MLP), each with 3
@@ -413,10 +447,10 @@ DS_TWIN_BODY = 3
 # (30 layers, GQA 24 over 2 KV heads of 128) and minitron-4b's first 4 of
 # 32 layers (GQA 24 over 8; its 256,000-token vocabulary makes its whole
 # depth too costly for the script's time limit): K1 runs q/k/v/o and the
-# GeLU MLP's two matmuls in each layer, K2 (K2q on int8 pages) once a layer
-# and paged decode step; phase 3's traffic on pools of 4 lanes x 7 pages
-# of 16 (no preemption)
-ARCH_K1_PER_LAYER, MT_LAYERS, ARCH_PAGES = 6, 4, 28
+# GeLU MLP's two matmuls in each layer (``k1_per_layer``), K2 (K2q on int8
+# pages) once a layer and paged decode step; phase 3's traffic on pools of
+# 4 lanes x 7 pages of 16 (no preemption)
+MT_LAYERS, ARCH_PAGES = 4, 28
 # mamba2-2.7b (64 layers): K1 runs w_in and w_out in each; its prompts,
 # prefilled at exact lengths (one SSD chunk each), their budget, and the
 # device run's lanes (the fourth request waits staged and refills a lane)
@@ -424,6 +458,17 @@ MAMBA_K1_PER_LAYER, MAMBA_PROMPTS, MAMBA_GEN, MAMBA_DEV_LANES = 2, (200, 128, 10
 # the f32 SSM decode route from a prefilled state against one forward: the
 # recurrence and SSD sum in other orders
 MAMBA_ROUTE_F32_TOL = 1e-3
+# phase 13, the stub-frontend archs at full width: a forward over embeds of
+# 2 x 128 rows, the f32 twins of its first 4 layers; the training run
+# (the switch forced at t_max + 1 = 6: AutoSwitch's 50-step window is not
+# full by then); DominoSearch's group size and kept share, and its served
+# run's prompts (of 64 tokens) and budget; K2 and K2q at the archs' heads
+# (G, Hkv, D)
+FRONT_ROWS, FRONT_TWIN_BODY = (2, 128), 4
+FRONT_TRAIN_ARGS = ["--arch", "qwen2-vl-2b", "--no-smoke", "--recipe", "step", "--nm", "2:4",
+                    "--steps", "10", "--batch", "2", "--seq", "128"]
+DOMINO_M, DOMINO_DENSITY, DOMINO_PROMPTS, DOMINO_GEN = 8, 0.5, 4, 16
+FRONT_HEADS = ((6, 2, 128), (1, 32, 64))
 
 
 def log(msg: str) -> None:
@@ -723,7 +768,7 @@ def gqa_case(torch, dev, int8: bool, h: int = 12, g: int = 1, d: int = 64) -> At
     mask = (torch.arange(n_slots * ps, device=dev)[None, :] < lens[:, None])[:, None, None]
     qs = q.reshape(b, h * g, 1, d)
     live = sum(lengths)
-    label = "B=4 H=12 D=64 ps=16" if g == 1 else f"B=4 Hkv={h} G={g} D={d} ps=16"
+    label = f"B=4 H={h} D={d} ps=16" if g == 1 else f"B=4 Hkv={h} G={g} D={d} ps=16"
     return AttnCase(
         name="paged_attn" + ("_q" if int8 else ""), label=label,
         at=f"q ({b}, {h}, {g}, {d}) bf16, "
@@ -1016,26 +1061,29 @@ def check_paged_attn_stats(torch, dev, form: str, first_bytes: dict,
     return rec
 
 
-def check_gqa_d128(torch, dev) -> dict:
-    """K2 and K2q at phase 12's head shape, D = Dv = 128: G = 12
-    (starcoder2-3b, 24 query heads over 2 KV heads) and G = 3 (minitron-4b,
-    24 over 8), B = 4, ps = 16, ragged lanes and a dead one.  Both flushes
+def check_gqa_heads(torch, dev, heads=((12, 2, 128), (3, 8, 128))) -> dict:
+    """K2 and K2q at ``heads`` ((G, Hkv, D) each): by default phase 12's,
+    D = Dv = 128 with G = 12 (starcoder2-3b, 24 query heads over 2 KV heads)
+    and G = 3 (minitron-4b, 24 over 8); phase 13's are G = 6 at D 128
+    (qwen2-vl-2b) and MHA at 32 heads of 64 (musicgen-large).  B = 4, ps =
+    16, ragged lanes and a dead one.  Both flushes
     against their plain versions: the normalized output within one bf16
     step (the dead lane exactly zero), the stats ``(acc / l, m, l)`` within
     1e-4·|ref| + 1e-5; each timed beside its plain version, SDPA on the
     pre-gathered view (for int8 pages a yardstick only) and its bound.
     Logs ``attn_plan``'s plan of each.  Returns the records of K2 and K2q
-    under ``paged_attn`` and ``paged_attn_q``, keyed by ``G=<g>``."""
+    under ``paged_attn`` and ``paged_attn_q``, keyed by ``Hkv=<h> G=<g>
+    D=<d>``."""
     from repro_torch.kernels.paged_attn import (attn_plan, paged_attn, paged_attn_plain,
                                                 paged_attn_stats_plain, sm_count)
 
     out = {"paged_attn": {}, "paged_attn_q": {}}
-    for g, h in ((12, 2), (3, 8)):
+    for g, h, d in heads:
         for int8 in (False, True):
-            c = gqa_case(torch, dev, int8, h=h, g=g, d=128)
+            c = gqa_case(torch, dev, int8, h=h, g=g, d=d)
             args = (c.q, *c.pages, c.tables, c.lens)
             what = f"{c.name.replace('_q', ' int8')} {c.label}"
-            plan = attn_plan(4, h, g, 128, 0, 128, 16, c.pages[0].element_size(), int8, False,
+            plan = attn_plan(4, h, g, d, 0, d, 16, c.pages[0].element_size(), int8, False,
                              sm_count(dev))
             y = paged_attn(*args, **c.kw)
             err = check_close(what, y, paged_attn_plain(*args, **c.kw))
@@ -1059,7 +1107,7 @@ def check_gqa_d128(torch, dev) -> dict:
                 f"{c.sdpa_label} {rec['sdpa_ms']:.4f} ms"
                 f"{' (a yardstick only: not the same function)' if int8 else ''}, bound "
                 f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
-            out[c.name][f"G={g}"] = rec
+            out[c.name][f"Hkv={h} G={g} D={d}"] = rec
     return out
 
 
@@ -2779,8 +2827,17 @@ def k1_bodies(cfg, comp, rows: dict) -> dict:
     return out
 
 
+def k1_leaf(comp: dict, name: str):
+    """A compressed 2-D weight: ``frontend/frontend_proj``, or a leaf of the
+    first layer named under it (``mlp/w_fc``)."""
+    node = comp if name.startswith("frontend/") else comp["body"]["sb_0"]
+    for key in name.split("/"):
+        node = node[key]
+    return node if node.values.dim() == 2 else node.layer(0)
+
+
 def check_k1_widths(torch, comp, dev, leaves: dict) -> float:
-    """K1 on one layer's compressed ``leaves`` (name -> row counts) against
+    """K1 on compressed ``leaves`` (``k1_leaf`` name -> row counts) against
     its plain version: bf16 x within one bf16 step, f32 x (rows given as
     ``-b``) within 1e-4·|ref| + 1e-5, each call twice (the same bytes).
     Returns the largest error."""
@@ -2789,8 +2846,8 @@ def check_k1_widths(torch, comp, dev, leaves: dict) -> float:
     gen = torch.Generator(device=dev).manual_seed(12)
     err = 0.0
     for name, rows in leaves.items():
-        group, leaf = name.rsplit("/", 1)
-        w = comp["body"]["sb_0"][group][leaf].layer(0)
+        leaf = name.rsplit("/", 1)[-1]
+        w = k1_leaf(comp, name)
         k_dim = w.values.shape[0] * w.m // w.n
         for b in rows:
             f32 = b < 0
@@ -2799,7 +2856,7 @@ def check_k1_widths(torch, comp, dev, leaves: dict) -> float:
             vals = w.values.float() if f32 else w.values
             args = (x, vals, w.indices, w.n, w.m, w.out_features)
             label = (f"nm_spmm {leaf} {'f32' if f32 else 'bf16'} B={abs(b)} "
-                     f"({k_dim}->{w.out_features})")
+                     f"({k_dim}->{w.out_features}, {w.n}:{w.m})")
             y = nm_spmm(*args)
             same_bytes(torch, label, y, nm_spmm(*args))
             err = max(err, check_close(label, y, nm_spmm_plain(*args),
@@ -2837,21 +2894,31 @@ def arch_tree(torch, dev, name: str, n_layers=None):
     return cfg, comp
 
 
+def k1_per_layer(cfg) -> int:
+    """K1 launches a layer and forward of a dense attention arch: q/k/v/o
+    and the MLP's matmuls (three for SwiGLU, two for GeLU)."""
+    return 4 + (3 if cfg.mlp == "swiglu" else 2)
+
+
 def attn_arch_phase(torch, dev, dispatch, name: str, pools: tuple, n_layers=None,
-                    k1_rows=None) -> tuple[dict, float]:
-    """Phase 12's dense GQA archs: phase 3's traffic (8 requests of 64 + 32
-    tokens over 4 lanes, K = 4) on each of ``pools`` (``slab``, ``fp``,
-    ``int8``: 28-page pools that never preempt), with exact launch counts
-    (K1 6 a layer per forward, K2 or K2q once a layer a paged decode step,
-    nothing else); K1 at ``k1_rows`` of the first layer's leaves against
-    its plain version; then the stream gate on the f32 twins of the slab
-    and the fp pool.  Returns the launches summed over the bf16 runs and
-    K1's largest error."""
+                    k1_rows=None, extra=None) -> tuple[dict, float]:
+    """Phase 12's and 13's dense GQA archs: phase 3's traffic (8 requests of
+    64 + 32 tokens over 4 lanes, K = 4) on each of ``pools`` (``slab``,
+    ``fp``, ``int8``: 28-page pools that never preempt), with exact launch
+    counts (K1 ``k1_per_layer`` a layer per forward, K2 or K2q once a layer
+    a paged decode step, nothing else); K1 at ``k1_rows`` of the first
+    layer's leaves against its plain version; ``extra(cfg, comp)`` on the
+    bf16 tree (its launches counted apart); then the stream gate on the f32
+    twins of the slab and the fp pool.  Returns the launches summed over
+    the bf16 runs and K1's largest error."""
     cfg, comp = arch_tree(torch, dev, name, n_layers)
+    per = k1_per_layer(cfg)
     log(f"  {name}: K1 bodies " + json.dumps(k1_bodies(cfg, comp, {
         "bf16 B=4": (4, 2), "bf16 B=8": (8, 2), "f32 B=4": (4, 4), "bf16 B=256": (256, 2),
         "f32 B=256": (256, 4)})))
     err = check_k1_widths(torch, comp, dev, k1_rows) if k1_rows else 0.0
+    if extra is not None:
+        err = max(err, extra(cfg, comp))
     serve(torch, cfg, comp, dev, paged=True, n_requests=1, gen=4, num_pages=ARCH_PAGES)
     torch.cuda.reset_peak_memory_stats()
     totals, runs, prompts = {"nm_spmm": 0, "paged_attn": 0, "paged_attn_q": 0}, {}, None
@@ -2864,12 +2931,12 @@ def attn_arch_phase(torch, dev, dispatch, name: str, pools: tuple, n_layers=None
         launches = dict(dispatch.launches)
         steps, groups = eng.decode_steps, eng.prefill_batches
         want = {k: 0 for k in launches}
-        want["nm_spmm"] = ARCH_K1_PER_LAYER * cfg.n_layers * (steps + groups)
+        want["nm_spmm"] = per * cfg.n_layers * (steps + groups)
         if pages:
             want["paged_attn_q" if int8 else "paged_attn"] = cfg.n_layers * steps
         log(f"  {name} {pool}: launches {({k: v for k, v in launches.items() if v})}; "
             f"{steps} decode steps, {groups} prefill batches: want nm_spmm "
-            f"{ARCH_K1_PER_LAYER * cfg.n_layers} x ({steps} + {groups}), "
+            f"{per * cfg.n_layers} x ({steps} + {groups}), "
             f"{'paged_attn_q' if int8 else 'paged_attn'} {cfg.n_layers if pages else 0} x {steps}")
         if launches != want or eng.preemptions:
             raise AssertionError(f"{name} {pool}: launches {launches}, want {want}; "
@@ -3059,6 +3126,230 @@ def archs_phase(torch, dev, dispatch) -> dict:
     return {"launches": out, "seconds": seconds, "k1_err": err}
 
 
+def frontend_check(torch, dispatch, cfg, comp, dev) -> tuple[float, dict]:
+    """Phase 13's stub frontend on one arch's bf16 compressed tree: K1 at
+    ``frontend_proj`` (K 1176 with its 24-column tail, or 512) against its
+    plain version at 9, 256 and 200 bf16 rows and 4 f32 rows, timed at 256
+    rows beside ``torch.matmul`` on the decompressed weight and its bound;
+    a forward over stub embeddings (2 x 128 rows, bf16) through the
+    compressed tree with exactly 1 + ``k1_per_layer`` x layers K1 launches
+    and nothing else, finite logits, against the masked-dense tree's (a
+    reading); then the f32 twins of the first 4 layers, compressed against
+    masked-dense, within the f32 route limit.  Returns K1's largest error
+    and its timing record."""
+    from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_plain
+    from repro_torch.models.model import forward, frontend_dim
+    from repro_torch.sparse_infer import decompress_params
+
+    err = check_k1_widths(torch, comp, dev, {"frontend/frontend_proj": (9, 256, 200, -4)})
+    w = comp["frontend"]["frontend_proj"]
+    k_dim = w.values.shape[0] * w.m // w.n
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn((256, k_dim), generator=gen, device=dev).to(torch.bfloat16)
+    args = (x, w.values, w.indices, w.n, w.m, w.out_features)
+    dense_w = w.dense().contiguous()
+    rec = dict(ms=time_ms(torch, lambda: nm_spmm(*args)),
+               plain_ms=time_ms(torch, lambda: nm_spmm_plain(*args)),
+               library_ms=time_ms(torch, lambda: torch.matmul(x, dense_w)))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        x.numel() * 2 + w.values.numel() * 2 + w.indices.numel() + 256 * w.out_features * 2,
+        2.0 * 256 * w.values.shape[0] * w.out_features)
+    rec["at"] = f"x (256, {k_dim}) bf16 @ frontend_proj {k_dim}->{w.out_features}, 2:4"
+    log(f"  time nm_spmm frontend_proj B=256 ({k_dim}->{w.out_features}): kernel "
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, torch.matmul(dense) "
+        f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    del dense_w
+    embeds = torch.randn(FRONT_ROWS + (frontend_dim(cfg),), generator=gen, device=dev)
+    dispatch.reset_launches()
+    with torch.no_grad():
+        logits = forward(comp, cfg, {"embeds": embeds.to(torch.bfloat16)})[0].float()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in dispatch.launches.items() if v}
+    want = {"nm_spmm": 1 + k1_per_layer(cfg) * cfg.n_layers}
+    log(f"  {cfg.name} forward over embeds {tuple(embeds.shape)}: launches {launches}, "
+        f"want {want}")
+    if launches != want:
+        raise AssertionError(f"{cfg.name} embeds forward: launches {launches}, want {want}")
+    if tuple(logits.shape) != FRONT_ROWS + (cfg.vocab,) or not bool(logits.isfinite().all()):
+        raise AssertionError(f"{cfg.name} embeds forward: logits {tuple(logits.shape)}, "
+                             f"finite {bool(logits.isfinite().all())}")
+    dense = decompress_params(comp)
+    with torch.no_grad():
+        ref = forward(dense, cfg, {"embeds": embeds.to(torch.bfloat16)})[0].float()
+    del dense
+    log(f"  {cfg.name} bf16 forward over embeds, compressed vs masked-dense (reading): max "
+        f"|diff| {(logits - ref).abs().max().item():.4f}, logit std {ref.std().item():.4f}, "
+        f"argmax equal {(logits.argmax(-1) == ref.argmax(-1)).float().mean().item():.4f}")
+    del logits, ref
+    cfg32, comp32 = first_layers(torch, cfg, comp, FRONT_TWIN_BODY, "float32")
+    dense32 = decompress_params(comp32)
+    with torch.no_grad():
+        a = forward(comp32, cfg32, {"embeds": embeds})[0]
+        b = forward(dense32, cfg32, {"embeds": embeds})[0]
+    diff = (a - b).abs().max().item()
+    log(f"  {cfg.name} f32 twins of the first {FRONT_TWIN_BODY} layers, embeds forward, "
+        f"compressed vs masked-dense: max |diff| {diff:.3e} (limit {DS_ROUTE_F32_TOL})")
+    if not diff <= DS_ROUTE_F32_TOL:
+        raise AssertionError(f"{cfg.name}: f32 embeds forward differs by {diff}")
+    del comp32, dense32, a, b
+    torch.cuda.empty_cache()
+    return err, rec
+
+
+def domino_phase(torch, dev, dispatch) -> dict:
+    """Phase 13's DominoSearch on qwen2-vl-2b's full-width tree (seed 0):
+    ``domino_search(m=8, target_density=0.5)`` on the card, timed; the
+    kept share at most the target; the export and compression at each
+    leaf's n:8 (K4 once a maskable leaf slice), every compressed leaf at
+    its assigned n; K1 at the first layer's n:8 leaves against its plain
+    version (4 and 64 bf16 rows), and K4 at each assigned n against its
+    plain version, bit for bit.  Then 4 prompts of 64 + 16 tokens on the
+    slab (K1 exactly ``k1_per_layer`` a layer and forward), and the f32
+    twins: a forward of the prompts within the f32 route limit of the
+    masked-dense tree's, and the served streams of both through the stream
+    gate.  Returns the launches and K1's largest error."""
+    from collections import Counter
+
+    import numpy as np
+
+    from repro_torch import core
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.nm_mask import nm_mask, nm_mask_plain
+    from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_plain
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.sparse_infer import CompressedTensor, decompress_params, export_compressed
+    from repro_torch.utils.tree import tree_items
+
+    cfg = get_config("qwen2-vl-2b")
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scfg = core.domino_search(params, core.SparsityConfig(), m=DOMINO_M,
+                              target_density=DOMINO_DENSITY)
+    secs = time.perf_counter() - t0
+    ratios = core.assigned_ratios(scfg)
+    sizes = {name: p.numel() for name, p in tree_items(params)}
+    kept = sum(sizes[n] * int(r.split(":")[0]) for n, r in ratios.items()) / DOMINO_M
+    share = kept / sum(sizes[n] for n in ratios)
+    hist = dict(sorted(Counter(ratios.values()).items()))
+    # K4 runs once a slice of each leaf kept below n = m (n:m with n = m
+    # keeps everything and launches nothing)
+    slices = sum(p.shape[0] if p.dim() >= 3 else 1 for n, p in tree_items(params)
+                 if n in ratios and not ratios[n].startswith(f"{DOMINO_M}:"))
+    log(f"  domino_search(m={DOMINO_M}, target_density={DOMINO_DENSITY}) on qwen2-vl-2b: "
+        f"{secs:.2f} s, kept share {share:.4f}; n:8 by leaf {json.dumps(ratios)}; "
+        f"histogram {hist}")
+    if share > DOMINO_DENSITY + 1e-9 or len(ratios) != 8:
+        raise AssertionError(f"domino: kept share {share}, {len(ratios)} leaves")
+    recipe = core.make_recipe("step", scfg)
+    dispatch.reset_launches()
+    comp, rep = export_compressed(params, recipe)
+    del params
+    torch.cuda.synchronize()
+    export_launches = dict(dispatch.launches)
+    log(f"  domino export: {json.dumps(rep)}; launches {({k: v for k, v in export_launches.items() if v})}, "
+        f"want nm_mask {slices} (one a maskable leaf slice)")
+    if export_launches["nm_mask"] != slices or sum(export_launches.values()) != slices:
+        raise AssertionError(f"domino export launched {export_launches}, want nm_mask {slices}")
+    for name, leaf in tree_items(comp):
+        if name in ratios and not (isinstance(leaf, CompressedTensor)
+                                   and f"{leaf.n}:{leaf.m}" == ratios[name]):
+            raise AssertionError(f"domino export: {name} is not {ratios[name]}")
+    err = 0.0
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for name in ratios:
+        if not name.startswith("body/"):
+            continue
+        w = k1_leaf(comp, name.split("/", 2)[2])
+        for b in (4, 64):
+            x = torch.randn((b, w.values.shape[0] * w.m // w.n), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            args = (x, w.values, w.indices, w.n, w.m, w.out_features)
+            err = max(err, check_close(f"nm_spmm {name} {w.n}:{w.m} B={b}", nm_spmm(*args),
+                                       nm_spmm_plain(*args)))
+    for n in sorted({int(r.split(":")[0]) for r in ratios.values()} - {DOMINO_M}):
+        wk = torch.randn((cfg.d_model, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+        got, want = nm_mask(wk, n, DOMINO_M), nm_mask_plain(wk, n, DOMINO_M)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"nm_mask {n}:{DOMINO_M} differs from its plain version")
+    log(f"  nm_mask at each assigned n:{DOMINO_M} below {DOMINO_M}:{DOMINO_M}: bit-exact "
+        f"against its plain version")
+    prompts = [np.random.default_rng(1300 + r).integers(0, cfg.vocab, 64).tolist()
+               for r in range(DOMINO_PROMPTS)]
+    run = dict(paged=False, lanes=DOMINO_PROMPTS, gen=DOMINO_GEN, prompts=prompts)
+    dispatch.reset_launches()
+    eng, _, streams, wall = serve(torch, cfg, comp, dev, **run)
+    launches = dict(dispatch.launches)
+    want = {k: 0 for k in launches}
+    want["nm_spmm"] = k1_per_layer(cfg) * cfg.n_layers * (eng.decode_steps + eng.prefill_batches)
+    st = eng.stats()
+    log(f"  serve qwen2-vl-2b domino n:8 " + json.dumps({
+        "tokens_per_s": st["tokens_per_s"], "ms_per_decode_step": st["ms_per_decode_step"],
+        "decode_steps": st["decode_steps"], "prefill_batches": st["prefill_batches"],
+        "weight_bytes_per_step": st["weight_bytes_per_step"], "run_wall_s": wall,
+        "launches": {k: v for k, v in launches.items() if v}}))
+    if launches != want:
+        raise AssertionError(f"domino serve: launches {launches}, want {want}")
+    del eng
+    cfg32, comp32 = f32_twin(torch, cfg, comp)
+    del comp
+    torch.cuda.empty_cache()
+    dense32 = decompress_params(comp32)
+    toks = torch.tensor(prompts, device=dev)
+    with torch.no_grad():
+        diff = (forward(comp32, cfg32, toks)[0] - forward(dense32, cfg32, toks)[0]).abs().max()
+    log(f"  domino f32 twins, forward of the 4 prompts, compressed n:8 vs masked-dense: max "
+        f"|diff| {diff.item():.3e} (limit {DS_ROUTE_F32_TOL})")
+    if not diff.item() <= DS_ROUTE_F32_TOL:
+        raise AssertionError(f"domino: the f32 forward differs by {diff.item()}")
+    a = serve(torch, cfg32, comp32, dev, **run)[2]
+    b = serve(torch, cfg32, dense32, dev, **run)[2]
+    gate_streams(torch, "domino n:8 vs its masked-dense tree", cfg32, comp32, prompts, a, b, dev)
+    del comp32, dense32
+    torch.cuda.empty_cache()
+    return {"launches": {k: launches[k] + export_launches[k] for k in launches},
+            "k1_err": err, "seconds": secs, "histogram": hist}
+
+
+def frontends_phase(torch, dev, dispatch) -> dict:
+    """Phase 13: qwen2-vl-2b (slab, fp and int8 pools) and musicgen-large
+    (slab, fp pool) served at full width, each with ``frontend_check``;
+    qwen2-vl-2b trained for 10 steps through the train CLI's stub branch;
+    DominoSearch.  Returns the launches of K1, K2, K2q and K4 summed over
+    its runs, each part's seconds, K1's largest error and its times at
+    ``frontend_proj``, and the search's seconds and histogram."""
+    out = {"nm_spmm": 0, "paged_attn": 0, "paged_attn_q": 0, "nm_mask": 0}
+    seconds, err, extra = {}, 0.0, {"frontend_proj": {}}
+
+    def check(cfg, comp):
+        e, extra["frontend_proj"][cfg.name] = frontend_check(torch, dispatch, cfg, comp, dev)
+        return e
+
+    def domino():
+        rec = domino_phase(torch, dev, dispatch)
+        extra["domino"] = {k: rec[k] for k in ("seconds", "histogram")}
+        return rec["launches"], rec["k1_err"]
+
+    parts = (("qwen2-vl-2b", lambda: attn_arch_phase(
+                 torch, dev, dispatch, "qwen2-vl-2b", ("slab", "fp", "int8"), extra=check)),
+             ("musicgen-large", lambda: attn_arch_phase(
+                 torch, dev, dispatch, "musicgen-large", ("slab", "fp"), extra=check)),
+             ("train qwen2-vl-2b", lambda: (train_phase(
+                 torch, dev, dispatch, argv=FRONT_TRAIN_ARGS, profile=False), 0.0)),
+             ("domino", domino))
+    for name, part in parts:
+        t0 = time.perf_counter()
+        launches, e = part()
+        err = max(err, e)
+        for k in out:
+            out[k] += launches.get(k, 0)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+        log(f"  {name}: {seconds[name]} s, launches "
+            f"{({k: v for k, v in launches.items() if v})}")
+    return {"launches": out, "seconds": seconds, "k1_err": err, **extra}
+
+
 def _leaves(tree):
     from repro_torch.utils.tree import tree_items
 
@@ -3069,14 +3360,20 @@ def _median(xs: list) -> float:
     return sorted(xs)[len(xs) // 2]
 
 
-def train_phase(torch, dev, dispatch, ckpt_dir: str, argv=TRAIN_ARGS) -> dict:
-    """Phase 4: STEP training through the launcher's Trainer; returns the
+def train_phase(torch, dev, dispatch, ckpt_dir=None, argv=TRAIN_ARGS, profile=True) -> dict:
+    """Phase 4 (and phase 13's qwen2-vl-2b): STEP training through the
+    launcher's Trainer, checkpointing to ``ckpt_dir`` where given.  The loss
+    and gradient norm finite at every step, the loss falling (the mean of the
+    last third of the steps, at most 10, below the first's), the switch
+    inside AutoSwitch's clip, ``nm_mask`` launched once a maskable leaf per
+    masked step and per leaf at export, the export exactly N:M; with
+    ``profile``, a trace of a few steps of each phase.  Returns the
     nm_mask launches of the run and its export."""
     import numpy as np
 
     from repro_torch.launch import train as launch_train
 
-    args = launch_train.parse_args(argv + ["--ckpt-dir", ckpt_dir])
+    args = launch_train.parse_args(argv + (["--ckpt-dir", ckpt_dir] if ckpt_dir else []))
     run = launch_train.build(args, dev)
     tr = run.trainer
     tr.cfg = dataclasses.replace(tr.cfg, log_every=1)  # every step's loss, synced
@@ -3090,15 +3387,16 @@ def train_phase(torch, dev, dispatch, ckpt_dir: str, argv=TRAIN_ARGS) -> dict:
         tr.data.close()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    summary = launch_train.summarize(run, state, args, dev)  # the export: 6 launches
+    summary = launch_train.summarize(run, state, args, dev)  # the export: one a leaf
     launches = dict(dispatch.launches)
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss"] for m in hist]
     bad = [m["step"] for m in hist if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]))]
     if bad or len(hist) != args.steps:
         raise AssertionError(f"non-finite loss or grad norm at steps {bad} ({len(hist)} logged)")
-    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
-    log(f"  loss: first 10 steps {first:.4f}, last 10 {last:.4f}; per step "
+    k = min(10, max(1, args.steps // 3))
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    log(f"  loss: first {k} steps {first:.4f}, last {k} {last:.4f}; per step "
         f"{[round(x, 3) for x in losses]}")
     if not last < first:
         raise AssertionError(f"loss did not fall: {first} -> {last}")
@@ -3106,16 +3404,19 @@ def train_phase(torch, dev, dispatch, ckpt_dir: str, argv=TRAIN_ARGS) -> dict:
     if not (state.opt.phase2 and asw.t_min < t_sw <= asw.t_max + 1):
         raise AssertionError(f"switch at t0={t_sw}, outside ({asw.t_min}, {asw.t_max + 1}]")
     masked_steps = sum(int(m["mask_active"]) for m in hist)
-    want = 6 * masked_steps + 6
+    leaves = len(_maskable(run.recipe, state.params))
+    want = leaves * (masked_steps + 1)
     log(f"  t0 {t_sw}, masked steps {masked_steps}, launches {launches} "
-        f"(nm_mask wants 6 x {masked_steps} + 6 = {want})")
+        f"(nm_mask wants {leaves} x {masked_steps} + {leaves} = {want})")
     if launches["nm_mask"] != want:
         raise AssertionError(f"nm_mask launched {launches['nm_mask']} times, want {want}")
     sparse = run.recipe.export_sparse(state.params)
     for name, p in _maskable(run.recipe, sparse):
-        nz = (p != 0).reshape(p.shape[0], p.shape[1] // 4, 4, p.shape[2]).sum(2)
-        if not bool((nz <= 2).all()):
-            raise AssertionError(f"exported {name} is not 2:4")
+        pat = run.recipe.sparsity.pattern_for(name, tuple(p.shape))
+        nz = (p != 0).movedim(-2, -1).reshape(-1, pat.m).sum(-1)
+        if not bool((nz <= pat.n).all()):
+            raise AssertionError(f"exported {name} is not {pat}")
+    del sparse
     p1 = [m["step_time_s"] * 1e3 for m in hist[1:] if not m["phase2"]]  # step 0 warms up
     p2 = [m["step_time_s"] * 1e3 for m in hist if m["mask_active"]]
     tokens = args.batch * args.seq
@@ -3126,8 +3427,10 @@ def train_phase(torch, dev, dispatch, ckpt_dir: str, argv=TRAIN_ARGS) -> dict:
         "tokens_per_s_phase2": tokens / _median(p2) * 1e3,
         "tokens_per_s_run": tokens * args.steps / wall, "run_wall_s": wall,
         "peak_memory_bytes": peak, "final_sparse_eval_loss": summary["final_sparse_eval_loss"],
-        "device": torch.cuda.get_device_name(0),
+        "arch": run.cfg.name, "device": torch.cuda.get_device_name(0),
     }))
+    if not profile:
+        return launches
     # where a step's time goes: 3 traced steps of each phase, phase 1 on a
     # fresh state, phase 2 on the trained one (the checkpoint is written)
     batches = [{k: torch.as_tensor(v).to(dev)
@@ -3272,7 +3575,7 @@ def main() -> int:
     records["paged_attn_win_q"] = check_paged_attn(torch, dev, "window", first, int8=True)
     log("phase 2: paged_attn's GQA form and its int8 form (K2, K2q) at D = 128, G = 12 and 3 "
         "(starcoder2-3b's and minitron-4b's heads), both flushes")
-    d128 = check_gqa_d128(torch, dev)
+    d128 = check_gqa_heads(torch, dev)
     log("phase 2: paged_attn's stats form (K3) in its six forms, and split over 2 and 4 page "
         "ranges against K2")
     for form in ("gqa", "window", "mla"):
@@ -3341,7 +3644,18 @@ def main() -> int:
     records["nm_spmm"]["max_abs_err"] = max(records["nm_spmm"]["max_abs_err"], archs["k1_err"])
     for name, n in archs["launches"].items():
         launches[name] += n
-    phase_done(seconds, "12", t_phase)
+    t_phase = phase_done(seconds, "12", t_phase)
+
+    log("phase 13: the stub-frontend archs at full width: qwen2-vl-2b (M-RoPE; slab, fp and int8 "
+        "pools) and musicgen-large (slab, fp pool) with forwards over embeds, their f32 twins; "
+        "qwen2-vl-2b trained 10 steps; DominoSearch's mixed n:8 served")
+    heads = check_gqa_heads(torch, dev, FRONT_HEADS)
+    front = frontends_phase(torch, dev, dispatch)
+    records["nm_spmm"]["max_abs_err"] = max(records["nm_spmm"]["max_abs_err"], front["k1_err"])
+    for name, n in front["launches"].items():
+        launches[name] += n
+    log(f"  phase 13 parts: {json.dumps(front['seconds'])}")
+    phase_done(seconds, "13", t_phase)
 
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -3361,6 +3675,11 @@ def main() -> int:
             **({"phase12_launches": archs["launches"][name]} if name in archs["launches"]
                else {}),
             **({"d128": d128[name]} if name in d128 else {}),
+            **({"phase13_launches": front["launches"][name]} if name in front["launches"]
+               else {}),
+            **({"phase13_heads": heads[name]} if name in heads else {}),
+            **({"frontend_proj": front["frontend_proj"]} if name == "nm_spmm" else {}),
+            **({"domino": front["domino"]} if name == "nm_mask" else {}),
         })
     log(f"  total {time.perf_counter() - t_start:.1f} s; by phase {json.dumps(seconds)}")
     print(smi)

@@ -6,13 +6,13 @@ SSM and RG-LRU sub-configs; the port keeps its own copies,
 :class:`MoEConfig` (``repro/models/moe.py:33``), :class:`MLAConfig`
 (``repro/models/mla.py:26``), :class:`SSMConfig`
 (``repro/models/ssm.py:24``) and :class:`RGLRUConfig`
-(``repro/models/recurrent.py:23``).  Fields the port does not read are
-left out: ``frontend`` (the stub audio and vision frontends are not
-ported, so no config can ask for one) and ``sub_quadratic`` (the
-reference's long-context cell).  ``models.model.layer_plan`` raises for
-hybrid patterns with other kinds than ``rec``/``attn``, M-RoPE and
-windows on MLA, and ``configs.get_config`` for every arch not in the
-registry (ROADMAP.md).
+(``repro/models/recurrent.py:23``).  ``frontend`` names the stub
+frontend of the ``vlm`` and ``audio`` families (``vision_stub``: 1176-d
+patch embeddings, ``audio_stub``: 512-d frame embeddings, projected to
+``d_model`` by ``frontend/frontend_proj``).  The one field of the
+reference the port leaves out is ``sub_quadratic`` (the reference's
+long-context cell).  ``models.model.layer_plan`` raises for hybrid
+patterns with other kinds than ``rec``/``attn`` and windows on MLA.
 """
 from __future__ import annotations
 
@@ -58,7 +58,7 @@ class RGLRUConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid are ported
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -81,6 +81,7 @@ class ArchConfig:
     # hybrid layer pattern, e.g. ("rec", "rec", "attn"); None = all-attn
     # (or all-ssm when family == "ssm")
     layer_pattern: Optional[Sequence[str]] = None
+    frontend: str = "none"  # none | audio_stub | vision_stub
     param_dtype: str = "bfloat16"
     source: str = ""  # provenance note
 

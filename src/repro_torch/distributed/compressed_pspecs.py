@@ -164,7 +164,8 @@ def shard_serving_params(params: dict, mesh, *, cfg=None, device=None) -> dict:
                 return dataclasses.replace(x, values=place(x.values), indices=place(x.indices))
             if dim < x.values.dim() - 2:
                 raise NotImplementedError(f"{name}: placement {spec[0]} splits neither the "
-                                          "reduction nor the output dim (ROADMAP.md §1 item 1)")
+                                          "reduction nor the output dim (the rest of tensor "
+                                          "parallelism, ROADMAP.md)")
             part = x.shard(dim, index, model)
             return dataclasses.replace(part, values=place(part.values),
                                        indices=place(part.indices))
@@ -186,10 +187,10 @@ def serving_cache_pspecs(mesh, cache: dict, layout, *, kv_shard: str = "seq") ->
     (and its int8 ``*_scale`` plane) on its pages axis (``kv_shard="seq"``)
     or its feature axis (``"feature"``), page tables replicated, lane
     lengths over the data axes.  The slab under a mesh is not ported
-    (ROADMAP.md §1 item 1)."""
+    (the rest of tensor parallelism, ROADMAP.md)."""
     if getattr(layout, "kind", None) != "paged":
-        raise NotImplementedError("slab caches under a mesh are not ported (ROADMAP.md §1 "
-                                  "item 1)")
+        raise NotImplementedError("slab caches under a mesh are not ported (the rest of "
+                                  "tensor parallelism, ROADMAP.md)")
     dp = _dp(mesh)
 
     def leaf(name, x):

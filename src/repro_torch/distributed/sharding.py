@@ -8,7 +8,8 @@ rules are the reference's Megatron-style tensor parallelism on the
 ``model`` axis: q/k/v, gate/up and fc column-sharded, o, down and proj
 row-sharded, embeddings vocab-sharded.  They are the serving rules, with
 FSDP off (decode reads every weight each step); training's FSDP
-placements and ``state_pspecs`` are not ported (ROADMAP.md §1 item 1).
+placements and ``state_pspecs`` are not ported (the rest of tensor
+parallelism, ROADMAP.md).
 
 A mesh here is anything with ``axis_names`` and a ``devices`` array of
 the mesh's shape: ``launch.mesh.Mesh`` or a stand-in.

@@ -6,11 +6,16 @@
         [--max-steps-per-dispatch 16 [--staged-lanes 2] [--async-stream]] \\
         [--prefill-chunk 64] [--prefix-cache [--shared-prefix 128]] \\
         [--ckpt-dir RUN] [--dense] [--temperature 0.8 --top-k 40] [--device cpu] \\
-        [--mesh 1,2 [--kv-shard seq]] [--spec-gamma 4|auto]
+        [--mesh 1,2 [--kv-shard seq]] [--spec-gamma 4|auto] [--no-donate]
 
-Counterpart of ``repro/launch/serve.py``; ``--arch`` takes every arch of
-``configs.list_archs()`` (the reference's token-input archs: the two with
-stub frontends are not ported).  Loads or
+Counterpart of ``repro/launch/serve.py``; ``--arch`` takes every
+token-input arch of ``configs.list_archs()``: like the reference's CLI it
+refuses the two with stub frontends (qwen2-vl-2b, musicgen-large), whose
+prompts would be embeddings (``DecodeEngine`` still serves their token
+paths, M-RoPE's positions broadcast over its three streams).
+``--no-donate`` is accepted for parity and does nothing: the reference
+donates its cache buffers to the jitted decode, and PyTorch updates the
+cache in place, so there is nothing to donate.  Loads or
 initializes the parameters, applies the final STEP N:M mask (Π_T ⊙ w_T),
 compresses the maskable leaves and serves the compressed tree through
 ``DecodeEngine``: every matmul of prefill and decode runs the ``nm_spmm``
@@ -160,6 +165,9 @@ def parse_args(argv=None):
                          "pool's pages shard over the model axis")
     ap.add_argument("--kv-shard", default="seq", choices=("seq", "feature"),
                     help="model-axis dim of the KV pool under --mesh")
+    ap.add_argument("--no-donate", dest="donate", action="store_false", default=True,
+                    help="accepted for parity with the reference's CLI; no effect (the "
+                         "cache is updated in place, there is no buffer to donate)")
     ap.add_argument("--spec-gamma", default=None,
                     help="self-speculative decoding: draft this many tokens a lane with the "
                          "served tree, verify them in one chunked pass through the masked-dense "
@@ -173,6 +181,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    if get_config(args.arch).frontend != "none":
+        raise SystemExit("serve demo targets token-input archs")
     if (args.prefix_cache or args.kv_int8) and not args.paged:
         raise SystemExit("--prefix-cache/--kv-int8 require --paged")
     if (args.staged_lanes or args.async_stream) and args.max_steps_per_dispatch is None:
@@ -181,12 +191,13 @@ def main(argv=None) -> dict:
     mesh_shape = tuple(int(v) for v in args.mesh.split(",")) if args.mesh else None
     if mesh_shape is not None and (len(mesh_shape) != 2 or mesh_shape[0] != 1):
         raise SystemExit(f"--mesh {args.mesh}: give 'data,model' with data 1 (a data axis "
-                         "> 1 is not ported yet, ROADMAP.md §1 item 1)")
+                         "> 1 is not ported yet: the rest of tensor parallelism, ROADMAP.md)")
     if (mesh_shape is not None and mesh_shape[1] > 1
             and (args.prefill_chunk is not None or args.prefix_cache
                  or args.spec_gamma is not None)):
         raise NotImplementedError("--prefill-chunk, --prefix-cache and --spec-gamma over a "
-                                  "model axis > 1 are not ported yet (ROADMAP.md §1 item 7)")
+                                  "model axis > 1 are not ported yet (the rest of tensor "
+                                  "parallelism, ROADMAP.md)")
     device = resolve_device(args.device)
     cfg, serving_tree, rep, verifier = build_serving_state(args, device)
     print(json.dumps({"compression": rep}))

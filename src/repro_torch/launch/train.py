@@ -9,11 +9,13 @@ with auto-resume (``--ckpt-dir``), then the final N:M export and its loss.
 Every mask, per step and at export, runs the ``nm_mask`` kernel on the
 card.  Prints a JSON line per logged step and a summary line with the
 reference's keys.  ``repro_torch.launch.serve --ckpt-dir RUN`` serves the
-result.  ``--arch`` takes every arch of ``configs.list_archs()``.  The
-reference's stub-frontend branch has no counterpart yet: the port's
-configs carry no frontend (qwen2-vl-2b and musicgen-large are not in its
-registry, ROADMAP.md).  ``--compress-phase2`` raises until
-``optim/compression.py`` is ported (ROADMAP.md).
+result.  ``--arch`` takes every arch of ``configs.list_archs()``.  An arch
+with a stub frontend (qwen2-vl-2b, musicgen-large) trains as the
+reference's does: each batch carries the corpus's ``labels`` and, in
+place of its tokens, bf16 ``embeds`` (batch, seq, ``frontend_dim``) drawn
+on the device from a generator seeded with the step.
+``--compress-phase2`` raises until ``optim/compression.py`` is ported
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from repro_torch import core
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, list_archs
 from repro_torch.data import DataIterator, SyntheticLMDataset
-from repro_torch.models.model import init_params, loss_fn
+from repro_torch.models.model import frontend_dim, init_params, loss_fn
 from repro_torch.train import Trainer, TrainerConfig
 from repro_torch.utils.device import resolve_device
 
@@ -74,10 +76,19 @@ def build(args, device, log_fn=None) -> SimpleNamespace:
     ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=args.seq, seed=42, n_states=16)
     chunk = min(128, args.seq)
 
+    def batch_fn(step, bs):
+        batch = ds.batch(step, bs)
+        if cfg.frontend != "none":  # stub frontend: frame/patch embeddings for the tokens
+            gen = torch.Generator(device=device).manual_seed(step)
+            batch["embeds"] = torch.randn((bs, args.seq, frontend_dim(cfg)), generator=gen,
+                                          device=device, dtype=torch.bfloat16)
+            del batch["tokens"]
+        return batch
+
     def loss(p, batch):
         return loss_fn(p, cfg, batch, chunk=chunk)
 
-    data = DataIterator(batch_fn=ds.batch, batch_size=args.batch, prefetch=2)
+    data = DataIterator(batch_fn=batch_fn, batch_size=args.batch, prefetch=2)
     ck = Checkpointer(args.ckpt_dir, keep_last=3) if args.ckpt_dir else None
     trainer = Trainer(
         loss, recipe, scfg, data,
@@ -86,7 +97,7 @@ def build(args, device, log_fn=None) -> SimpleNamespace:
                       compress_phase2=args.compress_phase2),
         checkpointer=ck, log_fn=log_fn or (lambda step, m: None),
     )
-    return SimpleNamespace(cfg=cfg, recipe=recipe, trainer=trainer, batch_fn=ds.batch,
+    return SimpleNamespace(cfg=cfg, recipe=recipe, trainer=trainer, batch_fn=batch_fn,
                            loss=loss, params=init_params(cfg, seed=args.seed, device=device))
 
 

@@ -7,6 +7,7 @@ which go through the ``nm_spmm`` kernel and are never decompressed.
 """
 from __future__ import annotations
 
+from itertools import accumulate
 from typing import Optional, Union
 
 import torch
@@ -77,13 +78,45 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0) -> torch.Tensor:
     """Half-split (not interleaved) rotary embedding in f32.
     x: (B, S, H, D); positions: (B, S)."""
+    return _rotate(x, positions[..., None].float() * _freqs(x.shape[-1], theta, x.device))
+
+
+def _freqs(d: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32, device=device) / d))
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the halves of x (B, S, H, D) by the angles ang (B, S, D/2)."""
     d = x.shape[-1]
-    freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
-                                          device=x.device) / d))
-    ang = positions[..., None].float() * freqs  # (B, S, D/2)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., : d // 2].float(), x[..., d // 2:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def mrope_sections(d: int, sections=(2, 3, 3)) -> list[int]:
+    """How many of the ``d // 2`` rotary frequencies follow each position
+    stream (temporal, height, width), in that order: ``sections`` are the
+    streams' relative shares, the last taking the remainder (16/24/24 at
+    D 128, 2/3/3 at D 16)."""
+    half, tot = d // 2, sum(sections)
+    splits = [half * s // tot for s in sections]
+    splits[-1] = half - sum(splits[:-1])
+    return splits
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections=(2, 3, 3),
+                theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: :func:`apply_rope`'s half-split rotation
+    in f32, each frequency's angle taken from its own position stream
+    (:func:`mrope_sections`).  x: (B, S, H, D); positions: (B, S, 3) int
+    (temporal, height, width).  With the same position in all three
+    streams it is :func:`apply_rope` bit for bit.  The stream of each
+    frequency is made on the device (no host copy: a captured decode
+    graph runs it)."""
+    d = x.shape[-1]
+    freq = torch.arange(d // 2, device=x.device)
+    stream = sum((freq >= b).long() for b in accumulate(mrope_sections(d, sections)[:-1]))
+    return _rotate(x, positions.float().index_select(-1, stream) * _freqs(d, theta, x.device))
 
 
 def _per_row(x, device) -> torch.Tensor:

@@ -37,13 +37,19 @@ the pool, on which decode attention runs the stats form of the kernel
 (``kernels.sharded.paged_attn_sharded``).  Activations, logits, tables and
 lengths are replicated, so every rank computes the same tokens.
 
-Ported: the dense family (MHA/GQA attention with RoPE, optional q/k/v/o
-biases and a sliding window), the MoE family with MLA (DeepSeek-V2) or
-GQA attention (DBRX), the SSM family of Mamba-2 blocks (a mixer and no
-MLP; ``models.ssm``) and the hybrid family of RG-LRU and local-attention
-blocks (RecurrentGemma); SwiGLU and GeLU MLPs, RMSNorm and LayerNorm, tied
-and untied embeddings.  M-RoPE, frontends, hybrid patterns with SSM
-blocks and windows on MLA raise (ROADMAP.md).
+Ported: every family of the reference.  The dense family (MHA/GQA
+attention with RoPE, optional q/k/v/o biases and a sliding window), the
+MoE family with MLA (DeepSeek-V2) or GQA attention (DBRX), the SSM family
+of Mamba-2 blocks (a mixer and no MLP; ``models.ssm``), the hybrid family
+of RG-LRU and local-attention blocks (RecurrentGemma), and the ``vlm`` and
+``audio`` families: dense attention stacks whose batch may carry stub
+frontend embeddings (``embeds`` (B, S, :func:`frontend_dim`), projected
+by ``frontend/frontend_proj``, a maskable matmul weight) in place of
+tokens.  RoPE or M-RoPE (Qwen2-VL: three position streams, (B, S, 3));
+the chunk and decode routes give M-RoPE one position broadcast over its
+three streams, as the reference does.  SwiGLU and GeLU MLPs, RMSNorm and
+LayerNorm, tied and untied embeddings.  Hybrid patterns with SSM blocks
+and windows on MLA raise.
 :func:`loss_fn` is the training loss; it differentiates through the
 forward with autograd, which keeps every layer's activations (the
 reference rematerializes them per layer).
@@ -83,8 +89,8 @@ def layer_plan(cfg: ArchConfig) -> LayerPlan:
     pattern = set(cfg.layer_pattern or ())
     ssm = cfg.family == "ssm"
     unported = {
-        "family": cfg.family not in ("dense", "moe", "ssm", "hybrid"),
-        "rope": cfg.rope != ("none" if ssm else "rope"),
+        "family": cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio", "vlm"),
+        "rope": cfg.rope not in (("none",) if ssm else ("rope", "mrope")),
         "ssm family without an ssm config, or with a layer_pattern": ssm and (
             cfg.ssm is None or bool(pattern)),
         "layer_pattern": not pattern <= {"rec", "attn"},
@@ -95,10 +101,7 @@ def layer_plan(cfg: ArchConfig) -> LayerPlan:
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported to repro_torch yet "
-            "(see ROADMAP.md)"
-        )
+        raise NotImplementedError(f"{cfg.name}: {', '.join(bad)} not supported")
     kinds = cfg.block_kinds()
     head: tuple[str, ...] = ()
     if cfg.moe is not None and cfg.moe.first_layer_dense:
@@ -134,11 +137,12 @@ def _put(tree: dict, path: tuple[str, ...], value) -> None:
 def check_mesh(cfg: ArchConfig, mesh) -> None:
     """Raise for what tensor-parallel serving does not run yet: a model axis
     of more than one rank outside the dense family (MLA's absorbed decode,
-    MoE expert stacks and RG-LRU are ROADMAP.md §1 item 1)."""
+    MoE expert stacks and RG-LRU are part of the rest of tensor
+    parallelism, ROADMAP.md)."""
     if mesh is not None and mesh.model > 1 and cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: tensor-parallel serving of the {cfg.family} family is not ported "
-            "yet (ROADMAP.md §1 item 1); serve it with mesh=None")
+            "yet (the rest of tensor parallelism, ROADMAP.md); serve it with mesh=None")
 
 
 def _block_mixer_mlp(kind: str, cfg: ArchConfig) -> tuple[str, str]:
@@ -261,7 +265,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     params["final"] = norm()
     if not cfg.tie_embeddings:
         params["unembed"] = {"out_embed": dense((), d, cfg.vocab)}
+    if cfg.frontend != "none":
+        params["frontend"] = {"frontend_proj": dense((), frontend_dim(cfg), d)}
     return params
+
+
+def frontend_dim(cfg: ArchConfig) -> int:
+    """Width of a stub frontend's embeddings: 512 for audio frames, 1176
+    for vision patches (14 x 14 x 2 frames x 3 channels); 0 without one."""
+    return {"audio_stub": 512, "vision_stub": 1176}.get(cfg.frontend, 0)
 
 
 def _layers(tree: dict, n: int) -> list[dict]:
@@ -297,12 +309,21 @@ def _apply_norm(cfg: ArchConfig, p: dict, x):
 
 
 def _qkv(x, p, cfg: ArchConfig, positions):
+    """Projections and rotary embedding; ``positions`` (B, S), or (B, S, 3)
+    streams under M-RoPE, where a (B, S) position goes to all three."""
     b, s, _ = x.shape
     q, k, v = L.matmul(x, p["wq"]), L.matmul(x, p["wk"]), L.matmul(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bias_q"], k + p["bias_k"], v + p["bias_v"]
-    q = L.apply_rope(q.reshape(b, s, cfg.n_heads, cfg.hd), positions, cfg.rope_theta)
-    k = L.apply_rope(k.reshape(b, s, cfg.n_kv, cfg.hd), positions, cfg.rope_theta)
+    q, k = q.reshape(b, s, cfg.n_heads, cfg.hd), k.reshape(b, s, cfg.n_kv, cfg.hd)
+    if cfg.rope == "mrope":
+        if positions.dim() == 2:
+            positions = positions[..., None].expand(b, s, 3)
+        q = L.apply_mrope(q, positions, theta=cfg.rope_theta)
+        k = L.apply_mrope(k, positions, theta=cfg.rope_theta)
+    else:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v.reshape(b, s, cfg.n_kv, cfg.hd)
 
 
@@ -338,8 +359,9 @@ def _block_forward(x, p, kind: str, cfg: ArchConfig, positions, chunk: int):
         entry = (state, conv)
     elif mixer == "ssm":
         mix, entry = SSM.ssm_block(h, p["mixer"], cfg.d_model, cfg.ssm)
-    elif mixer == "mla":
-        mix, entry = MLA.mla_attention(h, p["attn"], cfg.n_heads, cfg.mla, positions,
+    elif mixer == "mla":  # MLA's RoPE reads the first stream of 3-D positions
+        pos1d = positions if positions.dim() == 2 else positions[..., 0]
+        mix, entry = MLA.mla_attention(h, p["attn"], cfg.n_heads, cfg.mla, pos1d,
                                        cfg.rope_theta, chunk)
     else:
         q, k, v = _qkv(h, p["attn"], cfg, positions)
@@ -422,12 +444,25 @@ def _unembed(x, params, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
-def _forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, want_cache: bool,
-             chunk: int):
+def _default_positions(cfg: ArchConfig, b: int, s: int, device):
+    """Positions 0..s-1 of every row: (B, S), or (B, S, 3) under M-RoPE
+    (the one position in all three streams)."""
+    pos = torch.arange(s, device=device)[None, :].expand(b, s)
+    return pos[..., None].expand(b, s, 3) if cfg.rope == "mrope" else pos
+
+
+def _forward(params: dict, cfg: ArchConfig, batch, want_cache: bool, chunk: int):
     plan = layer_plan(cfg)
-    b, s = tokens.shape
-    x = _embed(params, cfg, tokens)
-    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    if not isinstance(batch, dict):
+        batch = {"tokens": batch}
+    if "embeds" in batch and cfg.frontend != "none":
+        x = L.matmul(batch["embeds"], params["frontend"]["frontend_proj"])
+    else:
+        x = _embed(params, cfg, batch["tokens"])
+    b, s = x.shape[:2]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _default_positions(cfg, b, s, x.device)
     aux = torch.zeros((), device=x.device)
     caches: dict = {}
     for i, kind in enumerate(plan.head):
@@ -453,9 +488,14 @@ def _forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, want_cache: bo
     return _unembed(x, params, cfg), aux, (caches if want_cache else None)
 
 
-def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
-            want_cache: bool = False, chunk: int = 512):
-    """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), caches).
+def forward(params: dict, cfg: ArchConfig, batch, *, want_cache: bool = False,
+            chunk: int = 512):
+    """Full-sequence forward: ``batch`` -> (logits (B, S, V), caches).
+
+    ``batch`` is tokens (B, S), or the reference's batch: a dict of
+    ``tokens`` (B, S), or of ``embeds`` (B, S, :func:`frontend_dim`) for an
+    arch with a stub frontend, and optionally ``positions`` ((B, S), or
+    (B, S, 3) under M-RoPE; 0..S-1 in every stream by default).
 
     With ``want_cache`` the caches hold each layer's cache entry over the
     whole prompt: ``{"head_0": (c_kv, k_rope), "body": {"sb_0": (...)},
@@ -463,7 +503,7 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     ``write_prefill`` stores.  RG-LRU entries are the final state and conv
     tail, so a prompt batch with recurrent layers must be of exact length
     (no pad tokens)."""
-    logits, _, caches = _forward(params, cfg, tokens, want_cache, chunk)
+    logits, _, caches = _forward(params, cfg, batch, want_cache, chunk)
     return logits, caches
 
 
@@ -474,9 +514,10 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, chunk: int = 512,
     Cross-entropy from an f32 logsumexp, plus ``z_weight·lse²`` and
     ``aux_weight·aux`` (the MoE load-balancing loss summed over layers; 0
     in the dense family), each a mean over the tokens, or over
-    ``batch["loss_mask"]`` where given.  ``batch`` holds ``tokens`` and
-    ``labels`` (B, S)."""
-    logits, aux, _ = _forward(params, cfg, batch["tokens"], False, chunk)
+    ``batch["loss_mask"]`` where given.  ``batch`` holds ``labels`` (B, S)
+    and what :func:`forward` takes: ``tokens`` or ``embeds``, and
+    optionally ``positions``."""
+    logits, aux, _ = _forward(params, cfg, batch, False, chunk)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]

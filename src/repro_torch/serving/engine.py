@@ -39,7 +39,7 @@ shards with collectives (``kernels.sharded``), so the logits are
 replicated bit for bit and every rank's host scheduler takes the same
 decisions.  Only the dense family on the paged pool with a data axis of 1
 is ported; the slab under a model axis, ``data > 1`` and other families
-raise (ROADMAP.md §1 item 1).  A 1×1 mesh runs exactly the single-device
+raise (the rest of tensor parallelism, ROADMAP.md).  A 1×1 mesh runs exactly the single-device
 engine.
 
 Device-resident scheduling (``max_steps_per_dispatch=K``, the reference's
@@ -239,13 +239,13 @@ class DecodeEngine:
             raise ValueError(f"staged_lanes must be >= 0, got {staged_lanes}")
         if self._device_sched and mesh is not None and mesh.model > 1:
             raise NotImplementedError(
-                "the device scheduler over a model axis > 1 is not ported yet (ROADMAP.md "
-                "§1 item 7): its collectives run on the host over gloo; serve the mesh with "
+                "the device scheduler over a model axis > 1 is not ported yet (the rest of "
+                "tensor parallelism, ROADMAP.md): its collectives run on the host over gloo; serve the mesh with "
                 "the sync scheduler")
         if (prefill_chunk is not None or prefix_cache) and mesh is not None and mesh.model > 1:
             raise NotImplementedError(
                 "chunked prefill and the prefix cache over a model axis > 1 are not ported "
-                "yet (ROADMAP.md §1 item 7); serve the mesh without them")
+                "yet (the rest of tensor parallelism, ROADMAP.md); serve the mesh without them")
         if device_loop is not None and not self._device_sched:
             raise ValueError("device_loop selects the device scheduler's loop: pass "
                              "max_steps_per_dispatch=")
@@ -283,8 +283,8 @@ class DecodeEngine:
                                  "max_steps_per_dispatch/staged_lanes/async_stream")
             if mesh is not None and mesh.model > 1:
                 raise NotImplementedError(
-                    "speculative decoding over a model axis > 1 is not ported yet (ROADMAP.md "
-                    "§1 item 7); serve the mesh without spec_gamma")
+                    "speculative decoding over a model axis > 1 is not ported yet (the rest of "
+                    "tensor parallelism, ROADMAP.md); serve the mesh without spec_gamma")
             self._spec_draft_bytes = tree_nbytes(params)
             self._spec_verify_bytes = tree_nbytes(verify_params)
             if spec_gamma == "auto":
@@ -304,12 +304,13 @@ class DecodeEngine:
             if mesh.device.type != self.device.type:
                 raise ValueError(f"mesh on {mesh.device}, engine asked for {self.device}")
             if mesh.data > 1:
-                raise NotImplementedError("a data axis > 1 is not ported yet (ROADMAP.md §1 "
-                                          "item 1)")
+                raise NotImplementedError("a data axis > 1 is not ported yet (the rest of "
+                                          "tensor parallelism, ROADMAP.md)")
             check_mesh(cfg, mesh)
             if mesh.model > 1 and num_pages is None:
                 raise NotImplementedError("the slab under a model axis > 1 is not ported yet "
-                                          "(ROADMAP.md §1 item 1); pass num_pages")
+                                          "(the rest of tensor parallelism, ROADMAP.md); "
+                                          "pass num_pages")
             self.device = mesh.device
             params = shard_serving_params(params, mesh, cfg=cfg)
             if self._spec:

@@ -397,7 +397,7 @@ class PagedKVPool:
             return self.cache
         if self.layout.shards > 1:
             raise NotImplementedError("copy-on-write over a pages-sharded pool is not ported "
-                                      "yet (ROADMAP.md §1 item 7)")
+                                      "yet (the rest of tensor parallelism, ROADMAP.md)")
         pairs, self.pending_copies = self.pending_copies, []
         srcs, dsts = [s for s, _ in pairs], [d for _, d in pairs]
         batches = [([s], [d]) for s, d in pairs] if set(srcs) & set(dsts) else [(srcs, dsts)]

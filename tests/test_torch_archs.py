@@ -1,6 +1,7 @@
 """The five dense and MoE archs that need no new layer (starcoder2-3b,
-minitron-4b, command-r-plus-104b, qwen1.5-110b, dbrx-132b) in the port,
-held against the JAX package: the full configs field by field, the layer
+minitron-4b, command-r-plus-104b, qwen1.5-110b, dbrx-132b) and the two
+with stub frontends on their token paths (qwen2-vl-2b with M-RoPE,
+musicgen-large) in the port, held against the JAX package: the full configs field by field, the layer
 plan and the tree's leaf names, shapes and types, the maskable map, the
 streamed export of the new trees (mamba2-2.7b's too), and on the reduced
 f32 models carried across from the JAX package: forward
@@ -35,7 +36,8 @@ from repro_torch.sparse_infer import CompressedTensor, compress_params, export_c
 from repro_torch.utils.tree import tree_items
 from torch_parity import assert_streams_agree, prompts, to_numpy, trees
 
-ARCHS = ("starcoder2-3b", "minitron-4b", "command-r-plus-104b", "qwen1.5-110b", "dbrx-132b")
+ARCHS = ("starcoder2-3b", "minitron-4b", "command-r-plus-104b", "qwen1.5-110b", "dbrx-132b",
+         "qwen2-vl-2b", "musicgen-large")
 TOL = dict(rtol=1e-5, atol=1e-4)
 MAX_LEN, PS = 40, 4
 ENGINE = dict(max_batch=2, max_len=MAX_LEN, seed=0, steps_per_dispatch=4)
@@ -80,9 +82,9 @@ def _fields(cfg) -> dict:
 @pytest.mark.parametrize("arch", ARCHS + ("mamba2-2.7b",))
 def test_config_equals_the_reference_field_by_field(arch, smoke):
     """Every field the port's config has equals the reference's (its MoE or
-    SSM sub-config field by field); of the reference's fields the port
-    leaves out, the router's dtype is f32 and there is no frontend (its
-    ``sub_quadratic``, the reference's long-context cell, is not read)."""
+    SSM sub-config field by field), ``frontend`` included; the one field of
+    the reference the port leaves out is ``sub_quadratic`` (the reference's
+    long-context cell), and of the sub-configs' the router's dtype, f32."""
     t, j = get_config(arch, smoke=smoke), jax_get_config(arch, smoke=smoke)
     tf, jf = _fields(t), _fields(j)
     for name, value in tf.items():
@@ -93,7 +95,8 @@ def test_config_equals_the_reference_field_by_field(arch, smoke):
                 {}, {"router_dtype": "float32"}), name
         else:
             assert value == jf[name], name
-    assert set(jf) - set(tf) == {"frontend", "sub_quadratic"} and jf["frontend"] == "none"
+    assert set(jf) - set(tf) == {"sub_quadratic"}
+    assert (tf["frontend"] != "none") == (arch in ("qwen2-vl-2b", "musicgen-large"))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -135,11 +138,14 @@ def test_maskable_map_matches_the_reference(arch):
             n_masked += 1
             assert (tpat.n, tpat.m, tpat.group_axis % len(leaf.shape)) == (
                 jpat.n, jpat.m, jpat.group_axis % len(leaf.shape)), name
-    # q/k/v/o and the MLP's (or the expert stacks') two or three matrices
-    assert n_masked == 4 + (3 if get_config(arch).mlp == "swiglu" else 2)
+    # q/k/v/o and the MLP's (or the expert stacks') two or three matrices,
+    # and a stub frontend's projection
+    cfg = get_config(arch)
+    assert n_masked == 4 + (3 if cfg.mlp == "swiglu" else 2) + (cfg.frontend != "none")
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "command-r-plus-104b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "command-r-plus-104b", "mamba2-2.7b",
+                                  "qwen2-vl-2b"])
 def test_streamed_export_equals_whole_tree(arch):
     """``export_compressed`` takes the new trees leaf by leaf (DBRX's expert
     stacks slice by slice, the tied embedding, Mamba-2's mixer with its f32

@@ -470,7 +470,7 @@ def test_chunking_gated_off_recurrent_and_windowed_slab(setups):
     eng = DecodeEngine(wcfg, wp, max_len=32, prefill_chunk=12, num_pages=32, page_size=4,
                        device="cpu")
     assert eng.prefill_chunk == 12 and eng.pool.layout.lookahead == 12
-    with pytest.raises(NotImplementedError, match="§1 item 7"):
+    with pytest.raises(NotImplementedError, match="the rest of tensor parallelism"):
         DecodeEngine(wcfg, wp, device="cpu", prefill_chunk=4, num_pages=8,
                      mesh=SimpleNamespace(model=2, data=1))
 
@@ -492,6 +492,6 @@ def test_cli_prefill_chunk():
     # 12 = 5 + 5 + 2: requests 0 and 1 chunk side by side, then request 2
     assert base["prefill_chunks"] == 0 and got["prefill_chunks"] == 6
     assert got["greedy_streams"] == base["greedy_streams"]
-    with pytest.raises(NotImplementedError, match="§1 item 7"):
+    with pytest.raises(NotImplementedError, match="the rest of tensor parallelism"):
         launch_serve.main(["--device", "cpu", "--paged", "--mesh", "1,2",
                            "--prefill-chunk", "4"])

@@ -59,10 +59,30 @@ def test_plan_and_tree_match_the_reference(setup):
     for name, leaf in ttree.items():
         assert tuple(leaf.shape) == jtree[name].shape, name
         assert str(leaf.dtype)[6:] == str(jtree[name].dtype), name
-    for bad in (dict(local_window=16), dict(family="ssm"), dict(family="hybrid"),
-                dict(rope="mrope")):
+    for bad in (dict(local_window=16), dict(family="ssm"), dict(family="hybrid")):
         with pytest.raises(NotImplementedError):
             tmodel.layer_plan(dataclasses.replace(tcfg, **bad))
+
+
+def test_mla_reads_the_first_stream_of_mrope_positions(setup):
+    """MLA under ``rope="mrope"`` takes the temporal stream of (B, S, 3)
+    positions, as the reference's forward does: logits against the
+    reference's, and equal to the port's on that stream alone."""
+    jcfg, tcfg, t = setup
+    jcfg, tcfg = (dataclasses.replace(c, rope="mrope") for c in (jcfg, tcfg))
+    jp, tp = t["compressed"]
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, tcfg.vocab, (2, 11))
+    pos = (np.arange(11)[None, :, None] * np.array([1, 2, 3]) + rng.integers(0, 9, (2, 1, 3)))
+    pos = pos.astype(np.int32)
+    jl, _, _ = TransformerLM(jcfg).forward(
+        jp, {"tokens": jnp.asarray(toks), "positions": jnp.asarray(pos)}, remat=False)
+    tl, _ = tmodel.forward(tp, tcfg, {"tokens": torch.from_numpy(toks),
+                                      "positions": torch.from_numpy(pos)})
+    _close(tl, jl)
+    first, _ = tmodel.forward(tp, tcfg, {"tokens": torch.from_numpy(toks),
+                                         "positions": torch.from_numpy(pos[..., 0])})
+    assert torch.equal(tl, first)
 
 
 @pytest.mark.parametrize("kind", ["dense", "compressed"])

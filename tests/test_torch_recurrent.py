@@ -16,9 +16,11 @@ import repro.core as jcore
 from repro.configs import get_config as jax_get_config
 from repro.models import layers as jlayers
 from repro.models import recurrent as jrec
+from repro.models.model import TransformerLM
 from repro.models.model import init_params as jax_init_params
 from repro.models.model import layer_plan as jax_layer_plan
 from repro_torch import core as tcore
+from repro_torch.checkpoint import carry_over
 from repro_torch.configs import get_config
 from repro_torch.configs.base import RGLRUConfig
 from repro_torch.models import layers as tlayers
@@ -145,17 +147,36 @@ def test_chunked_attention_window_matches_the_reference(window):
 def test_layer_plan_of_the_full_config():
     """38 layers: no head, the period (rec, rec, attn) stacked 12 times,
     two trailing RG-LRU layers, as the reference plans them; a hybrid
-    pattern with other kinds, a hybrid family without a pattern, rec
-    layers without an RG-LRU config and M-RoPE are refused."""
+    pattern with other kinds, a hybrid family without a pattern and rec
+    layers without an RG-LRU config are refused (M-RoPE is taken:
+    ``test_mrope_on_the_attention_layers_matches_the_reference``)."""
     cfg = get_config(ARCH)
     plan = tmodel.layer_plan(cfg)
     assert (plan.head, plan.period, plan.n_body, plan.tail) == (
         (), ("rec", "rec", "attn"), 12, ("rec", "rec"))
     assert dataclasses.astuple(jax_layer_plan(jax_get_config(ARCH))) == dataclasses.astuple(plan)
     for bad in (dict(layer_pattern=("rec", "ssm")), dict(layer_pattern=None),
-                dict(rglru=None), dict(rope="mrope")):
+                dict(rglru=None)):
         with pytest.raises(NotImplementedError):
             tmodel.layer_plan(dataclasses.replace(cfg, **bad))
+
+
+def test_mrope_on_the_attention_layers_matches_the_reference():
+    """The reduced hybrid with ``rope="mrope"``: its local-attention layers
+    rotate by three distinct position streams (the RG-LRU layers read no
+    position), a forward's logits against the reference's."""
+    jcfg, tcfg = (dataclasses.replace(c, rope="mrope") for c in configs(ARCH))
+    jp = jax.jit(lambda k: jax_init_params(jcfg, k))(jax.random.PRNGKey(0))
+    tp = carry_over(to_numpy(jp), device="cpu")
+    rng = np.random.default_rng(9)
+    toks = rng.integers(0, tcfg.vocab, (2, 21)).astype(np.int32)
+    i = np.arange(21)
+    pos = (np.stack([i // 5, i % 5, (i * 3) % 7], -1)[None] + rng.integers(0, 9, (2, 1, 3)))
+    batch = {"tokens": toks, "positions": pos.astype(np.int32)}
+    jl, _, _ = jax.jit(lambda p, b: TransformerLM(jcfg).forward(p, b, remat=False))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, _ = tmodel.forward(tp, tcfg, {k: torch.from_numpy(v) for k, v in batch.items()})
+    _close(tl, jl)
 
 
 def test_maskable_map_matches_the_reference():
