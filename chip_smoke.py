@@ -7,8 +7,8 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``.
 Phases, in order; any failure exits non-zero:
 
 1. Device: print the card's ``nvidia-smi`` name and power limit; build the
-   CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
-   parallel).
+   CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, or
+   per part of ``paged_attn.cu``, all in parallel).
 2. Kernels against their plain PyTorch versions, at the shapes the
    full-width gpt2-paper paths give them: ``nm_spmm`` and ``paged_attn`` in
    bf16 within one bf16 rounding step, ``nm_mask`` bit-exact in bf16 and
@@ -58,15 +58,16 @@ Phases, in order; any failure exits non-zero:
    slab, prompts from the training corpus); ``nm_spmm`` must launch, every
    request must finish, and most generated tokens must lie in the corpus's
    16-symbol alphabet (an untrained model almost never emits them).
-6. Serve full-width DeepSeek-V2-Lite (all 27 layers: MLA, 64-expert MoE):
+6. Serve full-width DeepSeek-V2-Lite (its first 8 of 27 layers: MLA,
+   64-expert MoE):
    random weights from seed 0, the STEP 2:4 export and compression leaf by
    leaf, then 8 greedy requests of 64 + 32 tokens over 4 lanes, K = 4, on
    the slab, on a paged pool that never preempts and on an undersized
    pool that preempts, then on an int8 pool of the first pool's 28
    pages.  Launch counts are zeroed before and read after each run: the
-   batched ``nm_spmm`` must launch 3 x 26 times per decode step
+   batched ``nm_spmm`` must launch 3 x 7 times per decode step
    and per prefill batch, and ``paged_attn``'s MLA form (its int8 form on
-   the int8 pool) 27 times per paged decode step.  Then a
+   the int8 pool) 8 times per paged decode step.  Then a
    ``torch.profiler`` trace of a few decode steps on the fp and the int8
    pool.  The stream gate, once the bf16 runs' engines are freed: the f32
    twin of the first 4 layers (the dense one and 3 MoE layers) on the slab
@@ -76,14 +77,14 @@ Phases, in order; any failure exits non-zero:
    forward's choices one by one here).  The eight prompts share their
    first 48 tokens, and a fifth run serves them on the 28-page pool with
    chunked prefill (chunks of 32) and the prefix cache: the batched
-   ``nm_spmm`` must launch 3 x 26 times per chunk dispatch too, the index
+   ``nm_spmm`` must launch 3 x 7 times per chunk dispatch too, the index
    must hit, and no page or reference may be left after ``clear()``; its
    f32 twin and a cold one, both with an MoE capacity of every token (so
    that only the chunks and the hits part them), go through the stream
    gate, and ``prefill_chunk`` on the first 4 layers in f32, chunk by
    chunk, must give a forward's last logits within 1e-3.
-7. Serve full-width RecurrentGemma-9B (all 38 layers: 12 x (RG-LRU,
-   RG-LRU, local MQA) + 2 RG-LRU): random weights from seed 0, the STEP
+7. Serve full-width RecurrentGemma-9B (its first 8 of 38 layers: 2 x
+   (RG-LRU, RG-LRU, local MQA) + 2 RG-LRU): random weights from seed 0, the STEP
    2:4 export and compression leaf by leaf, then 4 greedy requests of
    2100, 2032, 1200 and 64 prompt tokens (prefilled at exact lengths) + 48
    generated over 4 lanes, K = 4, max_len 2176 (so the attention layers
@@ -91,12 +92,12 @@ Phases, in order; any failure exits non-zero:
    the slab, on a 520-page pool that never preempts (it must hold only the
    window table and evict pages), on a 340-page pool that
    preempts and on a 520-page int8 pool (which must evict as the fp one
-   does).  ``nm_spmm`` must launch 254 times per decode step and per
+   does).  ``nm_spmm`` must launch 54 times per decode step and per
    prefill batch, ``paged_attn``'s window form (its int8 form on the int8
-   pool) 12 times per paged decode step, and no other attention kernel.  The two decode routes from one
+   pool) twice per paged decode step, and no other attention kernel.  The two decode routes from one
    state past the window must agree within 1e-3 in f32 over the first
-   period and the tail (the bf16 difference at full depth is printed as a
-   reading).  Then a ``torch.profiler`` trace of a few decode steps on the
+   period and the tail (the bf16 difference at the phase's depth is
+   printed as a reading).  Then a ``torch.profiler`` trace of a few decode steps on the
    fp and the int8 pool, with the device ms a step of K2w's walk and
    combine and of K1's decode kernel.  The stream gate: the f32 twin of
    the first period and the tail (5 layers) on the slab and the 520-page
@@ -128,22 +129,37 @@ such row must give the same bytes when called twice, and its log line
 names the first version's time; the GQA and MLA rows also log their time
 with every lane at 0, 1, 2, 4 and 7 live pages.
 
-8. Serve full-width gpt2-paper tensor-parallel: two ranks
-   (``launch.mesh.run_ranks``, ``gloo`` since they share the one card)
-   each keep half the compressed weights, half of ``tok_embed`` and half
-   of the pool plus a sink page, and serve phase 3's traffic on its
-   22-page fp pool and its 44-page int8 pool, decode attention through
-   K3 over each rank's page range and the combine.  Every rank's streams,
-   host page tables and one forward's logits must be identical, with
-   phase 3's preemptions; per rank and
-   decode step K3's form of the pool must launch 12 times and no other
-   attention kernel at all, K1 72 times per decode step and prefill
-   batch, with 98 collectives a decode step.  Prints ms a step, tok/s,
-   collectives and the host time inside them, and each rank's weight and
-   KV bytes.  The stream gate: the ranks serve the f32 twin on both pools,
-   and each pool's streams must equal phase 3's single-rank f32 twin's
-   except at f32 top-2 margins under 0.1 (the fp pool's tokens also each
-   within 0.1 of the f32 forward's greedy choice).
+8. Serve every family tensor-parallel: two ranks (``launch.mesh.run_ranks``,
+   ``gloo`` since they share the one card; one spawn, each rank exporting
+   each tree itself from seed 0, ``launch.serve.serve_jobs``) each keep
+   their slice of every compressed leaf that the placements split, their
+   vocab slice of ``tok_embed``, and their rows of every lane of the slab
+   or their page range of a pool plus a sink page.  Full width, cut in
+   depth: gpt2-paper's first 4 of 12 layers on phase 3's traffic (slab,
+   its 22-page fp pool, its 44-page int8 pool), DeepSeek-V2-Lite's first 4
+   layers (4 prompts of 64 + 16 tokens: slab, 28-page fp and int8 pools;
+   the absorbed MLA decode on every layout, K3's MLA form on the pools,
+   the expert stacks through K1b's reduction-sharded route),
+   RecurrentGemma-9B's first period (rec, rec, attn) on phase 7's prompts
+   past its 2048 window with 32 tokens (slab: a window ring of 1,024 rows
+   a rank, the RG-LRU state's columns split; fp and int8 pools, K3's
+   window form), Mamba2-2.7B's first 4 layers (slab, table-less pool; the
+   SSM heads split over the ranks).  Per rank and run: K3's form of the
+   pool once an attention layer and paged decode step and no K2, K2m, K2w
+   or K2q launch; K1 and K1b at their counts a forward; the collectives a
+   decode step; every rank's streams, host page tables and one forward's
+   logits identical; no compressed leaf that the placements split held
+   whole.  Prints ms a step, tok/s, collectives and the host time inside
+   them, and each rank's weight and KV bytes.  The stream gate: the ranks
+   serve each run again as the f32 twin (DeepSeek's with an MoE capacity
+   of every token; all but RecurrentGemma-9B's int8 pool, whose 2,100-row
+   prefills cost the most) and its streams must equal the single-rank f32
+   twin's, served here on the same run, except at f32 top-2 margins under
+   0.1 (the tokens of slab and fp runs but DeepSeek's also each within 0.1
+   of the f32 forward's greedy choice), and every leaf of the ranks'
+   caches must have the shape its placement gives the single rank's;
+   DeepSeek's f32 forward logits on each rank within 1e-4 (atol and rtol)
+   of the single rank's.
 
 10. Serve full-width gpt2-paper (phase 3's tree) with chunked prefill and
    the prefix cache.  ``prefill_chunk`` in f32 at full depth, chunks of 64
@@ -200,18 +216,18 @@ with every lane at 0, 1, 2, 4 and 7 live pages.
 
 12. Serve the reference's other token archs at full width (random weights
    from seed 0, the STEP 2:4 export and compression leaf by leaf).
-   starcoder2-3b (30 layers, GQA 24 over 2 KV heads of 128, q/k/v/o
-   biases): phase 3's traffic on the slab, a 28-page fp pool and a
-   28-page int8 pool; K1 exactly 180 launches per decode step and prefill
-   batch, K2 30 per paged decode step on the fp pool, K2q 30 on the int8
+   starcoder2-3b (its first 8 of 30 layers, GQA 24 over 2 KV heads of
+   128, q/k/v/o biases): phase 3's traffic on the slab, a 28-page fp pool
+   and a 28-page int8 pool; K1 exactly 48 launches per decode step and
+   prefill batch, K2 8 per paged decode step on the fp pool, K2q 8 on the int8
    pool (where K2 never runs), nothing else.  minitron-4b's first 4 of 32
    layers (GQA 24 over 8): the same traffic on the fp pool, K1 24 and K2 4.
    Each arch's f32 twins on the slab and the fp pool through the stream
-   gate.  mamba2-2.7b (64 layers): 4 requests of 200, 128, 100 and 64
+   gate.  mamba2-2.7b (its first 16 of 64 layers): 4 requests of 200, 128, 100 and 64
    prompt tokens + 32, prefilled at exact lengths, on the slab and on the
    pool without tables (no page, no attention kernel), then by the device
    scheduler over 3 lanes (16 steps a dispatch, the fourth request staged:
-   it refills a lane inside the loop); K1 exactly 128 launches per decode
+   it refills a lane inside the loop); K1 exactly 32 launches per decode
    step, prefill batch and loop iteration.  In f32, a prefill then 8
    decode steps against one forward within 1e-3; the f32 twins of the
    slab and the device run through the stream gate.  Each arch logs which
@@ -228,27 +244,27 @@ with every lane at 0, 1, 2, 4 and 7 live pages.
    at their heads, G = 6 over 2 KV heads of 128 and MHA at 32 heads of 64,
    both flushes, against their plain versions and timed beside SDPA and
    their bound (the ``phase13_heads`` entries of their rows).
-   qwen2-vl-2b (28 layers, GQA 12 over 2 heads of 128, M-RoPE, tied
+   qwen2-vl-2b (its first 8 of 28 layers, GQA 12 over 2 heads of 128, M-RoPE, tied
    151,936-row embedding): K1 at ``frontend_proj`` (1176 -> 1536: a K
    that ends 24 columns into its last 64-column step) at 9, 256 and 200
    bf16 rows and 4 f32 rows against its plain version, timed at 256 rows
    beside ``torch.matmul`` on the decompressed weight (``frontend_proj``
    in K1's row); a forward over stub embeddings (2 x 128 rows) through
-   the compressed tree with exactly 1 + 7 x 28 K1 launches, its bf16
+   the compressed tree with exactly 1 + 7 x 8 K1 launches, its bf16
    logits against the masked-dense tree's as a reading, and the f32 twins
    of the first 4 layers, compressed against masked-dense, within 1e-3;
    then phase 3's traffic on the slab and 28-page fp and int8 pools (K1
-   196 per decode step and prefill batch, K2 or K2q 28 per paged step,
+   56 per decode step and prefill batch, K2 or K2q 8 per paged step,
    nothing else) and the f32 twins of the slab and the fp pool through
-   the stream gate.  musicgen-large (48 layers, MHA 32 x 64, GeLU,
-   untied): the same with ``frontend_proj`` 512 -> 2048, K1 6 a layer and
-   K2 48 a paged step, on the slab and the fp pool.  qwen2-vl-2b trained
+   the stream gate.  musicgen-large (its first 8 of 48 layers, MHA 32 x
+   64, GeLU, untied): the same with ``frontend_proj`` 512 -> 2048, K1 6 a
+   layer and K2 8 a paged step, on the slab and the fp pool.  qwen2-vl-2b trained
    through the train CLI's stub branch (10 STEP steps, batch 2 x 128
    rows of bf16 embeddings drawn on the card): the loss finite and
    falling, t0 inside AutoSwitch's clip, ``nm_mask`` exactly 8 per masked
    step and 8 at export, the export exactly 2:4.  DominoSearch (m = 8,
    kept share 0.5) on qwen2-vl-2b's tree on the card, timed, its
-   histogram of n logged; the n:8 export (``nm_mask`` once a leaf slice
+   histogram of n logged (on the whole 28-layer tree); the n:8 export (``nm_mask`` once a leaf slice
    below 8:8) with every leaf at its assigned n; K1 at the first layer's
    n:8 leaves (4 and 64 rows) and ``nm_mask`` at each assigned n against
    their plain versions; 4 prompts of 64 + 16 tokens served on the slab
@@ -270,10 +286,13 @@ exactly ``(0, -1e30, 0)``, then each form's pool split into 2 and 4 page
 ranges, K3 on each range and the combine, against K2 on the whole pool;
 timed beside its bound and its plain version (no one PyTorch call returns
 unnormalized flash stats: SDPA is timed as a yardstick only).  K3's
-window forms run K2w's split walk and combine, with the stats flush.  K3's
-window and MLA forms run on no serving path yet (tensor-parallel DeepSeek
-and RecurrentGemma are later work): their rows show the 0 launches phase
-8's ranks count of them.
+window forms run K2w's split walk and combine, with the stats flush.
+Every K3 row's launches are phase 8's ranks' (GQA: gpt2-paper, window:
+RecurrentGemma-9B, MLA: DeepSeek-V2-Lite).  Phase 2 also times K1b's
+reduction-sharded route: a rank's launch on its half-K slices of one MoE
+layer's stacks at C = 8 and 32 beside its bound and ``torch.bmm`` on the
+same slices, the two halves' sum held against the plain version (the
+``sharded`` entry of K1b's row).
 
 Every int8 run also prints readings, with no gate: each request's first
 generated token against the fp run's (it comes from prefill, which reads
@@ -368,24 +387,33 @@ KERNEL_ROWS = {
                                "paged_attn.py:131-142, 171-176)"),
     "nm_mask": ("nm_mask", "src/repro/kernels/nm_mask.py:53"),
 }
-# K3's forms: phase 8 reads each one's launches from its ranks.  The
-# window and MLA forms run on no path yet (tensor-parallel serving of
-# RecurrentGemma and DeepSeek is part of the rest of tensor parallelism,
-# ROADMAP.md), so
-# their counts read 0
+# K3's forms: phase 8 reads each one's launches from its ranks (GQA:
+# gpt2-paper's pools, window: RecurrentGemma-9B's, MLA: DeepSeek-V2-Lite's)
 K3_FORMS = tuple(name for name in KERNEL_ROWS if "_stats" in name)
-# DeepSeek-V2-Lite's MoE layers (26: layer 0 has a dense MLP), each with 3
-# batched nm_spmm launches (gate, up, down), and its layers
-DS_MOE_LAYERS, DS_LAYERS = 26, 27
+# The depths at which phases 6, 7, 12 and 13 serve their archs at full
+# width: each arch's first layers.  A serving step is host-bound, so a
+# run's seconds go with its depth; the whole depths (DeepSeek-V2-Lite 27,
+# RecurrentGemma-9B 38, starcoder2-3b 30, mamba2-2.7b 64, qwen2-vl-2b 28,
+# musicgen-large 48) took most of the script's time limit.
+# DeepSeek-V2-Lite's first 8: layer 0 with its dense MLP, then 7 MoE
+# layers, each with 3 batched nm_spmm launches (gate, up, down)
+DS_MOE_LAYERS, DS_LAYERS = 7, 8
+# RecurrentGemma-9B's first 8: two periods (RG-LRU, RG-LRU, local MQA)
+# and two RG-LRU layers of the tail
+RG_LAYERS = 8
+# starcoder2-3b, qwen2-vl-2b and musicgen-large (phases 12 and 13)
+ARCH_LAYERS = 8
+# mamba2-2.7b (phase 12)
+MAMBA_LAYERS = 16
 # In f32 the two decode routes differ only in summation order (absorbed
 # W_uk/W_uv against expanded K/V): about 1e-6 of a logit over 4 layers on
 # an H100.
 DS_ROUTE_F32_TOL = 1e-3
 # RecurrentGemma-9B serving (phase 7): per forward (a prefill batch or a
-# decode step) K1 runs 5 RG-LRU projections + 2 MLP matmuls in each of the
-# 26 recurrent layers and q/k/v/o + 2 MLP matmuls in each of the 12
-# local-attention layers; K2w once per attention layer and paged step.
-RG_K1_PER_PASS, RG_ATTN_LAYERS = 26 * 7 + 12 * 6, 12
+# decode step) K1 runs 5 RG-LRU projections + 2 MLP matmuls in each
+# recurrent layer and q/k/v/o + 2 MLP matmuls in each local-attention
+# layer; K2w once per attention layer and paged step.
+RG_K1_REC, RG_K1_ATTN = 7, 6
 # prompts past the window (2100), crossing position 2048 while decoding
 # (2032), short of it (1200) and short (64); max_len 2176 >= the window, so
 # the attention layers take the modular window table
@@ -405,13 +433,20 @@ TRAIN_ARGS = ["--no-smoke", "--recipe", "step", "--nm", "2:4", "--batch", "8", "
 MASK_LEAVES = {(12, 768, 768): 4, (12, 768, 3072): 1, (12, 3072, 768): 1}
 # gpt2-paper per forward: K1 for q/k/v/o, fc and proj in each layer
 GPT2_K1_PER_LAYER = 6
-# phase 8's model axis: ranks that share the one card
+# phase 8's model axis: ranks that share the one card; the layers of
+# gpt2-paper and Mamba2-2.7B it serves (DeepSeek's 4 and RecurrentGemma's
+# first period are the f32 twins' of phases 6 and 7), the tokens each
+# request generates (DeepSeek's fewer: its MoE collectives are the
+# largest), and its f32 forward logits' tolerance against one rank's
+# (the reference's, test_sharded_serving.py:170-172)
 MESH_RANKS = 2
+MESH_LAYERS, MESH_GEN, MESH_DS_GEN = 4, 32, 16
+MESH_LOGIT_TOL = 1e-4
 # phase 9, the device scheduler: steps a dispatch; the exact gate's
 # budgets of 4 requests (phase 3's first 4 prompts) and its pools' pages
 DEV_K, EXACT_BUDGETS, EXACT_PAGES = 16, (32, 29, 24, 17), 28
 # RecurrentGemma's device run (phase 7): 8 steps a dispatch keep its
-# 38-layer capture short
+# capture short
 RG_DEV_K = 8
 # empty spin kernels that open every torch.profiler window (open_trace)
 LEAD_KERNELS = 2048
@@ -444,14 +479,14 @@ DS_SPEC_BODY = 3
 # phase 6's f32 twins: the same first 4 layers
 DS_TWIN_BODY = 3
 # phase 12, the reference's other token archs at full width: starcoder2-3b
-# (30 layers, GQA 24 over 2 KV heads of 128) and minitron-4b's first 4 of
+# (GQA 24 over 2 KV heads of 128) and minitron-4b's first 4 of
 # 32 layers (GQA 24 over 8; its 256,000-token vocabulary makes its whole
 # depth too costly for the script's time limit): K1 runs q/k/v/o and the
 # GeLU MLP's two matmuls in each layer (``k1_per_layer``), K2 (K2q on int8
 # pages) once a layer and paged decode step; phase 3's traffic on pools of
 # 4 lanes x 7 pages of 16 (no preemption)
 MT_LAYERS, ARCH_PAGES = 4, 28
-# mamba2-2.7b (64 layers): K1 runs w_in and w_out in each; its prompts,
+# mamba2-2.7b: K1 runs w_in and w_out in each layer; its prompts,
 # prefilled at exact lengths (one SSD chunk each), their budget, and the
 # device run's lanes (the fourth request waits staged and refills a lane)
 MAMBA_K1_PER_LAYER, MAMBA_PROMPTS, MAMBA_GEN, MAMBA_DEV_LANES = 2, (200, 128, 100, 64), 32, 3
@@ -1134,6 +1169,7 @@ def check_nm_spmm_batched(torch, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(4)
     rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     prefill = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    sharded = {c: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0) for c in (8, 32)}
     for k, o, count in ((2048, 1408, 2), (1408, 2048, 1)):
         vals, idx = random_stack(torch, 64, k, o, gen, dev)
         dense = torch.zeros((64, k // 4, 4, o), dtype=torch.bfloat16, device=dev)
@@ -1166,11 +1202,47 @@ def check_nm_spmm_batched(torch, dev) -> dict:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
                 into[key] += count * t[key]
             into["bound_by"] = by
+            # the reduction-sharded route (nm_spmm_batched_sharded) on 2 ranks:
+            # each rank's launch on its half-K slice against the plain version
+            # of that slice; the partial outputs (bf16, as the route's) summed
+            # in f32 as the all-reduce sums them, against the whole plain
+            # product, a reading (each half rounds on its own)
+            halves = [(x[:, :, r * k // 2:(r + 1) * k // 2].contiguous(),
+                       vals[:, r * k // 4:(r + 1) * k // 4].contiguous(),
+                       idx[:, r * k // 4:(r + 1) * k // 4].contiguous()) for r in (0, 1)]
+            parts = [nm_spmm_batched(*h, 2, 4) for h in halves]
+            for r, h in enumerate(halves):
+                err = check_close(f"{label}, rank {r}'s half-K slice", parts[r],
+                                  nm_spmm_batched_plain(*h, 2, 4))
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            whole = nm_spmm_batched_plain(*args).float()
+            log(f"  {label}, the 2 slices summed in f32 vs the whole plain product (reading): "
+                f"max |diff| {(parts[0].float() + parts[1].float() - whole).abs().max().item():.4f}"
+                f", max |whole| {whole.abs().max().item():.2f}")
+            xh, vh, ih = halves[0]
+            dh = dense[:, : k // 2].contiguous()
+            t = dict(ms=time_ms(torch, lambda: nm_spmm_batched(xh, vh, ih, 2, 4)),
+                     plain_ms=time_ms(torch, lambda: nm_spmm_batched_plain(xh, vh, ih, 2, 4),
+                                      reps=10),
+                     library_ms=time_ms(torch, lambda: torch.bmm(xh, dh)))
+            nbytes = xh.numel() * 2 + vh.numel() * 2 + ih.numel() + 64 * c * o * 2
+            t["bound_ms"], by = bound_ms(nbytes, 2.0 * 64 * c * (k // 4) * o)
+            log(f"  time nm_spmm_batched E=64 C={c} {k}->{o}, a rank's half-K slice (the "
+                f"sharded route): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                f"torch.bmm(dense slice) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({by})")
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                sharded[c][key] += count * t[key]
+            sharded[c]["bound_by"] = by
         del dense
     rec["at"] = ("one MoE layer's three decode launches: x (64, 8, K) bf16, "
                  "2 x (64, 1024, 1408) + (64, 704, 2048), 2:4")
     prefill["at"] = "one MoE layer's three prefill launches at C = 32"
     rec["prefill"] = prefill
+    sharded[8]["at"] = ("a rank's three launches of one MoE layer on its half-K slices "
+                        "(2 ranks, nm_spmm_batched_sharded), C = 8")
+    sharded[8]["prefill"] = dict(sharded[32], at="the same at C = 32")
+    rec["sharded"] = sharded[8]
     return rec
 
 
@@ -1298,14 +1370,14 @@ def serve(torch, cfg, comp, dev, *, paged: bool, n_requests=8, lanes=4, prompt_l
 
 
 def f32_twin(torch, cfg, comp):
-    """``(cfg, tree)``: the compressed tree at full depth with every float
+    """``(cfg, tree)``: the compressed tree at its depth with every float
     leaf in f32, what the stream gate serves each route with."""
-    from repro_torch.models.model import layer_plan
+    from repro_torch.launch import serve as cli
 
-    return first_layers(torch, cfg, comp, layer_plan(cfg).n_body, "float32")
+    return cli.f32_twin(cfg, comp)
 
 
-def gate_streams(torch, what: str, cfg32, comp32, prompts, a, b, dev, greedy=True) -> None:
+def gate_streams(torch, what: str, cfg32, comp32, prompts, a, b, greedy=True) -> None:
     """The stream gate (``serving/streams.py``, at its ``MARGIN``) on two
     f32 twins' streams: raises where they differ at an f32 top-2 margin of
     ``MARGIN`` or more or, with ``greedy``, where a token of either lies
@@ -1313,20 +1385,19 @@ def gate_streams(torch, what: str, cfg32, comp32, prompts, a, b, dev, greedy=Tru
     agree/total, the margins and the largest gap."""
     from repro_torch.serving.streams import MARGIN, check_streams
 
-    agree, total, margins, gap = check_streams(cfg32, comp32, prompts, a, b, device=dev,
-                                               greedy=greedy)
+    agree, total, margins, gap = check_streams(cfg32, comp32, prompts, a, b, greedy=greedy)
     gaps = f"; largest gap below the greedy choice {gap}" if greedy else ""
     log(f"  {what}, f32 twins' greedy streams: {agree}/{total} tokens equal before each "
         f"request's first difference; f32 top-2 margins at the differences {margins}"
         f"{gaps} (all < {MARGIN})")
 
 
-def stream_readings(torch, what: str, cfg32, comp32, prompts, a, b, dev) -> None:
+def stream_readings(torch, what: str, cfg32, comp32, prompts, a, b) -> None:
     """bf16 streams of two routes as a reading: agree/total and the f32
     top-2 margins at their first differences, no gate."""
     from repro_torch.serving.streams import stream_differences
 
-    agree, total, margins = stream_differences(cfg32, comp32, prompts, a, b, dev)
+    agree, total, margins = stream_differences(cfg32, comp32, prompts, a, b)
     log(f"  {what}, bf16 greedy streams (reading): {agree}/{total} tokens equal before each "
         f"request's first difference; f32 top-2 margins at the differences {margins}")
 
@@ -1386,21 +1457,18 @@ def serve_phase(torch, cfg, comp, dev, dispatch) -> tuple[dict, dict]:
     log("  int8 vs fp pages (readings): " + json.dumps({
         **int8_readings(p_streams, q_streams),
         "one_step": route_difference(torch, cfg, comp, prompts[:4], dev)}))
-    # the gate: f32 twins of the slab and the preempting pool (and of the
-    # int8 pool, for phase 8), the same traffic, lanes, K and pools
+    # the gate: f32 twins of the slab and the preempting pool, the same
+    # traffic, lanes, K and pool
     cfg32, comp32 = f32_twin(torch, cfg, comp)
     twins = twin_runs(torch, cfg32, comp32, dev, {
-        "slab": None, "fp": (paged.layout.num_pages, False), "int8": (q_pages, True)},
-        prompts=prompts)
-    if (twins["fp"]["preemptions"], twins["int8"]["preemptions"]) != (paged.preemptions,
-                                                                      quant.preemptions):
-        raise AssertionError(f"the f32 twins preempted {twins['fp']['preemptions']} / "
-                             f"{twins['int8']['preemptions']} times, the bf16 runs "
-                             f"{paged.preemptions} / {quant.preemptions}")
+        "slab": None, "fp": (paged.layout.num_pages, False)}, prompts=prompts)
+    if twins["fp"]["preemptions"] != paged.preemptions:
+        raise AssertionError(f"the f32 twin preempted {twins['fp']['preemptions']} times, the "
+                             f"bf16 run {paged.preemptions}")
     gate_streams(torch, "slab vs paged (preempting)", cfg32, comp32, prompts,
-                 twins["slab"]["streams"], twins["fp"]["streams"], dev)
+                 twins["slab"]["streams"], twins["fp"]["streams"])
     stream_readings(torch, "slab vs paged (preempting)", cfg32, comp32, prompts, s_streams,
-                    p_streams, dev)
+                    p_streams)
     del comp32
     name = torch.cuda.get_device_name(0)
     for eng, wall in ((slab, s_wall), (paged, p_wall), (quant, q_wall)):
@@ -1425,19 +1493,18 @@ def serve_phase(torch, cfg, comp, dev, dispatch) -> tuple[dict, dict]:
               "slab_streams32": twins["slab"]["streams"], "fp_streams": p_streams,
               "fp": dict(pages=paged.layout.num_pages, streams=p_streams,
                          streams32=twins["fp"]["streams"], preemptions=paged.preemptions),
-              "int8": dict(pages=q_pages, streams=q_streams, streams32=twins["int8"]["streams"],
-                           preemptions=quant.preemptions)}
+              "int8": dict(pages=q_pages, streams=q_streams, preemptions=quant.preemptions)}
     return launches, single
 
 
-def mesh_streams(recs: list, pool: str, n_prompts: int) -> list:
+def mesh_streams(recs: list, pool: str, n_prompts: int, gen: int = 32) -> list:
     """The ranks' greedy streams of one run, after checking that every
-    request finished its 32 tokens and that every rank holds the same
+    request finished its ``gen`` tokens and that every rank holds the same
     streams, host page tables and forward logits."""
     streams = [[rec["results"][u].tokens for u in sorted(rec["results"])] for rec in recs]
     for rec, st in zip(recs, streams):
         bad = [(u, r.finish_reason, len(r.tokens)) for u, r in rec["results"].items()
-               if r.finish_reason != "length" or len(r.tokens) != 32]
+               if r.finish_reason != "length" or len(r.tokens) != gen]
         if len(st) != n_prompts or bad:
             raise AssertionError(f"{pool}: unfinished requests {bad}")
     for key in ("tables_digest", "logits_digest"):
@@ -1446,98 +1513,293 @@ def mesh_streams(recs: list, pool: str, n_prompts: int) -> list:
     return streams[0]
 
 
-def mesh_phase(torch, cfg, comp, dev, single: dict) -> dict:
-    """Phase 8: full-width gpt2-paper served tensor-parallel by MESH_RANKS
-    ranks on the one card (``launch.mesh.run_ranks``: gloo, since the ranks
-    share it), phase 3's traffic on its fp and int8 pools.  Each rank keeps
-    half the compressed weights and half the pool plus a sink page; its
-    decode attention is K3 over its page range and the combine.  Gates:
-    every request finishes its 32 tokens; streams, host page tables and one
-    forward's logits are identical on every rank; the same preemptions as
-    phase 3's single-rank runs; per rank, K3's form of the pool
-    (``paged_attn_stats`` or ``_stats_q``) launches once a layer and decode
-    step (12) and no other attention kernel launches, K1 six times a layer
-    (72) a decode step and a prefill batch; 2 + 8 x 12 collectives a decode
-    step.  Then the ranks serve the f32 twin on both pools: the stream gate
-    holds each pool's streams to phase 3's single-rank f32 twin's (bf16
-    streams against phase 3's are a reading).  Returns each K3 form's
-    launches summed over both pools' bf16 runs and the ranks."""
-    from repro_torch.launch.mesh import run_ranks
-    from repro_torch.launch.serve import serve_rank
+# a pool's leaves whose pages axis a rank holds its share of, plus a sink page
+POOL_LEAVES = ("k", "v", "ckv", "krope", "k_scale", "v_scale", "ckv_scale", "krope_scale")
 
-    prompts = single["prompts"]
-    engine_kw = dict(max_batch=4, max_len=64 + 32 + 1, seed=0, page_size=16,
-                     steps_per_dispatch=4)
-    pools = [dict(num_pages=single["fp"]["pages"]),
-             dict(num_pages=single["int8"]["pages"], kv_quant=True)]
-    runs = [dict(num_pages=single["fp"]["pages"], prompts=prompts[:1],
-                 sampling=dict(max_new_tokens=4)), *pools]  # a warm-up, uncounted
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = run_ranks(serve_rank, (cfg, runs, prompts, dict(max_new_tokens=32), engine_kw),
-                      model=MESH_RANKS, device=dev.type, tree=comp, log=lambda m: log("  " + m))
-    log(f"  {MESH_RANKS} ranks started, served three runs and stopped in "
-        f"{time.perf_counter() - t0:.1f} s")
-    totals = {name: sum(r[i]["launches"][name] for r in ranks for i in (1, 2))
-              for name in K3_FORMS}
-    cfg32, comp32 = f32_twin(torch, cfg, comp)
-    for i, pool in ((1, "fp"), (2, "int8")):
-        recs = [r[i] for r in ranks]
-        streams = mesh_streams(recs, pool, len(prompts))
-        k3 = "paged_attn_stats_q" if pool == "int8" else "paged_attn_stats"
+
+class MeshShape:
+    """A ``(1, MESH_RANKS)`` mesh as the placement rules read it."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, model: int):
+        import numpy as np
+
+        self.devices = np.empty((1, model), dtype=object)
+
+
+def mesh_families(torch, cfg, single: dict) -> dict:
+    """Phase 8's families: each one's bf16 config (its first layers at full
+    width), traffic, engine, runs (pool keywords by name; the f32 twin
+    serves the same runs, or those named in ``twins``), K3 form a paged
+    decode step takes per attention
+    layer (fp, int8), attention layers, K1 launches a prefill forward and
+    a decode step (slab, pool), K1b launches a forward, and collectives a
+    decode step (slab, pool)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    def arch(name, n_layers):
+        return dataclasses.replace(get_config(name), n_layers=n_layers)
+
+    gpt2 = dataclasses.replace(cfg, n_layers=MESH_LAYERS)
+    ds = arch("deepseek-v2-lite-16b", 1 + DS_TWIN_BODY)
+    rg = arch("recurrentgemma-9b", 3 * RG_TWIN_BODY)
+    mamba = arch("mamba2-2.7b", MESH_LAYERS)
+    ds_prompts = [np.random.default_rng(1000 + r).integers(0, ds.vocab, 64).tolist()
+                  for r in range(4)]
+    rg_prompts = [np.random.default_rng(1000 + r).integers(0, rg.vocab, n).tolist()
+                  for r, n in enumerate(RG_PROMPTS)]
+    mamba_prompts = [np.random.default_rng(1000 + r).integers(0, mamba.vocab, n).tolist()
+                     for r, n in enumerate(MAMBA_PROMPTS)]
+    # slab rows the ranks divide, so that the slab splits (else every rank
+    # holds it whole, as the sanitized placement does)
+    rows = lambda n: -(-n // MESH_RANKS) * MESH_RANKS  # noqa: E731
+    pages = lambda n: {"slab": {}, "fp": dict(num_pages=n),  # noqa: E731
+                       "int8": dict(num_pages=n, kv_quant=True)}
+    # DeepSeek: an MLA layer's prefill runs w_q, w_dkv, w_ukv, w_o through
+    # K1 (the absorbed decode step, on either layout over the ranks,
+    # decompresses w_ukv instead), the dense first MLP and each MoE layer's
+    # shared experts 3, the expert stacks K1b 3 a MoE layer; collectives:
+    # MLA 6 a layer, the dense MLP 3, an MoE layer 6, the embedding 1 (the
+    # unembedding is dense)
+    ds_layers = ds.n_layers
+    ds_k1 = 4 * ds_layers + 3 + 3 * (ds_layers - 1)
+    ds_coll = 6 * ds_layers + 3 + 6 * (ds_layers - 1) + 1
+    return {
+        "gpt2-paper": dict(
+            cfg=gpt2, prompts=single["prompts"], gen=32, max_len=rows(64 + 32 + 1),
+            runs={"slab": {}, "fp": dict(num_pages=single["fp"]["pages"]),
+                  "int8": dict(num_pages=single["int8"]["pages"], kv_quant=True)},
+            k3=("paged_attn_stats", "paged_attn_stats_q"), attn_layers=gpt2.n_layers,
+            k1=(6 * gpt2.n_layers,) * 3, k1b=0, coll=(2 + 8 * gpt2.n_layers,) * 2,
+            greedy=True),
+        "deepseek-v2-lite-16b": dict(
+            cfg=ds, twin_cfg=no_drop(ds), prompts=ds_prompts, gen=MESH_DS_GEN,
+            max_len=rows(64 + MESH_DS_GEN + 1), runs=pages(28),
+            k3=("paged_attn_mla_stats", "paged_attn_mla_stats_q"), attn_layers=ds_layers,
+            k1=(ds_k1, ds_k1 - ds_layers, ds_k1 - ds_layers), k1b=3 * (ds_layers - 1),
+            coll=(ds_coll,) * 2, greedy=False),
+        "recurrentgemma-9b": dict(  # its 2,100-row prefills dominate: the int8 twin goes
+            cfg=rg, prompts=rg_prompts, gen=MESH_GEN, max_len=RG_MAX_LEN, runs=pages(RG_PAGES),
+            twins=("slab", "fp"),
+            k3=("paged_attn_win_stats", "paged_attn_win_stats_q"), attn_layers=1,
+            k1=(2 * 7 + 6,) * 3, k1b=0, coll=(2 * 4 + 8 + 2, 2 * 7 + 8 + 2), greedy=True),
+        "mamba2-2.7b": dict(
+            cfg=mamba, prompts=mamba_prompts, gen=MESH_GEN,
+            max_len=max(MAMBA_PROMPTS) + MESH_GEN + 1, runs={"slab": {}, "pool": dict(num_pages=16)},
+            k3=(None, None), attn_layers=0, k1=(2 * MESH_LAYERS,) * 3, k1b=0,
+            coll=(2 * MESH_LAYERS + 2,) * 2, greedy=True),
+    }
+
+
+def mesh_launch_gate(name: str, run: str, fam: dict, rec: dict) -> None:
+    """A rank's launches in one bf16 run: K3's form of the pool once an
+    attention layer and paged decode step, no other attention kernel (no
+    K2-family launch on a rank's pool), K1 and K1b at their counts a
+    forward (prefill batches and decode steps), and nothing else."""
+    st, got = rec["stats"], rec["launches"]
+    steps, groups = st["decode_steps"], st["prefill_batches"]
+    paged = run != "slab"
+    k1_prefill, k1_slab, k1_pool = fam["k1"]
+    want = {k: 0 for k in got}
+    want["nm_spmm"] = k1_prefill * groups + (k1_pool if paged else k1_slab) * steps
+    want["nm_spmm_batched"] = fam["k1b"] * (groups + steps)
+    form = fam["k3"][run == "int8"]
+    if paged and form:
+        want[form] = fam["attn_layers"] * steps
+    if got != want:
+        raise AssertionError(f"{name} {run}: launches {got}, want {want}")
+    coll = fam["coll"][paged]
+    if st["collectives_per_decode_step"] != coll:
+        raise AssertionError(f"{name} {run}: {st['collectives_per_decode_step']} collectives a "
+                             f"decode step, want {coll}")
+
+
+def mesh_placement_gate(name: str, cfg, comp: dict, recs: list) -> int:
+    """Each rank holds every compressed leaf that the placements (the
+    reference's, ``serving_param_pspecs``) put on the model axis split on
+    that dim, and no such leaf whole; returns the leaves checked."""
+    from repro_torch.distributed.compressed_pspecs import serving_param_pspecs
+    from repro_torch.sparse_infer import CompressedTensor
+    from repro_torch.utils.tree import tree_items
+
+    specs = dict(tree_items(serving_param_pspecs(comp, MeshShape(MESH_RANKS), cfg=cfg)))
+    leaves = {n for n, x in tree_items(comp) if isinstance(x, CompressedTensor)}
+    for r, rec in enumerate(recs):
+        if set(rec["shards"]) != leaves:
+            raise AssertionError(f"{name} rank {r}: compressed leaves {sorted(rec['shards'])}")
+        for leaf, held in rec["shards"].items():
+            values = specs[leaf][0]
+            want = (MESH_RANKS if values[-2] == "model" else 1,
+                    MESH_RANKS if values[-1] == "model" else 1)
+            if tuple(held) != want:
+                raise AssertionError(f"{name} rank {r}: {leaf} held {held}, placement {values}")
+    return len(leaves)
+
+
+def mesh_cache_gate(name: str, cache: dict, paged: bool, recs: list) -> int:
+    """Every leaf of each rank's cache has the shape that its placement
+    (``serving_cache_pspecs``, sanitized for MESH_RANKS ranks) gives the
+    single-rank engine's ``cache``: a dim placed on the model axis split
+    over the ranks (a pool's pages axis: a rank's share plus its own sink
+    page), every other whole.  Returns the leaves held split."""
+    from repro_torch.distributed.compressed_pspecs import serving_cache_pspecs
+    from repro_torch.distributed.sharding import sanitize_spec
+    from repro_torch.utils.tree import tree_items
+
+    layout = type("Layout", (), {"kind": "paged" if paged else "slab"})()
+    specs = dict(tree_items(serving_cache_pspecs(MeshShape(MESH_RANKS), cache, layout)))
+    split = 0
+    for leaf, x in tree_items(cache):
+        shape, spec = tuple(x.shape), specs[leaf]
+        sink = int(paged and leaf.split("/")[-1] in POOL_LEAVES)
+        on = ["model" in (e if isinstance(e, tuple) else (e,)) for e in spec]
+        logical = tuple(n - sink if o else n for n, o in zip(shape, on))
+        sane = sanitize_spec(spec, logical, MeshShape(MESH_RANKS))
+        want = tuple(n // MESH_RANKS + sink if e == "model" else n + (sink if o else 0)
+                     for n, e, o in zip(logical, sane, on))
         for r, rec in enumerate(recs):
-            st, n = rec["stats"], rec["launches"]
-            steps, groups = st["decode_steps"], st["prefill_batches"]
-            want = {name: 0 for name in n if name.startswith("paged_attn")}
-            want.update({k3: cfg.n_layers * steps,
-                         "nm_spmm": GPT2_K1_PER_LAYER * cfg.n_layers * (steps + groups)})
-            got = {name: n[name] for name in want}
-            if got != want:
-                raise AssertionError(f"{pool} rank {r}: launches {got}, want {want}")
-            if st["collectives_per_decode_step"] != 2 + 8 * cfg.n_layers:
-                raise AssertionError(f"{pool} rank {r}: {st['collectives_per_decode_step']} "
-                                     "collectives a decode step")
-        st = recs[0]["stats"]
-        if st["preemptions"] != single[pool]["preemptions"]:
-            raise AssertionError(f"{pool}: {st['preemptions']} preemptions against phase 3's "
-                                 f"{single[pool]['preemptions']}")
-        log(f"  {pool} pool of {single[pool]['pages']} pages on {MESH_RANKS} ranks: launches "
-            f"per rank {recs[0]['launches']}")
-        stream_readings(torch, f"{pool} pool, single rank vs mesh", cfg32, comp32, prompts,
-                        single[pool]["streams"], streams, dev)
-        log("  serve mesh " + json.dumps({
-            "pool": pool, "num_pages": single[pool]["pages"], "mesh": st["mesh"],
-            "tokens_per_s": st["tokens_per_s"], "ms_per_decode_step": st["ms_per_decode_step"],
-            "ms_per_decode_step_host": st["ms_per_decode_step_host"],
-            "decode_steps": st["decode_steps"], "preemptions": st["preemptions"],
-            "collectives_per_decode_step": st["collectives_per_decode_step"],
-            "collective_ms_per_decode_step": st["collective_ms_per_decode_step"],
-            "kernel_route": recs[0]["kernel_route"], "run_wall_s": recs[0]["wall_s"],
-            "per_rank_weight_bytes": [rec["stats"]["weight_bytes_per_step"] for rec in recs],
-            "per_rank_kv_cache_bytes": [rec["stats"]["kv_cache_bytes"] for rec in recs],
-            "device": torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"}))
-    # the gate: the ranks serve the f32 twin on both pools
+            if tuple(rec["cache_shapes"][leaf]) != want:
+                raise AssertionError(f"{name} rank {r}: cache leaf {leaf} of shape "
+                                     f"{rec['cache_shapes'][leaf]}, placement {spec} of "
+                                     f"{shape} gives {want}")
+        split += want != shape
+    for r, rec in enumerate(recs):
+        if set(rec["cache_shapes"]) != {leaf for leaf, _ in tree_items(cache)}:
+            raise AssertionError(f"{name} rank {r}: cache leaves {sorted(rec['cache_shapes'])}")
+    return split
+
+
+def mesh_phase(torch, cfg, dev, single: dict) -> dict:
+    """Phase 8: every family served tensor-parallel by MESH_RANKS ranks on
+    the one card (``launch.mesh.run_ranks``: gloo, since the ranks share
+    it), all in one spawn (``launch.serve.serve_jobs``: each rank exports
+    each family's tree itself, from seed 0, as the main process does):
+    gpt2-paper's first MESH_LAYERS layers on phase 3's traffic (slab, fp
+    pool, int8 pool), DeepSeek-V2-Lite's first 4 layers (slab, 28-page fp
+    and int8 pools), RecurrentGemma-9B's first period (rec, rec, attn) on
+    phase 7's prompts past its 2048 window (slab, fp and int8 pools),
+    Mamba2-2.7B's first 4 layers (slab, table-less pool), each then as its
+    f32 twin (DeepSeek's with an MoE capacity of every token).  Each rank
+    holds its slice of every compressed leaf the placements split, its
+    rows of every lane of the slab or its page range of the pool.  Gates:
+    every request finishes; streams, host page tables and one forward's
+    logits are identical on every rank; per rank the exact launches
+    (``mesh_launch_gate``) and collectives; no compressed leaf that the
+    placements split is whole on a rank, and every cache leaf of a twin
+    run has its placement's shape (``mesh_cache_gate``); the ranks' f32
+    twins pass the stream gate against the single-rank f32 twin served
+    here on the same runs; DeepSeek's f32 forward logits within 1e-4 (atol and rtol) of the
+    single rank's.  Returns each kernel's launches summed over the ranks'
+    bf16 runs."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.serve import export_tree, serve_jobs
+    from repro_torch.models.model import forward
+
+    fams = mesh_families(torch, cfg, single)
+    jobs = []
+    for name, fam in fams.items():
+        runs = [dict(run) for run in fam["runs"].values()]
+        fam["twins"] = fam.get("twins", tuple(fam["runs"]))
+        twin = [dict(fam["runs"][run], logits=name == "deepseek-v2-lite-16b" and run == "slab")
+                for run in fam["twins"]]
+        if not jobs:  # a warm-up, uncounted
+            runs.insert(0, dict(fam["runs"]["fp"], prompts=fam["prompts"][:1],
+                                sampling=dict(max_new_tokens=4)))
+        jobs.append(dict(cfg=fam["cfg"], twin_cfg=fam.get("twin_cfg", fam["cfg"]), export=True,
+                         runs=runs, twin=twin, prompts=fam["prompts"],
+                         sampling=dict(max_new_tokens=fam["gen"]),
+                         engine_kw=dict(max_batch=4, max_len=fam["max_len"], seed=0,
+                                        page_size=16, steps_per_dispatch=4)))
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks32 = run_ranks(serve_rank, (cfg32, pools, prompts, dict(max_new_tokens=32), engine_kw),
-                        model=MESH_RANKS, device=dev.type, tree=comp32,
-                        log=lambda m: log("  " + m))
-    log(f"  {MESH_RANKS} ranks served the f32 twin on both pools in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for i, pool in enumerate(("fp", "int8")):
-        recs = [r[i] for r in ranks32]
-        streams = mesh_streams(recs, f"f32 {pool}", len(prompts))
-        if recs[0]["stats"]["preemptions"] != single[pool]["preemptions"]:
-            raise AssertionError(f"f32 {pool}: {recs[0]['stats']['preemptions']} preemptions "
-                                 f"against phase 3's {single[pool]['preemptions']}")
-        gate_streams(torch, f"{pool} pool, single rank vs mesh", cfg32, comp32, prompts,
-                     single[pool]["streams32"], streams, dev, greedy=pool == "fp")
+    ranks = run_ranks(serve_jobs, (jobs,), model=MESH_RANKS, device=dev.type,
+                      log=lambda m: log("  " + m))
+    n_runs = sum(len(job["runs"]) + len(job["twin"]) for job in jobs)
+    log(f"  {MESH_RANKS} ranks started, exported and served {n_runs} runs of {len(jobs)} archs "
+        f"and stopped in {time.perf_counter() - t0:.1f} s")
+    totals: dict = {}
+    name_card = torch.cuda.get_device_name(0)
+    for j, (name, fam) in enumerate(fams.items()):
+        t1 = time.perf_counter()
+        bf16 = [r[j]["runs"][-len(fam["runs"]):] for r in ranks]
+        twin = [r[j]["twin"] for r in ranks]
+        export_s = ", ".join(f"{r[j]['export_s']:.1f}" for r in ranks)
+        log(f"  {name}: the ranks exported its tree in {export_s} s")
+        fcomp = export_tree(fam["cfg"], dev)  # the tree the ranks exported
+        checked = mesh_placement_gate(name, fam["cfg"], fcomp, [b[0] for b in bf16])
+        for i, run in enumerate(fam["runs"]):
+            recs = [b[i] for b in bf16]
+            mesh_streams(recs, f"{name} {run}", len(fam["prompts"]), fam["gen"])
+            for r, rec in enumerate(recs):
+                mesh_launch_gate(f"{name} rank {r}", run, fam, rec)
+                for k, v in rec["launches"].items():
+                    totals[k] = totals.get(k, 0) + v
+            st = recs[0]["stats"]
+            log("  serve mesh " + json.dumps({
+                "arch": name, "layers": fam["cfg"].n_layers, "run": run, "mesh": st["mesh"],
+                "tokens_per_s": st["tokens_per_s"], "ms_per_decode_step": st["ms_per_decode_step"],
+                "ms_per_decode_step_host": st["ms_per_decode_step_host"],
+                "decode_steps": st["decode_steps"], "prefill_batches": st["prefill_batches"],
+                "preemptions": st["preemptions"],
+                "collectives_per_decode_step": st["collectives_per_decode_step"],
+                "collective_ms_per_decode_step": st["collective_ms_per_decode_step"],
+                "kernel_route": recs[0]["kernel_route"], "run_wall_s": recs[0]["wall_s"],
+                "launches_per_rank": {k: v for k, v in recs[0]["launches"].items() if v},
+                "per_rank_weight_bytes": [rec["stats"]["weight_bytes_per_step"] for rec in recs],
+                "per_rank_kv_cache_bytes": [rec["stats"]["kv_cache_bytes"] for rec in recs],
+                "device": name_card}))
+        # the gate: the single-rank f32 twin on the same runs
+        cfg32, comp32 = f32_twin(torch, fam["cfg"], fcomp)
+        if "twin_cfg" in fam:
+            cfg32 = no_drop(cfg32)
+        del fcomp
+        torch.cuda.empty_cache()
+        for i, run in enumerate(fam["twins"]):
+            recs, pool = [t[i] for t in twin], fam["runs"][run]
+            streams = mesh_streams(recs, f"{name} f32 {run}", len(fam["prompts"]), fam["gen"])
+            eng, _, ref, _ = serve(torch, cfg32, comp32, dev, paged=bool(pool),
+                                   num_pages=pool.get("num_pages", 0),
+                                   kv_quant=pool.get("kv_quant", False), prompts=fam["prompts"],
+                                   gen=fam["gen"], max_len=fam["max_len"])
+            if recs[0]["stats"]["preemptions"] != eng.preemptions:
+                raise AssertionError(f"{name} f32 {run}: {recs[0]['stats']['preemptions']} "
+                                     f"preemptions on the ranks, {eng.preemptions} on one")
+            split = mesh_cache_gate(f"{name} f32 {run}", eng.cache, bool(pool), recs)
+            log(f"  {name} f32 {run}: every cache leaf of the ranks as placed, {split} split")
+            del eng
+            log(f"  {name} f32 twin {run} on {MESH_RANKS} ranks: run wall "
+                f"{recs[0]['wall_s']:.2f} s, {recs[0]['stats']['ms_per_decode_step']:.1f} ms a "
+                f"decode step")
+            gate_streams(torch, f"{name} {run}, single rank vs {MESH_RANKS} ranks", cfg32,
+                         comp32, fam["prompts"], ref, streams,
+                         greedy=fam["greedy"] and run != "int8")
+            if recs[0]["logits"] is not None:
+                with torch.inference_mode():
+                    one, _ = forward(comp32, cfg32, torch.tensor([fam["prompts"][0]], device=dev))
+                one = one.float().cpu().numpy()
+                for r, rec in enumerate(recs):
+                    diff = np.abs(rec["logits"] - one)
+                    log(f"  {name} f32 forward logits, rank {r} vs one rank: largest difference "
+                        f"{diff.max():.3e} (largest logit {np.abs(one).max():.3f})")
+                    if not np.all(diff <= MESH_LOGIT_TOL + MESH_LOGIT_TOL * np.abs(one)):
+                        raise AssertionError(f"{name}: rank {r}'s f32 forward logits differ from "
+                                             f"one rank's by {diff.max()} (tolerance "
+                                             f"{MESH_LOGIT_TOL} atol and rtol)")
+        del comp32
+        torch.cuda.empty_cache()
+        log(f"  {name}: {checked} compressed leaves held as placed; gates in "
+            f"{time.perf_counter() - t1:.1f} s")
     return totals
 
 
 def deepseek_phase(torch, dev, dispatch) -> dict:
-    """Phase 6: full-width DeepSeek-V2-Lite, exported and compressed leaf by
-    leaf, served on the slab, a pool that never preempts and one that does,
+    """Phase 6: full-width DeepSeek-V2-Lite's first DS_LAYERS layers,
+    exported and compressed leaf by leaf, served on the slab, a pool that never preempts and one that does,
     an int8 pool, and the first pool with chunked prefill and the prefix
     cache; returns the launches of the batched nm_spmm and of paged_attn's
     MLA forms over the first four runs, and under
@@ -1545,7 +1807,7 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
     last run's chunk dispatches."""
     import numpy as np
 
-    cfg, comp = arch_tree(torch, dev, "deepseek-v2-lite-16b")
+    cfg, comp = arch_tree(torch, dev, "deepseek-v2-lite-16b", DS_LAYERS)
     serve(torch, cfg, comp, dev, paged=True, n_requests=1, gen=4, num_pages=28)  # warm-up
     torch.cuda.reset_peak_memory_stats()
     totals = {"nm_spmm_batched": 0, "paged_attn_mla": 0, "paged_attn_mla_q": 0}
@@ -1661,7 +1923,7 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
     totals["spec_tree"] = (sub_cfg, clone_tree(sub), prompts[:4])
     del sub
     # the gate: the f32 twin of the first 4 layers (the dense one and 3 MoE
-    # layers: the whole depth's twin, about 40 GB, took much of the
+    # layers: the whole 27 layers' twin, about 40 GB, took much of the
     # script's time limit) on the slab and the 28-page pool; the bf16 runs'
     # engines are gone.  The MoE capacity follows a forward's token count,
     # so a forward over a whole stream drops other (token, expert) pairs
@@ -1677,9 +1939,9 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
     twins = twin_runs(torch, cfg32, comp32, dev, {"slab": None, "paged": (28, False)},
                       prompts=prompts)
     gate_streams(torch, "slab vs non-preempting paged", cfg32, comp32, prompts,
-                 twins["slab"]["streams"], twins["paged"]["streams"], dev, greedy=False)
-    log("  slab vs non-preempting paged, bf16 greedy streams at full depth (reading): "
-        + agree_reading(runs["slab"][1], runs["paged"][1]))
+                 twins["slab"]["streams"], twins["paged"]["streams"], greedy=False)
+    log(f"  slab vs non-preempting paged, bf16 greedy streams at {cfg.n_layers} layers "
+        "(reading): " + agree_reading(runs["slab"][1], runs["paged"][1]))
     # chunks and prefix hits against the cold pool: the MoE capacity follows
     # a forward's token count, which chunking changes, so these twins drop
     # no token (no_drop) and differ only by the chunks and the hits
@@ -1689,9 +1951,9 @@ def deepseek_phase(torch, dev, dispatch) -> dict:
                       **chunked)
     gate_streams(torch, "chunks and prefix hits vs cold, 28-page pool (twins without MoE "
                  "drops)", nd, comp32, prompts, pair["chunk_prefix"]["streams"],
-                 pair["cold"]["streams"], dev, greedy=False)
-    log("  chunks and prefix hits vs cold, 28-page pool, bf16 greedy streams at full depth "
-        "(reading): " + agree_reading(runs["paged_chunk_prefix"][1], runs["paged"][1]))
+                 pair["cold"]["streams"], greedy=False)
+    log(f"  chunks and prefix hits vs cold, 28-page pool, bf16 greedy streams at "
+        f"{cfg.n_layers} layers (reading): " + agree_reading(runs["paged_chunk_prefix"][1], runs["paged"][1]))
     log(f"  peak memory with the f32 twin: {torch.cuda.max_memory_allocated():,} B")
     totals["chunk_dispatch_launches"] = chunk_launches
     return totals
@@ -1902,12 +2164,15 @@ def window_route_difference(torch, cfg, comp, prompt_len: int, dev) -> dict:
 
 
 def recurrentgemma_phase(torch, dev, dispatch) -> dict:
-    """Phase 7: full-width RecurrentGemma-9B, exported and compressed leaf
-    by leaf, served on the slab, a pool that never preempts and one that
+    """Phase 7: full-width RecurrentGemma-9B's first RG_LAYERS layers,
+    exported and compressed leaf by leaf, served on the slab, a pool that never preempts and one that
     does; returns the launches of K1 and K2w over the three runs."""
     import numpy as np
 
-    cfg, comp = arch_tree(torch, dev, "recurrentgemma-9b")
+    cfg, comp = arch_tree(torch, dev, "recurrentgemma-9b", RG_LAYERS)
+    kinds = cfg.block_kinds()
+    attn_layers = kinds.count("attn")
+    k1_pass = RG_K1_REC * (len(kinds) - attn_layers) + RG_K1_ATTN * attn_layers
     prompts = [np.random.default_rng(4000 + r).integers(0, cfg.vocab, n).tolist()
                for r, n in enumerate(RG_PROMPTS)]
     run = dict(lanes=4, gen=RG_GEN, k=4, max_len=RG_MAX_LEN)
@@ -1926,14 +2191,14 @@ def recurrentgemma_phase(torch, dev, dispatch) -> dict:
         launches = dict(dispatch.launches)
         steps, groups = eng.decode_steps, eng.prefill_batches
         win = "paged_attn_win_q" if int8 else "paged_attn_win"
-        want = {"nm_spmm": RG_K1_PER_PASS * (steps + groups),
-                "paged_attn_win": RG_ATTN_LAYERS * steps if pages and not int8 else 0,
-                "paged_attn_win_q": RG_ATTN_LAYERS * steps if int8 else 0,
+        want = {"nm_spmm": k1_pass * (steps + groups),
+                "paged_attn_win": attn_layers * steps if pages and not int8 else 0,
+                "paged_attn_win_q": attn_layers * steps if int8 else 0,
                 "paged_attn": 0, "paged_attn_mla": 0, "nm_spmm_batched": 0,
                 "paged_attn_q": 0, "paged_attn_mla_q": 0}
         log(f"  {name}: launches {launches}; {steps} decode steps, {groups} prefill batches: "
-            f"nm_spmm wants {RG_K1_PER_PASS} x ({steps} + {groups}) = {want['nm_spmm']}, "
-            f"{win} {RG_ATTN_LAYERS} x {steps if pages else 0}")
+            f"nm_spmm wants {k1_pass} x ({steps} + {groups}) = {want['nm_spmm']}, "
+            f"{win} {attn_layers} x {steps if pages else 0}")
         if any(launches[k] != v for k, v in want.items()):
             raise AssertionError(f"{name}: launches {launches}, want {want}")
         if (eng.preemptions > 0) != (name == "paged_preempting"):
@@ -1970,14 +2235,14 @@ def recurrentgemma_phase(torch, dev, dispatch) -> dict:
         raise AssertionError(f"recurrentgemma device scheduler: {d['streams']}, sync "
                              f"{runs['paged'][1]}, {st['gated_iterations']} gated")
     loop_launch_gate("recurrentgemma device W=2", d,
-                     {"nm_spmm": RG_K1_PER_PASS, "paged_attn_win": RG_ATTN_LAYERS},
-                     {"nm_spmm": RG_K1_PER_PASS})
+                     {"nm_spmm": k1_pass, "paged_attn_win": attn_layers},
+                     {"nm_spmm": k1_pass})
     del d
     # the two decode routes from one state past the window: f32 on the
     # first period and the tail must agree to summation order; bf16 at
-    # full depth shows the rounding the streams see
+    # the phase's depth shows the rounding the streams see
     routes = {}
-    for dtype, n_body in (("float32", 1), ("bfloat16", 12)):
+    for dtype, n_body in (("float32", 1), ("bfloat16", None)):
         sub_cfg, sub = (first_layers(torch, cfg, comp, n_body, dtype) if dtype != "bfloat16"
                         else (cfg, comp))
         routes[f"{dtype} {sub_cfg.n_layers} layers"] = window_route_difference(
@@ -2018,9 +2283,9 @@ def recurrentgemma_phase(torch, dev, dispatch) -> dict:
     twins = twin_runs(torch, cfg32, comp32, dev, {"slab": None, "paged": (RG_PAGES, False)},
                       prompts=prompts, **run)
     gate_streams(torch, f"slab vs non-preempting paged ({cfg32.n_layers} layers)", cfg32,
-                 comp32, prompts, twins["slab"]["streams"], twins["paged"]["streams"], dev)
-    log("  slab vs non-preempting paged, bf16 greedy streams at full depth (reading): "
-        + agree_reading(runs["slab"][1], runs["paged"][1]))
+                 comp32, prompts, twins["slab"]["streams"], twins["paged"]["streams"])
+    log(f"  slab vs non-preempting paged, bf16 greedy streams at {cfg.n_layers} layers "
+        "(reading): " + agree_reading(runs["slab"][1], runs["paged"][1]))
     return totals
 
 
@@ -2135,10 +2400,10 @@ def device_phase(torch, cfg, comp, dev, single: dict) -> None:
         d = serve_requests(torch, cfg32, comp32, dev, single["prompts"], gen, pages=pages,
                            **refill)
         gate_streams(torch, f"refill gate, {pool}, device (staged, async) vs sync", cfg32,
-                     comp32, single["prompts"], sync32, d["streams"], dev)
+                     comp32, single["prompts"], sync32, d["streams"])
         stream_readings(torch, f"refill gate, {pool}, device (staged, async) vs sync (phase 3)",
                         cfg32, comp32, single["prompts"], single[f"{pool}_streams"],
-                        runs[(pool, "refill")]["streams"], dev)
+                        runs[(pool, "refill")]["streams"])
     del comp32
     # readings, and the launch gate on the device pool's traced cycles
     reads = {}
@@ -2392,12 +2657,12 @@ def chunk_phase(torch, cfg, comp, dev) -> dict:
             f"chunked traffic, {pool}", runs["chunked"]["chunk_records"], st["prefill_chunks"],
             {"nm_spmm": want}))
         stream_readings(torch, f"chunked vs monolithic, {pool}", cfg32, comp32, prompts,
-                        runs["chunked"]["streams"], runs["monolithic"]["streams"], dev)
+                        runs["chunked"]["streams"], runs["monolithic"]["streams"])
         twins = {mode: serve_waves(torch, cfg32, comp32, dev, [prompts], pages=pages,
                                    int8=int8, max_len=max_len, **kw)["streams"]
                  for mode, kw in (("chunked", dict(prefill_chunk=CHUNK)), ("monolithic", {}))}
         gate_streams(torch, f"chunked vs monolithic, {pool}", cfg32, comp32, prompts,
-                     twins["chunked"], twins["monolithic"], dev, greedy=not int8)
+                     twins["chunked"], twins["monolithic"], greedy=not int8)
     # the prefix cache: two waves of 4 prompts sharing a 136-token head
     waves = prefix_waves(cfg)
     shared = waves[0] + waves[1]
@@ -2442,13 +2707,13 @@ def chunk_phase(torch, cfg, comp, dev) -> dict:
                                max_len=pmax_len, **kw)["streams"]
     for pool in ("fp", "int8"):
         stream_readings(torch, f"prefix hit vs cold, {pool}", cfg32, comp32, shared,
-                        bf16[(pool, "prefix")]["streams"], bf16[(pool, "cold")]["streams"], dev)
+                        bf16[(pool, "prefix")]["streams"], bf16[(pool, "cold")]["streams"])
         gate_streams(torch, f"prefix hit vs cold, {pool}", cfg32, comp32, shared,
-                     f32[(pool, "prefix")], f32[(pool, "cold")], dev, greedy=pool == "fp")
+                     f32[(pool, "prefix")], f32[(pool, "cold")], greedy=pool == "fp")
     stream_readings(torch, "device (prefix, chunks) vs sync cold, fp", cfg32, comp32, shared,
-                    bf16[("fp", "device")]["streams"], bf16[("fp", "cold")]["streams"], dev)
+                    bf16[("fp", "device")]["streams"], bf16[("fp", "cold")]["streams"])
     gate_streams(torch, "device (prefix, chunks) vs sync cold, fp", cfg32, comp32, shared,
-                 f32[("fp", "device")], f32[("fp", "cold")], dev)
+                 f32[("fp", "device")], f32[("fp", "cold")])
     del comp32
     return in_chunks
 
@@ -2578,8 +2843,8 @@ def serve_spec(torch, cfg, drafter, verifier, dev, waves, *, gamma=None, pages=N
             if kv_check:
                 toks = {i: (s.prompt + s.generated)[:s.pos] for i, s in enumerate(eng.slots)
                         if s is not None and not s.pending}
-                for rec in committed_kv_gaps(cfg, verifier, eng.cache, eng.layout, toks,
-                                             dev).values():
+                for rec in committed_kv_gaps(cfg, verifier, eng.cache, eng.layout,
+                                             toks).values():
                     kv["max_abs"] = max(kv["max_abs"], rec["max_abs"])
                     kv["max_ref"] = max(kv["max_ref"], rec["max_ref"])
                     kv["checks"] += 1
@@ -2723,9 +2988,9 @@ def spec_phase(torch, cfg, comp, dev, single: dict, ds_spec: tuple) -> dict:
                                        int8=int8, gen=gen)
         prompts = [p for w in waves for p in w]
         stream_readings(torch, f"{name}, spec vs plain verifier", cfg32, trees[v], prompts,
-                        bf16[name]["streams"], plains[(v, t, pages, int8)]["streams"], dev)
+                        bf16[name]["streams"], plains[(v, t, pages, int8)]["streams"])
         gate_streams(torch, f"{name}, spec vs plain verifier", cfg32, trees[v], prompts,
-                     run["streams"], plains32[key]["streams"], dev, greedy=not int8)
+                     run["streams"], plains32[key]["streams"], greedy=not int8)
         kv = run["kv"]
         log(f"  {name}, f32: acceptance {run['stats']['acceptance_rate']:.4f}; committed K/V "
             f"against a verifier forward after every round: largest gap {kv['max_abs']:.3e} "
@@ -2788,9 +3053,9 @@ def spec_deepseek(torch, dev, cfg, comp, prompts) -> dict:
                        pages=SPEC_PAGES, kv_check=True)
     plain32 = serve_spec(torch, nd, None, ver32, dev, [prompts], pages=SPEC_PAGES)
     stream_readings(torch, "deepseek, spec vs plain verifier", nd, ver32, prompts,
-                    run["streams"], plain["streams"], dev)
+                    run["streams"], plain["streams"])
     gate_streams(torch, "deepseek, spec vs plain verifier (twins without MoE drops)", nd, ver32,
-                 prompts, run32["streams"], plain32["streams"], dev, greedy=False)
+                 prompts, run32["streams"], plain32["streams"], greedy=False)
     kv = run32["kv"]
     log(f"  deepseek, f32: acceptance {run32['stats']['acceptance_rate']:.4f}; committed K/V "
         f"against a verifier forward after every round: largest gap {kv['max_abs']:.3e} "
@@ -2965,10 +3230,10 @@ def attn_arch_phase(torch, dev, dispatch, name: str, pools: tuple, n_layers=None
     twins = twin_runs(torch, cfg32, comp32, dev, {"slab": None, "fp": (ARCH_PAGES, False)},
                       prompts=prompts)
     gate_streams(torch, f"{name} slab vs fp pool", cfg32, comp32, prompts,
-                 twins["slab"]["streams"], twins["fp"]["streams"], dev)
+                 twins["slab"]["streams"], twins["fp"]["streams"])
     if "slab" in runs:
         stream_readings(torch, f"{name} slab vs fp pool", cfg32, comp32, prompts,
-                        runs["slab"][1], runs["fp"][1], dev)
+                        runs["slab"][1], runs["fp"][1])
     return totals, err
 
 
@@ -2994,7 +3259,8 @@ def ssm_route_difference(torch, cfg, comp, prompt, dev, steps: int = 8) -> dict:
 
 
 def mamba_phase(torch, dev, dispatch) -> tuple[dict, float]:
-    """Phase 12's mamba2-2.7b at full width (64 layers): 4 requests of 200,
+    """Phase 12's mamba2-2.7b at full width (its first MAMBA_LAYERS of 64
+    layers): 4 requests of 200,
     128, 100 and 64 prompt tokens + 32, prefilled at exact lengths (one SSD
     chunk each), over 4 lanes on the slab and on the table-less paged pool,
     then by the device scheduler over 3 lanes (16 steps a dispatch, the
@@ -3008,7 +3274,7 @@ def mamba_phase(torch, dev, dispatch) -> tuple[dict, float]:
 
     from repro_torch.models.model import forward
 
-    cfg, comp = arch_tree(torch, dev, "mamba2-2.7b")
+    cfg, comp = arch_tree(torch, dev, "mamba2-2.7b", MAMBA_LAYERS)
     log("  mamba2-2.7b: K1 bodies " + json.dumps(k1_bodies(cfg, comp, {
         "bf16 B=4": (4, 2), "f32 B=4": (4, 4), "bf16 B=200": (200, 2),
         "f32 B=200": (200, 4)})))
@@ -3095,21 +3361,22 @@ def mamba_phase(torch, dev, dispatch) -> tuple[dict, float]:
     if dev32["stats"]["refills"] < 1:
         raise AssertionError(f"mamba2 f32 device run: {dev32['stats']['refills']} refills")
     gate_streams(torch, "mamba2-2.7b slab vs device scheduler (refill)", cfg32, comp32,
-                 prompts, slab32, dev32["streams"], dev)
+                 prompts, slab32, dev32["streams"])
     stream_readings(torch, "mamba2-2.7b slab vs device scheduler (refill)", cfg32, comp32,
-                    prompts, runs["slab"][1], d["streams"], dev)
+                    prompts, runs["slab"][1], d["streams"])
     return totals, err
 
 
 def archs_phase(torch, dev, dispatch) -> dict:
-    """Phase 12: starcoder2-3b (slab, fp and int8 pools), minitron-4b's
-    first 4 layers (fp pool) and mamba2-2.7b at full width.  Returns the
+    """Phase 12, at full width: starcoder2-3b's first ARCH_LAYERS layers
+    (slab, fp and int8 pools), minitron-4b's first 4 (fp pool) and
+    mamba2-2.7b's first MAMBA_LAYERS.  Returns the
     launches of K1, K2 and K2q summed over the bf16 runs, each part's
     seconds and K1's largest error at the new widths."""
     out = {"nm_spmm": 0, "paged_attn": 0, "paged_attn_q": 0}
     seconds, err = {}, 0.0
     parts = (("starcoder2-3b", lambda: attn_arch_phase(
-                 torch, dev, dispatch, "starcoder2-3b", ("slab", "fp", "int8"),
+                 torch, dev, dispatch, "starcoder2-3b", ("slab", "fp", "int8"), ARCH_LAYERS,
                  k1_rows={"mlp/w_proj": (4, 8, -4, 256), "mlp/w_fc": (4, 256)})),
              ("minitron-4b", lambda: attn_arch_phase(
                  torch, dev, dispatch, "minitron-4b", ("fp",), n_layers=MT_LAYERS)),
@@ -3304,7 +3571,7 @@ def domino_phase(torch, dev, dispatch) -> dict:
         raise AssertionError(f"domino: the f32 forward differs by {diff.item()}")
     a = serve(torch, cfg32, comp32, dev, **run)[2]
     b = serve(torch, cfg32, dense32, dev, **run)[2]
-    gate_streams(torch, "domino n:8 vs its masked-dense tree", cfg32, comp32, prompts, a, b, dev)
+    gate_streams(torch, "domino n:8 vs its masked-dense tree", cfg32, comp32, prompts, a, b)
     del comp32, dense32
     torch.cuda.empty_cache()
     return {"launches": {k: launches[k] + export_launches[k] for k in launches},
@@ -3312,8 +3579,8 @@ def domino_phase(torch, dev, dispatch) -> dict:
 
 
 def frontends_phase(torch, dev, dispatch) -> dict:
-    """Phase 13: qwen2-vl-2b (slab, fp and int8 pools) and musicgen-large
-    (slab, fp pool) served at full width, each with ``frontend_check``;
+    """Phase 13: the first ARCH_LAYERS layers of qwen2-vl-2b (slab, fp and
+    int8 pools) and musicgen-large (slab, fp pool) served at full width, each with ``frontend_check``;
     qwen2-vl-2b trained for 10 steps through the train CLI's stub branch;
     DominoSearch.  Returns the launches of K1, K2, K2q and K4 summed over
     its runs, each part's seconds, K1's largest error and its times at
@@ -3331,9 +3598,11 @@ def frontends_phase(torch, dev, dispatch) -> dict:
         return rec["launches"], rec["k1_err"]
 
     parts = (("qwen2-vl-2b", lambda: attn_arch_phase(
-                 torch, dev, dispatch, "qwen2-vl-2b", ("slab", "fp", "int8"), extra=check)),
+                 torch, dev, dispatch, "qwen2-vl-2b", ("slab", "fp", "int8"), ARCH_LAYERS,
+                 extra=check)),
              ("musicgen-large", lambda: attn_arch_phase(
-                 torch, dev, dispatch, "musicgen-large", ("slab", "fp"), extra=check)),
+                 torch, dev, dispatch, "musicgen-large", ("slab", "fp"), ARCH_LAYERS,
+                 extra=check)),
              ("train qwen2-vl-2b", lambda: (train_phase(
                  torch, dev, dispatch, argv=FRONT_TRAIN_ARGS, profile=False), 0.0)),
              ("domino", domino))
@@ -3546,7 +3815,8 @@ def main() -> int:
     t0 = time.perf_counter()
     out = dispatch.build()
     dispatch.load_kernels()
-    log(f"  kernels built in {time.perf_counter() - t0:.1f} s into {out}")
+    log(f"  kernels built in {time.perf_counter() - t0:.1f} s into {out}; each compile's "
+        f"seconds {json.dumps(dispatch.build_seconds)}")
     for name in dispatch.SOURCES:
         log_file = out / f"{name}.log"
         for line in (log_file.read_text().splitlines() if log_file.exists() else []):
@@ -3597,8 +3867,8 @@ def main() -> int:
         serve_trained_phase(torch, cfg, dev, dispatch, ckpt_dir)
         t_phase = phase_done(seconds, "5", t_phase)
 
-    log("phase 6: serve full-width DeepSeek-V2-Lite (27 layers): slab, paged, preempting, "
-        "int8 pool, chunked prefill with the prefix cache; f32 twins of the slab and the paged "
+    log(f"phase 6: serve full-width DeepSeek-V2-Lite (its first {DS_LAYERS} of 27 layers): "
+        "slab, paged, preempting, int8 pool, chunked prefill with the prefix cache; f32 twins of the slab and the paged "
         "pool, and of the cold and the chunked pool")
     ds = deepseek_phase(torch, dev, dispatch)
     ds_chunk_launches = ds.pop("chunk_dispatch_launches")
@@ -3606,16 +3876,20 @@ def main() -> int:
     launches.update(ds)
     t_phase = phase_done(seconds, "6", t_phase)
 
-    log("phase 7: serve full-width RecurrentGemma-9B (38 layers): slab, paged, preempting, "
-        "int8 pool; f32 twins of the slab and the paged pool")
+    log(f"phase 7: serve full-width RecurrentGemma-9B (its first {RG_LAYERS} of 38 layers): "
+        "slab, paged, preempting, int8 pool; f32 twins of the slab and the paged pool")
     rg = recurrentgemma_phase(torch, dev, dispatch)
     launches["paged_attn_win"] = rg["paged_attn_win"]
     launches["paged_attn_win_q"] = rg["paged_attn_win_q"]
     t_phase = phase_done(seconds, "7", t_phase)
 
-    log(f"phase 8: serve full-width gpt2-paper tensor-parallel on {MESH_RANKS} ranks of the "
-        "one card: phase 3's fp and int8 pools, then their f32 twins")
-    launches.update(mesh_phase(torch, cfg, comp, dev, single))
+    log(f"phase 8: serve every family tensor-parallel on {MESH_RANKS} ranks of the one card: "
+        f"gpt2-paper's and Mamba2-2.7B's first {MESH_LAYERS} layers, DeepSeek-V2-Lite's first "
+        f"{1 + DS_TWIN_BODY}, RecurrentGemma-9B's first period, each on the slab and its pools, "
+        "then their f32 twins")
+    mesh = mesh_phase(torch, cfg, dev, single)
+    for name in K3_FORMS:
+        launches[name] = mesh[name]
     t_phase = phase_done(seconds, "8", t_phase)
 
     log(f"phase 9: serve full-width gpt2-paper with the device scheduler (CUDA graphs, "
@@ -3637,17 +3911,19 @@ def main() -> int:
     del comp, ds_spec
     t_phase = phase_done(seconds, "11", t_phase)
 
-    log("phase 12: the reference's other token archs at full width: starcoder2-3b (slab, fp and "
-        f"int8 pools), minitron-4b's first {MT_LAYERS} layers (fp pool), mamba2-2.7b (slab, "
-        "table-less pool, the device scheduler); their f32 twins")
+    log(f"phase 12: the reference's other token archs at full width: starcoder2-3b's first "
+        f"{ARCH_LAYERS} of 30 layers (slab, fp and int8 pools), minitron-4b's first {MT_LAYERS} "
+        f"(fp pool), mamba2-2.7b's first {MAMBA_LAYERS} of 64 (slab, table-less pool, the device "
+        "scheduler); their f32 twins")
     archs = archs_phase(torch, dev, dispatch)
     records["nm_spmm"]["max_abs_err"] = max(records["nm_spmm"]["max_abs_err"], archs["k1_err"])
     for name, n in archs["launches"].items():
         launches[name] += n
     t_phase = phase_done(seconds, "12", t_phase)
 
-    log("phase 13: the stub-frontend archs at full width: qwen2-vl-2b (M-RoPE; slab, fp and int8 "
-        "pools) and musicgen-large (slab, fp pool) with forwards over embeds, their f32 twins; "
+    log(f"phase 13: the stub-frontend archs at full width, their first {ARCH_LAYERS} layers: "
+        "qwen2-vl-2b (M-RoPE; slab, fp and int8 pools) and musicgen-large (slab, fp pool) "
+        "with forwards over embeds, their f32 twins; "
         "qwen2-vl-2b trained 10 steps; DominoSearch's mixed n:8 served")
     heads = check_gqa_heads(torch, dev, FRONT_HEADS)
     front = frontends_phase(torch, dev, dispatch)
@@ -3666,7 +3942,7 @@ def main() -> int:
             "launches": launches[name], **{k: rec[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at")},
             **{k: rec[k] for k in ("sdpa_yardstick_ms", "splits", "first_version_bytes",
-                                   "prefill") if k in rec},
+                                   "prefill", "sharded") if k in rec},
             **({"chunk_dispatch_launches": chunk_launches[name]}
                if name in chunk_launches else {}),
             **({"spec_round_launches": spec["launches"][name]}
@@ -3678,6 +3954,7 @@ def main() -> int:
             **({"phase13_launches": front["launches"][name]} if name in front["launches"]
                else {}),
             **({"phase13_heads": heads[name]} if name in heads else {}),
+            **({"phase8_launches": mesh[name]} if mesh.get(name) else {}),
             **({"frontend_proj": front["frontend_proj"]} if name == "nm_spmm" else {}),
             **({"domino": front["domino"]} if name == "nm_mask" else {}),
         })

@@ -1030,8 +1030,9 @@ int launch(const void* q, const void* q2, const void* k, const void* k2,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool V_IS_K, bool STATS>
-int launch_types(int q_dtype, int page_dtype, const void* q, const void* q2,
+// The launch of one (form, flush, query type) over any page type.
+template <bool V_IS_K, bool STATS, typename TQ>
+int launch_pages(int q_dtype, int page_dtype, const void* q, const void* q2,
                  const void* k, const void* k2, const void* v, const void* ksc,
                  const void* k2sc, const void* vsc, const void* tables,
                  const void* lengths, void* out, void* m_out, void* l_out,
@@ -1041,14 +1042,9 @@ int launch_types(int q_dtype, int page_dtype, const void* q, const void* q2,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PA_ARGS q, q2, k, k2, v, ksc, k2sc, vsc, tables, lengths, out, m_out, l_out, \
                 B, Hkv, G, D, D2, Dv, P, ps, n_slots, scale, gb, threads, pg, stages, s
-  if (page_dtype == 2) {
-    return q_dtype == 0 ? launch<float, int8_t, V_IS_K, STATS>(PA_ARGS)
-                        : launch<__nv_bfloat16, int8_t, V_IS_K, STATS>(PA_ARGS);
-  }
-  if (q_dtype == 0 && page_dtype == 0) return launch<float, float, V_IS_K, STATS>(PA_ARGS);
-  if (q_dtype == 0) return launch<float, __nv_bfloat16, V_IS_K, STATS>(PA_ARGS);
-  if (page_dtype == 0) return launch<__nv_bfloat16, float, V_IS_K, STATS>(PA_ARGS);
-  return launch<__nv_bfloat16, __nv_bfloat16, V_IS_K, STATS>(PA_ARGS);
+  if (page_dtype == 2) return launch<TQ, int8_t, V_IS_K, STATS>(PA_ARGS);
+  if (page_dtype == 0) return launch<TQ, float, V_IS_K, STATS>(PA_ARGS);
+  return launch<TQ, __nv_bfloat16, V_IS_K, STATS>(PA_ARGS);
 #undef PA_ARGS
 }
 
@@ -1126,6 +1122,68 @@ int launch_win(const void* q, const void* k, const void* v, const void* ksc,
 
 }  // namespace
 
+// The file compiles whole, or in nine parts (KERNEL_PART 0-8) that
+// kernels/dispatch.py builds in parallel and links into one library: part
+// 4 * V_IS_K + 2 * STATS + (bf16 queries) holds that (form, flush, query
+// type) of the GQA and MLA launches with its 12 kernel instances, part 8
+// the window form and the C entry points.
+#ifndef KERNEL_PART
+#define KERNEL_PART -1
+#endif
+#define IN_PART(p) (KERNEL_PART < 0 || KERNEL_PART == (p))
+
+#define PA_TYPES_PARAMS int q_dtype, int page_dtype, const void* q, const void* q2,      \
+    const void* k, const void* k2, const void* v, const void* ksc, const void* k2sc,    \
+    const void* vsc, const void* tables, const void* lengths, void* out, void* m_out,    \
+    void* l_out, int B, int Hkv, int G, int D, int D2, int Dv, int P, int ps,           \
+    int n_slots, float scale, int gb, int threads, int pg, int stages, void* stream
+#define PA_TYPES_ARGS q_dtype, page_dtype, q, q2, k, k2, v, ksc, k2sc, vsc, tables,      \
+    lengths, out, m_out, l_out, B, Hkv, G, D, D2, Dv, P, ps, n_slots, scale, gb,        \
+    threads, pg, stages, stream
+#define PA_PART_DEF(V_IS_K, STATS, TQ)                                                  \
+  { return launch_pages<V_IS_K, STATS, TQ>(PA_TYPES_ARGS); }
+int pa_part0(PA_TYPES_PARAMS);
+int pa_part1(PA_TYPES_PARAMS);
+int pa_part2(PA_TYPES_PARAMS);
+int pa_part3(PA_TYPES_PARAMS);
+int pa_part4(PA_TYPES_PARAMS);
+int pa_part5(PA_TYPES_PARAMS);
+int pa_part6(PA_TYPES_PARAMS);
+int pa_part7(PA_TYPES_PARAMS);
+#if IN_PART(0)
+int pa_part0(PA_TYPES_PARAMS) PA_PART_DEF(false, false, float)
+#endif
+#if IN_PART(1)
+int pa_part1(PA_TYPES_PARAMS) PA_PART_DEF(false, false, __nv_bfloat16)
+#endif
+#if IN_PART(2)
+int pa_part2(PA_TYPES_PARAMS) PA_PART_DEF(false, true, float)
+#endif
+#if IN_PART(3)
+int pa_part3(PA_TYPES_PARAMS) PA_PART_DEF(false, true, __nv_bfloat16)
+#endif
+#if IN_PART(4)
+int pa_part4(PA_TYPES_PARAMS) PA_PART_DEF(true, false, float)
+#endif
+#if IN_PART(5)
+int pa_part5(PA_TYPES_PARAMS) PA_PART_DEF(true, false, __nv_bfloat16)
+#endif
+#if IN_PART(6)
+int pa_part6(PA_TYPES_PARAMS) PA_PART_DEF(true, true, float)
+#endif
+#if IN_PART(7)
+int pa_part7(PA_TYPES_PARAMS) PA_PART_DEF(true, true, __nv_bfloat16)
+#endif
+
+#if IN_PART(8)
+// The GQA and MLA launches by part: 4 * V_IS_K + 2 * STATS + (q_dtype != 0).
+using PaLaunch = int (*)(PA_TYPES_PARAMS);
+const PaLaunch PA_LAUNCH[8] = {pa_part0, pa_part1, pa_part2, pa_part3,
+                               pa_part4, pa_part5, pa_part6, pa_part7};
+#undef PA_TYPES_PARAMS
+#undef PA_TYPES_ARGS
+#undef PA_PART_DEF
+
 // Shared memory the window kernel needs at `splits` blocks a lane, in bytes.
 extern "C" int paged_attn_win_smem_bytes(int D, int Dv, int ps, int n_slots, int splits,
                                          int page_dtype) {
@@ -1156,8 +1214,7 @@ extern "C" int paged_attn_launch(const void* q, const void* k, const void* v,
 #define PA_GQA_ARGS q_dtype, page_dtype, q, nullptr, k, nullptr, v, k_scale, nullptr, \
                     v_scale, tables, lengths, out, m_out, l_out, B, Hkv, G, D, 0, Dv, \
                     P, ps, n_slots, scale, gb, threads, pg, stages, stream
-  return m_out != nullptr ? launch_types<false, true>(PA_GQA_ARGS)
-                          : launch_types<false, false>(PA_GQA_ARGS);
+  return PA_LAUNCH[2 * (m_out != nullptr) + (q_dtype != 0)](PA_GQA_ARGS);
 #undef PA_GQA_ARGS
 }
 
@@ -1203,7 +1260,7 @@ extern "C" int paged_attn_mla_launch(const void* q, const void* q2,
 #define PA_MLA_ARGS q_dtype, page_dtype, q, q2, k, k2, nullptr, k_scale, k2_scale, \
                     nullptr, tables, lengths, out, m_out, l_out, B, Hkv, G, D, D2, D, \
                     P, ps, n_slots, scale, gb, threads, pg, stages, stream
-  return m_out != nullptr ? launch_types<true, true>(PA_MLA_ARGS)
-                          : launch_types<true, false>(PA_MLA_ARGS);
+  return PA_LAUNCH[4 + 2 * (m_out != nullptr) + (q_dtype != 0)](PA_MLA_ARGS);
 #undef PA_MLA_ARGS
 }
+#endif  // IN_PART(8)

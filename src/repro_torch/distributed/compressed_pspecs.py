@@ -8,10 +8,11 @@ cache (counterpart of ``repro/distributed/compressed_pspecs.py``).
    axis size``, so a shard owns whole N:M groups.  Leaves whose output dim
    reshapes into heads shard it only in whole heads; every placement is
    sanitized against the stored shapes.
-2. **The paged cache.**  Each layer's pool shards its *pages* axis over
-   ``model`` (``kv_shard="seq"``), int8 ``*_scale`` planes with their
-   pages; page tables and lane lengths are replicated, so every shard
-   resolves logical -> physical addresses itself.
+2. **Serving caches.**  A slab cache takes ``sharding.cache_pspecs``
+   (each lane's sequence axis over ``model``).  Each layer's pool shards
+   its *pages* axis over ``model`` (``kv_shard="seq"``), int8 ``*_scale``
+   planes with their pages; page tables and lane lengths are replicated,
+   so every shard resolves logical -> physical addresses itself.
 
 :func:`shard_serving_params` applies the placements: one rank takes its
 slice of every sharded compressed leaf (``CompressedTensor.rshards`` or
@@ -25,11 +26,14 @@ import dataclasses
 import re
 from typing import Optional
 
+import torch
+
 from repro_torch.core.sparsity_config import _EXCLUDE_FRAGMENTS
 from repro_torch.distributed.sharding import (
     MODEL_AXIS,
     _dp,
     axis_sizes,
+    cache_pspecs,
     param_pspec,
     sanitize_spec,
 )
@@ -156,6 +160,9 @@ def shard_serving_params(params: dict, mesh, *, cfg=None, device=None) -> dict:
     def place(t):
         return t.to(dev).contiguous()
 
+    def own(t):  # a slice in storage of its own (a view would keep the whole leaf alive)
+        return torch.empty_like(t, device=dev, memory_format=torch.contiguous_format).copy_(t)
+
     def leaf(name, x):
         spec = _at(specs, name)
         if isinstance(x, CompressedTensor):
@@ -167,10 +174,9 @@ def shard_serving_params(params: dict, mesh, *, cfg=None, device=None) -> dict:
                                           "reduction nor the output dim (the rest of tensor "
                                           "parallelism, ROADMAP.md)")
             part = x.shard(dim, index, model)
-            return dataclasses.replace(part, values=place(part.values),
-                                       indices=place(part.indices))
+            return dataclasses.replace(part, values=own(part.values), indices=own(part.indices))
         if name.endswith("tok_embed") and _model_dim(spec, mesh) == 0:
-            return place(x.narrow(0, index * (x.shape[0] // model), x.shape[0] // model))
+            return own(x.narrow(0, index * (x.shape[0] // model), x.shape[0] // model))
         return place(x)
 
     return tree_map_with_name(leaf, params)
@@ -183,14 +189,15 @@ def _at(tree: dict, name: str):
 
 
 def serving_cache_pspecs(mesh, cache: dict, layout, *, kv_shard: str = "seq") -> dict:
-    """The placement of every leaf of a paged serving cache: each pool leaf
-    (and its int8 ``*_scale`` plane) on its pages axis (``kv_shard="seq"``)
-    or its feature axis (``"feature"``), page tables replicated, lane
-    lengths over the data axes.  The slab under a mesh is not ported
-    (the rest of tensor parallelism, ROADMAP.md)."""
+    """The placement of every leaf of a serving cache.  A slab cache is
+    :func:`sharding.cache_pspecs`'s (its sequence axis on ``model``).  On
+    the paged layout each pool leaf (and its int8 ``*_scale`` plane) takes
+    its pages axis (``kv_shard="seq"``) or its feature axis
+    (``"feature"``), page tables are replicated, lane lengths and
+    recurrent states go over the data axes, SSM states their heads on
+    ``model``."""
     if getattr(layout, "kind", None) != "paged":
-        raise NotImplementedError("slab caches under a mesh are not ported (the rest of "
-                                  "tensor parallelism, ROADMAP.md)")
+        return cache_pspecs(mesh, cache, kv_shard=kv_shard)
     dp = _dp(mesh)
 
     def leaf(name, x):

@@ -9,7 +9,7 @@ rules are the reference's Megatron-style tensor parallelism on the
 row-sharded, embeddings vocab-sharded.  They are the serving rules, with
 FSDP off (decode reads every weight each step); training's FSDP
 placements and ``state_pspecs`` are not ported (the rest of tensor
-parallelism, ROADMAP.md).
+parallelism, ROADMAP.md).  :func:`cache_pspecs` places a slab cache.
 
 A mesh here is anything with ``axis_names`` and a ``devices`` array of
 the mesh's shape: ``launch.mesh.Mesh`` or a stand-in.
@@ -17,6 +17,8 @@ the mesh's shape: ``launch.mesh.Mesh`` or a stand-in.
 from __future__ import annotations
 
 import re
+
+from repro_torch.utils.tree import tree_map_with_name
 
 MODEL_AXIS = "model"
 DP_AXES = ("pod", "data")  # pod omitted automatically on single-pod meshes
@@ -81,6 +83,35 @@ def param_pspec(name: str, ndim: int) -> Placement:
     spec = next(spec for regex, spec in _RULES if re.search(regex, name))
     spec = (tuple(spec) + (None,) * base_ndim)[:base_ndim]
     return (None,) + spec if stacked else spec
+
+
+def cache_pspecs(mesh, cache: dict, *, kv_shard: str = "seq") -> dict:
+    """The placement of every leaf of a slab serving cache (the reference's
+    ``cache_pspecs``): lane lengths and 1-D leaves over the data axes; SSM
+    states ``(B, H, P, N)`` their heads on ``model``; every other leaf its
+    lanes over the data axes and, with ``kv_shard="seq"``, its per-lane
+    sequence axis on ``model`` (context-parallel decode), with
+    ``"feature"`` its last axis.  A stacked ``body/`` leaf gets ``None`` on
+    its layer axis first.  Unsanitized, as the reference returns them."""
+    dp = _dp(mesh)
+
+    def leaf(name, x):
+        nd = x.dim()
+        if name.endswith("len") or nd <= 1:
+            return (dp,) + (None,) * max(0, nd - 1)
+        stacked = re.search(r"(^|/)body/", name) is not None
+        if stacked:
+            nd -= 1
+        if nd == 4 and "state" in name:
+            spec = (dp, MODEL_AXIS, None, None)
+        elif nd >= 2:
+            spec = ((dp, MODEL_AXIS) + (None,) * (nd - 2) if kv_shard == "seq"
+                    else (dp,) + (None,) * (nd - 2) + (MODEL_AXIS,))
+        else:
+            spec = (dp,)
+        return (None,) + spec if stacked else spec
+
+    return tree_map_with_name(leaf, cache)
 
 
 def sanitize_spec(spec: Placement, shape: tuple, mesh) -> Placement:

@@ -5,9 +5,9 @@ the hand-written CUDA kernel, tensors on the CPU to the kernel's plain
 PyTorch version.  There is no mode switch: a CUDA tensor always launches
 the kernel, and a failed build, load or launch raises.
 
-Each kernel source in ``csrc/`` is compiled by its own ``nvcc`` process
-(all started together) into a shared library with a plain C interface,
-loaded with ``ctypes``.  The build lives in ``build/repro_torch/<hash>/`` at
+Each kernel source in ``csrc/`` is compiled by its own ``nvcc`` process,
+or by one a part where ``PARTS`` splits it (all started together), into a
+shared library with a plain C interface, loaded with ``ctypes``.  The build lives in ``build/repro_torch/<hash>/`` at
 the checkout's root, keyed by a hash of the sources and flags, so a stale
 library is never loaded; it happens once per checkout, at first use.
 """
@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -33,8 +34,12 @@ PAGED_ATTN = tuple(f"paged_attn{form}{flush}{quant}" for form in ("", "_mla", "_
 KERNELS = ("nm_spmm", "nm_spmm_batched", *PAGED_ATTN, "nm_mask")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# sources compiled in parts, each part (``-DKERNEL_PART=i``) by its own
+# nvcc, the objects linked into the one library: paged_attn.cu's 112
+# kernel instances took over three minutes in one compile
+PARTS = {"paged_attn": 9}
 
 # a block's shared memory on the H100 (the kernels' launches refuse more)
 SMEM_MAX = 232448
@@ -43,6 +48,8 @@ SMEM_MAX = 232448
 launches = {name: 0 for name in KERNELS}
 # the blocks a lane (S) of each window entry's last launch (its split walk)
 last_splits: dict[str, int] = {}
+# the seconds of each compile of the last build(), by source (and part)
+build_seconds: dict[str, float] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -74,7 +81,7 @@ def _nvcc() -> str:
 
 
 def build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(sorted(PARTS.items()))).encode())
     for src in sorted(CSRC.iterdir()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -83,7 +90,7 @@ def build_dir() -> Path:
 
 def build() -> Path:
     """Compile every kernel not yet built for these sources, one ``nvcc``
-    per source, all in parallel; each compiler's output goes to
+    per source or part, all in parallel; each compiler's output goes to
     ``<name>.log`` beside its library.  Raises if any build fails."""
     out = build_dir()
     todo = [name for name in SOURCES if not (out / f"lib{name}.so").exists()]
@@ -91,24 +98,49 @@ def build() -> Path:
         return out
     nvcc = _nvcc()
     out.mkdir(parents=True, exist_ok=True)
-    procs = []
+    build_seconds.clear()
+    tag = os.getpid()
+    jobs = []  # (source, label, log path, process, start)
     for name in todo:
-        lib = out / f"lib{name}.so"
-        tmp = out / f"lib{name}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        log = open(out / f"{name}.log", "w")
-        procs.append((name, lib, tmp, log, subprocess.Popen(
-            cmd, stdout=log, stderr=subprocess.STDOUT)))
-    failed = []
-    for name, lib, tmp, log, proc in procs:
-        rc = proc.wait()
-        log.close()
-        if rc != 0:
-            failed.append(f"{name} (nvcc exit {rc}):\n{(out / f'{name}.log').read_text()}")
+        src = str(CSRC / f"{name}.cu")
+        if name in PARTS:
+            cmds = {f"{name}.{i}": [nvcc, *NVCC_FLAGS, "-c", f"-DKERNEL_PART={i}", "-o",
+                                    str(out / f"{name}.{i}.{tag}.o"), src]
+                    for i in range(PARTS[name])}
         else:
-            os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+            cmds = {name: [nvcc, *NVCC_FLAGS, "-shared", "-o",
+                           str(out / f"lib{name}.{tag}.tmp"), src]}
+        for label, cmd in cmds.items():
+            log = out / f"{label}.log"
+            with open(log, "w") as f:
+                jobs.append((name, label, log, subprocess.Popen(
+                    cmd, stdout=f, stderr=subprocess.STDOUT), time.perf_counter()))
+    failed = []
+    while jobs:
+        for job in [j for j in jobs if j[3].poll() is not None]:
+            _, label, log, proc, t0 = job
+            build_seconds[label] = round(time.perf_counter() - t0, 1)
+            if proc.returncode != 0:
+                failed.append(f"{label} (nvcc exit {proc.returncode}):\n{log.read_text()}")
+            jobs.remove(job)
+        time.sleep(0.1)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    for name in todo:
+        tmp = out / f"lib{name}.{tag}.tmp"
+        if name in PARTS:  # the parts' logs in order, then the link
+            labels = [f"{name}.{i}" for i in range(PARTS[name])]
+            objs = [str(out / f"{label}.{tag}.o") for label in labels]
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *objs],
+                                  capture_output=True, text=True)
+            (out / f"{name}.log").write_text(
+                "".join((out / f"{label}.log").read_text() for label in labels)
+                + link.stdout + link.stderr)
+            for obj in objs:
+                os.remove(obj)
+            if link.returncode != 0:
+                raise RuntimeError(f"kernel link failed: {name}:\n{link.stdout}{link.stderr}")
+        os.replace(tmp, out / f"lib{name}.so")  # atomic: a concurrent build never sees half
     return out
 
 

@@ -18,8 +18,12 @@ combines are collectives over the mesh's model-axis group:
 - :func:`nm_spmm_sharded`: a compressed leaf whose group (reduction) axis
   is split (``CompressedTensor.rshards``; whole N:M groups per rank, since
   placement needs ``K % (m · ranks) == 0``) multiplies the rank's K-slice
-  of the replicated activation by its group rows with ``nm_spmm`` (K1),
-  then the partial outputs sum in f32 and are cast back.
+  of the replicated activation (or, with ``local``, an activation that is
+  already that slice: the rank's own heads) by its group rows with
+  ``nm_spmm`` (K1), then the partial outputs sum in f32 and are cast back.
+  :func:`nm_spmm_batched_sharded` is the same route of the batched K1
+  (K1b) for reduction-sharded MoE expert stacks: each expert's K-slice of
+  the replicated ``(E, C, K)`` buffer, one launch, one sum.
 - :func:`all_gather` completes output-sharded matmuls and the
   vocab-sharded unembedding; :func:`embed_sharded` looks tokens up in a
   vocab-sharded table (rows of other ranks' tokens are zero) and sums.
@@ -28,8 +32,9 @@ Windowed (modular) tables are safe to remap: which logical page a slot
 holds depends only on the slot and the lane's length, never on the
 physical id it stores.
 
-Collectives carry f32 (bf16 widened exactly, and narrowed back exactly
-after a gather or a sum with zeros), so every rank sees the same bits; the
+Sums carry f32 (bf16 widened exactly, and narrowed back exactly after a
+sum with zeros) and gathers the tensor's own type, so every rank sees the
+same bits; the
 count of collectives issued is kept in :data:`collectives` and the host
 seconds spent inside them in :data:`collective_s` (a collective on card
 tensors first waits for the device work it depends on, so this is an
@@ -46,7 +51,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels.nm_spmm import nm_spmm
+from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_batched
 from repro_torch.kernels.paged_attn import Stats, paged_attn
 
 collectives = 0  # collectives issued since the last reset_collectives()
@@ -83,6 +88,22 @@ def active_mesh():
     return _ACTIVE[-1]
 
 
+def split_mesh():
+    """The active mesh if its model axis has more than one rank, else None."""
+    mesh = _ACTIVE[-1] if _ACTIVE else None
+    return mesh if mesh is not None and mesh.model > 1 else None
+
+
+def own_range(n: int, mesh=None) -> tuple[int, int]:
+    """This rank's ``[lo, hi)`` of ``n`` items split evenly, in order, over
+    the model axis (``n`` must divide)."""
+    mesh = mesh or active_mesh()
+    if n % mesh.model:
+        raise ValueError(f"{n} items do not split over {mesh.model} ranks")
+    per = n // mesh.model
+    return mesh.model_index * per, (mesh.model_index + 1) * per
+
+
 def _wire(x: torch.Tensor) -> torch.Tensor:
     """A contiguous f32 copy that a collective may overwrite."""
     return x.to(torch.float32, copy=True).contiguous()
@@ -98,12 +119,14 @@ def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM, mesh=None) -> torch.Tensor
 
 def all_gather(x: torch.Tensor, dim: int = -1, mesh=None) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in model-axis order, in
-    ``x``'s type."""
+    ``x``'s type, which is also the wire's: a gather moves bits and sums
+    nothing (a bf16 activation in f32 doubled the bytes of the largest
+    collectives, RecurrentGemma's prefill gathers)."""
     mesh = mesh or active_mesh()
-    y = _wire(x)
+    y = x.contiguous()
     parts = [torch.empty_like(y) for _ in range(mesh.model)]
     _issue(dist.all_gather, parts, y, group=mesh.group)
-    return torch.cat(parts, dim).to(x.dtype)
+    return torch.cat(parts, dim)
 
 
 def shard_local_tables(tables: torch.Tensor, shard: int,
@@ -176,18 +199,42 @@ def paged_attn_sharded(
     return combine_stats(acc, m, l, mesh).to(q.dtype)
 
 
+def _k_slice(x: torch.Tensor, values: torch.Tensor, n: int, m: int, local: bool,
+             mesh) -> torch.Tensor:
+    """The rank's K-slice of ``x`` (its last axis) for group rows
+    ``values`` (``(..., K/S·n/m, O)``): ``x`` itself where ``local``."""
+    kl = values.shape[-2] * m // n
+    k = x.shape[-1] if not local else x.shape[-1] * mesh.model
+    if k != kl * mesh.model or k % (m * mesh.model):
+        raise ValueError(f"K={k} does not split into whole {m}-groups of {kl} a rank over "
+                         f"{mesh.model} shards")
+    if local:
+        return x.contiguous()
+    return x[..., mesh.model_index * kl:(mesh.model_index + 1) * kl].contiguous()
+
+
 def nm_spmm_sharded(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor, n: int,
-                    m: int, o_true: Optional[int] = None, mesh=None) -> torch.Tensor:
+                    m: int, o_true: Optional[int] = None, mesh=None,
+                    local: bool = False) -> torch.Tensor:
     """``x @ W`` for this rank's group rows ``values``/``indices`` of a
-    reduction-sharded ``W``: x ``(B, K)`` replicated; K1 on the rank's
-    K-slice, the partial outputs summed in f32, cast to ``x.dtype``."""
+    reduction-sharded ``W``: x ``(B, K)`` replicated (or, ``local``, ``(B,
+    K/S)``: the rank's slice already); K1 on the rank's K-slice, the
+    partial outputs summed in f32, cast to ``x.dtype``."""
     mesh = mesh or active_mesh()
-    k = x.shape[-1]
-    if k % (m * mesh.model):
-        raise ValueError(f"K={k} does not split into whole {m}-groups over {mesh.model} shards")
-    kl = k // mesh.model
-    part = nm_spmm(x[:, mesh.model_index * kl:(mesh.model_index + 1) * kl].contiguous(),
-                   values, indices, n, m, o_true)
+    part = nm_spmm(_k_slice(x, values, n, m, local, mesh), values, indices, n, m, o_true)
+    return all_reduce(part, dist.ReduceOp.SUM, mesh).to(x.dtype)
+
+
+def nm_spmm_batched_sharded(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
+                            n: int, m: int, o_true: Optional[int] = None,
+                            mesh=None) -> torch.Tensor:
+    """``x[e] @ W[e]`` for this rank's group rows ``(E, K/S·n/m, O)`` of a
+    reduction-sharded expert stack: x ``(E, C, K)`` replicated; K1b on every
+    expert's K-slice in one launch, the partial outputs summed in f32, cast
+    to ``x.dtype``."""
+    mesh = mesh or active_mesh()
+    part = nm_spmm_batched(_k_slice(x, values, n, m, False, mesh), values, indices, n, m,
+                           o_true)
     return all_reduce(part, dist.ReduceOp.SUM, mesh).to(x.dtype)
 
 

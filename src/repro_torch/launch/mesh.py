@@ -164,8 +164,13 @@ def _rank_main(rank: int, world: int, shape: tuple, backend: str, tmp: str, devi
     out = os.path.join(tmp, f"rank{rank}.pkl")
     try:
         dev = rank_device(rank, device)
-        # the ranks share the host's cores: one share each, not all each
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        # the ranks share the host's cores: intra-op pools spinning on every
+        # core starve the collectives' transport threads (CPU ranks with a
+        # share of 4 threads each: 2.6 ms a gloo all-reduce against 0.25 ms,
+        # eight cores, two ranks); a card's rank takes half a share, a CPU
+        # rank one thread
+        share = (os.cpu_count() or 1) // (2 * world)
+        torch.set_num_threads(max(1, share) if dev.type == "cuda" else 1)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         dist.init_process_group(backend, init_method=f"file://{tmp}/store", world_size=world,

@@ -56,8 +56,12 @@ scheduler, no model axis > 1.  On an attention-free arch (mamba2-2.7b)
 and chunked prefill and the prefix cache are refused with a warning, as
 on RG-LRU archs.
 
-``--mesh data,model`` serves tensor-parallel (dense family, ``--paged``,
-data 1): the export happens once here, then ``data × model`` ranks start
+``--mesh data,model`` serves tensor-parallel (data 1; every token-input
+arch, on the slab or ``--paged``, with or without ``--kv-int8``: each
+rank holds its rows of every lane of the slab or its page range of the
+pool; chunks, the prefix cache, ``--spec-gamma`` and the device
+scheduler are refused over a model axis > 1): the export happens once
+here, then ``data × model`` ranks start
 (``launch.mesh.run_ranks``: ``gloo`` where ranks share a card or run on the
 CPU, ``nccl`` where each has a card of its own; the choice is printed),
 each keeps its shard of the tree and of the pool, and rank 0's summary is
@@ -67,9 +71,11 @@ weight and KV bytes (``per_rank``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -81,8 +87,9 @@ from repro_torch.kernels import dispatch
 from repro_torch.launch.mesh import make_local_mesh, run_ranks
 from repro_torch.models.model import forward, init_params
 from repro_torch.serving import DecodeEngine, SamplingParams
-from repro_torch.sparse_infer import decompress_params, export_compressed
+from repro_torch.sparse_infer import CompressedTensor, decompress_params, export_compressed
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_items, tree_map_with_name
 
 
 def build_serving_state(args, device) -> tuple:
@@ -97,10 +104,8 @@ def build_serving_state(args, device) -> tuple:
         if restored is not None:
             params, _, step = restored
             print(f"# restored params from step {step}")
-    n, m = (int(x) for x in args.nm.split(":"))
-    recipe = core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(n, m)))
     # Π_T ⊙ w_T, compressed unless --dense; consumes params leaf by leaf
-    served, rep = export_compressed(params, recipe, compress=not args.dense)
+    served, rep = export_compressed(params, step_recipe(args.nm), compress=not args.dense)
     verifier = None
     if args.spec_gamma is not None:
         # the masked-dense tree of the same export; under --dense the drafter
@@ -161,7 +166,7 @@ def parse_args(argv=None):
                     help="cuda (default) or cpu (the kernels' plain versions)")
     ap.add_argument("--mesh", default=None,
                     help="serve tensor-parallel on a 'data,model' mesh of local ranks "
-                         "(e.g. --mesh 1,2 with --paged): compressed weights and the "
+                         "(e.g. --mesh 1,2): compressed weights, the slab's rows and the "
                          "pool's pages shard over the model axis")
     ap.add_argument("--kv-shard", default="seq", choices=("seq", "feature"),
                     help="model-axis dim of the KV pool under --mesh")
@@ -253,11 +258,15 @@ def serve_rank(mesh, tree: dict, cfg, runs: list, prompts: list, sampling: dict,
     ``kernel_route()``, each kernel's launches counted from the run's
     start, a digest of the host page tables after every scheduling step, a
     digest of one full forward's logits of the first prompt (after the
-    launches are read), and the run's wall seconds."""
+    launches are read; with ``logits=True`` in the run, those logits too,
+    f32 on the CPU), each compressed leaf's model-axis shards as the
+    engine holds it (``(rshards, oshards)`` by name), the shape of every
+    leaf of its cache by name, and the run's wall seconds."""
     out = []
     for run in runs:
         run = dict(run)
         run_prompts = run.pop("prompts", prompts)
+        want_logits = run.pop("logits", False)
         sp = SamplingParams(**{**sampling, **run.pop("sampling", {})})
         eng = DecodeEngine(cfg, tree, mesh=mesh, device=mesh.device if mesh else device,
                            **{**engine_kw, **run})
@@ -280,11 +289,73 @@ def serve_rank(mesh, tree: dict, cfg, runs: list, prompts: list, sampling: dict,
         with eng._mesh_ctx():
             logits, _ = forward(eng.params, cfg, torch.tensor([run_prompts[0]],
                                                               device=eng.device))
+        lg = logits.float().cpu().numpy()
         out.append({"results": results, "stats": eng.stats(), "kernel_route": eng.kernel_route(),
                     "launches": launches, "tables_digest": tables.hexdigest(),
-                    "logits_digest": hashlib.sha256(
-                        logits.float().cpu().numpy().tobytes()).hexdigest(),
+                    "logits_digest": hashlib.sha256(lg.tobytes()).hexdigest(),
+                    "logits": lg if want_logits else None,
+                    "shards": {name: (x.rshards, x.oshards) for name, x in tree_items(eng.params)
+                               if isinstance(x, CompressedTensor)},
+                    "cache_shapes": {name: tuple(x.shape) for name, x in tree_items(eng.cache)},
                     "wall_s": wall})
+        del eng
+    return out
+
+
+def step_recipe(nm: str):
+    """The STEP recipe whose export serves an ``"n:m"`` pattern."""
+    n, m = (int(x) for x in nm.split(":"))
+    return core.make_recipe("step", core.SparsityConfig(default=core.NMSparsity(n, m)))
+
+
+def export_tree(cfg, device, nm: str = "2:4", seed: int = 0) -> dict:
+    """The compressed serving tree of ``cfg`` as the CLI makes it without a
+    checkpoint: random weights from ``seed``, the STEP ``nm`` export,
+    compressed leaf by leaf (the same bits wherever it runs on the same
+    kind of device)."""
+    return export_compressed(init_params(cfg, seed=seed, device=device), step_recipe(nm))[0]
+
+
+def f32_twin(cfg, tree: dict) -> tuple:
+    """``(cfg, tree)`` with every float leaf (and a compressed leaf's
+    values) in f32: the twin the stream gate serves (bf16 widens exactly)."""
+
+    def leaf(_, x):
+        if isinstance(x, CompressedTensor):
+            return dataclasses.replace(x, values=x.values.float())
+        return x.float() if x.is_floating_point() else x
+
+    return (dataclasses.replace(cfg, param_dtype="float32"), tree_map_with_name(leaf, tree))
+
+
+def serve_jobs(mesh, trees: Optional[dict], jobs: list, device: str = "cuda") -> list:
+    """:func:`serve_rank` over several trees in one process, so that one
+    spawn of the ranks serves several archs.  A job is a dict of ``cfg``,
+    the tree (``tree``, a key of ``trees``; or ``export=True``: made here
+    by :func:`export_tree` on the rank's device), ``runs``, ``prompts``,
+    ``sampling`` and ``engine_kw`` as :func:`serve_rank` takes them, and
+    optionally ``twin``: runs served after them on the tree's
+    :func:`f32_twin` (of ``twin_cfg`` where given, e.g. another MoE
+    capacity).  Returns per job ``{"runs": [...], "twin": [...],
+    "export_s": seconds}``."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    out = []
+    for job in jobs:
+        cfg = job["cfg"]
+        t0 = time.perf_counter()
+        tree = export_tree(cfg, dev) if job.get("export") else trees[job["tree"]]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        args = (job["prompts"], job["sampling"], job["engine_kw"])
+        rec = {"export_s": time.perf_counter() - t0,
+               "runs": serve_rank(mesh, tree, cfg, job["runs"], *args, device=str(dev))}
+        if job.get("twin"):
+            cfg32, tree = f32_twin(job.get("twin_cfg", cfg), tree)
+            rec["twin"] = serve_rank(mesh, tree, cfg32, job["twin"], *args, device=str(dev))
+        del tree
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out.append(rec)
     return out
 
 

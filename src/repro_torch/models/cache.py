@@ -60,6 +60,26 @@ shard_local_tables`` gives every page the rank does not hold.  Tables keep
 global ids and are replicated; a write whose page lives on another rank
 lands on the local sink.
 
+Tensor-parallel slabs (``SlabLayout.shards`` > 1, the reference's
+``cache_pspecs`` with ``kv_shard="seq"``): each lane's rows are split over
+the mesh's model axis, the rank at model index ``shard`` holding global
+rows ``[shard·per, (shard+1)·per)`` with ``per = rows / S``.  A layer
+whose rows the ranks do not divide is whole on every rank
+(:meth:`SlabLayout.split` is 1), as the reference's sanitized placement
+holds it, and is written and read as on one rank.  A write lands only
+on the rank that holds its row.  A split window slab does not roll, since
+a roll would move one row per lane across every rank boundary each step:
+it is a ring, position ``pos`` in row ``pos % rows``, which holds the
+same positions as the rolled slab in another order (attention sums over
+them in any order).  The unsplit slab keeps the roll, though it copies
+the window each step: its rows are the reference's, row for row (the
+parity tests hold the two caches leaf for leaf), and on one rank the
+ring's other order would also change the order of attention's f32 sums.
+Attention's decode reads a rank's rows through
+``layers.decode_attention_stats`` and combines the ranks' flash triples
+(``kernels.sharded.combine_stats``); MLA's does the same over its latent
+rows in the absorbed form (``models.mla``).
+
 Writes update the cache tensors in place.  RG-LRU and SSM states are per
 lane under both layouts and do not pass through here (``models.model``);
 an arch without attention or MLA layers gets a layout with no table.
@@ -100,22 +120,92 @@ def dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class SlabLayout:
-    """Contiguous ``(B, max_len, ...)`` per-lane cache."""
+    """Contiguous ``(B, max_len, ...)`` per-lane cache; with ``shards`` > 1
+    this rank's range of every lane's rows (module docstring)."""
 
     max_len: int = 0  # only needed for allocation
+    shards: int = 1  # model-axis ranks each lane's rows are split over
+    shard: int = 0  # this rank's model index
     kind = "slab"
+
+    def rows(self, window=None) -> int:
+        """A layer's rows a lane: ``max_len``, or ``min(max_len, window)``
+        for a sliding-window layer."""
+        return self.max_len if window is None else min(self.max_len, window)
+
+    def split(self, window=None) -> int:
+        """The ranks a layer's rows are split over: ``shards`` where they
+        divide :meth:`rows`, else 1 (the layer whole on every rank)."""
+        return self.shards if self.rows(window) % self.shards == 0 else 1
+
+    def _ring(self, window) -> bool:
+        """A split window slab whose window fits ``max_len`` is a ring."""
+        return self.split(window) > 1 and window is not None and window <= self.max_len
 
     def alloc(self, lead: tuple, batch: int, entries: dict, dtype, device,
               window=None) -> dict:
         """Zeroed ``lead + (B, S) + shape`` leaves, one per ``entries`` name
-        -> per-token shape; ``S`` is ``max_len``, or ``min(max_len,
-        window)`` for a sliding-window layer."""
-        s = self.max_len if window is None else min(self.max_len, window)
+        -> per-token shape; ``S`` is :meth:`rows`, or this rank's
+        ``rows / split`` of them."""
+        s = self.rows(window) // self.split(window)
         return {name: torch.zeros(lead + (batch, s) + shp, dtype=dtype, device=device)
                 for name, shp in entries.items()}
 
     def tables(self, batch: int, device):
         return None
+
+    def valid_rows(self, pos: torch.Tensor, per: int, window=None) -> torch.Tensor:
+        """``(B, per)`` bool: which of this rank's ``per`` rows a decode step
+        at ``pos`` attends over, its row ``i`` being global row ``shard·per
+        + i``: the first ``min(pos + 1, rows)`` global rows (positions, or
+        ring slots once a window ring has filled); every row of a layer
+        whole on the rank."""
+        first = self.shard * per if self.split(window) > 1 else 0
+        j = first + torch.arange(per, device=pos.device)
+        live = torch.minimum(pos.long() + 1, torch.full_like(pos.long(), self.rows(window)))
+        return j[None, :] < live[:, None]
+
+    def _write_split(self, c: dict, entries: dict, pos, window, commit) -> None:
+        """:meth:`write` on a split slab: the rank holding the token's row
+        (its position, or ``pos % rows`` on a window ring) stores it; a lane
+        at ``pos >= rows`` is frozen (append-only) or, on the ring, outside
+        ``commit`` keeps the live row it would overwrite."""
+        s, bidx = self.rows(window), torch.arange(pos.shape[0], device=pos.device)
+        ring, pos = self._ring(window), pos.long()
+        for name, x in entries.items():
+            per = c[name].shape[1]
+            local = (pos % s if ring else pos) - self.shard * per
+            ok = (local >= 0) & (local < per)
+            if not ring:
+                ok = ok & (pos < s)
+            elif commit is not None:
+                ok = ok & ((pos < s) | commit)
+            slot = local.clamp(0, per - 1)
+            old = c[name][bidx, slot]
+            keep = ok.reshape((-1,) + (1,) * (old.dim() - 1))
+            c[name][bidx, slot] = torch.where(keep, x.to(old.dtype), old)
+
+    def _write_rows_split(self, c: dict, rows: dict, lanes, lens, window) -> None:
+        """:meth:`write_rows` on a split slab: this rank's rows of each
+        lane, positions in order (pad entries included, as unsplit), or on
+        a window ring each slot's newest position below ``lens``."""
+        s = self.rows(window)
+        for name, x in rows.items():
+            per, lp = c[name].shape[2], x.shape[2]
+            lo = self.shard * per
+            if not self._ring(window):
+                hi = min(lo + per, lp, s)
+                if hi > lo:
+                    c[name][:, lanes, : hi - lo] = x[:, :, lo:hi].to(c[name].dtype)
+                continue
+            n = min(per, s - lo)
+            if n <= 0:
+                continue
+            j = lo + torch.arange(n, device=lens.device)
+            last = lens.long()[:, None] - 1
+            p = (last - torch.remainder(last - j, s)).clamp(0, lp - 1)  # (N, n)
+            lane = torch.arange(x.shape[1], device=lens.device)[:, None]
+            c[name][:, lanes, :n] = x[:, lane, p].to(c[name].dtype)
 
     def write(self, c: dict, entries: dict, pos, tables, window=None, commit=None) -> None:
         """Write one token per lane at ``pos`` into one layer's ``c``
@@ -125,6 +215,8 @@ class SlabLayout:
         capacity) keep their contents, as the reference's dropped scatter
         does.  Lanes outside ``commit`` ((B,) bool, optional) at ``pos >=
         S`` of a rolling slab neither roll nor write: that row is live."""
+        if self.split(window) > 1:
+            return self._write_split(c, entries, pos, window, commit)
         bidx = torch.arange(pos.shape[0], device=pos.device)
         for name, x in entries.items():
             s = c[name].shape[1]
@@ -150,6 +242,8 @@ class SlabLayout:
         overwritten by later decode writes.  A window slab shorter than the
         rows keeps each row's last ``min(lens, S)`` positions, oldest
         first (the rolled order)."""
+        if self.split(window) > 1:
+            return self._write_rows_split(c, rows, lanes, lens, window)
         for name, x in rows.items():
             s, lp = c[name].shape[2], x.shape[2]
             if s < lp:
@@ -167,7 +261,8 @@ class SlabLayout:
         the last row ``S - 1`` of their (clamped) lane with its own
         contents: no chunk writes there, since a prompt is shorter than the
         slab.  Only append-only slabs chunk (the engine keeps windowed
-        archs off the slab's chunked path)."""
+        archs off the slab's chunked path), and only unsplit ones."""
+        self._unsplit("chunked prefill")
         b, s = next(iter(c.values())).shape[:2]
         i = torch.arange(next(iter(rows.values())).shape[1], device=lanes.device)
         lane = lanes.long().clamp(max=b - 1)[:, None]
@@ -181,8 +276,14 @@ class SlabLayout:
     def chunk_view(self, c: dict, lanes, tables) -> dict:
         """Each leaf's ``(R, S, ...)`` rows of lanes ``lanes`` (a pad row's
         lane clamped: garbage its caller discards)."""
+        self._unsplit("a chunk view")
         take = lanes.long().clamp(max=next(iter(c.values())).shape[0] - 1)
         return {name: x[take] for name, x in c.items()}
+
+    def _unsplit(self, what: str) -> None:
+        if self.shards > 1:
+            raise NotImplementedError(f"{what} over a split slab is not ported yet (the rest "
+                                      "of tensor parallelism, ROADMAP.md)")
 
 
 @dataclasses.dataclass(frozen=True)

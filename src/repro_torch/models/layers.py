@@ -32,19 +32,21 @@ def matmul(x: torch.Tensor, w: Weight) -> torch.Tensor:
     replicated activations in and out (the reference's ``shard_map``
     in/out specs): an output-sharded shard (``oshards``) runs K1 on its
     columns and all-gathers them; a reduction-sharded one (``rshards``)
-    takes the rank's K-slice of ``x`` through ``sharded.nm_spmm_sharded``."""
+    takes the rank's K-slice of ``x`` through ``sharded.nm_spmm_sharded``,
+    and a reduction-sharded expert stack (the reference serves MoE stacks
+    so) through ``sharded.nm_spmm_batched_sharded``."""
     if not isinstance(w, CompressedTensor):
         return x @ w
     nd = w.values.dim()
     if (nd not in (2, 3) or w.group_axis % nd != nd - 2 or (nd == 3 and x.dim() != 3)
-            or (nd == 3 and max(w.rshards, w.oshards) > 1)):
+            or (nd == 3 and w.oshards > 1)):
         raise ValueError(
             f"unsupported compressed matmul: x {tuple(x.shape)} @ values "
             f"{tuple(w.values.shape)} grouped along axis {w.group_axis}"
         )
     if nd == 3:
-        return nm_spmm_batched(x.contiguous(), w.values, w.indices, w.n, w.m,
-                               o_true=w.out_features)
+        route = sharded.nm_spmm_batched_sharded if w.rshards > 1 else nm_spmm_batched
+        return route(x.contiguous(), w.values, w.indices, w.n, w.m, o_true=w.out_features)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if w.oshards > 1:
@@ -55,6 +57,33 @@ def matmul(x: torch.Tensor, w: Weight) -> torch.Tensor:
     else:
         y = nm_spmm(x2, w.values, w.indices, w.n, w.m, o_true=w.out_features)
     return y.reshape(lead + (w.out_features,))
+
+
+def matmul_cols(x: torch.Tensor, w: Weight) -> torch.Tensor:
+    """``x @ w`` for a replicated ``x``, keeping only this rank's output
+    columns of an output-sharded weight (``oshards``: no gather); any other
+    weight gives its whole output (:func:`matmul`)."""
+    if not (isinstance(w, CompressedTensor) and w.oshards > 1):
+        return matmul(x, w)
+    if w.pad or w.values.dim() != 2:
+        raise ValueError("matmul_cols takes an unpadded 2-D output-sharded leaf")
+    y = nm_spmm(x.reshape(-1, x.shape[-1]).contiguous(), w.values, w.indices, w.n, w.m)
+    return y.reshape(x.shape[:-1] + (y.shape[-1],))
+
+
+def matmul_own(x: torch.Tensor, w: Weight) -> torch.Tensor:
+    """``y = x_full @ w`` where ``x`` holds only this rank's part of the
+    replicated activation ``x_full``: its model-axis slice of the last
+    axis, in rank order (the rank's own heads).  A weight sharded on that
+    same reduction slice (``rshards``) takes ``x`` as it is
+    (``sharded.nm_spmm_sharded(local=True)``: no gather); any other weight
+    takes the ranks' slices gathered first."""
+    if isinstance(w, CompressedTensor) and w.rshards > 1 and w.values.dim() == 2:
+        lead = x.shape[:-1]
+        y = sharded.nm_spmm_sharded(x.reshape(-1, x.shape[-1]), w.values, w.indices, w.n,
+                                    w.m, o_true=w.out_features, local=True)
+        return y.reshape(lead + (w.out_features,))
+    return matmul(sharded.all_gather(x), w)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -181,6 +210,26 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def decode_attention_stats(q: torch.Tensor, k_rows: torch.Tensor, v_rows: torch.Tensor,
+                           valid: torch.Tensor, scale: Optional[float] = None):
+    """:func:`decode_attention` before its divide, over the rows a rank
+    holds of a sequence-sharded slab: the f32 flash triple ``(acc (B, H,
+    Dv), m (B, H), l (B, H))`` over the rows where ``valid`` ((B, S_rank)
+    bool), for ``kernels.sharded.combine_stats``.  A lane with no valid
+    row here gives ``(0, -1e30, 0)``.  q: (B, 1, H, D); rows (B, S_rank,
+    Hkv, D|Dv); ``scale`` defaults to ``D ** -0.5``."""
+    b, s, hkv, d = k_rows.shape
+    h = q.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, d).float()
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, k_rows.float()) * (scale or d ** -0.5)
+    mask = valid[:, None, None, :]
+    scores = torch.where(mask, scores, _NEG)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None]) * mask
+    acc = torch.einsum("bhgs,bshd->bhgd", p, v_rows.float())
+    return acc.reshape(b, h, -1), m.reshape(b, h), p.sum(dim=-1).reshape(b, h)
 
 
 def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:

@@ -27,15 +27,23 @@ with its scale planes (K2q).  :func:`prefill_chunk` absorbs one prompt
 chunk of several lanes at once into that cache (chunked prefill and a
 prefix hit's uncached tail), every projection through ``layers.matmul``.
 
-Tensor-parallel serving (the engine's ``mesh``, dense family only): each
-rank holds its shard of the compressed matmul weights (``layers.matmul``
-combines them) and of the vocab-sharded ``tok_embed`` (the lookup is
-masked to the rank's rows and summed, the tied unembedding computes the
-rank's vocab slice of the logits and gathers them), and its page range of
-the pool, on which decode attention runs the stats form of the kernel
-(K3) and combines the ranks' partial softmaxes
-(``kernels.sharded.paged_attn_sharded``).  Activations, logits, tables and
-lengths are replicated, so every rank computes the same tokens.
+Tensor-parallel serving (the engine's ``mesh``, every family): each rank
+holds its shard of the compressed matmul weights (``layers.matmul``
+combines them: output-sharded leaves gather, reduction-sharded ones and
+MoE expert stacks sum) and of the vocab-sharded ``tok_embed`` (the lookup
+is masked to the rank's rows and summed, the tied unembedding computes
+the rank's vocab slice of the logits and gathers them), and its share of
+the cache: its page range of the pool, on which decode attention runs
+the stats form of the kernel (K3: GQA, window and MLA forms) and combines
+the ranks' partial softmaxes (``kernels.sharded.paged_attn_sharded``), or
+its rows of every lane of the slab (``SlabLayout.shards``), combined the
+same way.  MLA's absorbed decode computes the latent queries of the
+rank's heads and gathers them (``mla.py``); an SSM layer runs its state's
+heads on the rank that holds them (``ssm.py``), and an RG-LRU layer on the
+split slab its state's columns (``recurrent.py``; on a pool its state is
+whole on every rank, as the reference places it).  Activations, logits,
+tables and lengths are replicated, so every rank computes the same
+tokens.
 
 Ported: every family of the reference.  The dense family (MHA/GQA
 attention with RoPE, optional q/k/v/o biases and a sliding window), the
@@ -135,14 +143,14 @@ def _put(tree: dict, path: tuple[str, ...], value) -> None:
 
 
 def check_mesh(cfg: ArchConfig, mesh) -> None:
-    """Raise for what tensor-parallel serving does not run yet: a model axis
-    of more than one rank outside the dense family (MLA's absorbed decode,
-    MoE expert stacks and RG-LRU are part of the rest of tensor
-    parallelism, ROADMAP.md)."""
-    if mesh is not None and mesh.model > 1 and cfg.family != "dense":
+    """Raise for what tensor-parallel serving does not run yet: a data axis
+    of more than one rank (lanes over the data axis are part of the rest
+    of tensor parallelism, ROADMAP.md).  Every family serves over a model
+    axis."""
+    if mesh is not None and mesh.data > 1:
         raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel serving of the {cfg.family} family is not ported "
-            "yet (the rest of tensor parallelism, ROADMAP.md); serve it with mesh=None")
+            f"{cfg.name}: a data axis > 1 is not ported yet (the rest of tensor parallelism, "
+            "ROADMAP.md)")
 
 
 def _block_mixer_mlp(kind: str, cfg: ArchConfig) -> tuple[str, str]:
@@ -388,6 +396,10 @@ def _attn_decode(x, p, cfg: ArchConfig, c: dict, pos, layout, tables, commit=Non
             tables[layout.table_key(cfg.local_window)], pos + 1, scale=cfg.hd ** -0.5,
             window=win, win_slots=layout.pages_win if win else 0, **scales,
         ).reshape(b, 1, cfg.n_heads, cfg.hd)
+    elif layout.split(cfg.local_window) > 1:  # this rank's rows of the slab, then the combine
+        valid = layout.valid_rows(pos, c["k"].shape[1], cfg.local_window)
+        acc, m, l = L.decode_attention_stats(q, c["k"], c["v"], valid)
+        attn = sharded.combine_stats(acc, m, l).to(q.dtype).reshape(b, 1, cfg.n_heads, cfg.hd)
     else:
         s_view = c["k"].shape[1]
         attn = L.decode_attention(q, c["k"], c["v"], pos.clamp(max=s_view - 1) + 1)
@@ -550,7 +562,7 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
     layout = layout or SlabLayout(max_len)
 
     def alloc(kind, stack):
-        lead, entries = (stack,) if stack else (), _cache_entries(kind, cfg)
+        lead, entries = (stack,) if stack else (), _cache_entries(kind, cfg, layout)
         if _block_mixer_mlp(kind, cfg)[0] in ("rec", "ssm"):
             return {name: torch.zeros(lead + (batch_size,) + shp, device=dev,
                                       dtype=torch.float32 if name == "state" else dtype)
@@ -566,17 +578,22 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
     return cache
 
 
-def _cache_entries(kind: str, cfg: ArchConfig) -> dict:
+def _cache_entries(kind: str, cfg: ArchConfig, layout=None) -> dict:
     """A layer's cache leaves -> per-token (per-lane for RG-LRU and SSM)
     shape, in the order of the entry ``forward(want_cache=True)``
-    produces."""
+    produces.  Over a ``layout`` split across model-axis ranks an SSM
+    state holds the rank's heads (``ssm.held_heads``), and on the split
+    slab an RG-LRU state its columns (``recurrent.held_width``)."""
     mixer = _block_mixer_mlp(kind, cfg)[0]
+    shards = layout.shards if layout is not None else 1
     if mixer == "rec":
         w = cfg.rglru.lru_width
-        return {"state": (w,), "conv": (cfg.rglru.conv_width - 1, w)}
+        held = REC.held_width(w, shards) if layout is not None and layout.kind == "slab" else w
+        return {"state": (held,), "conv": (cfg.rglru.conv_width - 1, w)}
     if mixer == "ssm":
         dims = SSM.ssm_dims(cfg.d_model, cfg.ssm)
-        return {"state": (dims["n_heads"], cfg.ssm.head_dim, cfg.ssm.d_state),
+        heads = SSM.held_heads(dims["n_heads"], shards)
+        return {"state": (heads, cfg.ssm.head_dim, cfg.ssm.d_state),
                 "conv": (cfg.ssm.conv_width - 1, dims["conv_dim"])}
     if mixer == "mla":
         return {"ckv": (cfg.mla.kv_lora,), "krope": (cfg.mla.rope_head_dim,)}
@@ -591,9 +608,11 @@ def write_prefill(cache: dict, cfg: ArchConfig, produced: dict, lanes, lens,
     batch's pad rows and are dropped, leaf by leaf.  Attention and MLA
     rows go through the layout (a windowed layer keeps the last ``window``
     positions); RG-LRU and SSM states scatter into their lanes, so their
-    rows must be of exact length.  An SSM conv tail of a prompt shorter
-    than ``conv_width - 1`` is left-padded with zeros, what the causal conv
-    saw before position 0 (the reference's ``model.py:953-963``)."""
+    rows must be of exact length; a state held in part on this rank (an
+    RG-LRU state on the split slab) takes the rank's columns.  An SSM conv
+    tail of a prompt shorter than ``conv_width - 1`` is left-padded with
+    zeros, what the causal conv saw before position 0 (the reference's
+    ``model.py:953-963``)."""
     plan = layer_plan(cfg)
     layout = layout or SlabLayout()
     tables, n = cache.get("tables"), lanes.shape[0]
@@ -608,6 +627,8 @@ def write_prefill(cache: dict, cfg: ArchConfig, produced: dict, lanes, lens,
                 short = c[name].shape[2] - x.shape[2] if name == "conv" else 0
                 if short:  # a tail (L, N, s < W - 1, C): zeros before it
                     x = torch.cat([x.new_zeros(x.shape[:2] + (short,) + x.shape[3:]), x], 2)
+                if c[name].shape[-1] < x.shape[-1]:
+                    x = x[..., slice(*sharded.own_range(x.shape[-1]))]
                 c[name][:, lanes] = x.to(c[name].dtype)
         else:
             layout.write_rows(c, rows, lanes, lens, tables, window=cfg.local_window)

@@ -18,6 +18,17 @@ state size ``N``, B and C shared by the heads of a group (``n_groups``).
 leaves.  The short depthwise conv (``conv_w``) and the recurrence
 parameters ``a_log``, ``d_skip`` and ``dt_bias`` (f32) stay dense: the
 sparsity config excludes them.
+
+Over a model axis of ``S`` ranks (an active mesh, ``kernels.sharded``)
+the state's heads split as the reference places them (``cache_pspecs``:
+``(B, H, P, N)`` with H on ``model``): ``w_in`` (reduction-sharded, its
+packed output whole) gives every rank the whole ``(z, xBC, dt)`` and the
+conv, each rank runs the SSD scan and the recurrent step on its ``H/S``
+heads alone (B and C, shared by a group's heads, go to each of them),
+and ``w_out``, reduction-sharded over exactly those heads' ``y``
+columns, takes the rank's ``y`` with no gather
+(``layers.matmul_own``).  With heads that do not split the state is whole
+on every rank and so is the scan.
 """
 from __future__ import annotations
 
@@ -25,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.models.layers import matmul
+from repro_torch.kernels import sharded
+from repro_torch.models.layers import matmul, matmul_own
 
 
 def ssm_dims(d_model: int, cfg: SSMConfig) -> dict:
@@ -36,6 +48,39 @@ def ssm_dims(d_model: int, cfg: SSMConfig) -> dict:
     gs = 2 * cfg.n_groups * cfg.d_state
     return dict(d_inner=d_inner, n_heads=n_heads, d_in_proj=2 * d_inner + gs + n_heads,
                 conv_dim=d_inner + gs)
+
+
+def held_heads(n_heads: int, shards: int) -> int:
+    """The state heads a rank holds over ``shards`` model-axis ranks: its
+    share where they split evenly, else all of them."""
+    return n_heads // shards if shards > 1 and n_heads % shards == 0 else n_heads
+
+
+def own_heads(n_heads: int) -> tuple[int, int]:
+    """``[h0, h1)``: the heads this rank runs under the active mesh (all
+    of them without one, or where they do not split)."""
+    mesh = sharded.split_mesh()
+    if mesh is None or held_heads(n_heads, mesh.model) == n_heads:
+        return 0, n_heads
+    return sharded.own_range(n_heads, mesh)
+
+
+def _heads_in(x, dt, b, c, p: dict, h0: int, h1: int, n_heads: int):
+    """The inputs of heads ``[h0, h1)``: x ``(B, S, H, P)`` and dt ``(B, S,
+    H)`` sliced, B and C ``(B, S, G, N)`` given to each of those heads (one
+    group each), and their ``a_log``, ``d_skip``, ``dt_bias``."""
+    if (h0, h1) == (0, n_heads):
+        return x, dt, b, c, p["a_log"], p["d_skip"], p["dt_bias"]
+    rep = n_heads // b.shape[-2]
+    b = b.repeat_interleave(rep, dim=-2)[..., h0:h1, :]
+    c = c.repeat_interleave(rep, dim=-2)[..., h0:h1, :]
+    return (x[..., h0:h1, :], dt[..., h0:h1], b, c, p["a_log"][h0:h1], p["d_skip"][h0:h1],
+            p["dt_bias"][h0:h1])
+
+
+def _out_proj(y: torch.Tensor, w, whole: bool):
+    """``w_out`` over ``y``: all heads' columns, or this rank's heads'."""
+    return matmul(y, w) if whole else matmul_own(y, w)
 
 
 def _split_in_proj(zxbcdt: torch.Tensor, d_model: int, cfg: SSMConfig):
@@ -118,17 +163,18 @@ def ssm_block(u: torch.Tensor, p: dict, d_model: int, cfg: SSMConfig, init_state
     conv_tail = xbc_raw[:, -(cfg.conv_width - 1):]
     xbc = _causal_conv(xbc_raw, p["conv_w"])
     bsz, s, _ = u.shape
-    x = xbc[..., :di].reshape(bsz, s, nh, hd)
-    b = xbc[..., di:di + g * n].reshape(bsz, s, g, n)
-    c = xbc[..., di + g * n:].reshape(bsz, s, g, n)
-    dt = F.softplus(dt.float() + p["dt_bias"])  # (B, S, H)
+    h0, h1 = own_heads(nh)
+    x, dt, b, c, a_log, d_skip, dt_bias = _heads_in(
+        xbc[..., :di].reshape(bsz, s, nh, hd), dt, xbc[..., di:di + g * n].reshape(bsz, s, g, n),
+        xbc[..., di + g * n:].reshape(bsz, s, g, n), p, h0, h1, nh)
+    dt = F.softplus(dt.float() + dt_bias)  # (B, S, H)
     chunk = min(cfg.chunk, s)
     while s % chunk:
         chunk -= 1
-    y, s_final = ssd_chunked(x, dt, p["a_log"], b, c, chunk, init_state)
-    y = y + p["d_skip"][:, None] * x.float()
-    y = y.reshape(bsz, s, di) * F.silu(z.float())  # gated
-    return matmul(y.to(u.dtype), p["w_out"]), (s_final, conv_tail)
+    y, s_final = ssd_chunked(x, dt, a_log, b, c, chunk, init_state)
+    y = y + d_skip[:, None] * x.float()
+    y = y.reshape(bsz, s, (h1 - h0) * hd) * F.silu(z[..., h0 * hd:h1 * hd].float())  # gated
+    return _out_proj(y.to(u.dtype), p["w_out"], h1 - h0 == nh), (s_final, conv_tail)
 
 
 def ssm_decode_step(u: torch.Tensor, p: dict, d_model: int, cfg: SSMConfig,
@@ -144,13 +190,18 @@ def ssm_decode_step(u: torch.Tensor, p: dict, d_model: int, cfg: SSMConfig,
     conv_w = p["conv_w"]
     conv = sum(full[:, i:i + 1] * conv_w[i] for i in range(conv_w.shape[0]))
     xbc1 = F.silu(conv.float()).to(u.dtype)
-    x = xbc1[:, 0, :di].reshape(-1, nh, hd).float()  # (B, H, P)
-    b = xbc1[:, 0, di:di + g * n].reshape(-1, g, n).float().repeat_interleave(nh // g, dim=1)
-    c = xbc1[:, 0, di + g * n:].reshape(-1, g, n).float().repeat_interleave(nh // g, dim=1)
-    dt1 = F.softplus(dt[:, 0].float() + p["dt_bias"])  # (B, H)
-    da = torch.exp(dt1 * -torch.exp(p["a_log"].float()))
+    h0, h1 = own_heads(nh)
+    x, dt, b, c, a_log, d_skip, dt_bias = _heads_in(
+        xbc1[:, 0, :di].reshape(-1, nh, hd).float(), dt[:, 0],
+        xbc1[:, 0, di:di + g * n].reshape(-1, g, n), xbc1[:, 0, di + g * n:].reshape(-1, g, n),
+        p, h0, h1, nh)  # x (B, H, P)
+    rep = (h1 - h0) // b.shape[1]
+    b = b.float().repeat_interleave(rep, dim=1)
+    c = c.float().repeat_interleave(rep, dim=1)
+    dt1 = F.softplus(dt.float() + dt_bias)  # (B, H)
+    da = torch.exp(dt1 * -torch.exp(a_log.float()))
     new_state = (ssm_state * da[..., None, None]
                  + torch.einsum("bhn,bhp,bh->bhpn", b, x, dt1))
-    y = torch.einsum("bhpn,bhn->bhp", new_state, c) + p["d_skip"][:, None] * x
-    y = y.reshape(-1, 1, di) * F.silu(z.float())
-    return matmul(y.to(u.dtype), p["w_out"]), new_state, full[:, 1:]
+    y = torch.einsum("bhpn,bhn->bhp", new_state, c) + d_skip[:, None] * x
+    y = y.reshape(-1, 1, (h1 - h0) * hd) * F.silu(z[..., h0 * hd:h1 * hd].float())
+    return _out_proj(y.to(u.dtype), p["w_out"], h1 - h0 == nh), new_state, full[:, 1:]

@@ -37,10 +37,12 @@ over the same whole tree and keeps only its shard of it
 range of the pool (``kv_shard="seq"``); prefill and decode combine the
 shards with collectives (``kernels.sharded``), so the logits are
 replicated bit for bit and every rank's host scheduler takes the same
-decisions.  Only the dense family on the paged pool with a data axis of 1
-is ported; the slab under a model axis, ``data > 1`` and other families
-raise (the rest of tensor parallelism, ROADMAP.md).  A 1×1 mesh runs exactly the single-device
-engine.
+decisions.  Every family serves so, on the paged pool (each rank its page
+range) and on the slab (each rank its rows of every lane,
+``SlabLayout.shards``).  ``data > 1``, and chunked prefill, the prefix
+cache, speculation and the device scheduler over a model axis > 1, raise
+(the rest of tensor parallelism, ROADMAP.md).  A 1×1 mesh runs exactly
+the single-device engine.
 
 Device-resident scheduling (``max_steps_per_dispatch=K``, the reference's
 run-until-stop loop): a cycle is one host sync.  The host admits, reserves
@@ -303,14 +305,7 @@ class DecodeEngine:
         if mesh is not None:
             if mesh.device.type != self.device.type:
                 raise ValueError(f"mesh on {mesh.device}, engine asked for {self.device}")
-            if mesh.data > 1:
-                raise NotImplementedError("a data axis > 1 is not ported yet (the rest of "
-                                          "tensor parallelism, ROADMAP.md)")
-            check_mesh(cfg, mesh)
-            if mesh.model > 1 and num_pages is None:
-                raise NotImplementedError("the slab under a model axis > 1 is not ported yet "
-                                          "(the rest of tensor parallelism, ROADMAP.md); "
-                                          "pass num_pages")
+            check_mesh(cfg, mesh)  # a data axis > 1 raises
             self.device = mesh.device
             params = shard_serving_params(params, mesh, cfg=cfg)
             if self._spec:
@@ -353,8 +348,11 @@ class DecodeEngine:
             self.cache = self.pool.cache
         else:
             self.pool = None
-            self.layout = SlabLayout(max_len)
-            self.cache = init_cache(cfg, max_batch, max_len, device=self.device)
+            # over a model axis each rank holds its rows of every lane
+            self.layout = SlabLayout(max_len, shards=mesh.model if mesh is not None else 1,
+                                     shard=mesh.model_index if mesh is not None else 0)
+            self.cache = init_cache(cfg, max_batch, max_len, layout=self.layout,
+                                    device=self.device)
         self.prefill_chunk = prefill_chunk if chunk_ok else None
         # windowed chunks map their window pages chunk by chunk
         self._win_chunk = self.prefill_chunk is not None and windowed_arch

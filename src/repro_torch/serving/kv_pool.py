@@ -58,7 +58,9 @@ its pages axis over the model axis (the reference's ``kv_shard="seq"``,
 ``PagedLayout.shards``): ``num_pages`` must divide by the ranks, and each
 rank allocates only its ``P/S`` pages plus a sink.  Page ids stay global:
 the host allocator runs identically on every rank, so every rank keeps
-the same tables.
+the same tables.  The per-lane states follow the placements too: an SSM
+state holds the rank's heads, RG-LRU states are whole on every rank
+(``models.model.init_cache``).
 """
 from __future__ import annotations
 

@@ -37,6 +37,8 @@ from typing import Sequence
 import torch
 
 from repro_torch.models.model import forward, read_cache
+from repro_torch.sparse_infer.compress import CompressedTensor
+from repro_torch.utils.tree import tree_items
 
 # A greedy token may differ from its twin, or from the forward's choice,
 # only where the logits lie within this margin.
@@ -53,12 +55,23 @@ def first_difference(a: Sequence[int], b: Sequence[int]) -> int:
     return next((i for i, (u, v) in enumerate(zip(a, b)) if u != v), len(a))
 
 
+def tree_device(params: dict) -> torch.device:
+    """The device of a parameter tree's leaves (a compressed leaf's values),
+    where every forward of the gate runs."""
+    leaves = [x.values if isinstance(x, CompressedTensor) else x for _, x in tree_items(params)]
+    devices = {t.device for t in leaves}
+    if len(devices) != 1:
+        raise ValueError(f"the tree's leaves lie on {sorted(map(str, devices))}")
+    return devices.pop()
+
+
 def greedy_gaps(cfg, params: dict, prompts: Sequence[Sequence[int]],
-                streams: Sequence[Sequence[int]], device="cpu") -> list[list[float]]:
+                streams: Sequence[Sequence[int]]) -> list[list[float]]:
     """For each stream, each token's gap: the largest logit less the
     token's, read from one ``forward(params)`` over the prompt and the
     stream's tokens before the last (0 where the token is the greedy
-    choice)."""
+    choice), on the tree's device."""
+    device = tree_device(params)
     out = []
     for p, s in zip(prompts, streams, strict=True):
         if not s:
@@ -75,11 +88,12 @@ def greedy_gaps(cfg, params: dict, prompts: Sequence[Sequence[int]],
 
 def stream_differences(cfg, params: dict, prompts: Sequence[Sequence[int]],
                        a: Sequence[Sequence[int]], b: Sequence[Sequence[int]],
-                       device="cpu") -> tuple[int, int, list[float]]:
+                       ) -> tuple[int, int, list[float]]:
     """``(agree, total, margins)``: the tokens equal before each request's
     first difference, the tokens of ``a``, and the top-2 margin at each
     first difference, read from ``forward(params)`` over the prompt and
-    the tokens before it."""
+    the tokens before it, on the tree's device."""
+    device = tree_device(params)
     agree, total, margins = 0, 0, []
     for p, x, y in zip(prompts, a, b, strict=True):
         total += len(x)
@@ -96,13 +110,13 @@ def stream_differences(cfg, params: dict, prompts: Sequence[Sequence[int]],
 
 def check_streams(cfg, params: dict, prompts: Sequence[Sequence[int]],
                   a: Sequence[Sequence[int]], b: Sequence[Sequence[int]],
-                  margin: float = MARGIN, device="cpu", greedy: bool = True,
+                  margin: float = MARGIN, greedy: bool = True,
                   ) -> tuple[int, int, list[float], float]:
     """:func:`stream_differences` and, with ``greedy``, the largest of
     :func:`greedy_gaps` over both streams (else 0.0); raises
     :class:`StreamGateError` where a margin at a difference, or a gap, is
     ``margin`` or more."""
-    agree, total, margins = stream_differences(cfg, params, prompts, a, b, device)
+    agree, total, margins = stream_differences(cfg, params, prompts, a, b)
     wide = [x for x in margins if x >= margin]
     if wide:
         raise StreamGateError(f"greedy streams differ at top-2 margins {wide} >= {margin} "
@@ -110,7 +124,7 @@ def check_streams(cfg, params: dict, prompts: Sequence[Sequence[int]],
     worst = 0.0
     if greedy:
         for name, streams in (("a", a), ("b", b)):
-            for r, gaps in enumerate(greedy_gaps(cfg, params, prompts, streams, device)):
+            for r, gaps in enumerate(greedy_gaps(cfg, params, prompts, streams)):
                 far = [(i, g) for i, g in enumerate(gaps) if g >= margin]
                 if far:
                     raise StreamGateError(
@@ -120,8 +134,7 @@ def check_streams(cfg, params: dict, prompts: Sequence[Sequence[int]],
     return agree, total, margins, worst
 
 
-def committed_kv_gaps(cfg, params: dict, cache: dict, layout, tokens: dict,
-                      device="cpu") -> dict:
+def committed_kv_gaps(cfg, params: dict, cache: dict, layout, tokens: dict) -> dict:
     """For each lane of ``tokens`` (lane -> its committed tokens: the prompt
     and the stream but for its last token, ``len`` entries), the largest
     absolute difference over every attention and MLA layer and position
@@ -132,9 +145,10 @@ def committed_kv_gaps(cfg, params: dict, cache: dict, layout, tokens: dict,
     ``{"max_abs", "max_ref"}``.  On int8 pages the served entries of later
     layers were computed from int8 codes of the earlier positions, so they
     differ from the forward's by more than a code step: there the gap is a
-    reading."""
+    reading.  The forward runs on the tree's device."""
     if not tokens:
         return {}
+    device = tree_device(params)
     lanes = list(tokens)
     width = max(len(t) for t in tokens.values())
     batch = torch.tensor([list(tokens[i]) + [0] * (width - len(tokens[i])) for i in lanes],

@@ -1,7 +1,8 @@
 """Tensor-parallel paged serving (``mesh=``) in the port, held against the
-JAX package on the CPU: every leaf's placement of gpt2-paper (full width
-and reduced) and of its paged caches against the reference's
-``compressed_pspec``/``serving_cache_pspecs`` at a model axis of 2 and 4;
+JAX package on the CPU: every leaf's placement of gpt2-paper and of the
+other families (full width and reduced) and of their slab and paged caches
+against the reference's ``compressed_pspec``/``serving_cache_pspecs`` at a
+model axis of 2 and 4;
 two gloo ranks (spawned once for the module) serving reduced gpt2-paper in
 f32 from the reference's carried-over compressed tree on a preempting fp
 pool and an int8 pool, against the reference ``DecodeEngine(mesh=None)``
@@ -38,16 +39,19 @@ from repro_torch.distributed.compressed_pspecs import (
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch.mesh import Mesh, make_local_mesh, run_ranks
 from repro_torch.launch.serve import serve_rank
-from repro_torch.models.model import init_params
+from repro_torch.models.cache import SlabLayout
+from repro_torch.models.model import init_cache
 from repro_torch.serving import DecodeEngine, PagedKVPool
 from repro_torch.sparse_infer.compress import CompressedTensor
-from torch_parity import assert_streams_agree, prompts, trees
+from torch_parity import assert_streams_agree, port_tree, prompts, trees
 
 # the serving shape of every run here: 2 lanes, max_len 24, pages of 4,
 # K = 2; the fp pool of 6 pages preempts, the int8 pool of 12 does not
 SERVE = dict(max_batch=2, max_len=24, page_size=4, steps_per_dispatch=2, seed=0)
 POOLS = {"fp": dict(num_pages=6), "int8": dict(num_pages=12, kv_quant=True)}
 GEN = 8
+# the families besides the dense one whose placements are held leaf by leaf
+FAMILIES = ("deepseek-v2-lite-16b", "recurrentgemma-9b", "mamba2-2.7b", "starcoder2-3b")
 
 
 class StandIn:
@@ -105,12 +109,51 @@ def test_placements_match_the_reference(model, smoke):
     ref = _specs_by_name(jax_param_pspecs(comp, mesh, cfg=jcfg))
     ours = _specs_by_name(serving_param_pspecs(_meta(comp), mesh, cfg=tcfg))
     assert ours == ref and len(ref) >= 17
+    _check_cache_placements(jcfg, tcfg, mesh, batch=2)
+
+
+def _check_cache_placements(jcfg, tcfg, mesh, batch):
+    """The slab cache's (``cache_pspecs``) and the fp and int8 paged caches'
+    placements of every leaf against the reference's."""
+    jslab = jax.eval_shape(lambda: TransformerLM(jcfg).init_cache(batch, 32))
+    ref = _specs_by_name(jax_cache_pspecs(mesh, jslab, None))
+    slab = init_cache(tcfg, batch, 32, device="cpu")
+    assert _specs_by_name(serving_cache_pspecs(mesh, slab, SlabLayout(32))) == ref
     for quant_on in (False, True):
-        kw = dict(max_batch=2, max_len=32, num_pages=8, page_size=16, quant=quant_on)
+        kw = dict(max_batch=batch, max_len=32, num_pages=8, page_size=16, quant=quant_on)
         jpool = JaxPool(TransformerLM(jcfg), **kw)
         tpool = PagedKVPool(tcfg, device="cpu", **kw)
         ref = _specs_by_name(jax_cache_pspecs(mesh, jpool.cache, jpool.layout))
         assert _specs_by_name(serving_cache_pspecs(mesh, tpool.cache, tpool.layout)) == ref
+
+
+@pytest.mark.parametrize("model", [2, 4])
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_placements_match_the_reference(arch, model, smoke):
+    """Every leaf of the compressed serving tree (full width from abstract
+    shapes, and reduced) of DeepSeek-V2-Lite (MLA's head-gated ``w_q`` /
+    ``w_ukv``, reduction-TP'd ``w_dkv`` and expert stacks), RecurrentGemma-9B
+    (the RG-LRU gates, MQA's one KV head), Mamba2-2.7B (``w_in`` and
+    ``conv_w`` moved to the reduction dim) and StarCoder2-3B, and every leaf
+    of its slab cache and fp and int8 paged caches (one lane at full
+    width), takes the reference's placement."""
+    jcfg, tcfg = jax_get_config(arch), get_config(arch)
+    if smoke:
+        jcfg, tcfg = jax_reduced(jcfg), reduced(tcfg)
+    sparsity = jcore.SparsityConfig(default=jcore.NMSparsity(2, 4))
+    shapes = jax.eval_shape(TransformerLM(jcfg).init, jax.random.PRNGKey(0))
+    comp = jax.eval_shape(lambda p: jax_compress_params(p, sparsity), shapes)
+    mesh = StandIn(model)
+    ref = _specs_by_name(jax_param_pspecs(comp, mesh, cfg=jcfg))
+    assert _specs_by_name(serving_param_pspecs(_meta(comp), mesh, cfg=tcfg)) == ref
+    assert any("model" in _names(spec) for spec in ref.values())
+    _check_cache_placements(jcfg, tcfg, mesh, batch=1 if not smoke else 2)
+
+
+def _names(spec) -> set:
+    flat = spec[0] + spec[1] if isinstance(spec[0], tuple) else spec
+    return {a for e in flat if e is not None for a in (e if isinstance(e, tuple) else (e,))}
 
 
 @pytest.mark.parametrize("model", [2, 4])
@@ -235,13 +278,18 @@ def _fake_mesh(data=1, model=2):
                 device_names=("cpu",) * n)
 
 
-@pytest.mark.parametrize("case", ["feature", "pages", "slab", "data", "family"])
+@pytest.mark.parametrize("case", ["feature", "pages", "slab", "data", "family", "chunks",
+                                  "prefix", "spec", "scheduler"])
 def test_refusals(served, case):
     """``kv_shard="feature"`` on a model axis of 2, a pool whose pages do not
-    split over the ranks, the slab, a data axis > 1 and a non-dense family
-    under a model axis > 1 raise; the CLI refuses a data axis > 1."""
+    split over the ranks, a data axis > 1 (engine and CLI), and chunked
+    prefill, the prefix cache, speculation and the device scheduler over a
+    model axis > 1 raise, each naming the rest of tensor parallelism; the
+    slab (split into each rank's rows) and a non-dense family (DeepSeek's
+    MLA + MoE) are served over a model axis > 1."""
     cfg, tree = served["tcfg"], served["tree"]
     kw = dict(SERVE, num_pages=8, device="cpu", mesh=_fake_mesh())
+    todo = "rest of tensor parallelism"
     if case == "feature":
         with pytest.raises(NotImplementedError):
             DecodeEngine(cfg, tree, kv_shard="feature", **kw)
@@ -251,18 +299,36 @@ def test_refusals(served, case):
         with pytest.raises(ValueError):
             DecodeEngine(cfg, tree, **{**kw, "num_pages": 7})
     elif case == "slab":
-        with pytest.raises(NotImplementedError):
-            DecodeEngine(cfg, tree, **{**kw, "num_pages": None})
+        eng = DecodeEngine(cfg, tree, **{**kw, "num_pages": None})
+        assert eng.layout.kind == "slab" and (eng.layout.shards, eng.layout.shard) == (2, 0)
+        assert eng.cache["body"]["sb_0"]["k"].shape[2] == SERVE["max_len"] // 2
     elif case == "data":
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match=todo):
             DecodeEngine(cfg, tree, **{**kw, "mesh": _fake_mesh(data=2, model=1)})
-        with pytest.raises(SystemExit):
+        with pytest.raises(SystemExit, match=todo):
             launch_serve.main(["--device", "cpu", "--paged", "--mesh", "2,1"])
-    else:
+    elif case == "family":
         ds = dataclasses.replace(reduced(get_config("deepseek-v2-lite-16b")),
                                  param_dtype="float32")
-        with pytest.raises(NotImplementedError):
-            DecodeEngine(ds, init_params(ds, device="cpu"), **kw)
+        eng = DecodeEngine(ds, port_tree("deepseek-v2-lite-16b")[1], **kw)
+        attn = eng.params["body"]["sb_0"]["attn"]
+        assert (attn["w_ukv"].oshards, attn["w_dkv"].rshards) == (2, 2)
+        assert eng.params["body"]["sb_0"]["moe"]["w_gate_e"].rshards == 2
+    elif case == "chunks":
+        for pages in (8, None):
+            with pytest.raises(NotImplementedError, match=todo):
+                DecodeEngine(cfg, tree, prefill_chunk=4, **{**kw, "num_pages": pages})
+        with pytest.raises(NotImplementedError, match=todo):
+            launch_serve.main(["--device", "cpu", "--mesh", "1,2", "--prefill-chunk", "4"])
+    elif case == "prefix":
+        with pytest.raises(NotImplementedError, match=todo):
+            DecodeEngine(cfg, tree, prefix_cache=True, **kw)
+    elif case == "spec":
+        with pytest.raises(NotImplementedError, match=todo):
+            DecodeEngine(cfg, tree, spec_gamma=2, verify_params=tree, **kw)
+    else:
+        with pytest.raises(NotImplementedError, match=todo):
+            DecodeEngine(cfg, tree, max_steps_per_dispatch=4, **kw)
 
 
 def test_cli_1x1_mesh_matches_no_mesh():

@@ -5,6 +5,7 @@ once in the JAX package and handed to the PyTorch port through
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -18,6 +19,7 @@ from repro_torch import core as tcore
 from repro_torch.checkpoint import carry_over
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import model as tmodel
+from repro_torch.sparse_infer import compress as tcompress
 from repro_torch.sparse_infer import export_compressed
 
 # Cross-framework checks run in f32 on both sides: the two frameworks round
@@ -69,6 +71,19 @@ def port_tree(arch, **overrides):
     tcfg = configs(arch, **overrides)[1]
     recipe = tcore.make_recipe("step", tcore.SparsityConfig(default=tcore.NMSparsity(2, 4)))
     return tcfg, export_compressed(tmodel.init_params(tcfg, seed=0, device="cpu"), recipe)[0]
+
+
+def to_jax(tree):
+    """A port tree as the JAX package's: nested dicts of ``jnp`` arrays,
+    compressed leaves as its ``CompressedTensor`` (the reverse of
+    ``carry_over``; building a reduced tree in the port and carrying it over
+    costs a fraction of the reference's eager init and export)."""
+    if isinstance(tree, dict):
+        return {k: to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, tcompress.CompressedTensor):
+        return JaxCompressed(jnp.asarray(tree.values.numpy()), jnp.asarray(tree.indices.numpy()),
+                             tree.n, tree.m, tree.group_axis, tuple(tree.shape), tree.pad)
+    return jnp.asarray(tree.numpy())
 
 
 def full_tables(lengths, ps, n_slots, num_pages):
