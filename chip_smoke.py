@@ -135,8 +135,8 @@ with every lane at 0, 1, 2, 4 and 7 live pages.
    their slice of every compressed leaf that the placements split, their
    vocab slice of ``tok_embed``, and their rows of every lane of the slab
    or their page range of a pool plus a sink page.  Full width, cut in
-   depth: gpt2-paper's first 4 of 12 layers on phase 3's traffic (slab,
-   its 22-page fp pool, its 44-page int8 pool), DeepSeek-V2-Lite's first 4
+   depth (gpt2-paper's model axis runs in phase 14's (2, 2) mesh):
+   DeepSeek-V2-Lite's first 4
    layers (4 prompts of 64 + 16 tokens: slab, 28-page fp and int8 pools;
    the absorbed MLA decode on every layout, K3's MLA form on the pools,
    the expert stacks through K1b's reduction-sharded route),
@@ -272,6 +272,38 @@ with every lane at 0, 1, 2, 4 and 7 live pages.
    its masked-dense tree: a forward within 1e-3 and the served streams
    through the stream gate.  Each part's seconds are logged.
 
+14. The data axis.  One spawn of a (2, 2) mesh (four ``gloo`` ranks on the
+   card, each exporting its trees from seed 0, ``serve_jobs``): gpt2-paper's
+   first 4 of 12 layers on phase 3's traffic (slab, its 22-page fp pool,
+   its 44-page int8 pool) and Mamba2-2.7B's first 4 layers on the slab,
+   each data row decoding 2 of the 4 lanes (its slab rows, states and
+   lengths), each model rank its shard; the first tokens of a prefill
+   batch and each dispatch's token block gathered over the data group.
+   Per rank: K1 at its count a forward by body (the decode kernel once a
+   layer's weight a decode step, the tensor-core body once a prefill
+   forward the rank ran), K3's GQA form once an attention layer and paged
+   decode step and no K2-family launch, the model group's collectives a
+   decode step plus one gather a dispatch, one gather a dispatch and a
+   prefill batch; the four ranks' streams, host tables and a forward's
+   logits identical; no compressed leaf that the placements split held
+   whole; the f32 twins' cache leaves of the placements' shapes (lanes
+   halved) and their streams through the stream gate against the
+   single-rank f32 twin (slab and fp pool; Mamba-2's slab).  Then one
+   spawn of a (2, 1) mesh trains gpt2-paper's first 4 layers at full
+   width through ``launch.train.train_rank`` (batch 8, 4 rows a rank, seq
+   128, 24 steps, AutoSwitch clipped to (4, 12], ``--compress-phase2``):
+   the two ranks' parameters byte-identical after the run, the same ``t0``
+   inside (t_min, t_max + 1], the error-feedback residual zero before the
+   switch and nonzero after, the loss falling over phase 1 and from the
+   first step to the last (the compressed steps of phase 2 spike it for a
+   step or two: printed), ``nm_mask`` 6 times a
+   masked step on each rank and 6 at the export, the export exactly 2:4;
+   one phase-1 step in f32: the ranks' averaged gradient within 1e-5
+   (relative, by global norm) of the single-process gradient of the whole
+   batch computed here.  Prints ms a step in each phase, ms a step inside
+   the gradient all-reduce, bytes all-reduced a step, each rank's peak
+   memory.
+
 Each phase's seconds are logged, and the total beside them.
 
 Phase 2 also holds K2 and K2q (GQA, fp and int8 pages) at phase 12's head
@@ -287,8 +319,8 @@ ranges, K3 on each range and the combine, against K2 on the whole pool;
 timed beside its bound and its plain version (no one PyTorch call returns
 unnormalized flash stats: SDPA is timed as a yardstick only).  K3's
 window forms run K2w's split walk and combine, with the stats flush.
-Every K3 row's launches are phase 8's ranks' (GQA: gpt2-paper, window:
-RecurrentGemma-9B, MLA: DeepSeek-V2-Lite).  Phase 2 also times K1b's
+Every K3 row's launches are phases 8's and 14's ranks' (GQA: gpt2-paper
+in phase 14, window: RecurrentGemma-9B, MLA: DeepSeek-V2-Lite).  Phase 2 also times K1b's
 reduction-sharded route: a rank's launch on its half-K slices of one MoE
 layer's stacks at C = 8 and 32 beside its bound and ``torch.bmm`` on the
 same slices, the two halves' sum held against the plain version (the
@@ -442,6 +474,15 @@ GPT2_K1_PER_LAYER = 6
 MESH_RANKS = 2
 MESH_LAYERS, MESH_GEN, MESH_DS_GEN = 4, 32, 16
 MESH_LOGIT_TOL = 1e-4
+# phase 14, the data axis: the serving mesh (data, model); the training
+# run of a (2, 1) mesh (gpt2-paper's first MESH_LAYERS layers; AutoSwitch's
+# window of 50 is not full by t_max, so the switch is forced at 13) and
+# its f32 gradient's tolerance against one process's (relative, by global
+# norm)
+DATA_MESH = (2, 2)
+DP_TRAIN_ARGS = ["--no-smoke", "--recipe", "step", "--nm", "2:4", "--batch", "8", "--seq", "128",
+                 "--b2", "0.98", "--steps", "24", "--lr", "3e-3", "--compress-phase2"]
+DP_SWITCH, DP_GRAD_TOL = (4, 12), 1e-5
 # phase 9, the device scheduler: steps a dispatch; the exact gate's
 # budgets of 4 requests (phase 3's first 4 prompts) and its pools' pages
 DEV_K, EXACT_BUDGETS, EXACT_PAGES = 16, (32, 29, 24, 17), 28
@@ -1518,14 +1559,14 @@ POOL_LEAVES = ("k", "v", "ckv", "krope", "k_scale", "v_scale", "ckv_scale", "kro
 
 
 class MeshShape:
-    """A ``(1, MESH_RANKS)`` mesh as the placement rules read it."""
+    """A ``(data, model)`` mesh as the placement rules read it."""
 
     axis_names = ("data", "model")
 
-    def __init__(self, model: int):
+    def __init__(self, model: int, data: int = 1):
         import numpy as np
 
-        self.devices = np.empty((1, model), dtype=object)
+        self.devices = np.empty((data, model), dtype=object)
 
 
 def mesh_families(torch, cfg, single: dict) -> dict:
@@ -1594,27 +1635,146 @@ def mesh_families(torch, cfg, single: dict) -> dict:
     }
 
 
-def mesh_launch_gate(name: str, run: str, fam: dict, rec: dict) -> None:
+def data_families(torch, cfg, single: dict) -> dict:
+    """Phase 14's families on DATA_MESH: gpt2-paper (slab, fp and int8
+    pools; f32 twins of the slab and the fp pool) and Mamba2-2.7B's slab,
+    K1 counted by body."""
+    fams = mesh_families(torch, cfg, single)
+    return {"gpt2-paper": dict(fams["gpt2-paper"], twins=("slab", "fp"), routes=True),
+            "mamba2-2.7b": dict(fams["mamba2-2.7b"], runs={"slab": {}}, routes=True)}
+
+
+def dp_train_phase(torch, dev) -> dict:
+    """Phase 14's training: a (2, 1) mesh of ranks on the card trains
+    gpt2-paper's first MESH_LAYERS layers through ``launch.train.train_rank``
+    (DP_TRAIN_ARGS: 4 rows a rank, 1-bit error feedback from the switch);
+    gates as the module docstring's phase 14.  Returns the ranks' nm_mask
+    launches (steps and export)."""
+    import numpy as np
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.model import loss_fn
+    from repro_torch.train.loop import compute_grads
+    from repro_torch.utils.tree import tree_items, tree_map_with_name
+
+    t0 = time.perf_counter()
+    opts = {"n_layers": MESH_LAYERS, "switch": DP_SWITCH, "grad_probe": True}
+    ranks = run_ranks(launch_train.train_rank, (DP_TRAIN_ARGS, opts), data=2, model=1,
+                      device=dev.type, log=lambda m: log("  " + m))
+    log(f"  2 ranks of a (2, 1) mesh started, trained and stopped in "
+        f"{time.perf_counter() - t0:.1f} s")
+    leaves = sum(MASK_LEAVES.values())
+    lo, hi = DP_SWITCH
+    for rec in ranks:
+        hist, r = rec["history"], rec["rank"]
+        steps = int(DP_TRAIN_ARGS[DP_TRAIN_ARGS.index("--steps") + 1])
+        bad = [m["step"] for m in hist
+               if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]))]
+        if bad or len(hist) != steps:
+            raise AssertionError(f"rank {r}: non-finite loss or grad norm at {bad} "
+                                 f"({len(hist)} logged)")
+        if not (rec["phase2"] and lo < rec["t0"] <= hi + 1):
+            raise AssertionError(f"rank {r}: switch at t0={rec['t0']}, outside ({lo}, {hi + 1}]")
+        norms = [(int(m["phase2"]), m["ef_residual_norm"]) for m in hist]
+        if any((n > 0) != bool(p2) for p2, n in norms):
+            raise AssertionError(f"rank {r}: the residual's norm by (phase 2, norm) {norms}: "
+                                 "want zero before the switch, nonzero after")
+        # the loss falls over phase 1 and over the run; in phase 2 the
+        # compressed steps move the tied embedding by mean|x| / P* and
+        # spike the loss for a step or two (one process does the same,
+        # PERF.md §6): a reading, not a gate
+        losses = [m["loss"] for m in hist]
+        p1_last = max(i for i, m in enumerate(hist) if not m["phase2"])
+        if not (losses[p1_last] < losses[0] and losses[-1] < losses[0]):
+            raise AssertionError(f"rank {r}: loss did not fall: {losses}")
+        masked = sum(int(m["mask_active"]) for m in hist)
+        got = (rec["train_launches"]["nm_mask"], rec["export_launches"]["nm_mask"])
+        if got != (leaves * masked, leaves):
+            raise AssertionError(f"rank {r}: nm_mask launched {got}, want "
+                                 f"({leaves} x {masked}, {leaves})")
+        if rec["export_off_pattern"]:
+            raise AssertionError(f"rank {r}: exported leaves off 2:4: "
+                                 f"{rec['export_off_pattern']}")
+        p1 = [m["step_time_s"] * 1e3 for m in hist[1:] if not m["phase2"]]  # step 0 warms up
+        p2 = [m["step_time_s"] * 1e3 for m in hist if m["phase2"]]
+        log("  train data-parallel " + json.dumps({
+            "rank": r, "rows_a_rank": int(DP_TRAIN_ARGS[DP_TRAIN_ARGS.index("--batch") + 1]) // 2,
+            "t0": rec["t0"], "masked_steps": masked, "ms_per_step_phase1_median": _median(p1),
+            "ms_per_step_phase2_median": _median(p2),
+            "allreduce_ms_per_step_median": _median([m["allreduce_s"] * 1e3 for m in hist]),
+            "allreduce_bytes_per_step": hist[0]["allreduce_bytes"], "run_wall_s": rec["train_s"],
+            "peak_memory_bytes": rec.get("peak_bytes"), "loss_first": losses[0],
+            "loss_last": losses[-1], "loss_phase2_max": max(losses[p1_last + 1:]),
+            "losses": [round(x, 4) for x in losses],
+            "final_sparse_eval_loss":
+                rec["summary"]["final_sparse_eval_loss"], "device": torch.cuda.get_device_name(0)}))
+    a, b = ranks
+    if a["params_digest"] != b["params_digest"] or a["t0"] != b["t0"]:
+        raise AssertionError(f"the ranks' parameters or t0 differ: {a['params_digest'][:16]} "
+                             f"t0 {a['t0']} vs {b['params_digest'][:16]} t0 {b['t0']}")
+    if a["probe"]["digest"] != b["probe"]["digest"]:
+        raise AssertionError("the ranks' averaged f32 gradients differ")
+    # the single-process f32 gradient of the whole batch 0
+    args = launch_train.parse_args(DP_TRAIN_ARGS)
+    run = launch_train.build(args, dev, n_layers=MESH_LAYERS)
+    run.trainer.data.close()
+    cfg32 = dataclasses.replace(run.cfg, param_dtype="float32")
+    p32 = tree_map_with_name(lambda _, p: p.float(), run.params)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in run.batch_fn(0, args.batch).items()}
+    loss, _, grads = compute_grads(lambda p, bb: loss_fn(p, cfg32, bb, chunk=min(128, args.seq)),
+                                   run.recipe, p32, batch, {}, False)
+    one = torch.cat([g.reshape(-1) for _, g in tree_items(grads)]).cpu().numpy()
+    del run, p32, grads
+    torch.cuda.empty_cache()
+    rel = float(np.linalg.norm(a["probe"]["grad"] - one) / np.linalg.norm(one))
+    log(f"  phase-1 f32 gradient of batch 0: the ranks' average against one process's whole "
+        f"batch: relative difference {rel:.3e} by global norm (tolerance {DP_GRAD_TOL}); loss "
+        f"{a['probe']['loss']:.6f} vs {float(loss):.6f}")
+    if not rel <= DP_GRAD_TOL:
+        raise AssertionError(f"averaged f32 gradient {rel} from one process's, past {DP_GRAD_TOL}")
+    return {"nm_mask": sum(rec["train_launches"]["nm_mask"] + rec["export_launches"]["nm_mask"]
+                           for rec in ranks)}
+
+
+def mesh_launch_gate(name: str, run: str, fam: dict, rec: dict, split: bool = False) -> None:
     """A rank's launches in one bf16 run: K3's form of the pool once an
     attention layer and paged decode step, no other attention kernel (no
     K2-family launch on a rank's pool), K1 and K1b at their counts a
-    forward (prefill batches and decode steps), and nothing else."""
+    forward (the prefill forwards this rank ran and decode steps), and
+    nothing else; with ``fam["routes"]``, K1 by body: the decode kernel a
+    decode step, the tensor-core body a prefill forward.  The collectives
+    a decode step: the model group's, plus, where the data rows split the
+    lanes (``split``), the gather of each K-step dispatch's tokens, and one
+    gather a dispatch and a prefill batch."""
     st, got = rec["stats"], rec["launches"]
-    steps, groups = st["decode_steps"], st["prefill_batches"]
+    steps, forwards = st["decode_steps"], st["prefill_forwards"]
     paged = run != "slab"
     k1_prefill, k1_slab, k1_pool = fam["k1"]
+    k1_step = k1_pool if paged else k1_slab
     want = {k: 0 for k in got}
-    want["nm_spmm"] = k1_prefill * groups + (k1_pool if paged else k1_slab) * steps
-    want["nm_spmm_batched"] = fam["k1b"] * (groups + steps)
+    want["nm_spmm"] = k1_prefill * forwards + k1_step * steps
+    want["nm_spmm_batched"] = fam["k1b"] * (forwards + steps)
     form = fam["k3"][run == "int8"]
     if paged and form:
         want[form] = fam["attn_layers"] * steps
     if got != want:
         raise AssertionError(f"{name} {run}: launches {got}, want {want}")
-    coll = fam["coll"][paged]
-    if st["collectives_per_decode_step"] != coll:
+    if fam.get("routes"):
+        routes = {k: v for k, v in rec["routes"].items() if k.startswith("nm_spmm/")}
+        want_routes = {"nm_spmm/decode": k1_step * steps, "nm_spmm/tc": k1_prefill * forwards,
+                       "nm_spmm/body": 0}
+        if routes != want_routes:
+            raise AssertionError(f"{name} {run}: K1 by body {routes}, want {want_routes}")
+    k = st["steps_per_dispatch"]
+    coll = fam["coll"][paged] + (1 / k if split else 0)
+    if abs(st["collectives_per_decode_step"] - coll) > 1e-9:
         raise AssertionError(f"{name} {run}: {st['collectives_per_decode_step']} collectives a "
                              f"decode step, want {coll}")
+    gathers = st["dispatches"] + st["prefill_batches"] if split else 0
+    if st["data_gathers"] != gathers:
+        raise AssertionError(f"{name} {run}: {st['data_gathers']} gathers over the data "
+                             f"group, want {gathers}")
 
 
 def mesh_placement_gate(name: str, cfg, comp: dict, recs: list) -> int:
@@ -1639,59 +1799,71 @@ def mesh_placement_gate(name: str, cfg, comp: dict, recs: list) -> int:
     return len(leaves)
 
 
-def mesh_cache_gate(name: str, cache: dict, paged: bool, recs: list) -> int:
+def mesh_cache_gate(name: str, cache: dict, paged: bool, recs: list,
+                    shape: tuple = (1, MESH_RANKS)) -> int:
     """Every leaf of each rank's cache has the shape that its placement
-    (``serving_cache_pspecs``, sanitized for MESH_RANKS ranks) gives the
-    single-rank engine's ``cache``: a dim placed on the model axis split
-    over the ranks (a pool's pages axis: a rank's share plus its own sink
-    page), every other whole.  Returns the leaves held split."""
+    (``serving_cache_pspecs``, sanitized for the ``(data, model)`` mesh
+    ``shape``) gives the single-rank engine's ``cache``: a dim placed on
+    mesh axes split over their ranks (a pool's pages axis: a rank's share
+    plus its own sink page; lanes over the data rows), every other whole.
+    Returns the leaves held split."""
     from repro_torch.distributed.compressed_pspecs import serving_cache_pspecs
     from repro_torch.distributed.sharding import sanitize_spec
     from repro_torch.utils.tree import tree_items
 
+    mesh = MeshShape(shape[1], shape[0])
+    sizes = dict(zip(mesh.axis_names, shape))
     layout = type("Layout", (), {"kind": "paged" if paged else "slab"})()
-    specs = dict(tree_items(serving_cache_pspecs(MeshShape(MESH_RANKS), cache, layout)))
+    specs = dict(tree_items(serving_cache_pspecs(mesh, cache, layout)))
+
+    def ranks(entry) -> int:
+        k = 1
+        for a in (entry if isinstance(entry, tuple) else (entry,)) if entry is not None else ():
+            k *= sizes[a]
+        return k
+
     split = 0
     for leaf, x in tree_items(cache):
-        shape, spec = tuple(x.shape), specs[leaf]
+        full, spec = tuple(x.shape), specs[leaf]
         sink = int(paged and leaf.split("/")[-1] in POOL_LEAVES)
         on = ["model" in (e if isinstance(e, tuple) else (e,)) for e in spec]
-        logical = tuple(n - sink if o else n for n, o in zip(shape, on))
-        sane = sanitize_spec(spec, logical, MeshShape(MESH_RANKS))
-        want = tuple(n // MESH_RANKS + sink if e == "model" else n + (sink if o else 0)
-                     for n, e, o in zip(logical, sane, on))
+        logical = tuple(n - sink if o else n for n, o in zip(full, on))
+        sane = sanitize_spec(spec, logical, mesh)
+        want = tuple(n // ranks(e) + (sink if o else 0) for n, e, o in zip(logical, sane, on))
         for r, rec in enumerate(recs):
             if tuple(rec["cache_shapes"][leaf]) != want:
                 raise AssertionError(f"{name} rank {r}: cache leaf {leaf} of shape "
                                      f"{rec['cache_shapes'][leaf]}, placement {spec} of "
-                                     f"{shape} gives {want}")
-        split += want != shape
+                                     f"{full} gives {want}")
+        split += want != full
     for r, rec in enumerate(recs):
         if set(rec["cache_shapes"]) != {leaf for leaf, _ in tree_items(cache)}:
             raise AssertionError(f"{name} rank {r}: cache leaves {sorted(rec['cache_shapes'])}")
     return split
 
 
-def mesh_phase(torch, cfg, dev, single: dict) -> dict:
-    """Phase 8: every family served tensor-parallel by MESH_RANKS ranks on
-    the one card (``launch.mesh.run_ranks``: gloo, since the ranks share
-    it), all in one spawn (``launch.serve.serve_jobs``: each rank exports
-    each family's tree itself, from seed 0, as the main process does):
-    gpt2-paper's first MESH_LAYERS layers on phase 3's traffic (slab, fp
-    pool, int8 pool), DeepSeek-V2-Lite's first 4 layers (slab, 28-page fp
-    and int8 pools), RecurrentGemma-9B's first period (rec, rec, attn) on
-    phase 7's prompts past its 2048 window (slab, fp and int8 pools),
-    Mamba2-2.7B's first 4 layers (slab, table-less pool), each then as its
-    f32 twin (DeepSeek's with an MoE capacity of every token).  Each rank
-    holds its slice of every compressed leaf the placements split, its
-    rows of every lane of the slab or its page range of the pool.  Gates:
-    every request finishes; streams, host page tables and one forward's
-    logits are identical on every rank; per rank the exact launches
-    (``mesh_launch_gate``) and collectives; no compressed leaf that the
-    placements split is whole on a rank, and every cache leaf of a twin
-    run has its placement's shape (``mesh_cache_gate``); the ranks' f32
-    twins pass the stream gate against the single-rank f32 twin served
-    here on the same runs; DeepSeek's f32 forward logits within 1e-4 (atol and rtol) of the
+def mesh_phase(torch, dev, fams: dict, shape: tuple = (1, MESH_RANKS)) -> dict:
+    """Families (``mesh_families``' entries) served by a ``(data, model)``
+    mesh of ranks on the one card (``launch.mesh.run_ranks``: gloo, since
+    the ranks share it), all in one spawn (``launch.serve.serve_jobs``:
+    each rank exports each family's tree itself, from seed 0, as the main
+    process does), each run then as its f32 twin.  Phase 8: DeepSeek-V2-
+    Lite's first 4 layers (slab, 28-page fp and int8 pools, the twin with
+    an MoE capacity of every token), RecurrentGemma-9B's first period
+    (rec, rec, attn) on phase 7's prompts past its 2048 window (slab, fp
+    and int8 pools), Mamba2-2.7B's first 4 layers (slab, table-less pool)
+    on a (1, MESH_RANKS) mesh; phase 14: gpt2-paper's first MESH_LAYERS
+    layers on phase 3's traffic (slab, fp pool, int8 pool) and Mamba-2's
+    slab on DATA_MESH.  Each rank holds its slice of every compressed leaf
+    the placements split, its rows of its data row's lanes of the slab or
+    its page range of the pool.  Gates: every request finishes; streams,
+    host page tables and one forward's logits are identical on every
+    rank; per rank the exact launches, collectives and data gathers
+    (``mesh_launch_gate``); no compressed leaf that the placements split
+    is whole on a rank, and every cache leaf of a twin run has its
+    placement's shape (``mesh_cache_gate``); the ranks' f32 twins pass the
+    stream gate against the single-rank f32 twin served here on the same
+    runs; DeepSeek's f32 forward logits within 1e-4 (atol and rtol) of the
     single rank's.  Returns each kernel's launches summed over the ranks'
     bf16 runs."""
     import numpy as np
@@ -1700,7 +1872,7 @@ def mesh_phase(torch, cfg, dev, single: dict) -> dict:
     from repro_torch.launch.serve import export_tree, serve_jobs
     from repro_torch.models.model import forward
 
-    fams = mesh_families(torch, cfg, single)
+    world = shape[0] * shape[1]
     jobs = []
     for name, fam in fams.items():
         runs = [dict(run) for run in fam["runs"].values()]
@@ -1717,11 +1889,13 @@ def mesh_phase(torch, cfg, dev, single: dict) -> dict:
                                         page_size=16, steps_per_dispatch=4)))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = run_ranks(serve_jobs, (jobs,), model=MESH_RANKS, device=dev.type,
+    ranks = run_ranks(serve_jobs, (jobs,), data=shape[0], model=shape[1], device=dev.type,
                       log=lambda m: log("  " + m))
     n_runs = sum(len(job["runs"]) + len(job["twin"]) for job in jobs)
-    log(f"  {MESH_RANKS} ranks started, exported and served {n_runs} runs of {len(jobs)} archs "
-        f"and stopped in {time.perf_counter() - t0:.1f} s")
+    log(f"  {world} ranks of a {shape} mesh started, exported and served {n_runs} runs of "
+        f"{len(jobs)} archs and stopped in {time.perf_counter() - t0:.1f} s")
+    # the data rows split the lanes where they divide the engine's 4
+    split = shape[0] > 1 and 4 % shape[0] == 0
     totals: dict = {}
     name_card = torch.cuda.get_device_name(0)
     for j, (name, fam) in enumerate(fams.items()):
@@ -1736,7 +1910,7 @@ def mesh_phase(torch, cfg, dev, single: dict) -> dict:
             recs = [b[i] for b in bf16]
             mesh_streams(recs, f"{name} {run}", len(fam["prompts"]), fam["gen"])
             for r, rec in enumerate(recs):
-                mesh_launch_gate(f"{name} rank {r}", run, fam, rec)
+                mesh_launch_gate(f"{name} rank {r}", run, fam, rec, split)
                 for k, v in rec["launches"].items():
                     totals[k] = totals.get(k, 0) + v
             st = recs[0]["stats"]
@@ -1745,11 +1919,13 @@ def mesh_phase(torch, cfg, dev, single: dict) -> dict:
                 "tokens_per_s": st["tokens_per_s"], "ms_per_decode_step": st["ms_per_decode_step"],
                 "ms_per_decode_step_host": st["ms_per_decode_step_host"],
                 "decode_steps": st["decode_steps"], "prefill_batches": st["prefill_batches"],
-                "preemptions": st["preemptions"],
+                "prefill_forwards": [rec["stats"]["prefill_forwards"] for rec in recs],
+                "data_gathers": st["data_gathers"], "preemptions": st["preemptions"],
                 "collectives_per_decode_step": st["collectives_per_decode_step"],
                 "collective_ms_per_decode_step": st["collective_ms_per_decode_step"],
                 "kernel_route": recs[0]["kernel_route"], "run_wall_s": recs[0]["wall_s"],
                 "launches_per_rank": {k: v for k, v in recs[0]["launches"].items() if v},
+                "k1_bodies_per_rank": {k: v for k, v in recs[0]["routes"].items() if v},
                 "per_rank_weight_bytes": [rec["stats"]["weight_bytes_per_step"] for rec in recs],
                 "per_rank_kv_cache_bytes": [rec["stats"]["kv_cache_bytes"] for rec in recs],
                 "device": name_card}))
@@ -1769,13 +1945,13 @@ def mesh_phase(torch, cfg, dev, single: dict) -> dict:
             if recs[0]["stats"]["preemptions"] != eng.preemptions:
                 raise AssertionError(f"{name} f32 {run}: {recs[0]['stats']['preemptions']} "
                                      f"preemptions on the ranks, {eng.preemptions} on one")
-            split = mesh_cache_gate(f"{name} f32 {run}", eng.cache, bool(pool), recs)
-            log(f"  {name} f32 {run}: every cache leaf of the ranks as placed, {split} split")
+            held = mesh_cache_gate(f"{name} f32 {run}", eng.cache, bool(pool), recs, shape)
+            log(f"  {name} f32 {run}: every cache leaf of the ranks as placed, {held} split")
             del eng
-            log(f"  {name} f32 twin {run} on {MESH_RANKS} ranks: run wall "
+            log(f"  {name} f32 twin {run} on {world} ranks: run wall "
                 f"{recs[0]['wall_s']:.2f} s, {recs[0]['stats']['ms_per_decode_step']:.1f} ms a "
                 f"decode step")
-            gate_streams(torch, f"{name} {run}, single rank vs {MESH_RANKS} ranks", cfg32,
+            gate_streams(torch, f"{name} {run}, single rank vs {world} ranks", cfg32,
                          comp32, fam["prompts"], ref, streams,
                          greedy=fam["greedy"] and run != "int8")
             if recs[0]["logits"] is not None:
@@ -3680,11 +3856,9 @@ def train_phase(torch, dev, dispatch, ckpt_dir=None, argv=TRAIN_ARGS, profile=Tr
     if launches["nm_mask"] != want:
         raise AssertionError(f"nm_mask launched {launches['nm_mask']} times, want {want}")
     sparse = run.recipe.export_sparse(state.params)
-    for name, p in _maskable(run.recipe, sparse):
-        pat = run.recipe.sparsity.pattern_for(name, tuple(p.shape))
-        nz = (p != 0).movedim(-2, -1).reshape(-1, pat.m).sum(-1)
-        if not bool((nz <= pat.n).all()):
-            raise AssertionError(f"exported {name} is not {pat}")
+    off = launch_train.off_pattern(run.recipe, sparse)
+    if off:
+        raise AssertionError(f"exported leaves off their N:M pattern: {off}")
     del sparse
     p1 = [m["step_time_s"] * 1e3 for m in hist[1:] if not m["phase2"]]  # step 0 warms up
     p2 = [m["step_time_s"] * 1e3 for m in hist if m["mask_active"]]
@@ -3884,12 +4058,12 @@ def main() -> int:
     t_phase = phase_done(seconds, "7", t_phase)
 
     log(f"phase 8: serve every family tensor-parallel on {MESH_RANKS} ranks of the one card: "
-        f"gpt2-paper's and Mamba2-2.7B's first {MESH_LAYERS} layers, DeepSeek-V2-Lite's first "
+        f"Mamba2-2.7B's first {MESH_LAYERS} layers, DeepSeek-V2-Lite's first "
         f"{1 + DS_TWIN_BODY}, RecurrentGemma-9B's first period, each on the slab and its pools, "
-        "then their f32 twins")
-    mesh = mesh_phase(torch, cfg, dev, single)
-    for name in K3_FORMS:
-        launches[name] = mesh[name]
+        "then their f32 twins (gpt2-paper's model axis: phase 14)")
+    mesh = mesh_phase(torch, dev, {name: fam for name, fam in
+                                   mesh_families(torch, cfg, single).items()
+                                   if name != "gpt2-paper"})
     t_phase = phase_done(seconds, "8", t_phase)
 
     log(f"phase 9: serve full-width gpt2-paper with the device scheduler (CUDA graphs, "
@@ -3931,7 +4105,17 @@ def main() -> int:
     for name, n in front["launches"].items():
         launches[name] += n
     log(f"  phase 13 parts: {json.dumps(front['seconds'])}")
-    phase_done(seconds, "13", t_phase)
+    t_phase = phase_done(seconds, "13", t_phase)
+
+    log(f"phase 14: the data axis: gpt2-paper's first {MESH_LAYERS} layers (slab, fp and int8 "
+        f"pools) and Mamba2-2.7B's (slab) served on a {DATA_MESH} mesh of the one card, the "
+        f"lanes split over the data rows; gpt2-paper's first {MESH_LAYERS} layers trained "
+        "data-parallel on a (2, 1) mesh with 1-bit error feedback in phase 2")
+    data = mesh_phase(torch, dev, data_families(torch, cfg, single), DATA_MESH)
+    dp = dp_train_phase(torch, dev)
+    for name in K3_FORMS:
+        launches[name] = mesh.get(name, 0) + data.get(name, 0)
+    phase_done(seconds, "14", t_phase)
 
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -3955,6 +4139,8 @@ def main() -> int:
                else {}),
             **({"phase13_heads": heads[name]} if name in heads else {}),
             **({"phase8_launches": mesh[name]} if mesh.get(name) else {}),
+            **({"phase14_launches": data[name]} if data.get(name) else {}),
+            **({"phase14_train_launches": dp[name]} if name in dp else {}),
             **({"frontend_proj": front["frontend_proj"]} if name == "nm_spmm" else {}),
             **({"domino": front["domino"]} if name == "nm_mask" else {}),
         })

@@ -11,8 +11,12 @@ cache (counterpart of ``repro/distributed/compressed_pspecs.py``).
 2. **Serving caches.**  A slab cache takes ``sharding.cache_pspecs``
    (each lane's sequence axis over ``model``).  Each layer's pool shards
    its *pages* axis over ``model`` (``kv_shard="seq"``), int8 ``*_scale``
-   planes with their pages; page tables and lane lengths are replicated,
-   so every shard resolves logical -> physical addresses itself.
+   planes with their pages; page tables are replicated, so every shard
+   resolves logical -> physical addresses itself.  Lane lengths, per-lane
+   states and a slab's lanes go over the data axes: a data row holds the
+   ``max_batch / D`` consecutive lanes of :func:`lane_range` (all of them
+   where ``D`` does not divide ``max_batch``, the reference's sanitized
+   ``lane_sharding``).
 
 :func:`shard_serving_params` applies the placements: one rank takes its
 slice of every sharded compressed leaf (``CompressedTensor.rshards`` or
@@ -83,7 +87,7 @@ def _serving_entries(name: str, ndim: int, mesh, cfg) -> list:
     """The dense rule's entries, moved off head and packed-concat structure
     to the reduction dim, and a reduction-dim TP for matmul weights the
     rules leave whole (the reference's ``_serving_entries``)."""
-    entries = list(param_pspec(name, ndim))
+    entries = list(param_pspec(name, ndim, fsdp=False))
     if cfg is None or ndim < 1:
         return entries
     if _EP_STACKS.search(name) and ndim >= 2:
@@ -222,6 +226,19 @@ def serving_cache_pspecs(mesh, cache: dict, layout, *, kv_shard: str = "seq") ->
         return (None,) + spec if stacked else spec
 
     return tree_map_with_name(leaf, cache)
+
+
+def lane_range(mesh, max_batch: int) -> tuple[int, int]:
+    """This rank's ``[lo, hi)`` of the ``max_batch`` serving lanes: the
+    reference's ``lane_sharding`` (per-lane vectors over the data axes,
+    sanitized), as the rank's consecutive share of its data row, or every
+    lane where the data axes do not divide them (or there is no mesh)."""
+    if mesh is None:
+        return 0, max_batch
+    if sanitize_spec((_dp(mesh),), (max_batch,), mesh)[0] is None:
+        return 0, max_batch
+    per = max_batch // axis_sizes(mesh).get("data", 1)
+    return mesh.data_index * per, (mesh.data_index + 1) * per
 
 
 def check_kv_shard(mesh, kv_shard: str) -> None:

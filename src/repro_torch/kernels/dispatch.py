@@ -46,6 +46,11 @@ SMEM_MAX = 232448
 # launches of each kernel since the last reset_launches(); the plain
 # versions never count
 launches = {name: 0 for name in KERNELS}
+# K1's and K1b's launches by the body they ran (``nm_spmm.launch_plan``):
+# "decode" (B <= 8 rows), "tc" (the tensor-core prefill body) or "body"
+# (the first version's: f32, or a decode x past its staging budget)
+routes = {f"{name}/{route}": 0 for name in ("nm_spmm", "nm_spmm_batched")
+          for route in ("decode", "tc", "body")}
 # the blocks a lane (S) of each window entry's last launch (its split walk)
 last_splits: dict[str, int] = {}
 # the seconds of each compile of the last build(), by source (and part)
@@ -56,8 +61,9 @@ _fns: dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, routes):
+        for name in counts:
+            counts[name] = 0
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

@@ -188,6 +188,8 @@ def _run(name, symbol, argtypes, x, values, indices, y, e, n, m, o_true):
     rc = fn(x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(), *lead, b, k, o,
             o_true, n, m, cols, *plan, _DTYPES[x.dtype], dispatch.stream_ptr(x.device))
     dispatch.check_launch(name, rc)
+    route = "decode" if cols else ("body" if plan == FIRST_BODY else "tc")
+    dispatch.routes[f"{name}/{route}"] += 1
 
 
 def _launch(x, values, indices, n, m, o_true):

@@ -27,6 +27,9 @@ combines are collectives over the mesh's model-axis group:
 - :func:`all_gather` completes output-sharded matmuls and the
   vocab-sharded unembedding; :func:`embed_sharded` looks tokens up in a
   vocab-sharded table (rows of other ranks' tokens are zero) and sums.
+- :func:`gather_data` joins the data rows' lanes over the mesh's data
+  group (a decode dispatch's token block, a prefill batch's first tokens),
+  so every rank's host scheduler absorbs the same tokens.
 
 Windowed (modular) tables are safe to remap: which logical page a slot
 holds depends only on the slot and the lane's length, never on the
@@ -123,9 +126,20 @@ def all_gather(x: torch.Tensor, dim: int = -1, mesh=None) -> torch.Tensor:
     nothing (a bf16 activation in f32 doubled the bytes of the largest
     collectives, RecurrentGemma's prefill gathers)."""
     mesh = mesh or active_mesh()
+    return _gather(x, dim, mesh.group, mesh.model)
+
+
+def gather_data(x: torch.Tensor, dim: int = -1, mesh=None) -> torch.Tensor:
+    """The data rows' ``x`` concatenated along ``dim`` in data-axis order
+    (their lanes in global order), in ``x``'s type."""
+    mesh = mesh or active_mesh()
+    return _gather(x, dim, mesh.data_group, mesh.data)
+
+
+def _gather(x: torch.Tensor, dim: int, group, ranks: int) -> torch.Tensor:
     y = x.contiguous()
-    parts = [torch.empty_like(y) for _ in range(mesh.model)]
-    _issue(dist.all_gather, parts, y, group=mesh.group)
+    parts = [torch.empty_like(y) for _ in range(ranks)]
+    _issue(dist.all_gather, parts, y, group=group)
     return torch.cat(parts, dim)
 
 

@@ -11,7 +11,11 @@ backend is decided before any rank starts, and printed: ``nccl`` when
 every rank has a card of its own, ``gloo`` when ranks share a card or run
 on the CPU (NCCL refuses two ranks on one device).  A failed start raises;
 nothing falls back to another backend.  Inside each rank
-:func:`make_local_mesh` describes the mesh.
+:func:`make_local_mesh` describes the mesh: rank ``r`` sits at data row
+``r // model`` and model index ``r % model``; its model group holds the
+ranks of its data row, its data group the ranks ``{m, m + model, ...}`` of
+its model index (where a data-parallel reduction or a gather of the data
+rows' lanes runs).
 
 The TPU roofline constants of the reference module are not ported.
 """
@@ -48,6 +52,7 @@ class Mesh:
     backend: str  # "nccl" | "gloo" | "none" (one rank, no process group)
     group: Any = None  # the process group of this rank's model axis (None: one rank)
     device_names: tuple = ()  # every rank's device, in rank order
+    data_group: Any = None  # the process group of this rank's data axis (None: one row)
     axis_names = AXES
 
     @property
@@ -66,6 +71,11 @@ class Mesh:
     def model_index(self) -> int:
         """This rank's coordinate on the model axis."""
         return self.rank % self.model
+
+    @property
+    def data_index(self) -> int:
+        """This rank's coordinate on the data axis (its data row)."""
+        return self.rank // self.model
 
     def describe(self) -> dict:
         return {"shape": list(self.shape), "axes": list(AXES), "backend": self.backend,
@@ -114,15 +124,21 @@ def make_local_mesh(model: int = 1, data: Optional[int] = None, *, device="cuda"
         raise ValueError(f"mesh ({data}, {model}) covers {need} of the {n} ranks; every "
                          "rank of the process group must be in the mesh")
     rank = dist.get_rank() if ready else 0
-    group = None
+    group = data_group = None
+    # every rank creates every group, in the same order: the model groups
+    # (one a data row), then the data groups (one a model index)
     if model > 1:
         rows = [list(range(d * model, (d + 1) * model)) for d in range(data)]
-        # every rank creates every group, in the same order
         groups = [dist.new_group(r) for r in rows] if data > 1 else [dist.group.WORLD]
         group = groups[rank // model]
+    if data > 1:
+        cols = [list(range(m, need, model)) for m in range(model)]
+        groups = [dist.new_group(c) for c in cols] if model > 1 else [dist.group.WORLD]
+        data_group = groups[rank % model]
     return Mesh(shape=(data, model), rank=rank, device=rank_device(rank, device),
                 backend=dist.get_backend() if ready else "none", group=group,
-                device_names=tuple(str(rank_device(r, device)) for r in range(need)))
+                device_names=tuple(str(rank_device(r, device)) for r in range(need)),
+                data_group=data_group)
 
 
 # -- launching ---------------------------------------------------------------

@@ -51,16 +51,20 @@ in one chunked pass (``auto`` picks N from the two trees' bytes).  The
 verifier is rebuilt from the compressed tree (``decompress_params``), so
 the unmasked tree never sits beside the two.  The summary gains the
 acceptance counters.  Attention-family archs without a window, the sync
-scheduler, no model axis > 1.  On an attention-free arch (mamba2-2.7b)
+scheduler, no model or data axis > 1.  On an attention-free arch (mamba2-2.7b)
 ``--paged`` serves a pool without tables or pages, its states per lane,
 and chunked prefill and the prefix cache are refused with a warning, as
 on RG-LRU archs.
 
-``--mesh data,model`` serves tensor-parallel (data 1; every token-input
-arch, on the slab or ``--paged``, with or without ``--kv-int8``: each
-rank holds its rows of every lane of the slab or its page range of the
-pool; chunks, the prefix cache, ``--spec-gamma`` and the device
-scheduler are refused over a model axis > 1): the export happens once
+``--mesh data,model`` serves on a mesh of local ranks (every token-input
+arch, on the slab or ``--paged``, with or without ``--kv-int8``): over
+the model axis each rank holds its shard of the tree and its rows of
+every lane of the slab or its page range of the pool; over the data axis
+each data row decodes its own ``batch / data`` lanes (every lane where
+``data`` does not divide ``--batch``), their token blocks gathered over
+the data group each dispatch, e.g. ``--mesh 2,2``.  Chunks, the prefix
+cache, ``--spec-gamma`` and the device scheduler are refused on a mesh
+larger than 1×1.  The export happens once
 here, then ``data × model`` ranks start
 (``launch.mesh.run_ranks``: ``gloo`` where ranks share a card or run on the
 CPU, ``nccl`` where each has a card of its own; the choice is printed),
@@ -165,9 +169,9 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain versions)")
     ap.add_argument("--mesh", default=None,
-                    help="serve tensor-parallel on a 'data,model' mesh of local ranks "
-                         "(e.g. --mesh 1,2): compressed weights, the slab's rows and the "
-                         "pool's pages shard over the model axis")
+                    help="serve on a 'data,model' mesh of local ranks (e.g. --mesh 2,2): "
+                         "compressed weights, the slab's rows and the pool's pages shard over "
+                         "the model axis, the lanes over the data axis")
     ap.add_argument("--kv-shard", default="seq", choices=("seq", "feature"),
                     help="model-axis dim of the KV pool under --mesh")
     ap.add_argument("--no-donate", dest="donate", action="store_false", default=True,
@@ -194,15 +198,14 @@ def main(argv=None) -> dict:
         raise SystemExit("--staged-lanes/--async-stream need the device scheduler: pass "
                          "--max-steps-per-dispatch")
     mesh_shape = tuple(int(v) for v in args.mesh.split(",")) if args.mesh else None
-    if mesh_shape is not None and (len(mesh_shape) != 2 or mesh_shape[0] != 1):
-        raise SystemExit(f"--mesh {args.mesh}: give 'data,model' with data 1 (a data axis "
-                         "> 1 is not ported yet: the rest of tensor parallelism, ROADMAP.md)")
-    if (mesh_shape is not None and mesh_shape[1] > 1
+    if mesh_shape is not None and (len(mesh_shape) != 2 or min(mesh_shape) < 1):
+        raise SystemExit(f"--mesh {args.mesh}: give 'data,model', two axes of at least 1")
+    if (mesh_shape is not None and mesh_shape != (1, 1)
             and (args.prefill_chunk is not None or args.prefix_cache
                  or args.spec_gamma is not None)):
         raise NotImplementedError("--prefill-chunk, --prefix-cache and --spec-gamma over a "
-                                  "model axis > 1 are not ported yet (the rest of tensor "
-                                  "parallelism, ROADMAP.md)")
+                                  "model axis or a data axis > 1 are not ported yet (the rest of "
+                                  "tensor parallelism, ROADMAP.md)")
     device = resolve_device(args.device)
     cfg, serving_tree, rep, verifier = build_serving_state(args, device)
     print(json.dumps({"compression": rep}))
@@ -256,8 +259,9 @@ def serve_rank(mesh, tree: dict, cfg, runs: list, prompts: list, sampling: dict,
     ``mesh`` this is one rank's part, the function ``launch.mesh.run_ranks``
     runs on every rank.  Returns per run: the results by uid, ``stats()``,
     ``kernel_route()``, each kernel's launches counted from the run's
-    start, a digest of the host page tables after every scheduling step, a
-    digest of one full forward's logits of the first prompt (after the
+    start (and K1's by body, ``dispatch.routes``), a digest of the host
+    page tables after every scheduling step, a digest of one full
+    forward's logits of the first prompt (after the
     launches are read; with ``logits=True`` in the run, those logits too,
     f32 on the CPU), each compressed leaf's model-axis shards as the
     engine holds it (``(rshards, oshards)`` by name), the shape of every
@@ -285,13 +289,13 @@ def serve_rank(mesh, tree: dict, cfg, runs: list, prompts: list, sampling: dict,
         if eng.device.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(dispatch.launches)
+        launches, routes = dict(dispatch.launches), dict(dispatch.routes)
         with eng._mesh_ctx():
             logits, _ = forward(eng.params, cfg, torch.tensor([run_prompts[0]],
                                                               device=eng.device))
         lg = logits.float().cpu().numpy()
         out.append({"results": results, "stats": eng.stats(), "kernel_route": eng.kernel_route(),
-                    "launches": launches, "tables_digest": tables.hexdigest(),
+                    "launches": launches, "routes": routes, "tables_digest": tables.hexdigest(),
                     "logits_digest": hashlib.sha256(lg.tobytes()).hexdigest(),
                     "logits": lg if want_logits else None,
                     "shards": {name: (x.rshards, x.oshards) for name, x in tree_items(eng.params)

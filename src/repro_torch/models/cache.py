@@ -75,6 +75,10 @@ them in any order).  The unsplit slab keeps the roll, though it copies
 the window each step: its rows are the reference's, row for row (the
 parity tests hold the two caches leaf for leaf), and on one rank the
 ring's other order would also change the order of attention's f32 sums.
+Over a data axis a rank's slab (and a pool's per-lane leaves) hold only
+its data row's lanes, lane ``i`` at row ``i - lo``
+(``compressed_pspecs.lane_range``); the layouts see local lanes only, and
+a pool's page tables keep a row for every lane of the mesh.
 Attention's decode reads a rank's rows through
 ``layers.decode_attention_stats`` and combines the ranks' flash triples
 (``kernels.sharded.combine_stats``); MLA's does the same over its latent

@@ -65,6 +65,7 @@ reference rematerializes them per layer).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -140,17 +141,6 @@ def _put(tree: dict, path: tuple[str, ...], value) -> None:
     for key in path[:-1]:
         tree = tree.setdefault(key, {})
     tree[path[-1]] = value
-
-
-def check_mesh(cfg: ArchConfig, mesh) -> None:
-    """Raise for what tensor-parallel serving does not run yet: a data axis
-    of more than one rank (lanes over the data axis are part of the rest
-    of tensor parallelism, ROADMAP.md).  Every family serves over a model
-    axis."""
-    if mesh is not None and mesh.data > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: a data axis > 1 is not ported yet (the rest of tensor parallelism, "
-            "ROADMAP.md)")
 
 
 def _block_mixer_mlp(kind: str, cfg: ArchConfig) -> tuple[str, str]:
@@ -551,11 +541,14 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, chunk: int = 512,
 
 
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
-               layout=None, device="cuda") -> dict:
+               layout=None, device="cuda", table_lanes: Optional[int] = None) -> dict:
     """Allocate the decode cache; ``layout`` defaults to a slab.  RG-LRU
     layers get ``{"state": (B, W) f32, "conv": (B, conv_width - 1, W)}``
     and SSM layers ``{"state": (B, H, P, N) f32, "conv": (B, conv_width -
-    1, conv_dim)}`` under either layout, the conv in ``dtype``."""
+    1, conv_dim)}`` under either layout, the conv in ``dtype``.  Over a
+    data axis a rank's cache holds ``batch_size`` lanes (its data row's)
+    while a pool's page tables keep a row for each of the ``table_lanes``
+    lanes of the mesh (replicated, as placed); by default as many."""
     plan = layer_plan(cfg)
     dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.param_dtype)
@@ -572,7 +565,7 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
     cache = {"len": torch.zeros((batch_size,), dtype=torch.int32, device=dev)}
     for path, kind, stack in _groups(plan):
         _put(cache, path, alloc(kind, stack))
-    tables = layout.tables(batch_size, dev)
+    tables = layout.tables(table_lanes or batch_size, dev)
     if tables is not None:
         cache["tables"] = tables
     return cache

@@ -30,19 +30,36 @@ One scheduling step (:meth:`step`):
    lane that hits EOS, its token budget or ``max_len`` freezes.  The host
    reads the ``(K, B)`` token block once, then replays the same stop rules.
 
-Mesh serving (``mesh=``, one ``launch.mesh.Mesh`` rank's view; the
-reference's ``DecodeEngine(mesh=, kv_shard=)``): every rank runs an engine
-over the same whole tree and keeps only its shard of it
-(``distributed.compressed_pspecs.shard_serving_params``) and its page
-range of the pool (``kv_shard="seq"``); prefill and decode combine the
-shards with collectives (``kernels.sharded``), so the logits are
-replicated bit for bit and every rank's host scheduler takes the same
-decisions.  Every family serves so, on the paged pool (each rank its page
-range) and on the slab (each rank its rows of every lane,
-``SlabLayout.shards``).  ``data > 1``, and chunked prefill, the prefix
-cache, speculation and the device scheduler over a model axis > 1, raise
-(the rest of tensor parallelism, ROADMAP.md).  A 1×1 mesh runs exactly
-the single-device engine.
+Mesh serving (``mesh=``, one ``launch.mesh.Mesh`` rank's view of a
+``(D, S)`` mesh; the reference's ``DecodeEngine(mesh=, kv_shard=)``):
+every rank runs the same host scheduler over all ``max_batch`` lanes
+(admission, buckets, pages, preemption, stop rules), so its host state is
+global and identical on every rank.  The device work is split two ways:
+
+- *the model axis* (``S``): each rank keeps only its shard of the whole
+  tree (``distributed.compressed_pspecs.shard_serving_params``), its page
+  range of the pool (``kv_shard="seq"``) or its rows of every lane of the
+  slab (``SlabLayout.shards``); prefill and decode combine the shards with
+  collectives over the model group (``kernels.sharded``), so the logits
+  are replicated bit for bit within a data row;
+- *the data axis* (``D``): each data row runs the device work of its own
+  ``max_batch / D`` consecutive lanes (``compressed_pspecs.lane_range``,
+  the reference's ``lane_sharding``): its slab, states, lengths and next
+  tokens hold only those lanes, and its pool (its page range for every
+  lane, the tables replicated) takes only their writes.  A prefill batch
+  is prefilled by each row for its own lanes (a row with none skips the
+  forward on all of its ranks), and the first tokens and each decode
+  dispatch's ``(K, B/D)`` token block are gathered over the data group
+  (``sharded.gather_data``: one collective a prefill batch and a
+  dispatch, issued by every rank), so every host absorbs the same block.
+  Where ``D`` does not divide ``max_batch`` every row holds every lane,
+  as the reference's sanitized placement does, and nothing is gathered.
+
+Every family serves so, with the sync scheduler, on the slab and on fp
+and int8 pools.  Chunked prefill, the prefix cache, speculation and the
+device scheduler over a mesh larger than 1×1 raise (the rest of tensor
+parallelism, ROADMAP.md).  A 1×1 mesh runs exactly the single-device
+engine.
 
 Device-resident scheduling (``max_steps_per_dispatch=K``, the reference's
 run-until-stop loop): a cycle is one host sync.  The host admits, reserves
@@ -101,7 +118,7 @@ back to its length (``PagedKVPool.rollback``).  Greedy streams equal
 plain decoding under the verifier, whatever the drafter proposes; sampled
 streams follow the verifier's distribution.  The round runs eagerly on
 the sync scheduler; windowed and recurrent archs, the device scheduler
-and a model axis > 1 are refused.
+and a model axis or a data axis > 1 are refused.
 """
 from __future__ import annotations
 
@@ -115,14 +132,17 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.distributed.compressed_pspecs import check_kv_shard, shard_serving_params
+from repro_torch.distributed.compressed_pspecs import (
+    check_kv_shard,
+    lane_range,
+    shard_serving_params,
+)
 from repro_torch.kernels import dispatch, sharded
 from repro_torch.models.cache import SlabLayout
 from repro_torch.models.model import (
     _at,
     _block_mixer_mlp,
     _groups,
-    check_mesh,
     decode_step,
     forward,
     init_cache,
@@ -230,6 +250,8 @@ class DecodeEngine:
     ):
         self.device = resolve_device(device)
         check_kv_shard(mesh, kv_shard)  # pools shard pages: "feature" only where trivial
+        # a mesh beyond 1×1 takes the sync scheduler's plain prefill alone
+        meshed = mesh is not None and (mesh.model > 1 or mesh.data > 1)
         self._device_sched = max_steps_per_dispatch is not None
         if self._device_sched and max_steps_per_dispatch < 1:
             raise ValueError(
@@ -239,15 +261,16 @@ class DecodeEngine:
                              "pass max_steps_per_dispatch=")
         if staged_lanes < 0:
             raise ValueError(f"staged_lanes must be >= 0, got {staged_lanes}")
-        if self._device_sched and mesh is not None and mesh.model > 1:
+        if self._device_sched and meshed:
             raise NotImplementedError(
-                "the device scheduler over a model axis > 1 is not ported yet (the rest of "
-                "tensor parallelism, ROADMAP.md): its collectives run on the host over gloo; serve the mesh with "
-                "the sync scheduler")
-        if (prefill_chunk is not None or prefix_cache) and mesh is not None and mesh.model > 1:
+                "the device scheduler over a model axis or a data axis > 1 is not ported yet "
+                "(the rest of tensor parallelism, ROADMAP.md): its collectives run on the host "
+                "over gloo; serve the mesh with the sync scheduler")
+        if (prefill_chunk is not None or prefix_cache) and meshed:
             raise NotImplementedError(
-                "chunked prefill and the prefix cache over a model axis > 1 are not ported "
-                "yet (the rest of tensor parallelism, ROADMAP.md); serve the mesh without them")
+                "chunked prefill and the prefix cache over a model axis or a data axis > 1 "
+                "are not ported yet (the rest of tensor parallelism, ROADMAP.md); serve the "
+                "mesh without them")
         if device_loop is not None and not self._device_sched:
             raise ValueError("device_loop selects the device scheduler's loop: pass "
                              "max_steps_per_dispatch=")
@@ -283,10 +306,11 @@ class DecodeEngine:
             if self._device_sched:
                 raise ValueError("spec_gamma needs the sync scheduler: drop "
                                  "max_steps_per_dispatch/staged_lanes/async_stream")
-            if mesh is not None and mesh.model > 1:
+            if meshed:
                 raise NotImplementedError(
-                    "speculative decoding over a model axis > 1 is not ported yet (the rest of "
-                    "tensor parallelism, ROADMAP.md); serve the mesh without spec_gamma")
+                    "speculative decoding over a model axis or a data axis > 1 is not ported "
+                    "yet (the rest of tensor parallelism, ROADMAP.md); serve the mesh without "
+                    "spec_gamma")
             self._spec_draft_bytes = tree_nbytes(params)
             self._spec_verify_bytes = tree_nbytes(verify_params)
             if spec_gamma == "auto":
@@ -305,7 +329,6 @@ class DecodeEngine:
         if mesh is not None:
             if mesh.device.type != self.device.type:
                 raise ValueError(f"mesh on {mesh.device}, engine asked for {self.device}")
-            check_mesh(cfg, mesh)  # a data axis > 1 raises
             self.device = mesh.device
             params = shard_serving_params(params, mesh, cfg=cfg)
             if self._spec:
@@ -329,6 +352,10 @@ class DecodeEngine:
         self.max_len = max_len
         self.seed = seed
         self.steps_per_dispatch = steps_per_dispatch
+        # this rank's lanes [lo, hi) of the device work (all of them but on
+        # a data axis that divides them); split: the rows meet in gathers
+        self._lo, self._hi = lane_range(mesh, max_batch)
+        self._rows_split = self._hi - self._lo < max_batch
         # chunking needs every mixer to resume mid-prompt from the cache
         # (attention and MLA); a windowed arch also needs the pool, whose
         # window table the chunk view reads
@@ -351,8 +378,14 @@ class DecodeEngine:
             # over a model axis each rank holds its rows of every lane
             self.layout = SlabLayout(max_len, shards=mesh.model if mesh is not None else 1,
                                      shard=mesh.model_index if mesh is not None else 0)
-            self.cache = init_cache(cfg, max_batch, max_len, layout=self.layout,
+            self.cache = init_cache(cfg, self._hi - self._lo, max_len, layout=self.layout,
                                     device=self.device)
+        # the cache the device work reads: this rank's rows of the page
+        # tables (views: the pool's in-place syncs reach them)
+        self._lane_cache = self.cache
+        if self._rows_split and "tables" in self.cache:
+            self._lane_cache = dict(self.cache, tables={
+                k: t[self._lo:self._hi] for k, t in self.cache["tables"].items()})
         self.prefill_chunk = prefill_chunk if chunk_ok else None
         # windowed chunks map their window pages chunk by chunk
         self._win_chunk = self.prefill_chunk is not None and windowed_arch
@@ -384,7 +417,7 @@ class DecodeEngine:
 
         self.slots: list[Optional[_Slot]] = [None] * max_batch
         self.queue: deque[_Request] = deque()
-        self.tokens = torch.zeros((max_batch,), dtype=torch.int32, device=self.device)
+        self.tokens = torch.zeros((self._hi - self._lo,), dtype=torch.int32, device=self.device)
         self._next_uid = 0
         self._admit_seq = 0
         self.decode_steps = 0
@@ -393,6 +426,8 @@ class DecodeEngine:
         self.preemptions = 0
         self.max_concurrency = 0
         self.prefill_batches = 0
+        self.prefill_forwards = 0  # prefill batches this rank ran a forward for
+        self.data_gathers = 0  # token gathers over the data group (split lanes)
         self.prefill_chunks = 0  # chunked-prefill forwards
         self.prefix_hits = 0  # admissions that mapped cached prefix pages
         self.prefix_hit_tokens = 0  # prompt tokens they did not prefill
@@ -547,31 +582,51 @@ class DecodeEngine:
             self._prefill_group(lb, groups[lb], out)
 
     def _prefill_group(self, lb: int, items: list, out: list) -> None:
-        n_real, nb = len(items), _next_pow2(len(items))
-        tokens = np.zeros((nb, lb), np.int64)  # pad rows: zeros, never written
-        lens = np.zeros((n_real,), np.int32)
-        lanes = np.zeros((n_real,), np.int64)
-        for r, (req, i, length) in enumerate(items):
-            tokens[r, :length] = req.prompt + req.prefix
-            lens[r], lanes[r] = length, i
-        dev = self.device
-        lens_t = torch.from_numpy(lens).to(dev)
-        lanes_t = torch.from_numpy(lanes).to(dev)
-        if self.pool is not None:
-            self.pool.apply_pending()
-            self.pool.device_tables()
-        logits_all, produced = forward(self.params, self.cfg,
-                                       torch.from_numpy(tokens).to(dev), want_cache=True)
-        write_prefill(self.cache, self.cfg, produced, lanes_t, lens_t, self.layout)
-        logits = logits_all[torch.arange(n_real, device=dev), lens_t.long() - 1]
+        """One batched prefill of a bucket's ``items`` (``(request, lane,
+        length)``): this rank prefills those of its own lanes (none: no
+        forward), the first tokens are gathered over the data rows."""
+        mine = [it for it in items if self._lo <= it[1] < self._hi]
+        first = None
+        if mine:
+            n_real, nb = len(mine), _next_pow2(len(mine))
+            tokens = np.zeros((nb, lb), np.int64)  # pad rows: zeros, never written
+            lens = np.zeros((n_real,), np.int32)
+            lanes = np.zeros((n_real,), np.int64)
+            for r, (req, i, length) in enumerate(mine):
+                tokens[r, :length] = req.prompt + req.prefix
+                lens[r], lanes[r] = length, i - self._lo
+            dev = self.device
+            lens_t = torch.from_numpy(lens).to(dev)
+            lanes_t = torch.from_numpy(lanes).to(dev)
+            if self.pool is not None:
+                self.pool.apply_pending()
+                self.pool.device_tables()
+            logits_all, produced = forward(self.params, self.cfg,
+                                           torch.from_numpy(tokens).to(dev), want_cache=True)
+            write_prefill(self._lane_cache, self.cfg, produced, lanes_t, lens_t, self.layout)
+            logits = logits_all[torch.arange(n_real, device=dev), lens_t.long() - 1]
+            first = self._first_tokens([i for _, i, _ in mine], logits)
+            self.prefill_forwards += 1
         self.prefill_batches += 1
         if self._prefix is not None:
             for _, i, length in items:
                 self._index_prompt(i, length)
-        host_first = self._first_tokens([i for _, i, _ in items], logits)
+        if self._rows_split:
+            row = torch.full((self._hi - self._lo,), -1, dtype=torch.int32, device=self.device)
+            if first is not None:
+                row[torch.tensor([i - self._lo for _, i, _ in mine], device=self.device)] = first
+            lanes_first = self._gather(row).cpu().tolist()
+            host_first = [lanes_first[i] for _, i, _ in items]
+        else:
+            host_first = first.cpu().tolist()
         for r, (_, i, _) in enumerate(items):
             self.admitted += 1
             self._absorb(i, host_first[r], out)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The data rows' ``x`` (last dim: their lanes) joined in lane order."""
+        self.data_gathers += 1
+        return sharded.gather_data(x, -1, self.mesh)
 
     def _index_prompt(self, lane: int, length: int) -> None:
         """Index the lane's prompt (+ resume prefix), ``length`` tokens all
@@ -580,11 +635,11 @@ class DecodeEngine:
         full, tail = self.pool.prompt_pages(lane, length)
         self._prefix.insert(s.prompt + s.generated, full, tail, length % self.layout.page_size)
 
-    def _first_tokens(self, lanes: list[int], logits: torch.Tensor) -> list[int]:
-        """Sample the first token of each of ``lanes`` from its row of
-        ``logits`` (draw index ``len(generated)``: a resumed request goes on
-        where it stopped), store it as the lane's next input and return
-        them on the host."""
+    def _first_tokens(self, lanes: list[int], logits: torch.Tensor) -> torch.Tensor:
+        """Sample the first token of each of ``lanes`` (this rank's) from its
+        row of ``logits`` (draw index ``len(generated)``: a resumed request
+        goes on where it stopped), store it as the lane's next input and
+        return them on the device."""
         slots = [self.slots[i] for i in lanes]
         dev = self.device
         temps = torch.tensor([s.sampling.temperature for s in slots], dtype=torch.float32,
@@ -597,8 +652,8 @@ class DecodeEngine:
                              torch.tensor([len(s.generated) for s in slots], device=dev))
         first = sample_tokens(logits, temps, topks, keys, need_sample=need_sample,
                               need_topk=any(s.sampling.top_k > 0 for s in slots))
-        self.tokens[torch.tensor(lanes, device=dev)] = first
-        return first.cpu().tolist()
+        self.tokens[torch.tensor([i - self._lo for i in lanes], device=dev)] = first
+        return first
 
     def _advance_chunks(self, out: list) -> None:
         """One chunk of every lane still absorbing its prompt, in one
@@ -656,7 +711,7 @@ class DecodeEngine:
             for _, i in finishing:
                 self._index_prompt(i, self.slots[i].pos)
         rows = torch.tensor([r for r, _ in finishing], device=dev)
-        first = self._first_tokens([i for _, i in finishing], logits[rows])
+        first = self._first_tokens([i for _, i in finishing], logits[rows]).cpu().tolist()
         for (_, i), tok in zip(finishing, first):
             self._absorb(i, tok, out)
 
@@ -689,13 +744,14 @@ class DecodeEngine:
 
     def _lane_inputs(self, live: list[int]) -> dict:
         """The per-lane tensors a decode dispatch or a speculative round
-        reads, on the device: ``occupied`` (a busy lane) and ``active`` (a
-        lane in ``live``, decoding), the active lanes' ``temps`` and
-        ``topks``, and the host flags ``need_sample`` and ``need_topk``;
-        with ``need_sample``, also every busy lane's ``uids`` and the active
-        lanes' draw index ``counts`` (their tokens so far)."""
-        dev, slots = self.device, self.slots
-        dec = [slots[i] if i in live else None for i in range(self.max_batch)]
+        reads, on the device, over this rank's lanes: ``occupied`` (a busy
+        lane) and ``active`` (a lane in ``live``, decoding), the active
+        lanes' ``temps`` and ``topks``, and the host flags ``need_sample``
+        and ``need_topk``; with ``need_sample``, also every busy lane's
+        ``uids`` and the active lanes' draw index ``counts`` (their tokens
+        so far)."""
+        dev, slots = self.device, self.slots[self._lo:self._hi]
+        dec = [s if self._lo + j in live else None for j, s in enumerate(slots)]
         r = {
             "occupied": torch.tensor([s is not None for s in slots], device=dev),
             "active": torch.tensor([s is not None for s in dec], device=dev),
@@ -712,7 +768,8 @@ class DecodeEngine:
         return r
 
     def _decode(self, k: int) -> torch.Tensor:
-        """K decode steps for every lane; returns the ``(K, B)`` token block.
+        """K decode steps for every lane of this rank; returns the ``(K,
+        hi - lo)`` token block of its lanes.
 
         Decoding lanes decode until they freeze, then keep their length, as
         lanes still absorbing their prompt do; free lanes stay pinned at
@@ -721,7 +778,7 @@ class DecodeEngine:
         dev = self.device
         live = [i for i, s in enumerate(self.slots) if s is not None and not s.pending]
         r = self._lane_inputs(live)
-        dec = [self.slots[i] if i in live else None for i in range(self.max_batch)]
+        dec = [self.slots[i] if i in live else None for i in range(self._lo, self._hi)]
         eos = torch.tensor([s.sampling.eos_id if s else -1 for s in dec],
                            dtype=torch.int32, device=dev)
         budget = torch.tensor(
@@ -731,7 +788,7 @@ class DecodeEngine:
         # a lane's draw index: its tokens so far, + 1 for each step it stays
         # active (a frozen lane's draw is discarded by advance_stops)
         counts = r.get("counts")
-        tok, cache, block = self.tokens, self.cache, []
+        tok, cache, block = self.tokens, self._lane_cache, []
         for t in range(k):
             len_prev = cache["len"].clone()
             logits, cache = decode_step(self.params, self.cfg, tok, cache, self.layout)
@@ -812,7 +869,10 @@ class DecodeEngine:
         k = self.steps_per_dispatch
         t0 = time.perf_counter()
         c0, s0 = sharded.collectives, sharded.collective_s
-        host_block = self._decode(k).cpu().numpy()  # one host sync per K tokens
+        block = self._decode(k)
+        if self._rows_split:
+            block = self._gather(block)  # (K, B): every row's lanes
+        host_block = block.cpu().numpy()  # one host sync per K tokens
         t1 = time.perf_counter()
         self.decode_collectives += sharded.collectives - c0
         self.decode_collective_s += sharded.collective_s - s0
@@ -1225,6 +1285,9 @@ class DecodeEngine:
             "max_concurrency": self.max_concurrency,
             "prefill_batches": self.prefill_batches,
             "prefill_chunks": self.prefill_chunks,
+            "lanes": [self._lo, self._hi],
+            "prefill_forwards": self.prefill_forwards,
+            "data_gathers": self.data_gathers,
             "tokens_generated": self.tokens_generated,
             "decode_tokens": self.decode_tokens,
             "decode_wall_s": self.decode_wall_s,

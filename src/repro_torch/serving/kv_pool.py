@@ -60,7 +60,11 @@ rank allocates only its ``P/S`` pages plus a sink.  Page ids stay global:
 the host allocator runs identically on every rank, so every rank keeps
 the same tables.  The per-lane states follow the placements too: an SSM
 state holds the rank's heads, RG-LRU states are whole on every rank
-(``models.model.init_cache``).
+(``models.model.init_cache``).  Over a data axis the host tables stay
+global and the device tables replicated, a row for every lane of the
+mesh, while the per-lane leaves (lengths, states) hold only the rank's
+data row of lanes (``compressed_pspecs.lane_range``); the engine's device
+work reads its rows of the tables and writes only its own lanes' pages.
 """
 from __future__ import annotations
 
@@ -69,6 +73,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.compressed_pspecs import lane_range
 from repro_torch.models.cache import PagedLayout, cdiv, paged_layout_for
 from repro_torch.models.model import copy_pages, init_cache
 
@@ -85,7 +90,9 @@ class PagedKVPool:
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len
-        self.cache = init_cache(cfg, max_batch, max_len, layout=self.layout, device=device)
+        lo, hi = lane_range(mesh, max_batch)
+        self.cache = init_cache(cfg, hi - lo, max_len, layout=self.layout, device=device,
+                                table_lanes=max_batch)
         lo = self.layout
         self._pt = {"full": np.full((max_batch, lo.pages_full), lo.sentinel, np.int32),
                     "win": np.full((max_batch, lo.pages_win), lo.sentinel, np.int32)}

@@ -282,9 +282,10 @@ def _fake_mesh(data=1, model=2):
                                   "prefix", "spec", "scheduler"])
 def test_refusals(served, case):
     """``kv_shard="feature"`` on a model axis of 2, a pool whose pages do not
-    split over the ranks, a data axis > 1 (engine and CLI), and chunked
-    prefill, the prefix cache, speculation and the device scheduler over a
-    model axis > 1 raise, each naming the rest of tensor parallelism; the
+    split over the ranks, and chunked prefill, the prefix cache,
+    speculation and the device scheduler over a model axis > 1 or a data
+    axis > 1 (engine and CLI) raise, each naming the rest of tensor
+    parallelism; a data axis alone serves (its rank half the lanes); the
     slab (split into each rank's rows) and a non-dense family (DeepSeek's
     MLA + MoE) are served over a model axis > 1."""
     cfg, tree = served["tcfg"], served["tree"]
@@ -303,10 +304,19 @@ def test_refusals(served, case):
         assert eng.layout.kind == "slab" and (eng.layout.shards, eng.layout.shard) == (2, 0)
         assert eng.cache["body"]["sb_0"]["k"].shape[2] == SERVE["max_len"] // 2
     elif case == "data":
+        # a data axis serves (tests/test_torch_data_axis.py); what a mesh
+        # larger than 1x1 refuses, it refuses with data > 1 too
+        data = {**kw, "mesh": _fake_mesh(data=2, model=1)}
+        for extra in (dict(max_steps_per_dispatch=2), dict(prefill_chunk=4),
+                      dict(prefix_cache=True), dict(spec_gamma=2, verify_params=tree)):
+            with pytest.raises(NotImplementedError, match=todo):
+                DecodeEngine(cfg, tree, **extra, **data)
+        eng = DecodeEngine(cfg, tree, **data)
+        assert eng.stats()["lanes"] == [0, SERVE["max_batch"] // 2]
+        assert eng.cache["tables"]["full"].shape[0] == SERVE["max_batch"]
         with pytest.raises(NotImplementedError, match=todo):
-            DecodeEngine(cfg, tree, **{**kw, "mesh": _fake_mesh(data=2, model=1)})
-        with pytest.raises(SystemExit, match=todo):
-            launch_serve.main(["--device", "cpu", "--paged", "--mesh", "2,1"])
+            launch_serve.main(["--device", "cpu", "--paged", "--mesh", "2,1",
+                               "--prefill-chunk", "4"])
     elif case == "family":
         ds = dataclasses.replace(reduced(get_config("deepseek-v2-lite-16b")),
                                  param_dtype="float32")

@@ -212,5 +212,12 @@ def test_launcher_trains_switches_and_summarizes(tmp_path):
     assert np.isfinite(summary["final_sparse_eval_loss"])
     assert summary["maskable_fraction"] > 0.8 and summary["removed_fraction"] > 0.4
     assert Checkpointer(str(tmp_path)).steps() == [8]
-    with pytest.raises(NotImplementedError):
-        launch_train.main(["--device", "cpu", "--steps", "2", "--compress-phase2"])
+    buf = io.StringIO()
+    with redirect_stdout(buf):  # 1-bit error feedback from the switch on
+        comp = launch_train.main(["--device", "cpu", "--steps", "8", "--batch", "2",
+                                  "--seq", "16", "--compress-phase2"])
+    assert comp["phase2"] and comp["t0"] == 5
+    assert np.isfinite(comp["final_sparse_eval_loss"])
+    assert comp["final_sparse_eval_loss"] != summary["final_sparse_eval_loss"]
+    logged = [json.loads(line) for line in buf.getvalue().strip().splitlines()[:-1]]
+    assert [m["phase2"] for m in logged] == [0] * 5 + [1] * 3
